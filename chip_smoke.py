@@ -4,15 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the hand-written kernels K1, K2 and K4
-from ``dctsvd_tpu_torch/csrc/``, holds each against its plain PyTorch twin
-at the shapes the 1080p path gives it, drives the blocked color path
-(prepare -> embed -> extract -> detect) on a batch of 32 1080p frames,
-checks the launch counters and the scores, runs the CLI on PNG files, and
-prints one JSON line per phase. The last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises, so the exit
-code is non-zero and no result line is printed. Without a GPU, or outside
-a checkout of the repository, it exits non-zero at once.
+an H100, ``sm_90a``). It builds the six hand-written kernels (K1, K2, K3,
+K4, K2r, K1g) from ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all
+started together; holds each against its plain PyTorch twin at the shapes
+the 1080p path gives it, with the time of one PyTorch library call that
+computes the same function where there is one; drives the blocked color
+path (prepare -> embed -> extract -> detect) and the three serve steps on
+a batch of 32 1080p frames, and the recon-embed and Gram-spectrum entries
+on 8 frames, each with its launch counters set to 0 just before and read
+just after; checks the scores; runs the CLI on PNG files; and prints one
+JSON line per phase. Before the last line it prints the card's name and
+power limit and the ``kernels`` table (launches on the main path, kernel,
+twin and library times, and each kernel's bound: the least time the card
+could take, from the bytes it must move and the f32 operations it does).
+The last line is ``{"ok": true, "device": {...}}``. Any failed phase
+raises, so the exit code is non-zero and no result line is printed.
+Without a GPU, or outside a checkout of the repository, it exits non-zero
+at once.
 
 TF32 stays off: every f32 product must run in full f32 for the port to
 agree with the JAX package.
@@ -36,6 +44,45 @@ SWEEPS = 1.25         # the serving default tier (DCTSVD_FUSED_SWEEPS)
 K = 4                 # embedded components per block at kfrac 0.6
 DETECT_THRESH = 0.30  # utils/config.DETECT_THRESH_BLOCKED
 PASSWORD = "chip-smoke"
+
+# The H100 SXM's published peaks (NVIDIA's data sheet): f32 outside the
+# tensor cores and HBM3 bandwidth. bound_ms is the larger of ops/PEAK_F32
+# and bytes/PEAK_BYTES.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+# f32 operations per 8x8 block, counted from csrc/ (a rsqrt, sqrt or
+# division counts as one operation; compares and selects count none).
+DOT = 15                       # 8 products, 7 sums (sum_rows8)
+ROT = 15                       # rotation(): d, e, h2 3, 2 rsqrt, c2 3, c, s 3, t
+PAIR = DOT + ROT + 4 + 8 * 6   # one-sided pair: apq, angle, norms, columns
+PAIR_V = PAIR + 8 * 6          # ... with V riding along
+GRAM_PAIR = ROT + 6 * 2 * 3 + 4   # 6 other rows x 2 entries, diagonal
+
+
+def jacobi_ops(pairs: int, with_v: bool = False) -> int:
+    """jacobi8(): first norms, the rotations, fresh final norms."""
+    return 8 * DOT + pairs * (PAIR_V if with_v else PAIR) + 8 * (DOT + 1)
+
+
+def paint_ops(k: int) -> int:
+    """paint_block(): k*8 dots, k coefficients, 64 pixels x k terms."""
+    return k * 8 * DOT + k * 25 + 1 + 64 * k * 3
+
+
+def bound(blocks: int, ops_per_block: int, moved: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the f32 peak and the bytes moved (each input read once, each
+    output written once) over the memory rate."""
+    t_ops = blocks * ops_per_block / PEAK_F32 * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=blocks * ops_per_block, bytes=moved)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class SmokeFailure(RuntimeError):
@@ -92,12 +139,16 @@ def cuda_time(fn, reps: int) -> float:
 
 
 def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
-    """K4, K2 and K1 against their plain twins at the 1080p shapes."""
+    """The six kernels against their plain twins at the 1080p shapes, each
+    with its bound and, where one PyTorch call computes the same function,
+    that call's time."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import dct, permute, svd_cuda, wm_cuda
 
     results = {}
+    full, extra = wm_cuda.sched_split(SWEEPS)
+    pairs = full * len(wm_cuda.PAIRS) + extra
 
     # K4 on the DCT coefficients of the keyed 1080p color watermark
     planes = torch.movedim(wm_u8.to(torch.float32), -1, -3)
@@ -135,7 +186,11 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
         recon_err=rec_err, orth_err=orth_err, orth_err_plain=orth_plain,
         v_orth_err=v_err,
         ms=cuda_time(lambda: svd_cuda.jacobi_svd8(coefs), 20),
-        plain_ms=cuda_time(lambda: svd_cuda.jacobi_svd8_plain(coefs), 5))
+        plain_ms=cuda_time(lambda: svd_cuda.jacobi_svd8_plain(coefs), 5),
+        library_ms=cuda_time(lambda: torch.linalg.svd(coefs), 5),
+        **bound(coefs.numel() // 64,
+                jacobi_ops(5 * len(wm_cuda.PAIRS), with_v=True) + 64,
+                nbytes(coefs, u, s, vt)))
     emit({"phase": "kernel_vs_plain", "kernel": "K4 jacobi_svd8",
           **results["jacobi_svd8"]})
 
@@ -144,6 +199,7 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     mask = (torch.arange(8, device=dev) < K).to(torch.float32)
     sws = blocked._scaled_sws(pw.sw, torch.tensor(ALPHA, device=dev), mask)
     x = frames_u8[:KERNEL_FRAMES].contiguous()
+    n_blocks = x.numel() // 64
 
     def k2():
         return wm_cuda.embed_blocks(x, sws, sweeps=SWEEPS, k=K, out_u8=True,
@@ -170,11 +226,15 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     results["embed_blocks"] = dict(
         shape=list(x.shape), max_abs_err=float(byte_err),
         bytes_differing=byte_frac, sc_max_abs_err=sc_err, s_max=smax,
-        ms=cuda_time(k2, 10), plain_ms=cuda_time(k2_plain, 3))
+        ms=cuda_time(k2, 10), plain_ms=cuda_time(k2_plain, 3),
+        library_ms=None,
+        **bound(n_blocks, jacobi_ops(pairs) + paint_ops(K),
+                nbytes(x, sws, y, sc)))
     emit({"phase": "kernel_vs_plain", "kernel": "K2 embed_blocks",
           **results["embed_blocks"]})
 
-    # K1 on the same frames (channels-last) and on [24, H, W] u8 planes
+    # K1 on the same frames (channels-last) and on [24, H, W] u8 planes;
+    # the library yardstick is svdvals on the same blocks as [P*N, 8, 8]
     def k1():
         return wm_cuda.spectrum_blocks(x, sweeps=SWEEPS, channels_last=True)
 
@@ -189,6 +249,9 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     err = float((s1 - ps1).abs().max())
     require(err <= 1e-4 * smax, f"K1 frames vs twin: {err} > 1e-4*{smax}")
     planes_u8 = torch.movedim(x, -1, -3).reshape(-1, H, W).contiguous()
+    blocks = dct.blockify(planes_u8.to(torch.float32)).reshape(-1, 8, 8)
+    svdvals_ms = cuda_time(lambda: torch.linalg.svdvals(blocks), 3)
+    del blocks
 
     def k1p():
         return wm_cuda.spectrum_blocks(planes_u8, sweeps=SWEEPS)
@@ -204,11 +267,108 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     results["spectrum_blocks"] = dict(
         shape=list(x.shape), max_abs_err=err, s_max=smax,
         ms=cuda_time(k1, 10), plain_ms=cuda_time(k1_plain, 3),
+        library_ms=svdvals_ms,
         planes_shape=list(planes_u8.shape), planes_max_abs_err=perr,
         planes_ms=cuda_time(k1p, 10), planes_plain_ms=cuda_time(k1p_plain, 3),
-        equals_k2_sc=bool(torch.equal(s1, sc)))
+        equals_k2_sc=bool(torch.equal(s1, sc)),
+        **bound(n_blocks, jacobi_ops(pairs), nbytes(x, s1)))
     emit({"phase": "kernel_vs_plain", "kernel": "K1 spectrum_blocks",
           **results["spectrum_blocks"]})
+
+    # K3 on the same frames: K2's stego bounds, its spectra within 1e-4 of
+    # the twin's, and its s_cw equal to K1 on its stego
+    def k3():
+        return wm_cuda.roundtrip_frames_blocks(x, sws, sweeps=SWEEPS, k=K)
+
+    def k3_plain():
+        return wm_cuda.roundtrip_frames_blocks_plain(x, sws, sweeps=SWEEPS,
+                                                     k=K)
+
+    st, sc3, scw = k3()
+    st2, sc3b, scw2 = k3()
+    require(torch.equal(st, st2) and torch.equal(sc3, sc3b)
+            and torch.equal(scw, scw2), "K3: two runs differ")
+    pst, psc3, pscw = k3_plain()
+    d = (st.to(torch.int16) - pst.to(torch.int16)).abs()
+    byte_err3 = int(d.max())
+    byte_frac3 = float((d > 0).float().mean())
+    smax = float(psc3.max())
+    sc3_err = float((sc3 - psc3).abs().max())
+    scw_err = float((scw - pscw).abs().max())
+    require(byte_err3 <= 1 and byte_frac3 <= 0.01,
+            f"K3 stego vs twin: |d| max {byte_err3}, {byte_frac3} of bytes")
+    require(sc3_err <= 1e-4 * smax, f"K3 sc vs twin: {sc3_err} > 1e-4*{smax}")
+    require(scw_err <= 1e-4 * smax,
+            f"K3 s_cw vs twin: {scw_err} > 1e-4*{smax}")
+    require(torch.equal(scw, wm_cuda.spectrum_blocks(st, sweeps=SWEEPS,
+                                                     channels_last=True)),
+            "K3 s_cw differs from K1 on its own stego")
+    results["roundtrip_frames_blocks"] = dict(
+        shape=list(x.shape), max_abs_err=float(byte_err3),
+        bytes_differing=byte_frac3, sc_max_abs_err=sc3_err,
+        scw_max_abs_err=scw_err, s_max=smax, scw_equals_k1=True,
+        equals_k2=bool(torch.equal(st, y) and torch.equal(sc3, sc)),
+        ms=cuda_time(k3, 10), plain_ms=cuda_time(k3_plain, 3),
+        library_ms=None,
+        **bound(n_blocks, 2 * jacobi_ops(pairs) + paint_ops(K),
+                nbytes(x, sws, st, sc3, scw)))
+    emit({"phase": "kernel_vs_plain", "kernel": "K3 roundtrip_frames_blocks",
+          **results["roundtrip_frames_blocks"]})
+
+    # K2r on the [24, H, W] planes in f32 (plane p takes sws[p % 3])
+    planes_f32 = planes_u8.to(torch.float32)
+
+    def k2r():
+        return wm_cuda.embed_blocks_recon(planes_f32, sws, sweeps=SWEEPS)
+
+    def k2r_plain():
+        return wm_cuda.embed_blocks_recon_plain(planes_f32, sws,
+                                                sweeps=SWEEPS)
+
+    yr, scr = k2r()
+    yr2, scr2 = k2r()
+    require(torch.equal(yr, yr2) and torch.equal(scr, scr2),
+            "K2r: two runs differ")
+    pyr, pscr = k2r_plain()
+    ymax = float(pyr.abs().max())
+    yr_err = float((yr - pyr).abs().max())
+    scr_err = float((scr - pscr).abs().max())
+    require(yr_err <= 1e-4 * ymax, f"K2r vs twin: {yr_err} > 1e-4*{ymax}")
+    require(scr_err <= 1e-4 * float(pscr.max()),
+            f"K2r sc vs twin: {scr_err}")
+    results["embed_blocks_recon"] = dict(
+        shape=list(planes_f32.shape), max_abs_err=yr_err, y_max=ymax,
+        sc_max_abs_err=scr_err,
+        ms=cuda_time(k2r, 10), plain_ms=cuda_time(k2r_plain, 3),
+        library_ms=None,
+        **bound(n_blocks, jacobi_ops(pairs, with_v=True) + 64 + 8
+                + 64 * (8 * 3 - 1), nbytes(planes_f32, sws, yr, scr)))
+    emit({"phase": "kernel_vs_plain", "kernel": "K2r embed_blocks_recon",
+          **results["embed_blocks_recon"]})
+    del planes_f32, yr, yr2, pyr
+
+    # K1g on the u8 planes
+    def k1g():
+        return wm_cuda.spectrum_blocks_gram(planes_u8, sweeps=SWEEPS)
+
+    def k1g_plain():
+        return wm_cuda.spectrum_blocks_gram_plain(planes_u8, sweeps=SWEEPS)
+
+    sg = k1g()
+    require(torch.equal(sg, k1g()), "K1g: two runs differ")
+    psg = k1g_plain()
+    smax = float(psg.max())
+    g_err = float((sg - psg).abs().max())
+    require(g_err <= 1e-4 * smax, f"K1g vs twin: {g_err} > 1e-4*{smax}")
+    results["spectrum_blocks_gram"] = dict(
+        shape=list(planes_u8.shape), max_abs_err=g_err, s_max=smax,
+        vs_onesided_max_abs_err=float((sg - sp).abs().max()),
+        ms=cuda_time(k1g, 10), plain_ms=cuda_time(k1g_plain, 3),
+        library_ms=svdvals_ms,
+        **bound(n_blocks, 36 * DOT + pairs * GRAM_PAIR + 8,
+                nbytes(planes_u8, sg)))
+    emit({"phase": "kernel_vs_plain", "kernel": "K1g spectrum_blocks_gram",
+          **results["spectrum_blocks_gram"]})
 
     # K2 on smoothed (natural-like) frames: no bound, reported only. Near-
     # degenerate blocks are far from converged at s1.25, so ulp-level
@@ -297,6 +457,139 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
                extract_nc_min=float(ncs.min()),
                embed_extract_fps=fps, card=smi_line())
     emit(out)
+    return launches
+
+
+def phase_serve(dev, covers, wm_u8, blk, intra):
+    """The three serve steps on the 1080p batch of 32: each equal to the
+    split calls on the card, taking K3 and neither K2 nor K1."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import wm_cuda
+
+    pw = blocked.prepare_wm_color(wm_u8, blk, intra)
+    st, sc, _, _ = blocked.embed_color_prepared(covers, pw.sw, ALPHA,
+                                                with_metrics=False)
+    rec = blocked.extract_color_prepared(st, sc, pw.ebasis, pw.inv_blk,
+                                         ALPHA, sw=pw.sw)
+    scores = blocked.detect_color(st, sc, pw.sw, ALPHA)
+    clean = blocked.detect_color(covers, sc, pw.sw, ALPHA)
+
+    wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
+                wm_cuda.spectrum_blocks]
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    v = blocked.serve_verify_color_prepared(covers, pw.sw, ALPHA, pw.ebasis,
+                                            pw.inv_blk)
+    vd = blocked.serve_verify_detect_color_prepared(covers, pw.sw, ALPHA,
+                                                    pw.ebasis, pw.inv_blk)
+    d = blocked.serve_detect_color_prepared(covers, pw.sw, ALPHA)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    require(launches["roundtrip_frames_blocks"] >= 1,
+            "roundtrip_frames_blocks was not launched by the serve steps")
+    require(launches["embed_blocks"] == 0 and launches["spectrum_blocks"] == 0,
+            f"the serve steps launched K2 or K1: {launches}")
+
+    for name, out in (("serve_verify", v), ("serve_verify_detect", vd),
+                      ("serve_detect", d)):
+        require(torch.equal(out[0], st) and torch.equal(out[1], sc),
+                f"{name}: stego or sc differs from the split calls")
+    require(torch.equal(v[2], rec) and torch.equal(vd[2], rec),
+            "serve verify: recovered watermark differs from the split calls")
+    score_err = max(float((vd[3] - scores).abs().max()),
+                    float((d[2] - scores).abs().max()))
+    require(score_err <= 1e-5, f"serve scores vs detect_color: {score_err}")
+    require(bool(torch.isfinite(vd[3]).all()), "non-finite serve score")
+    require(float(vd[3].min()) >= DETECT_THRESH,
+            f"own-stego serve score {float(vd[3].min())} < {DETECT_THRESH}")
+    require(float(clean.max()) < DETECT_THRESH,
+            f"clean-cover detect {float(clean.max())} >= {DETECT_THRESH}")
+
+    def fps(step) -> float:
+        step()
+        torch.cuda.synchronize()
+        iters = 5
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        return BATCH * iters / (time.perf_counter() - t1)
+
+    # where a serve step's kernel time goes: K3 against the K2 + K1 pair
+    # it replaces, on the whole batch
+    sws = blocked._scaled_sws(pw.sw, torch.tensor(ALPHA, device=dev),
+                              (torch.arange(8, device=dev) < K).float())
+    k3_ms = cuda_time(lambda: wm_cuda.roundtrip_frames_blocks(
+        covers, sws, sweeps=SWEEPS, k=K), 5)
+    k2_ms = cuda_time(lambda: wm_cuda.embed_blocks(
+        covers, sws, sweeps=SWEEPS, k=K, out_u8=True, channels_last=True), 5)
+    k1_ms = cuda_time(lambda: wm_cuda.spectrum_blocks(
+        st, sweeps=SWEEPS, channels_last=True), 5)
+
+    out = dict(
+        phase="serve_1080p_color", batch=BATCH, launches=launches,
+        first_run_s=seconds, score_max_abs_err=score_err,
+        k3_batch_ms=k3_ms, k2_batch_ms=k2_ms, k1_batch_ms=k1_ms,
+        detect_min=float(vd[3].min()), clean_max=float(clean.max()),
+        serve_verify_fps=fps(lambda: blocked.serve_verify_color_prepared(
+            covers, pw.sw, ALPHA, pw.ebasis, pw.inv_blk)),
+        serve_score_fps=fps(lambda: blocked.serve_detect_color_prepared(
+            covers, pw.sw, ALPHA)),
+        card=smi_line())
+    emit(out)
+    return {"roundtrip_frames_blocks": launches["roundtrip_frames_blocks"]}
+
+
+def phase_variants(dev, covers):
+    """The recon-embed and Gram-spectrum entries (embed_blocks(variant=
+    'recon'), spectrum_blocks(method='gram')) once each on the 8-frame
+    1080p batch, with their launch counters."""
+    import torch
+    from dctsvd_tpu_torch.ops import wm_cuda
+
+    x = covers[:KERNEL_FRAMES]
+    planes = torch.movedim(x, -1, -3).reshape(-1, H, W).to(torch.float32)
+    n = (H // 8) * (W // 8)
+    gen = torch.Generator(device=dev).manual_seed(20261021)
+    mask = (torch.arange(8, device=dev) < K).to(torch.float32)
+    sws = torch.rand((3, n, 8), generator=gen, device=dev) * 5 * mask
+    wrappers = [wm_cuda.embed_blocks_recon, wm_cuda.spectrum_blocks_gram]
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    y, sc = wm_cuda.embed_blocks(planes, sws, sweeps=SWEEPS, k=K,
+                                 variant="recon")
+    s_gram = wm_cuda.spectrum_blocks(x, sweeps=SWEEPS, channels_last=True,
+                                     method="gram")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    for name, cnt in launches.items():
+        require(cnt >= 1, f"{name} was not launched by its entry")
+    require(y.shape == planes.shape and bool(torch.isfinite(y).all()),
+            "recon embed: shape or non-finite values")
+    # recon and delta run the same rotations: the same cover spectrum
+    _, sc_delta = wm_cuda.embed_blocks(planes, sws, sweeps=SWEEPS, k=K)
+    require(torch.equal(sc, sc_delta), "recon sc differs from K2's")
+    require(s_gram.shape == (KERNEL_FRAMES, 3, n, 8)
+            and bool(torch.isfinite(s_gram).all())
+            and bool((s_gram >= 0).all())
+            and bool((s_gram[..., :-1] >= s_gram[..., 1:]).all()),
+            "Gram spectrum: shape, sign, order or non-finite values")
+    # reported only: at s1.25 the two forms agree in exact arithmetic,
+    # but blocks far from converged part ways in f32 (XᵀX squares the
+    # condition number)
+    s_one = wm_cuda.spectrum_blocks(x, sweeps=SWEEPS, channels_last=True)
+    diff = (s_gram - s_one).abs()
+    emit({"phase": "variant_entries", "shape": list(x.shape),
+          "launches": launches,
+          "gram_vs_onesided_max_abs_err": float(diff.max()),
+          "gram_vs_onesided_blocks_over_1e-3": float(
+              (diff.amax(-1) > 1e-3 * float(s_one.max())).float().mean()),
+          "s_max": float(s_one.max())})
     return launches
 
 
@@ -424,9 +717,12 @@ def main() -> int:
 
     results = phase_kernels(dev, covers, wm_u8, blk, intra)
     launches = phase_slice(dev, covers, wm_u8, blk, intra)
+    launches.update(phase_serve(dev, covers, wm_u8, blk, intra))
+    launches.update(phase_variants(dev, covers))
     phase_reference(dev)
     phase_files(dev, covers, wm_u8)
 
+    # name: (source, TPU kernel it replaces)
     sources = {
         "jacobi_svd8": ("dctsvd_tpu_torch/csrc/svd8.cu",
                         "dctsvd_tpu/ops/svd_pallas.py:76"),
@@ -434,6 +730,12 @@ def main() -> int:
                          "dctsvd_tpu/ops/wm_pallas.py:329"),
         "spectrum_blocks": ("dctsvd_tpu_torch/csrc/wm_kernels.cu",
                             "dctsvd_tpu/ops/wm_pallas.py:460"),
+        "roundtrip_frames_blocks": ("dctsvd_tpu_torch/csrc/wm_kernels.cu",
+                                    "dctsvd_tpu/ops/wm_pallas.py:377"),
+        "embed_blocks_recon": ("dctsvd_tpu_torch/csrc/wm_variants.cu",
+                               "dctsvd_tpu/ops/wm_pallas.py:271"),
+        "spectrum_blocks_gram": ("dctsvd_tpu_torch/csrc/wm_variants.cu",
+                                 "dctsvd_tpu/ops/wm_pallas.py:491"),
     }
     table = []
     for name, (src, repl) in sources.items():
@@ -441,7 +743,9 @@ def main() -> int:
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=repl, launches=launches[name],
                           max_abs_err=r["max_abs_err"], ms=r["ms"],
-                          plain_ms=r["plain_ms"]))
+                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                          bound_by=r["bound_by"],
+                          library_ms=r["library_ms"]))
     print(smi_line(), flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

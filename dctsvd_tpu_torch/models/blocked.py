@@ -1,13 +1,16 @@
-"""Blocked (8×8) DCT–SVD watermarking: embed, extract and detect.
+"""Blocked (8×8) DCT–SVD watermarking: embed, extract, detect and the
+serve steps.
 
 Counterpart of ``dctsvd_tpu/models/blocked.py`` for the slice the port
-carries (no resync, no serve steps, no enhancement). The frame becomes a
-grid of 8×8 blocks; each block's leading singular values carry the keyed,
+carries (no resync, no enhancement). The frame becomes a grid of 8×8
+blocks; each block's leading singular values carry the keyed,
 block-permuted watermark's singular values (α·Sw), and extraction and
 detection read them back as (S(stego) − Sc)/α.
 
 The per-frame work runs on the pixel blocks through the hand-written
-kernels (ops/wm_cuda.py): K2 embeds, K1 measures the stego spectrum. The
+kernels (ops/wm_cuda.py): K2 embeds, K1 measures the stego spectrum, and
+the serve steps (embed, then verify by extract and/or score, per batch)
+take K3, which embeds and measures the rounded stego in one kernel. The
 watermark's factors come from K4 (ops/svd_cuda.py) once per watermark.
 The port always runs these fused semantics — a pixel-domain Jacobi at the
 fused schedule, through the kernel on the GPU or its plain twin on the
@@ -309,6 +312,80 @@ def embed_color_prepared(cover_bgr_u8: torch.Tensor, sw: torch.Tensor,
     ss = metrics.ssim(color.bgr_to_gray(cover_bgr_u8),
                       color.bgr_to_gray(stego))
     return stego, sc, ps, ss
+
+
+def _serve_front(cover_bgr_u8: torch.Tensor, sw: torch.Tensor, alpha,
+                 kfrac: float):
+    """(stego u8, sc, s_cw) of a frame batch at the fused schedule: K3 on
+    block-aligned frames, where the verification spectrum is taken from
+    the rounded stego inside the embed kernel; the split calls (K2, then
+    K1 on the produced stego) on unaligned frames, which pad."""
+    h, w = cover_bgr_u8.shape[-3], cover_bgr_u8.shape[-2]
+    if h % BLOCK or w % BLOCK:
+        stego, sc, _, _ = embed_color_prepared(cover_bgr_u8, sw, alpha,
+                                               kfrac=kfrac,
+                                               with_metrics=False)
+        return stego, sc, _frames_spectrum(stego)
+    sws = _scaled_sws(sw, _alpha(alpha, cover_bgr_u8.device),
+                      _k_mask(kfrac, cover_bgr_u8.device))
+    return wm_cuda.roundtrip_frames_blocks(
+        cover_bgr_u8, sws, sweeps=_FUSED_SWEEPS, k=k_of_block(kfrac))
+
+
+def _color_scores(s_cw, sc, sw, alpha, kfrac: float, h: int, w: int):
+    """detect_color's statistic on a measured stego spectrum: the
+    per-channel band-median NC, averaged over the channels."""
+    k = k_of_block(kfrac)
+    scores = _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
+                      -(-h // BLOCK), -(-w // BLOCK))
+    return scores.mean(dim=-1)
+
+
+def serve_verify_color_prepared(cover_bgr_u8: torch.Tensor,
+                                sw: torch.Tensor, alpha,
+                                ebasis: torch.Tensor, inv_blk: torch.Tensor,
+                                kfrac: float = K_FRAC_DEFAULT,
+                                normalize: bool = True):
+    """Embed a frame batch and extract from the produced stego in one step
+    (embed, then confirm the mark recovers before shipping). Returns
+    (stego u8 [..., H, W, 3], sc [..., 3, N, 8], recovered wm u8
+    [..., H, W, 3]), equal to the split embed_color_prepared +
+    extract_color_prepared calls."""
+    h, w = cover_bgr_u8.shape[-3], cover_bgr_u8.shape[-2]
+    stego, sc, s_cw = _serve_front(cover_bgr_u8, sw, alpha, kfrac)
+    rec = _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
+                                 normalize, h, w, sw=sw, to_frames=True,
+                                 out_u8=True)
+    return stego, sc, rec
+
+
+def serve_verify_detect_color_prepared(cover_bgr_u8: torch.Tensor,
+                                       sw: torch.Tensor, alpha,
+                                       ebasis: torch.Tensor,
+                                       inv_blk: torch.Tensor,
+                                       kfrac: float = K_FRAC_DEFAULT,
+                                       normalize: bool = True):
+    """Embed + extract-verify + detect-score a frame batch (ship the stego
+    only if the mark both recovers and scores). Returns (stego u8
+    [..., H, W, 3], sc [..., 3, N, 8], recovered wm u8 [..., H, W, 3],
+    scores [...]). Extract and score share the one stego spectrum."""
+    h, w = cover_bgr_u8.shape[-3], cover_bgr_u8.shape[-2]
+    stego, sc, s_cw = _serve_front(cover_bgr_u8, sw, alpha, kfrac)
+    rec = _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
+                                 normalize, h, w, sw=sw, to_frames=True,
+                                 out_u8=True)
+    return stego, sc, rec, _color_scores(s_cw, sc, sw, alpha, kfrac, h, w)
+
+
+def serve_detect_color_prepared(cover_bgr_u8: torch.Tensor,
+                                sw: torch.Tensor, alpha,
+                                kfrac: float = K_FRAC_DEFAULT):
+    """Embed + detect-score a frame batch without the extract image.
+    Returns (stego u8 [..., H, W, 3], sc [..., 3, N, 8], scores [...]);
+    scores equal detect_color on the produced stego."""
+    h, w = cover_bgr_u8.shape[-3], cover_bgr_u8.shape[-2]
+    stego, sc, s_cw = _serve_front(cover_bgr_u8, sw, alpha, kfrac)
+    return stego, sc, _color_scores(s_cw, sc, sw, alpha, kfrac, h, w)
 
 
 def embed_gray(cover_bgr_u8: torch.Tensor, wm_gray_u8: torch.Tensor,
@@ -661,11 +738,8 @@ def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                  sweeps=None) -> torch.Tensor:
     """Per-channel band-median NC, averaged over the channels."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
-    k = k_of_block(kfrac)
-    s_cw = _frames_spectrum(stego_bgr_u8, sweeps)
-    scores = _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
-                      -(-h // BLOCK), -(-w // BLOCK))
-    return scores.mean(dim=-1)
+    return _color_scores(_frames_spectrum(stego_bgr_u8, sweeps), sc, sw,
+                         alpha, kfrac, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,9 @@ CUDA tensor it launches K4 or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from dctsvd_tpu_torch.utils import kernels
 
 B = 8
 PAIRS = [(p, q) for p in range(B - 1) for q in range(p + 1, B)]
@@ -152,8 +152,6 @@ def jacobi_svd8(a: torch.Tensor, sweeps=5, compute_uv: bool = True):
         return jacobi_svd8_plain(a, sweeps, compute_uv)
     if a.device.type != "cuda":
         raise ValueError(f"jacobi_svd8: unsupported device {a.device}")
-    from dctsvd_tpu_torch.utils import kernels
-    lib = kernels.load()
     lead = a.shape[:-2]
     x = a.contiguous().reshape(-1, B, B)
     nb = x.shape[0]
@@ -163,15 +161,9 @@ def jacobi_svd8(a: torch.Tensor, sweeps=5, compute_uv: bool = True):
         u = torch.empty_like(x)
         vt = torch.empty_like(x)
     if nb:
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.dctsvd_svd8(
-                ctypes.c_void_p(x.data_ptr()),
-                ctypes.c_void_p(u.data_ptr() if compute_uv else 0),
-                ctypes.c_void_p(s.data_ptr()),
-                ctypes.c_void_p(vt.data_ptr() if compute_uv else 0),
-                nb, full, extra, int(compute_uv), ctypes.c_void_p(stream))
-        kernels.check(err, "jacobi_svd8")
+        kernels.launch("dctsvd_svd8", a.device, x, u if compute_uv else 0, s,
+                       vt if compute_uv else 0, nb, full, extra,
+                       int(compute_uv))
         jacobi_svd8.launches += 1
     if not compute_uv:
         return s.reshape(*lead, B)

@@ -1,12 +1,14 @@
-"""Build and load the hand-written CUDA kernels (K1, K2, K4).
+"""Build and load the hand-written CUDA kernels (K1, K2, K3, K4, K2r, K1g).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
 into one shared library with a plain C interface and loads it with
-ctypes. The command is
+ctypes. Each source compiles in its own nvcc process, all started
+together, and one more nvcc links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -fmad=false -Xptxas -v
-         -o libdctsvd_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -fmad=false -Xptxas -v -c csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libdctsvd_kernels.so <name>.o ...
 
 ``-fmad=false`` stops nvcc from contracting a multiply and an add into one
 FMA, so each kernel rounds exactly as its plain twin (one PyTorch op per
@@ -33,9 +35,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "dctsvd_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
 LIB_NAME = "libdctsvd_kernels.so"
 
 #: Filled by :func:`load`: library path, build seconds (0.0 when the
@@ -49,6 +51,12 @@ _SIGNATURES = {
     "dctsvd_spectrum_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_embed_blocks": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P],
+    "dctsvd_roundtrip_blocks": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P],
+    "dctsvd_embed_recon_blocks": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _P],
+    "dctsvd_spectrum_gram_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                    _P],
     "dctsvd_svd8": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
 }
 
@@ -75,21 +83,37 @@ def _sources():
     return cu, h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with nvcc's output if any
+    fails, else return their stderr and stdout."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{se}{so}")
+    return "".join(se + so for so, se in outs)
+
+
 def _build(out: Path, cu) -> None:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{f.stem}.{tag}.o") for f in cu]
+    tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr + proc.stdout)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                        for f, o in zip(cu, objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=log)
 
 
 def load() -> ctypes.CDLL:
@@ -115,3 +139,17 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA kernel launch failed "
                            f"(cudaError_t {err})")
+
+
+def launch(fn: str, device, *args) -> None:
+    """Call the C launcher ``fn`` on the current stream of ``device`` and
+    raise if the launch failed. Tensors are passed as their data
+    pointers, everything else as it is."""
+    import torch
+    lib = load()
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*cargs, ctypes.c_void_p(stream))
+    check(err, fn)

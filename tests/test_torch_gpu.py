@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a GPU: each against its plain twin, the
-launch counters, and the slice on the card against the slice on the CPU.
+launch counters, the slice on the card against the slice on the CPU, and
+the serve steps on the card against the split calls.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -88,6 +89,98 @@ def test_svd8_kernel_matches_twin(dev):
     assert float((s_only.cpu() - ps).abs().max()) <= 1e-4 * smax
     rec = torch.einsum("...ij,...j,...jk->...ik", u, s, vt).cpu()
     assert float((rec - a).abs().max()) <= 1e-4 * smax
+
+
+def _sws(seed=SEED + 1, n=80):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(((rng.standard_normal((3, n, 8)) ** 2) * 3
+                             * (np.arange(8) < 4)).astype(np.float32))
+
+
+def test_roundtrip_kernel_matches_twin(dev):
+    x, sws = torch.from_numpy(_frames()), _sws()
+    n0 = wm_cuda.roundtrip_frames_blocks.launches
+    st, sc, scw = wm_cuda.roundtrip_frames_blocks(x.to(dev), sws.to(dev),
+                                                  sweeps=1.25, k=4)
+    torch.cuda.synchronize()
+    assert wm_cuda.roundtrip_frames_blocks.launches == n0 + 1
+    pst, psc, pscw = wm_cuda.roundtrip_frames_blocks_plain(x, sws,
+                                                           sweeps=1.25, k=4)
+    d = (st.cpu().to(torch.int16) - pst.to(torch.int16)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01
+    smax = float(psc.max())
+    assert float((sc.cpu() - psc).abs().max()) <= 1e-4 * smax
+    assert float((scw.cpu() - pscw).abs().max()) <= 1e-4 * smax
+    # K3's contract on the card: s_cw is K1 on its stego, bit for bit, and
+    # its paint is K2's
+    assert torch.equal(scw, wm_cuda.spectrum_blocks(st, sweeps=1.25,
+                                                    channels_last=True))
+    st2, sc2 = wm_cuda.embed_blocks(x.to(dev), sws.to(dev), sweeps=1.25, k=4,
+                                    out_u8=True, channels_last=True)
+    assert torch.equal(st, st2) and torch.equal(sc, sc2)
+
+
+@pytest.mark.parametrize("layout", ["frames_u8", "planes_f32"])
+def test_recon_kernel_matches_twin(dev, layout):
+    x, sws = torch.from_numpy(_frames()), _sws()
+    cl = layout == "frames_u8"
+    if not cl:
+        x, sws = x[..., 1].to(torch.float32), sws[:1]
+    n0 = wm_cuda.embed_blocks_recon.launches
+    y, sc = wm_cuda.embed_blocks(x.to(dev), sws.to(dev), sweeps=1.25,
+                                 variant="recon", channels_last=cl)
+    torch.cuda.synchronize()
+    assert wm_cuda.embed_blocks_recon.launches == n0 + 1
+    py, psc = wm_cuda.embed_blocks_recon_plain(x, sws, sweeps=1.25,
+                                               channels_last=cl)
+    assert float((y.cpu() - py).abs().max()) <= 1e-4 * float(py.abs().max())
+    assert float((sc.cpu() - psc).abs().max()) <= 1e-4 * float(psc.max())
+
+
+@pytest.mark.parametrize("layout", ["frames", "planes_u8", "planes_f32"])
+def test_gram_kernel_matches_twin(dev, layout):
+    x = _frames()
+    cl = layout == "frames"
+    if not cl:
+        x = np.ascontiguousarray(np.moveaxis(x, -1, -3))
+        if layout == "planes_f32":
+            x = x.astype(np.float32)
+    xt = torch.from_numpy(x)
+    n0 = wm_cuda.spectrum_blocks_gram.launches
+    got = wm_cuda.spectrum_blocks(xt.to(dev), sweeps=1.5, channels_last=cl,
+                                  method="gram")
+    torch.cuda.synchronize()
+    assert wm_cuda.spectrum_blocks_gram.launches == n0 + 1
+    ref = wm_cuda.spectrum_blocks_gram_plain(xt, sweeps=1.5,
+                                             channels_last=cl)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * float(ref.max())
+
+
+def test_serve_steps_take_the_fused_kernel(dev):
+    h, w = 64, 80
+    cover = torch.from_numpy(_frames((2, h, w, 3), SEED + 4)).to(dev)
+    wm = _frames((h, w, 3), SEED + 5)
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    pw = tb.prepare_wm_color(torch.as_tensor(wm, device=dev),
+                             torch.as_tensor(blk, device=dev),
+                             torch.as_tensor(intra, device=dev))
+    counters = (wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
+                wm_cuda.spectrum_blocks)
+    before = [fn.launches for fn in counters]
+    st, sc, rec, scores = tb.serve_verify_detect_color_prepared(
+        cover, pw.sw, ALPHA, pw.ebasis, pw.inv_blk)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 0]
+    st2, sc2, _, _ = tb.embed_color_prepared(cover, pw.sw, ALPHA,
+                                             with_metrics=False)
+    rec2 = tb.extract_color_prepared(st2, sc2, pw.ebasis, pw.inv_blk, ALPHA,
+                                     sw=pw.sw)
+    scores2 = tb.detect_color(st2, sc2, pw.sw, ALPHA)
+    assert torch.equal(st, st2) and torch.equal(sc, sc2)
+    assert torch.equal(rec, rec2)
+    assert float((scores - scores2).abs().max()) <= 1e-5
+    assert float(scores.min()) >= 0.30
 
 
 def test_slice_on_gpu_matches_cpu(dev):
