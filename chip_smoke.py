@@ -4,19 +4,23 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the six hand-written kernels (K1, K2, K3,
-K4, K2r, K1g) from ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all
-started together; holds each against its plain PyTorch twin at the shapes
-the 1080p path gives it, with the time of one PyTorch library call that
-computes the same function where there is one; drives the blocked color
-path (prepare -> embed -> extract -> detect) and the three serve steps on
-a batch of 32 1080p frames, and the recon-embed and Gram-spectrum entries
-on 8 frames, each with its launch counters set to 0 just before and read
-just after; checks the scores; runs the CLI on PNG files; and prints one
-JSON line per phase. Before the last line it prints the card's name and
-power limit and the ``kernels`` table (launches on the main path, kernel,
-twin and library times, and each kernel's bound: the least time the card
-could take, from the bytes it must move and the f32 operations it does).
+an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
+K4, K2r, K1g, and the probes' copy_f32, cols_view, fma_chain and
+spectrum_probe) from ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all
+started together; holds each of the six watermark kernels against its
+plain PyTorch twin at the shapes the 1080p path gives it, with the time of
+one PyTorch library call that computes the same function where there is
+one; drives the blocked color path (prepare -> embed -> extract ->
+detect) and the three serve steps on a batch of 32 1080p frames, and the
+recon-embed and Gram-spectrum entries on 8 frames, each with its launch
+counters set to 0 just before and read just after; checks the scores;
+runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
+tools``) at 1080p batch 32, with their launch counters, then holds each
+probe kernel against its twin; and prints one JSON line per phase.
+Before the last line it prints the card's name and power limit and the
+``kernels`` table (launches on the main path, kernel, twin and library
+times, and each kernel's bound: the least time the card could take, from
+the bytes it must move and the f32 operations it does).
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -36,6 +40,12 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# The card line, CUDA-event timing and the H100 SXM's published peaks
+# (NVIDIA's data sheet: f32 outside the tensor cores, HBM3), shared with
+# the probes; bound_ms is the larger of ops/PEAK_F32 and bytes/PEAK_BYTES.
+from dctsvd_tpu_torch.tools.common import (  # noqa: E402
+    PEAK_BYTES, PEAK_F32, card_line as smi_line, cuda_ms as cuda_time)
 H, W = 1080, 1920
 BATCH = 32            # frames in the 1080p slice run
 KERNEL_FRAMES = 8     # frames for the kernel-vs-twin comparisons
@@ -44,12 +54,6 @@ SWEEPS = 1.25         # the serving default tier (DCTSVD_FUSED_SWEEPS)
 K = 4                 # embedded components per block at kfrac 0.6
 DETECT_THRESH = 0.30  # utils/config.DETECT_THRESH_BLOCKED
 PASSWORD = "chip-smoke"
-
-# The H100 SXM's published peaks (NVIDIA's data sheet): f32 outside the
-# tensor cores and HBM3 bandwidth. bound_ms is the larger of ops/PEAK_F32
-# and bytes/PEAK_BYTES.
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
 
 # f32 operations per 8x8 block, counted from csrc/ (a rsqrt, sqrt or
 # division counts as one operation; compares and selects count none).
@@ -98,14 +102,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0]
-
-
 def ptxas_report(log: str) -> dict:
     """{mangled kernel name: "N registers, S bytes spilled"} from nvcc's
     -Xptxas -v output."""
@@ -121,21 +117,6 @@ def ptxas_report(log: str) -> dict:
             out[name] = f"{regs} registers, {out.get(name, '?')}"
             name = None
     return out
-
-
-def cuda_time(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
@@ -593,6 +574,173 @@ def phase_variants(dev, covers):
     return launches
 
 
+PROBE_SEED = 20261023
+CHAIN_FUSED_TOL = 1e-6   # fused chain vs its float64 twin, x max |twin|:
+                         # the twin rounds twice where the FMA rounds once,
+                         # which moves about one update in 2^29 by an ulp
+
+
+def phase_probes(dev, covers):
+    """The T1-T6 probes of tools/ through their main() at 1080p, batch 32
+    (96 planes), with the four probe kernels' launch counters set to 0
+    just before and read just after, and every check their rows carry;
+    then each probe kernel against its twin at the probes' full shape,
+    with its bound and library yardstick, and every spectrum-probe
+    instance against K1 on the same integer-valued planes."""
+    import torch
+    from dctsvd_tpu_torch.ops import dct, probe_cuda, wm_cuda
+    from dctsvd_tpu_torch.tools import (exp_cachednorms, exp_relayout,
+                                        exp_vpu_roofline, exp_widen,
+                                        profile_transpose, profile_view)
+
+    wrappers = [probe_cuda.copy_f32, probe_cuda.cols_view,
+                probe_cuda.fma_chain, probe_cuda.spectrum_probe]
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = [r for mod in (exp_relayout, profile_transpose, exp_vpu_roofline,
+                          exp_widen, exp_cachednorms, profile_view)
+            for r in mod.main()]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the probes")
+    for r in rows:
+        for key, val in r.items():
+            if key.startswith("equals_"):
+                require(val is True, f"{r['probe']} {r['row']}: {key}")
+            elif "max_abs_err" in key:
+                require(val == 0.0, f"{r['probe']} {r['row']}: {key} {val}")
+    emit({"phase": "probes", "rows": len(rows), "launches": launches,
+          "seconds": seconds, "card": smi_line()})
+
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    n_planes = 3 * BATCH
+    planes = torch.randn((n_planes, H, W), generator=gen, device=dev) * 40 \
+        + 128
+
+    # copy_f32 (T2a, T6b) on the 96 f32 planes
+    y = probe_cuda.copy_f32(planes)
+    err = float((y - probe_cuda.copy_f32_plain(planes)).abs().max())
+    require(err == 0.0, f"copy_f32 vs twin: {err}")
+    out = torch.empty_like(planes)
+    results["copy_f32"] = dict(
+        shape=list(planes.shape), max_abs_err=err,
+        ms=cuda_time(lambda: probe_cuda.copy_f32(planes), 10),
+        plain_ms=cuda_time(lambda: probe_cuda.copy_f32_plain(planes), 10),
+        library_ms=cuda_time(lambda: out.copy_(planes), 10),
+        **bound(0, 0, nbytes(planes, y)))
+    del y, out
+
+    # cols_view (T2b) f32 -> f32 on the planes, and u8 -> u8/bf16/f32 on
+    # the covers' 96 planes; the library call is copy_ from the permuted
+    # view
+    view = probe_cuda.cols_view(planes)
+    err = float((view - probe_cuda.cols_view_plain(planes)).abs().max())
+    require(err == 0.0, f"cols_view f32 vs twin: {err}")
+    planes_u8 = torch.movedim(covers, -1, -3).reshape(-1, H, W).contiguous()
+    for d in (torch.uint8, torch.bfloat16, torch.float32):
+        require(torch.equal(probe_cuda.cols_view(planes_u8, d),
+                            probe_cuda.cols_view_plain(planes_u8, d)),
+                f"cols_view u8 -> {d} vs twin")
+    src = planes.reshape(n_planes, H // 8, 8, W // 8, 8).permute(0, 1, 2, 4,
+                                                                 3)
+    out = torch.empty_like(view)
+    results["cols_view"] = dict(
+        shape=list(planes.shape), max_abs_err=err, u8_views_equal=True,
+        ms=cuda_time(lambda: probe_cuda.cols_view(planes), 10),
+        plain_ms=cuda_time(lambda: probe_cuda.cols_view_plain(planes), 10),
+        library_ms=cuda_time(lambda: out.copy_(src), 10),
+        **bound(0, 0, nbytes(planes, view)))
+    del out
+
+    # fma_chain (T3) on [96, 135, 8, 240], every mode, length and form;
+    # the table row is ilp8 at the longer length (1024), unfused
+    x = torch.randn((n_planes, H // 8, 8, W // 8), generator=gen, device=dev)
+    chain_errs = {}
+    for mode in probe_cuda.CHAIN_MODES:
+        for n_ops in exp_vpu_roofline.N_OPS:
+            for fused in (False, True):
+                yk = probe_cuda.fma_chain(x, n_ops, mode, fused)
+                yp = probe_cuda.fma_chain_plain(x, n_ops, mode, fused)
+                e = float((yk - yp).abs().max())
+                tol = CHAIN_FUSED_TOL * float(yp.abs().max()) if fused else 0
+                require(e <= tol, f"fma_chain {mode} {n_ops} fused={fused} "
+                        f"vs twin: {e} > {tol}")
+                chain_errs[f"{mode}_{n_ops}_{'fused' if fused else 'unfused'}"
+                           ] = e
+    n_ops = exp_vpu_roofline.N_OPS[-1]
+    _, ops = probe_cuda.chain_steps("ilp8", n_ops)
+    results["fma_chain"] = dict(
+        shape=list(x.shape), mode="ilp8", n_ops=n_ops, fused=False,
+        max_abs_err=chain_errs[f"ilp8_{n_ops}_unfused"], errs=chain_errs,
+        ms=cuda_time(lambda: probe_cuda.fma_chain(x, n_ops), 10),
+        plain_ms=cuda_time(lambda: probe_cuda.fma_chain_plain(x, n_ops), 3),
+        library_ms=None, **bound(x.numel(), ops, 2 * nbytes(x)))
+    del x, yk, yp
+
+    # spectrum_probe: s0 is the sorted column norms in every instance;
+    # every fresh instance equals K1 bit for bit on integer planes at s2,
+    # s3, s4; the table row is T6a's (f32 cols view, s4) on the f32 planes
+    planes_if = planes_u8.to(torch.float32)
+    view_f32 = probe_cuda.cols_view(planes_u8, torch.float32)
+    instances = [("strided", planes_if, False), ("smem", planes_if, False),
+                 ("cols", probe_cuda.cols_view(planes_u8), False),
+                 ("cols", probe_cuda.cols_view(planes_u8, torch.bfloat16),
+                  False),
+                 ("cols", view_f32, False), ("cols", view_f32, True)]
+    s0 = probe_cuda.spectrum_probe_plain(planes_if, 0, "strided")
+    for layout, xin, cached in instances:
+        require(torch.equal(probe_cuda.spectrum_probe(xin, 0, layout, cached),
+                            s0), f"spectrum_probe {layout} {xin.dtype} "
+                f"cached={cached} s0 is not the sorted column norms")
+    norms = torch.linalg.vector_norm(
+        dct.blockify(planes_if[:8]), dim=-2).sort(dim=-1, descending=True)[0]
+    s0_err = float((s0[:8] - norms).abs().max() / norms.max())
+    require(s0_err <= 1e-6, f"s0 vs vector_norm: {s0_err}")
+    for sweeps in (2, 3, 4):
+        k1 = wm_cuda.spectrum_blocks(planes_u8, sweeps=sweeps)
+        for layout, xin, cached in instances:
+            if not cached:
+                require(torch.equal(probe_cuda.spectrum_probe(
+                    xin, sweeps, layout), k1), f"spectrum_probe {layout} "
+                    f"{xin.dtype} s{sweeps} differs from K1")
+    del instances, planes_if, view_f32, k1
+
+    sweeps = profile_view.SWEEPS
+    view_sp = probe_cuda.spectrum_probe(view, sweeps)
+    err = float((view_sp - probe_cuda.spectrum_probe_plain(view, sweeps))
+                .abs().max())
+    require(err == 0.0, f"spectrum_probe cols f32 s{sweeps} vs twin: {err}")
+    for layout, xin, cached in (("strided", planes, False),
+                                ("smem", planes, False),
+                                ("cols", view, True)):
+        e = float((probe_cuda.spectrum_probe(xin, 2, layout, cached)
+                   - probe_cuda.spectrum_probe_plain(xin, 2, layout, cached))
+                  .abs().max())
+        require(e == 0.0, f"spectrum_probe {layout} cached={cached} s2 vs "
+                f"twin: {e}")
+    blocks = dct.blockify(planes).reshape(-1, 8, 8)
+    pairs = sweeps * len(wm_cuda.PAIRS)
+    results["spectrum_probe"] = dict(
+        shape=list(view.shape), layout="cols", dtype="float32",
+        sweeps=sweeps, max_abs_err=err, s0_vs_vector_norm=s0_err,
+        equals_k1_s2_s3_s4=True,
+        ms=cuda_time(lambda: probe_cuda.spectrum_probe(view, sweeps), 10),
+        plain_ms=cuda_time(
+            lambda: probe_cuda.spectrum_probe_plain(view, sweeps), 2),
+        library_ms=cuda_time(lambda: torch.linalg.svdvals(blocks), 1),
+        **bound(blocks.shape[0], jacobi_ops(pairs), nbytes(view, view_sp)))
+    del blocks
+    for name, r in results.items():
+        emit({"phase": "probe_kernel_vs_plain", "kernel": name, **r,
+              "card": smi_line()})
+    return launches, results
+
+
 def phase_reference(dev):
     """GPU slice vs the CPU twins on one small frame: stego bytes, extracted
     watermark and detect score."""
@@ -682,7 +830,6 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     require(torch.get_float32_matmul_precision() == "highest",
@@ -721,6 +868,9 @@ def main() -> int:
     launches.update(phase_variants(dev, covers))
     phase_reference(dev)
     phase_files(dev, covers, wm_u8)
+    probe_launches, probe_results = phase_probes(dev, covers)
+    launches.update(probe_launches)
+    results.update(probe_results)
 
     # name: (source, TPU kernel it replaces)
     sources = {
@@ -736,6 +886,14 @@ def main() -> int:
                                "dctsvd_tpu/ops/wm_pallas.py:271"),
         "spectrum_blocks_gram": ("dctsvd_tpu_torch/csrc/wm_variants.cu",
                                  "dctsvd_tpu/ops/wm_pallas.py:491"),
+        "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
+                     "tools/profile_transpose.py:45"),
+        "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
+                      "tools/profile_transpose.py:112"),
+        "fma_chain": ("dctsvd_tpu_torch/csrc/probes.cu",
+                      "tools/exp_vpu_roofline.py:57"),
+        "spectrum_probe": ("dctsvd_tpu_torch/csrc/probes.cu",
+                           "tools/profile_view.py:44"),
     }
     table = []
     for name, (src, repl) in sources.items():

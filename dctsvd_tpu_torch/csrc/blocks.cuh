@@ -1,5 +1,6 @@
 // Block addressing and stores shared by the blocked watermark kernels
-// (wm_kernels.cu: K1, K2, K3; wm_variants.cu: K2r, K1g).
+// (wm_kernels.cu: K1, K2, K3; wm_variants.cu: K2r, K1g) and the spectrum
+// probe (probes.cu).
 //
 // One thread per 8x8 block. The kernels read u8 or f32 planes [P, H, W],
 // or u8/f32 channels-last frames [L, H, W, C] (plane p = l*C + c), straight
@@ -8,6 +9,7 @@
 // block row.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,6 +47,16 @@ __device__ __forceinline__ void load_col(const T* __restrict__ x,
 #pragma unroll
   for (int r = 0; r < kB; ++r)
     col[r] = static_cast<float>(x[a.base + r * a.rs + c * a.cs]);
+}
+
+// bf16 holds 0..255 exactly, so a bf16 view of u8 pixels loads the same
+// floats as the u8 one.
+__device__ __forceinline__ void load_col(const __nv_bfloat16* __restrict__ x,
+                                         const BlockAddr& a, int c,
+                                         float (&col)[kB]) {
+#pragma unroll
+  for (int r = 0; r < kB; ++r)
+    col[r] = __bfloat162float(x[a.base + r * a.rs + c * a.cs]);
 }
 
 // The watermark row of block tid: sws[(p % csws), n, :].

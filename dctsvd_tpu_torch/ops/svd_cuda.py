@@ -77,10 +77,12 @@ def _rotation(app, aqq, apq):
     return c, s, t
 
 
-def _jacobi8(g: list, full: int, extra: int, v: list | None = None):
+def _jacobi8(g: list, full: int, extra: int, v: list | None = None,
+             cached: bool = False):
     """K0 twin: rotate the column list ``g`` (8 tensors [..., 8]) and, when
     given, the V columns ``v`` in place; returns the fresh, UNSORTED
-    column norms (8 tensors [...])."""
+    column norms (8 tensors [...]), or with ``cached`` sqrt(max(n, 0)) of
+    the Rutishauser-cached norms n (the cached-norms probe)."""
     norms = [_sum_rows(c * c) for c in g]
 
     def rotate(pairs):
@@ -103,6 +105,8 @@ def _jacobi8(g: list, full: int, extra: int, v: list | None = None):
         rotate(PAIRS)
     if extra:
         rotate(PAIRS[:extra])
+    if cached:
+        return [torch.sqrt(torch.clamp(n, min=0.0)) for n in norms]
     return [torch.sqrt(_sum_rows(c * c)) for c in g]
 
 

@@ -1,4 +1,6 @@
-"""Build and load the hand-written CUDA kernels (K1, K2, K3, K4, K2r, K1g).
+"""Build and load the hand-written CUDA kernels: K1, K2, K3 (``wm_kernels.cu``),
+K2r, K1g (``wm_variants.cu``), K4 (``svd8.cu``) and the tools probes
+copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
 into one shared library with a plain C interface and loads it with
@@ -47,6 +49,7 @@ _LIB: list = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "dctsvd_spectrum_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_embed_blocks": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -57,7 +60,11 @@ _SIGNATURES = {
                                   _I, _I, _P],
     "dctsvd_spectrum_gram_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I,
                                     _P],
-    "dctsvd_svd8": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    "dctsvd_svd8": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "dctsvd_copy_f32": [_P, _P, _LL, _P],
+    "dctsvd_cols_view": [_P, _I, _P, _I, _I, _I, _P],
+    "dctsvd_fma_chain": [_P, _P, _LL, _I, _I, _I, _P],
+    "dctsvd_spectrum_probe": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a GPU: each against its plain twin, the
-launch counters, the slice on the card against the slice on the CPU, and
-the serve steps on the card against the split calls.
+launch counters, the slice on the card against the slice on the CPU, the
+serve steps on the card against the split calls, and the probe kernels
+(copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
+against K1.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from dctsvd_tpu_torch.models import blocked as tb
-from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+from dctsvd_tpu_torch.ops import dct, probe_cuda, svd_cuda, wm_cuda
 from dctsvd_tpu_torch.utils import crypto
 
 torch.set_num_threads(2)
@@ -206,3 +208,116 @@ def test_slice_on_gpu_matches_cpu(dev):
     assert int((rec_c.to(torch.int16) - rec_g.to(torch.int16)).abs().max()) \
         <= 2
     assert abs(s_c - s_g) <= 1e-3 and s_g >= 0.30
+
+
+PROBE_SHAPES = [(3, 64, 80), (2, 1080, 1920)]
+PROBE_SPECTRA = [("strided", torch.float32, False),
+                 ("smem", torch.float32, False),
+                 ("cols", torch.uint8, False),
+                 ("cols", torch.bfloat16, False),
+                 ("cols", torch.float32, False),
+                 ("cols", torch.float32, True)]
+
+
+def _int_planes(shape, seed=SEED + 6):
+    return torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 256, shape, np.uint8))
+
+
+def _probe_input(planes_u8, layout, dtype):
+    """The probe's input for integer planes: f32 natural planes, or a cols
+    view in ``dtype``."""
+    if layout == "cols":
+        return probe_cuda.cols_view_plain(planes_u8, dtype)
+    return planes_u8.to(torch.float32)
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_copy_kernel_matches_twin(dev, shape):
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        shape).astype(np.float32))
+    n0 = probe_cuda.copy_f32.launches
+    y = probe_cuda.copy_f32(x.to(dev))
+    torch.cuda.synchronize()
+    assert probe_cuda.copy_f32.launches == n0 + 1
+    assert torch.equal(y.cpu(), probe_cuda.copy_f32_plain(x))
+
+
+@pytest.mark.parametrize("kinds", [(torch.uint8, torch.uint8),
+                                   (torch.uint8, torch.bfloat16),
+                                   (torch.uint8, torch.float32),
+                                   (torch.float32, torch.float32)])
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_cols_view_kernel_matches_twin(dev, kinds, shape):
+    src, dst = kinds
+    x = _int_planes(shape)
+    if src == torch.float32:
+        x = x.to(torch.float32) + 0.25
+    n0 = probe_cuda.cols_view.launches
+    v = probe_cuda.cols_view(x.to(dev), dst)
+    torch.cuda.synchronize()
+    assert probe_cuda.cols_view.launches == n0 + 1
+    assert v.dtype == dst
+    assert torch.equal(v.cpu(), probe_cuda.cols_view_plain(x, dst))
+
+
+@pytest.mark.parametrize("mode", probe_cuda.CHAIN_MODES)
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shape", [(2, 5, 8, 30), (3, 135, 8, 240)])
+def test_fma_chain_kernel_matches_twin(dev, mode, fused, shape):
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        shape).astype(np.float32))
+    n0 = probe_cuda.fma_chain.launches
+    y = probe_cuda.fma_chain(x.to(dev), 256, mode, fused)
+    torch.cuda.synchronize()
+    assert probe_cuda.fma_chain.launches == n0 + 1
+    ref = probe_cuda.fma_chain_plain(x, 256, mode, fused)
+    if fused:      # the twin rounds twice where the FMA rounds once
+        assert float((y.cpu() - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max())
+    else:
+        assert torch.equal(y.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", PROBE_SPECTRA)
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_spectrum_probe_kernel_matches_twin(dev, case, shape):
+    layout, dtype, cached = case
+    x = _probe_input(_int_planes(shape), layout, dtype)
+    n0 = probe_cuda.spectrum_probe.launches
+    got = probe_cuda.spectrum_probe(x.to(dev), 2, layout, cached)
+    torch.cuda.synchronize()
+    assert probe_cuda.spectrum_probe.launches == n0 + 1
+    ref = probe_cuda.spectrum_probe_plain(x, 2, layout, cached)
+    # a cached norm n of a small value carries the rounding of s_max^2 from
+    # every rotation (the card's rsqrtf and the CPU's rsqrt round apart),
+    # and sqrt(n) magnifies it to about sqrt(k * 2^-23) * s_max
+    tol = 1e-3 if cached else 1e-4
+    assert float((got.cpu() - ref).abs().max()) <= tol * float(ref.max())
+
+
+@pytest.mark.parametrize("sweeps", [2, 3, 4])
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_spectrum_probe_equals_k1(dev, sweeps, shape):
+    """Every fresh instance computes K1's floats in K1's order: bit-equal
+    to K1 on the same integer-valued planes at the same schedule."""
+    planes = _int_planes(shape)
+    k1 = wm_cuda.spectrum_blocks(planes.to(dev), sweeps=sweeps)
+    for layout, dtype, cached in PROBE_SPECTRA:
+        if cached:
+            continue
+        x = _probe_input(planes, layout, dtype).to(dev)
+        assert torch.equal(probe_cuda.spectrum_probe(x, sweeps, layout), k1), \
+            (layout, dtype)
+
+
+def test_spectrum_probe_s0_is_the_sorted_column_norms(dev):
+    planes = _int_planes((3, 64, 80))
+    norms = torch.linalg.vector_norm(dct.blockify(planes.to(torch.float32)),
+                                     dim=-2).sort(dim=-1, descending=True)[0]
+    outs = [probe_cuda.spectrum_probe(
+        _probe_input(planes, layout, dtype).to(dev), 0, layout, cached).cpu()
+        for layout, dtype, cached in PROBE_SPECTRA]
+    for out in outs:
+        assert torch.equal(out, outs[0])
+    assert float((outs[0] - norms).abs().max()) <= 1e-6 * float(norms.max())
