@@ -1,0 +1,6 @@
+// The K2 and K3 instances of k = 7 and 8 (wm_paint.cuh), in a file of
+// their own so that the build compiles them beside the other k values.
+#include "wm_paint.cuh"
+
+DCTSVD_PAINT_INSTANCES(7)
+DCTSVD_PAINT_INSTANCES(8)

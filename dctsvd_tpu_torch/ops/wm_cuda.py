@@ -7,8 +7,10 @@ K1g (Gram spectrum).
     through ``spectrum_plane_blocks(method='onesided')``): values-only
     one-sided Jacobi on every 8×8 PIXEL block at the replayed schedule,
     sorted descending. S(D·X·Dᵀ) = S(X), so no DCT is needed.
-  - K2 ``embed_blocks`` replaces ``_make_embed_kernel_delta`` (called
-    through ``embed_plane_blocks(variant='delta')``): Jacobi without V,
+  - K2 ``embed_blocks`` (``csrc/wm_paint.cuh``, one instance per k, as
+    the Pallas kernel closes over k) replaces
+    ``_make_embed_kernel_delta`` (called through
+    ``embed_plane_blocks(variant='delta')``): Jacobi without V,
     sorted raw columns g_j = s_j·u_j, then the rank-k V-free paint of
     ``wm_pallas._paint_cols`` on the UN-rotated input columns x_c:
 
@@ -16,7 +18,7 @@ K1g (Gram spectrum).
                                  + 1e-30) · rsqrt(‖g_j‖² + 1e-30) · (Xᵀg_j)_c)
 
     then an optional clip and truncation to u8.
-  - K3 ``roundtrip_frames_blocks`` (``csrc/wm_kernels.cu``) replaces
+  - K3 ``roundtrip_frames_blocks`` (``csrc/wm_paint.cuh``) replaces
     ``_make_embed_verify_kernel`` (called through
     ``roundtrip_frames_blocks``): K2's paint with u8 output, then K1 on
     the rounded block while it is still on chip. Its s_cw equals K1 on the

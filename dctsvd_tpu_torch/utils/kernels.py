@@ -1,6 +1,8 @@
-"""Build and load the hand-written CUDA kernels: K1, K2, K3 (``wm_kernels.cu``),
-K2r, K1g (``wm_variants.cu``), K4 (``svd8.cu``) and the tools probes
-copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
+"""Build and load the hand-written CUDA kernels: K1 and the C entry points
+of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
+(``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
+K1g (``wm_variants.cu``), K4 (``svd8.cu``) and the tools probes copy_f32,
+cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
 into one shared library with a plain C interface and loads it with
@@ -29,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -78,6 +81,28 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (set CUDA_HOME or put nvcc on PATH)")
     return path
+
+
+def ptxas_report(log: str) -> dict:
+    """``{mangled kernel name: {"stack_frame", "spill_stores",
+    "spill_loads", "registers"}}`` (bytes, and registers per thread) from
+    nvcc's ``-Xptxas -v`` log (:data:`BUILD_INFO` ``["ptxas"]``); each
+    template instance has its own mangled name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            out[name].update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   ln)[1])
+            name = None
+    return out
 
 
 def _sources():

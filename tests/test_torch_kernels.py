@@ -112,13 +112,17 @@ def test_spectrum_twin_matches_xla_replay(data, sweeps):
     assert _rel_err(got, ref) <= SPEC_TOL
 
 
-def test_embed_twin_matches_pallas_u8_frames(data):
-    frames, sws = data
+@pytest.mark.parametrize("k", list(range(1, 9)))
+def test_embed_twin_matches_pallas_u8_frames(data, k):
+    frames, _ = data
+    n = (64 // 8) * (80 // 8)
+    sws = ((np.random.default_rng(SEED + 2).standard_normal((3, n, 8)) ** 2)
+           * 3 * (np.arange(8) < k)).astype(np.float32)
     ref_y, ref_sc = wm_pallas.embed_plane_blocks(
-        jnp.asarray(frames), jnp.asarray(sws), sweeps=1.25, k=4,
+        jnp.asarray(frames), jnp.asarray(sws), sweeps=1.25, k=k,
         out_u8=True, channels_last=True, interpret=True)
     y, sc = wm_cuda.embed_blocks(torch.from_numpy(frames),
-                                 torch.from_numpy(sws), sweeps=1.25, k=4,
+                                 torch.from_numpy(sws), sweeps=1.25, k=k,
                                  out_u8=True, channels_last=True)
     ref_y = np.asarray(ref_y)
     assert y.dtype == torch.uint8 and tuple(y.shape) == ref_y.shape
@@ -213,3 +217,37 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load()
     assert not (tmp_path / "build").exists()
+
+
+# two entries of an nvcc -Xptxas -v log, as ptxas prints them
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN6dctsvd12embed_kernelIhhLi4EEEvPKT_PKfiPT0_Pflliiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN6dctsvd12embed_kernelIhhLi4EEEvPKT_PKfiPT0_Pflliiiii
+    24 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN6dctsvd16roundtrip_kernelILi4EEEvPKhPKfiPhPfS6_lliiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN6dctsvd16roundtrip_kernelILi4EEEvPKhPKfiPhPfS6_lliiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 102 registers, used 0 barriers, 8192 bytes smem, 400 bytes cmem[0]
+"""
+
+
+PTXAS_LOG_K5 = PTXAS_LOG.replace("Li4E", "Li5E").replace("Used 96", "Used 95")
+
+
+@pytest.mark.parametrize("mangled,counts", [
+    ("_ZN6dctsvd12embed_kernelIhhLi4EEEvPKT_PKfiPT0_Pflliiiii",
+     dict(stack_frame=24, spill_stores=12, spill_loads=16, registers=96)),
+    ("_ZN6dctsvd12embed_kernelIhhLi5EEEvPKT_PKfiPT0_Pflliiiii",
+     dict(stack_frame=24, spill_stores=12, spill_loads=16, registers=95)),
+    ("_ZN6dctsvd16roundtrip_kernelILi4EEEvPKhPKfiPhPfS6_lliiiii",
+     dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=102)),
+    ("_ZN6dctsvd16roundtrip_kernelILi5EEEvPKhPKfiPhPfS6_lliiiii",
+     dict(stack_frame=0, spill_stores=0, spill_loads=0, registers=102)),
+])
+def test_ptxas_report_keeps_each_instance_apart(mangled, counts):
+    """Every template instance keeps its own counts under its mangled
+    name."""
+    rep = kernels.ptxas_report(PTXAS_LOG + PTXAS_LOG_K5)
+    assert len(rep) == 4
+    assert rep[mangled] == counts

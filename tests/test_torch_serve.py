@@ -85,14 +85,16 @@ def _assert_stego_close(got: torch.Tensor, ref):
     assert d.max() <= 1 and (d > 0).mean() <= 0.01, (d.max(), (d > 0).mean())
 
 
+@pytest.mark.parametrize("k", [1, K, 8])
 @pytest.mark.parametrize("sweeps", [1.25, 2])
-def test_roundtrip_twin_matches_pallas(data, sweeps):
+def test_roundtrip_twin_matches_pallas(data, sweeps, k):
     frames, sws = data
+    sws = sws * (np.arange(8) < k).astype(np.float32)
     ref_st, ref_sc, ref_scw = wm_pallas.roundtrip_frames_blocks(
-        jnp.asarray(frames), jnp.asarray(sws), sweeps=sweeps, k=K,
+        jnp.asarray(frames), jnp.asarray(sws), sweeps=sweeps, k=k,
         interpret=True)
     st, sc, scw = wm_cuda.roundtrip_frames_blocks(
-        torch.from_numpy(frames), torch.from_numpy(sws), sweeps=sweeps, k=K)
+        torch.from_numpy(frames), torch.from_numpy(sws), sweeps=sweeps, k=k)
     _assert_stego_close(st, ref_st)
     assert tuple(sc.shape) == tuple(scw.shape) == (2, 3, 80, 8)
     assert _rel_err(sc, ref_sc) <= SC_TOL
@@ -239,6 +241,18 @@ def test_new_wrappers_take_the_twin_for_cpu_tensors(data):
     assert torch.equal(g, wm_cuda.spectrum_blocks_gram_plain(
         x, sweeps=SWEEPS, channels_last=True))
     assert before == [fn.launches for fn in counters]
+
+
+@pytest.mark.parametrize("k", [0, 9])
+def test_paint_wrappers_refuse_k_outside_1_to_8(data, k):
+    """K2 and K3 are compiled for k = 1..8 only; the wrappers refuse any
+    other k before they reach a kernel or a twin."""
+    frames, sws = data
+    x, s = torch.from_numpy(frames), torch.from_numpy(sws)
+    with pytest.raises(ValueError, match="k must be in 1..8"):
+        wm_cuda.embed_blocks(x, s, k=k, out_u8=True, channels_last=True)
+    with pytest.raises(ValueError, match="k must be in 1..8"):
+        wm_cuda.roundtrip_frames_blocks(x, s, k=k)
 
 
 def test_new_wrappers_refuse_bad_input(data):
