@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paint-k-times   # only K2's and K3's time per k
+    python3 chip_smoke.py --copy-times      # only copy_f32's and the four
+                                            # cols_view instances' times
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
 an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
@@ -20,9 +22,10 @@ on 8 frames, each with its launch
 counters set to 0 just before and read just after; checks the scores;
 runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
 tools``) at 1080p batch 32, with their launch counters, then holds each
-probe kernel against its twin; prints the f32 operation rate of K1, K2,
-K3 and K4 beside the issue rate T3 measured; and prints one JSON line per
-phase.
+probe kernel against its twin (``cols_view`` in all four instances, each
+timed beside its ``copy_`` yardstick); prints the f32 operation rate of
+K1, K2, K3 and K4 beside the issue rate T3 measured; and prints one JSON
+line per phase.
 Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
@@ -643,6 +646,54 @@ CHAIN_FUSED_TOL = 1e-6   # fused chain vs its float64 twin, x max |twin|:
                          # which moves about one update in 2^29 by an ulp
 
 
+def permuted(planes):
+    """The cols view of natural planes [P, H, W] as a strided view."""
+    p = planes.shape[0]
+    return planes.reshape(p, H // 8, 8, W // 8, 8).permute(0, 1, 2, 4, 3)
+
+
+def copy_times(dev, covers) -> dict:
+    """copy_f32 on the probes' 96 f32 planes and the four cols_view
+    instances (f32 -> f32 on them, u8 -> u8/bf16/f32 on the covers' 96
+    planes), each equal to its twin, each beside its copy_ yardstick (into
+    a preallocated output; for cols_view from the permuted view): CUDA
+    events, 20 launches a reading, in turns kernel, library, library,
+    kernel."""
+    import torch
+    from dctsvd_tpu_torch.ops import probe_cuda
+
+    def turns(kernel, library, moved):
+        k1, l1 = cuda_time(kernel, 20), cuda_time(library, 20)
+        l2, k2 = cuda_time(library, 20), cuda_time(kernel, 20)
+        return dict(ms=[k1, k2], library_ms=[l1, l2],
+                    **bound(0, 0, moved))
+
+    gen = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    planes = torch.randn((3 * BATCH, H, W), generator=gen, device=dev) * 40 \
+        + 128                                  # the probes phase's planes
+    planes_u8 = torch.movedim(covers, -1, -3).reshape(-1, H, W).contiguous()
+    y = probe_cuda.copy_f32(planes)
+    require(torch.equal(y, probe_cuda.copy_f32_plain(planes)),
+            "copy_f32 vs twin")
+    out = torch.empty_like(planes)
+    times = {"copy_f32": turns(lambda: probe_cuda.copy_f32(planes),
+                               lambda: out.copy_(planes), nbytes(planes, y))}
+    del y, out
+    for src, d in ((planes, torch.float32), (planes_u8, torch.uint8),
+                   (planes_u8, torch.bfloat16), (planes_u8, torch.float32)):
+        v = probe_cuda.cols_view(src, d)
+        require(torch.equal(v, probe_cuda.cols_view_plain(src, d)),
+                f"cols_view {src.dtype} -> {d} vs twin")
+        out = torch.empty_like(v)
+        name = (f"cols_view {str(src.dtype).split('.')[-1]}->"
+                f"{str(d).split('.')[-1]}")
+        times[name] = turns(lambda src=src, d=d: probe_cuda.cols_view(src, d),
+                            lambda src=src, out=out: out.copy_(permuted(src)),
+                            nbytes(src, v))
+        del v, out
+    return times
+
+
 def phase_probes(dev, covers):
     """The T1-T6 probes of tools/ through their main() at 1080p, batch 32
     (96 planes), with the four probe kernels' launch counters set to 0
@@ -702,23 +753,30 @@ def phase_probes(dev, covers):
 
     # cols_view (T2b) f32 -> f32 on the planes, and u8 -> u8/bf16/f32 on
     # the covers' 96 planes; the library call is copy_ from the permuted
-    # view
+    # view into the target dtype
     view = probe_cuda.cols_view(planes)
     err = float((view - probe_cuda.cols_view_plain(planes)).abs().max())
     require(err == 0.0, f"cols_view f32 vs twin: {err}")
     planes_u8 = torch.movedim(covers, -1, -3).reshape(-1, H, W).contiguous()
+    u8_views = {}
     for d in (torch.uint8, torch.bfloat16, torch.float32):
-        require(torch.equal(probe_cuda.cols_view(planes_u8, d),
-                            probe_cuda.cols_view_plain(planes_u8, d)),
+        v = probe_cuda.cols_view(planes_u8, d)
+        require(torch.equal(v, probe_cuda.cols_view_plain(planes_u8, d)),
                 f"cols_view u8 -> {d} vs twin")
-    src = planes.reshape(n_planes, H // 8, 8, W // 8, 8).permute(0, 1, 2, 4,
-                                                                 3)
+        out = torch.empty_like(v)
+        u8_views[str(d).split(".")[-1]] = dict(
+            equals_twin=True,
+            ms=cuda_time(lambda d=d: probe_cuda.cols_view(planes_u8, d), 10),
+            library_ms=cuda_time(
+                lambda out=out: out.copy_(permuted(planes_u8)), 10),
+            **bound(0, 0, nbytes(planes_u8, v)))
+        del v, out
     out = torch.empty_like(view)
     results["cols_view"] = dict(
-        shape=list(planes.shape), max_abs_err=err, u8_views_equal=True,
+        shape=list(planes.shape), max_abs_err=err, u8_views=u8_views,
         ms=cuda_time(lambda: probe_cuda.cols_view(planes), 10),
         plain_ms=cuda_time(lambda: probe_cuda.cols_view_plain(planes), 10),
-        library_ms=cuda_time(lambda: out.copy_(src), 10),
+        library_ms=cuda_time(lambda: out.copy_(permuted(planes)), 10),
         **bound(0, 0, nbytes(planes, view)))
     del out
 
@@ -916,6 +974,14 @@ def main(argv) -> int:
         emit({"phase": "paint_k_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
               "times_8_frames": paint_k_times(dev, covers), "card": card})
+        return 0
+    if argv == ["--copy-times"]:
+        emit({"phase": "copy_times",
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"],
+              "ptxas": {k: v for k, v in kernels.ptxas_report(
+                  kernels.BUILD_INFO["ptxas"]).items()
+                  if "copy_f32" in k or "cols_view" in k},
+              "times": copy_times(dev, covers), "card": card})
         return 0
     ptxas = kernels.ptxas_report(kernels.BUILD_INFO["ptxas"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,

@@ -7,8 +7,14 @@
 // copy_f32 replaces the identity-copy Pallas kernels `copyk` of
 // tools/profile_transpose.py::copy_consumer (:45, T2a) and
 // tools/profile_view.py::transpose_forced (:70, T6b). Bound by bytes (each
-// element read and written once); grid-stride, 16 bytes (float4) per
-// thread per step, neighbouring threads on neighbouring addresses.
+// element read and written once, 1.59 GB at 96 1080p planes, far past the
+// 50 MB L2). One 16-byte load and store a thread, one CTA a 4 KiB chunk,
+// and a grid that covers the array once, so the card walks it front to
+// back and its CTAs keep every SM full. On the H100 this form ties
+// PyTorch's copy_ (PERF.md §6); deeper streams of 2-16 float4s a
+// thread, streaming cache hints, a grid capped at the resident CTAs, and a
+// persistent CTA per SM running a ring of cp.async.bulk copies on an
+// mbarrier were each slower.
 //
 // cols_view replaces tools/profile_transpose.py `gatherk` (:104, the
 // pallas_call at :112, T2b), which computes
@@ -16,13 +22,23 @@
 // as the "cols view" [P, Hb, 8(row), 8(col), Wb], in which neighbouring
 // blocks sit at neighbouring addresses. It also stands for the relayout
 // the T4-T6 probes do outside their kernels (wm_pallas._plane_cols_view,
-// tools/exp_widen.py:37). Bound by bytes. One CTA per (plane, block row,
-// tile of 128 blocks): a coalesced read of the tile's 8 pixel rows into
-// shared memory, then a coalesced write of its [8, 8, 128] slab. Shared
-// memory pads one word per block (column j at j + j/8), so the transposing
-// read (stride 9 words between threads) is free of bank conflicts; a
-// 1024-column f32 tile takes 36 KiB, under the 48 KiB static limit, and
-// the ragged last tile of a row (112 of 128 blocks at 1080p) is masked.
+// tools/exp_widen.py:37). Bound by bytes. Each pixel row is its own
+// [Wb, 8] -> [8, Wb] transpose: pixel row R (= p * H + y) lands in output
+// rows R * 8 + c, c = 0..7, each Wb long. So the input is read as a flat
+// run of 128-byte chunks (4 f32 or 16 u8 blocks of one pixel row). Each
+// warp works alone on tiles of 32 chunks (4 KiB): 8 coalesced 16-byte
+// cp.async copies a thread into shared memory with an XOR swizzle (piece
+// q of chunk k at slot q ^ (k % 8)), two buffers a warp so that the next
+// tile is in flight while this one is stored, and no __syncthreads. A
+// thread then takes 16 / sizeof(Out) blocks of one chunk (a whole chunk;
+// u8 -> bf16 half of one in each of 2 passes, u8 -> f32 a quarter in each
+// of 4), reads them from shared memory free of bank conflicts, converts
+// in registers, and writes pixel c of its blocks as one 16-byte store to
+// output row c: a warp's store is up to 512 contiguous bytes. A partial
+// last tile is masked. Where a row or a pointer is not 16-byte aligned (Wb
+// not a multiple of the blocks a chunk holds, or a view at an odd offset),
+// the wrapper takes the scalar kernel: one thread per output element, in
+// output order.
 //
 // fma_chain replaces tools/exp_vpu_roofline.py::_make_kernel (the
 // pallas_call at :57, T3): per element, acc <- acc * 1.0000001 + x, as 8
@@ -52,13 +68,14 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "blocks.cuh"
 #include "jacobi8.cuh"
 
 namespace dctsvd {
 
-constexpr int kWideThreads = 256;            // copy_f32, cols_view, fma_chain
+constexpr int kWideThreads = 256;  // copy_f32, cols_view (scalar), fma_chain
 constexpr int kTileBlocks = kThreads;        // blocks of a block row per CTA
 constexpr int kTileCols = kTileBlocks * kB;  // 1024 pixel columns
 constexpr int kPadCols = kTileCols + kTileBlocks;
@@ -66,14 +83,18 @@ constexpr int kPadCols = kTileCols + kTileBlocks;
 enum DType { kU8 = 0, kBF16 = 1, kF32 = 2 };
 enum ProbeLayout { kNatStrided = 0, kNatSmem = 1, kColsView = 2 };
 
+// One float4 a thread and one CTA a 4 KiB chunk, the grid over the whole
+// array (copy_f32_grid): the last CTA masks the tail.
 __global__ void __launch_bounds__(kWideThreads)
     copy_f32_kernel(const float4* __restrict__ x, float4* __restrict__ y,
                     int64_t n4) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWideThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWideThreads +
-                   threadIdx.x;
-       i < n4; i += stride)
-    y[i] = x[i];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWideThreads +
+                    threadIdx.x;
+  if (i < n4) y[i] = x[i];
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 template <typename In, typename Out>
@@ -104,20 +125,189 @@ __device__ __forceinline__ void load_band(const T* __restrict__ x, int w,
   __syncthreads();
 }
 
+constexpr int kViewWarps = 4;                 // cols_view: warps a CTA,
+constexpr int kViewThreads = kViewWarps * 32;  // and CTAs an SM
+constexpr int kViewBlocks = 6;
+
+// Word k (0..3) of a 16-byte piece; k is a constant after unrolling.
+__device__ __forceinline__ uint32_t word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// u8 -> f32 of byte k of w, exactly: 2^23 + b as float bits, less 2^23.
+__device__ __forceinline__ float byte_f32(uint32_t w, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + k)),
+                   8388608.0f);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// A thread's part of a chunk, v (its pieces in order), to output rows
+// dst + c * wb, c = 0..7, one 16-byte store each. f32 -> f32: float 8j +
+// c of the chunk is pixel c of block j (4 blocks), so output row c takes
+// word c of blocks 0..3.
+__device__ __forceinline__ void store_part(const uint4 (&v)[8],
+                                           float* __restrict__ dst, int wb,
+                                           float) {
+#pragma unroll
+  for (int c = 0; c < kB; ++c, dst += wb) {
+    uint4 o;
+    o.x = word(v[c / 4], c % 4);
+    o.y = word(v[2 + c / 4], c % 4);
+    o.z = word(v[4 + c / 4], c % 4);
+    o.w = word(v[6 + c / 4], c % 4);
+    __stcs(reinterpret_cast<uint4*>(dst), o);
+  }
+}
+
+// u8 in: byte 8j + c is pixel c of block j; word 2j + c / 4 holds it at
+// byte c % 4.
+template <int N>
+__device__ __forceinline__ uint32_t u8_word(const uint4 (&v)[N], int i) {
+  return word(v[i / 4], i % 4);
+}
+
+// u8 -> u8 (16 blocks): a 4x4 byte transpose of the words of blocks
+// 4m..4m+3 (half h = c / 4) gives word m of output rows 4h..4h+3.
+__device__ __forceinline__ void store_part(const uint4 (&v)[8],
+                                           uint8_t* __restrict__ dst, int wb,
+                                           uint8_t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t o[4][4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t a = u8_word(v, 8 * m + h), b = u8_word(v, 8 * m + 2 + h),
+                     c = u8_word(v, 8 * m + 4 + h),
+                     d = u8_word(v, 8 * m + 6 + h);
+      const uint32_t ab0 = __byte_perm(a, b, 0x5140),
+                     ab1 = __byte_perm(a, b, 0x7362),
+                     cd0 = __byte_perm(c, d, 0x5140),
+                     cd1 = __byte_perm(c, d, 0x7362);
+      o[0][m] = __byte_perm(ab0, cd0, 0x5410);
+      o[1][m] = __byte_perm(ab0, cd0, 0x7632);
+      o[2][m] = __byte_perm(ab1, cd1, 0x5410);
+      o[3][m] = __byte_perm(ab1, cd1, 0x7632);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e, dst += wb)
+      __stcs(reinterpret_cast<uint4*>(dst),
+             make_uint4(o[e][0], o[e][1], o[e][2], o[e][3]));
+  }
+}
+
+// u8 -> bf16 (8 blocks, half a chunk).
+__device__ __forceinline__ void store_part(const uint4 (&v)[4],
+                                           __nv_bfloat16* __restrict__ dst,
+                                           int wb, uint8_t) {
+#pragma unroll
+  for (int c = 0; c < kB; ++c, dst += wb) {
+    uint32_t o[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      o[m] = bf16x2_bits(byte_f32(u8_word(v, 4 * m + c / 4), c % 4),
+                         byte_f32(u8_word(v, 4 * m + 2 + c / 4), c % 4));
+    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(o[0], o[1], o[2], o[3]));
+  }
+}
+
+// u8 -> f32 (4 blocks, a quarter of a chunk).
+__device__ __forceinline__ void store_part(const uint4 (&v)[2],
+                                           float* __restrict__ dst, int wb,
+                                           uint8_t) {
+#pragma unroll
+  for (int c = 0; c < kB; ++c, dst += wb)
+    __stcs(reinterpret_cast<float4*>(dst),
+           make_float4(byte_f32(u8_word(v, c / 4), c % 4),
+                       byte_f32(u8_word(v, 2 + c / 4), c % 4),
+                       byte_f32(u8_word(v, 4 + c / 4), c % 4),
+                       byte_f32(u8_word(v, 6 + c / 4), c % 4)));
+}
+
+// The vector path: `chunks` 128-byte chunks of x, `cpr` of them a pixel
+// row; y the cols view with rows of wb elements. Warp tile t covers chunks
+// 32t .. 32t + 31; the warps of the grid stride over the tiles, each with
+// two 4 KiB buffers: cp.async brings tile i + 1 (no registers held) while
+// tile i is stored. A thread stores 16 bytes an output row: 16 /
+// sizeof(Out) blocks, a whole chunk or (u8 -> bf16, f32) a half or a
+// quarter of one in each of 2 or 4 passes over the tile. 6 CTAs of 4 warps
+// an SM (32 KiB of shared memory each; at most 85 registers).
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kViewThreads, kViewBlocks)
+    cols_view_kernel(const uint4* __restrict__ x, Out* __restrict__ y,
+                     int64_t chunks, int cpr, int wb) {
+  constexpr int kChunkBlocks = 128 / (kB * static_cast<int>(sizeof(In)));
+  constexpr int kPasses = sizeof(Out) / sizeof(In);
+  constexpr int kPieces = 8 / kPasses;
+  constexpr int kBlocks = 16 / sizeof(Out);
+  __shared__ __align__(16) uint4 stage[kViewWarps][2][32 * 8];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kViewWarps * 32;
+  auto fetch = [&](int64_t c0, uint4* s) {
+    const int n = static_cast<int>(chunks - c0 < 32 ? chunks - c0 : 32);
+    const uint4* src = x + c0 * 8;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int k = 4 * u + lane / 8;  // piece 32u + lane of the tile
+      if (k < n)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                         smem_addr(s + 8 * k + ((lane % 8) ^ (k % 8)))),
+                     "l"(src + 32 * u + lane)
+                     : "memory");
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  int buf = 0;
+  int64_t c0 = (static_cast<int64_t>(blockIdx.x) * kViewWarps + warp) * 32;
+  if (c0 < chunks) fetch(c0, stage[warp][0]);
+  for (; c0 < chunks; c0 += stride, buf ^= 1) {
+    if (c0 + stride < chunks) {
+      fetch(c0 + stride, stage[warp][buf ^ 1]);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();
+    const uint4* s = stage[warp][buf];
+    const int n = static_cast<int>(chunks - c0 < 32 ? chunks - c0 : 32);
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int k = pass * (32 / kPasses) + lane / kPasses;
+      const int part = lane % kPasses;
+      if (k < n) {
+        uint4 v[kPieces];
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i)
+          v[i] = s[8 * k + ((part * kPieces + i) ^ (k % 8))];
+        const int64_t g = c0 + k, row = g / cpr;
+        store_part(v,
+                   y + row * kB * wb + (g - row * cpr) * kChunkBlocks +
+                       part * kBlocks,
+                   wb, In());
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The scalar path: output element o = (R * 8 + c) * wb + bx takes pixel
+// (R, 8 * bx + c); any alignment.
 template <typename In, typename Out>
 __global__ void __launch_bounds__(kWideThreads)
-    cols_view_kernel(const In* __restrict__ x, Out* __restrict__ y, int w) {
-  __shared__ In band[kB][kPadCols];
-  load_band<kWideThreads>(x, w, band);
-  const int wb = w / kB;
-  const int bx0 = blockIdx.y * kTileBlocks;
-  const int nb = min(kTileBlocks, wb - bx0);
-  Out* dst = y + static_cast<int64_t>(blockIdx.x) * kB * kB * wb + bx0;
-  for (int i = threadIdx.x; i < kB * kB * kTileBlocks; i += kWideThreads) {
-    const int rc = i / kTileBlocks, b = i % kTileBlocks;  // rc = r * 8 + c
-    if (b < nb)
-      dst[static_cast<int64_t>(rc) * wb + b] =
-          convert<In, Out>(band[rc / kB][b * kB + rc % kB + b]);
+    cols_view_scalar_kernel(const In* __restrict__ x, Out* __restrict__ y,
+                            int64_t n, int wb) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWideThreads;
+  for (int64_t o = static_cast<int64_t>(blockIdx.x) * kWideThreads +
+                   threadIdx.x;
+       o < n; o += stride) {
+    const int64_t rc = o / wb;
+    const int64_t bx = o - rc * wb;
+    y[o] = convert<In, Out>(x[((rc / kB) * wb + bx) * kB + rc % kB]);
   }
 }
 
@@ -234,46 +424,53 @@ static void launch_probe(const void* x, float* out, int planes, int h, int w,
 
 using namespace dctsvd;
 
-// x, y: 16-byte aligned f32 of n4 float4s. Returns the cudaError_t of the
-// launch.
+// x, y: 16-byte aligned f32 of n4 float4s; grid: from
+// ops/probe_cuda.py::copy_f32_grid. Returns the cudaError_t of the launch.
 extern "C" int dctsvd_copy_f32(const void* x, void* y, long long n4,
-                               void* stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t want = (n4 + kWideThreads - 1) / kWideThreads;
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * 8;
-  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
-  if (grid > 0)
-    copy_f32_kernel<<<grid, kWideThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(x), static_cast<float4*>(y), n4);
+                               int grid, void* stream) {
+  copy_f32_kernel<<<grid, kWideThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(y), n4);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In, typename Out>
+static void launch_cols_view(const void* x, void* y, int64_t rows, int w,
+                             int vector, int grid, cudaStream_t st) {
+  const int wb = w / kB;
+  if (!vector) {
+    cols_view_scalar_kernel<In, Out><<<grid, kWideThreads, 0, st>>>(
+        static_cast<const In*>(x), static_cast<Out*>(y), rows * w, wb);
+    return;
+  }
+  constexpr int kChunkBlocks = 128 / (kB * static_cast<int>(sizeof(In)));
+  cudaFuncSetAttribute(cols_view_kernel<In, Out>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cols_view_kernel<In, Out><<<grid, kViewThreads, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<Out*>(y),
+      rows * wb / kChunkBlocks, wb / kChunkBlocks, wb);
 }
 
 // x: natural planes [P, H, W] (in_kind u8 or f32); y: the cols view
 // [P, Hb, 8, 8, Wb] (out_kind u8, bf16 or f32; u8 out only from u8 in).
-// bands = P * Hb. Returns the cudaError_t of the launch.
+// rows = P * H. vector and grid: from ops/probe_cuda.py::cols_view_plan
+// (vector needs x and y 16-byte aligned and Wb a multiple of the blocks
+// of a 128-byte chunk: 4 f32, 16 u8). Returns the cudaError_t of the
+// launch.
 extern "C" int dctsvd_cols_view(const void* x, int in_kind, void* y,
-                                int out_kind, int bands, int w,
-                                void* stream) {
+                                int out_kind, long long rows, int w,
+                                int vector, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(bands),
-                  static_cast<unsigned>((w / kB + kTileBlocks - 1) /
-                                        kTileBlocks));
-  const uint8_t* xu = static_cast<const uint8_t*>(x);
   if (in_kind == kU8 && out_kind == kU8)
-    cols_view_kernel<uint8_t, uint8_t><<<grid, kWideThreads, 0, st>>>(
-        xu, static_cast<uint8_t*>(y), w);
+    launch_cols_view<uint8_t, uint8_t>(x, y, rows, w, vector, grid, st);
   else if (in_kind == kU8 && out_kind == kBF16)
-    cols_view_kernel<uint8_t, __nv_bfloat16><<<grid, kWideThreads, 0, st>>>(
-        xu, static_cast<__nv_bfloat16*>(y), w);
+    launch_cols_view<uint8_t, __nv_bfloat16>(x, y, rows, w, vector, grid,
+                                             st);
   else if (in_kind == kU8 && out_kind == kF32)
-    cols_view_kernel<uint8_t, float><<<grid, kWideThreads, 0, st>>>(
-        xu, static_cast<float*>(y), w);
+    launch_cols_view<uint8_t, float>(x, y, rows, w, vector, grid, st);
   else if (in_kind == kF32 && out_kind == kF32)
-    cols_view_kernel<float, float><<<grid, kWideThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), w);
+    launch_cols_view<float, float>(x, y, rows, w, vector, grid, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

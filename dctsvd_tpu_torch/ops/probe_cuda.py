@@ -39,7 +39,8 @@ from dctsvd_tpu_torch.utils import kernels
 
 __all__ = ["LAYOUTS", "CHAIN_MODES", "chain_steps", "copy_f32", "cols_view",
            "fma_chain", "spectrum_probe", "copy_f32_plain", "cols_view_plain",
-           "fma_chain_plain", "spectrum_probe_plain"]
+           "fma_chain_plain", "spectrum_probe_plain", "copy_f32_grid",
+           "cols_view_plan"]
 
 LAYOUTS = ("strided", "smem", "cols")        # the C enum's order
 CHAIN_MODES = ("ilp8", "serial")
@@ -61,6 +62,18 @@ def _planes(x: torch.Tensor):
     return p, h, w
 
 
+COPY_CHUNK4 = 256          # float4s a CTA of copy_f32 (256 threads)
+VIEW_WARPS = 4             # warps a CTA of cols_view's vector path,
+VIEW_CTAS_PER_SM = 6       # and CTAs an SM (csrc/probes.cu kView*)
+CHUNK_BYTES = 128          # a thread's input chunk in that path
+
+
+def copy_f32_grid(n4: int) -> int:
+    """CTAs of copy_f32 for ``n4`` float4s: one a chunk, over the whole
+    array (the last one partial)."""
+    return -(-n4 // COPY_CHUNK4)
+
+
 def copy_f32_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain twin of copy_f32."""
     return x.clone()
@@ -79,9 +92,33 @@ def copy_f32(x: torch.Tensor) -> torch.Tensor:
                          "of 4 elements on a 16-byte boundary")
     y = torch.empty_like(x)
     if x.numel():
-        kernels.launch("dctsvd_copy_f32", x.device, x, y, x.numel() // 4)
+        n4 = x.numel() // 4
+        kernels.launch("dctsvd_copy_f32", x.device, x, y, n4,
+                       copy_f32_grid(n4))
         copy_f32.launches += 1
     return y
+
+
+def cols_view_plan(rows: int, w: int, in_size: int, x_ptr: int, y_ptr: int,
+                   sms: int) -> tuple:
+    """(vector, grid) of cols_view on ``rows`` pixel rows of ``w`` pixels
+    of ``in_size`` bytes, from x at ``x_ptr`` to y at ``y_ptr``. The
+    vector path moves a 128-byte chunk of one pixel row a thread (4 f32 or
+    16 u8 blocks) and stores 16 bytes at a time, so it needs both
+    pointers on 16-byte boundaries and Wb a multiple of the chunk's
+    blocks. Its warps stride over tiles of 32 chunks, so its grid is a
+    CTA of 4 warps for every 4 tiles, up to the 6 CTAs an SM holds.
+    Anything else takes the scalar path, one thread an element, 256 a
+    CTA, up to 8 CTAs an SM."""
+    wb = w // B
+    chunk_blocks = CHUNK_BYTES // (B * in_size)
+    vector = wb % chunk_blocks == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0
+    if vector:
+        want = -(-rows * (wb // chunk_blocks) // (VIEW_WARPS * 32))
+        cap = sms * VIEW_CTAS_PER_SM
+    else:
+        want, cap = -(-rows * w // 256), sms * 8
+    return vector, max(1, min(want, cap))
 
 
 def cols_view_plain(x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -95,7 +132,8 @@ def cols_view_plain(x: torch.Tensor, dtype=None) -> torch.Tensor:
 def cols_view(x: torch.Tensor, dtype=None) -> torch.Tensor:
     """Natural planes [..., H, W] (u8 or f32) -> the cols view
     [P, Hb, 8, 8, Wb] in ``dtype`` (default: x's). The kernel on a CUDA
-    tensor, its twin on a CPU tensor."""
+    tensor (its vector or scalar path, :func:`cols_view_plan`), its twin
+    on a CPU tensor."""
     dtype = x.dtype if dtype is None else dtype
     if (x.dtype, dtype) not in _VIEW_KINDS:
         raise ValueError(f"cols_view: no {x.dtype} -> {dtype} view")
@@ -105,8 +143,12 @@ def cols_view(x: torch.Tensor, dtype=None) -> torch.Tensor:
     x = x.contiguous()
     y = torch.empty((p, h // B, B, B, w // B), dtype=dtype, device=x.device)
     if y.numel():
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        vector, grid = cols_view_plan(p * h, w, x.element_size(),
+                                      x.data_ptr(), y.data_ptr(), sms)
         kernels.launch("dctsvd_cols_view", x.device, x, _KIND[x.dtype], y,
-                       _KIND[dtype], p * (h // B), w)
+                       _KIND[dtype], p * h, w, int(vector), grid)
         cols_view.launches += 1
     return y
 

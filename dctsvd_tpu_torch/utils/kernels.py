@@ -64,8 +64,8 @@ _SIGNATURES = {
     "dctsvd_spectrum_gram_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I,
                                     _P],
     "dctsvd_svd8": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "dctsvd_copy_f32": [_P, _P, _LL, _P],
-    "dctsvd_cols_view": [_P, _I, _P, _I, _I, _I, _P],
+    "dctsvd_copy_f32": [_P, _P, _LL, _I, _P],
+    "dctsvd_cols_view": [_P, _I, _P, _I, _LL, _I, _I, _I, _P],
     "dctsvd_fma_chain": [_P, _P, _LL, _I, _I, _I, _P],
     "dctsvd_spectrum_probe": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
 }

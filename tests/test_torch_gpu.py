@@ -295,7 +295,11 @@ def _probe_input(planes_u8, layout, dtype):
     return planes_u8.to(torch.float32)
 
 
-@pytest.mark.parametrize("shape", PROBE_SHAPES)
+# the probes' shapes, and a length that leaves a partial last chunk
+COPY_SHAPES = PROBE_SHAPES + [(4 * (probe_cuda.COPY_CHUNK4 + 3),)]
+
+
+@pytest.mark.parametrize("shape", COPY_SHAPES)
 def test_copy_kernel_matches_twin(dev, shape):
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         shape).astype(np.float32))
@@ -306,21 +310,47 @@ def test_copy_kernel_matches_twin(dev, shape):
     assert torch.equal(y.cpu(), probe_cuda.copy_f32_plain(x))
 
 
-@pytest.mark.parametrize("kinds", [(torch.uint8, torch.uint8),
-                                   (torch.uint8, torch.bfloat16),
-                                   (torch.uint8, torch.float32),
-                                   (torch.float32, torch.float32)])
-@pytest.mark.parametrize("shape", PROBE_SHAPES)
+VIEW_KINDS = [(torch.uint8, torch.uint8), (torch.uint8, torch.bfloat16),
+              (torch.uint8, torch.float32), (torch.float32, torch.float32)]
+# the probes' shapes ((3, 64, 80): Wb = 10, the scalar path; 1080p: the
+# vector path), Wb = 241 (rows off 16-byte boundaries: the scalar path),
+# and Wb = 208 on 8 rows (the vector path; u8 in leaves a partial warp
+# tile of 8 chunks)
+VIEW_SHAPES = PROBE_SHAPES + [(1, 16, 1928), (1, 8, 1664)]
+
+
+def _view_input(shape, src):
+    x = _int_planes(shape)
+    return x.to(torch.float32) + 0.25 if src == torch.float32 else x
+
+
+@pytest.mark.parametrize("kinds", VIEW_KINDS)
+@pytest.mark.parametrize("shape", VIEW_SHAPES)
 def test_cols_view_kernel_matches_twin(dev, kinds, shape):
     src, dst = kinds
-    x = _int_planes(shape)
-    if src == torch.float32:
-        x = x.to(torch.float32) + 0.25
+    x = _view_input(shape, src)
     n0 = probe_cuda.cols_view.launches
     v = probe_cuda.cols_view(x.to(dev), dst)
     torch.cuda.synchronize()
     assert probe_cuda.cols_view.launches == n0 + 1
     assert v.dtype == dst
+    assert torch.equal(v.cpu(), probe_cuda.cols_view_plain(x, dst))
+
+
+@pytest.mark.parametrize("kinds", VIEW_KINDS)
+def test_cols_view_kernel_at_an_unaligned_pointer(dev, kinds):
+    """A contiguous view one element past a 16-byte boundary takes the
+    scalar path and still equals the twin."""
+    src, dst = kinds
+    x = _view_input((2, 16, 1920), src)
+    base = torch.empty(x.numel() + 1, dtype=src, device=dev)
+    xv = base[1:].view(x.shape)
+    xv.copy_(x.to(dev))
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    n0 = probe_cuda.cols_view.launches
+    v = probe_cuda.cols_view(xv, dst)
+    torch.cuda.synchronize()
+    assert probe_cuda.cols_view.launches == n0 + 1
     assert torch.equal(v.cpu(), probe_cuda.cols_view_plain(x, dst))
 
 

@@ -260,6 +260,42 @@ def test_probe_wrappers_refuse_other_devices_and_bad_input():
         probe_cuda.spectrum_probe(x, 2, "cols")
 
 
+@pytest.mark.parametrize("n4, grid", [(1, 1), (256, 1), (257, 2),
+                                      (96 * 1080 * 1920 // 4, 194400)])
+def test_copy_f32_grid_covers_the_array_once(n4, grid):
+    """One CTA a 256-float4 chunk, the last one partial."""
+    assert probe_cuda.copy_f32_grid(n4) == grid
+    assert (grid - 1) * probe_cuda.COPY_CHUNK4 < n4 <= grid * \
+        probe_cuda.COPY_CHUNK4
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("rows, w, in_size, x_off, y_off, plan", [
+    # 1080p planes: Wb = 240, a multiple of 4 (f32) and 16 (u8) blocks;
+    # 48,600 or 12,150 CTAs of tiles, capped at 6 CTAs an SM
+    (96 * 1080, 1920, 4, 0, 0, (True, 6 * H100_SMS)),
+    (96 * 1080, 1920, 1, 0, 0, (True, 6 * H100_SMS)),
+    # Wb = 208 on 8 rows of u8: 104 chunks, one CTA with a partial tile
+    (8, 1664, 1, 0, 0, (True, 1)),
+    # Wb = 10 and Wb = 241: rows off 16-byte boundaries
+    (3 * 64, 80, 4, 0, 0, (False, 60)),
+    (3 * 64, 80, 1, 0, 0, (False, 60)),
+    (16, 1928, 4, 0, 0, (False, 121)),
+    # a view one element past a 16-byte boundary, and an unaligned output
+    (2 * 16, 1920, 4, 4, 0, (False, 240)),
+    (2 * 16, 1920, 1, 1, 0, (False, 240)),
+    (2 * 16, 1920, 4, 0, 8, (False, 240)),
+])
+def test_cols_view_plan(rows, w, in_size, x_off, y_off, plan):
+    """The vector path where both pointers and every row sit on 16-byte
+    boundaries and the chunks tile each row; the scalar path elsewhere."""
+    base = 1 << 20
+    assert probe_cuda.cols_view_plan(rows, w, in_size, base + x_off,
+                                     base + y_off, H100_SMS) == plan
+
+
 @pytest.mark.parametrize("tool", PORT_TOOLS, ids=TOOLS)
 def test_probe_main_raises_without_a_card(tool, monkeypatch, capsys):
     """A probe measures the card: with no CUDA device its main() raises
