@@ -5,6 +5,8 @@
     python3 chip_smoke.py --paint-k-times   # only K2's and K3's time per k
     python3 chip_smoke.py --copy-times      # only copy_f32's and the four
                                             # cols_view instances' times
+    python3 chip_smoke.py --jacobi-times    # only K1's and K4's times, with
+                                            # their ptxas and SASS mix
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
 an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
@@ -17,7 +19,8 @@ path gives it (K2 and K3 bit for bit), with the time of one PyTorch
 library call that computes the same function where there is one; holds K2
 and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
-a batch of 32 1080p frames, and the recon-embed and Gram-spectrum entries
+a batch of 32 1080p frames (with the set-up time of prepare and the
+detect rate), and the recon-embed and Gram-spectrum entries
 on 8 frames, each with its launch
 counters set to 0 just before and read just after; checks the scores;
 runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
@@ -29,7 +32,8 @@ line per phase.
 Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
-the bytes it must move and the f32 operations it does).
+the bytes it must move and the f32 operations it does). K1, K2, K3 and
+K4 are held to their twins run on the card bit for bit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -119,21 +123,27 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     that call's time."""
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import dct, permute, svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import dct, svd_cuda, wm_cuda
 
     results = {}
     full, extra = wm_cuda.sched_split(SWEEPS)
     pairs = full * len(wm_cuda.PAIRS) + extra
 
     # K4 on the DCT coefficients of the keyed 1080p color watermark
-    planes = torch.movedim(wm_u8.to(torch.float32), -1, -3)
-    coefs = dct.dct2_blocks(permute.permute_block_tensor(
-        dct.blockify(planes), blk, intra)).contiguous()      # [3, N, 8, 8]
+    coefs = wm_coefs(wm_u8, blk, intra)                      # [3, N, 8, 8]
     u, s, vt = svd_cuda.jacobi_svd8(coefs)
     u2, s2, vt2 = svd_cuda.jacobi_svd8(coefs)
     require(torch.equal(u, u2) and torch.equal(s, s2)
             and torch.equal(vt, vt2), "K4: two runs differ")
     pu, ps_, pvt = svd_cuda.jacobi_svd8_plain(coefs)
+    require(torch.equal(u, pu) and torch.equal(s, ps_)
+            and torch.equal(vt, pvt),
+            f"K4 vs its twin on the card: U {float((u - pu).abs().max())}, "
+            f"S {float((s - ps_).abs().max())}, Vt "
+            f"{float((vt - pvt).abs().max())}")
+    s_only = svd_cuda.jacobi_svd8(coefs, compute_uv=False)
+    require(torch.equal(s_only, svd_cuda.jacobi_svd8_plain(
+        coefs, compute_uv=False)), "K4 S only vs its twin on the card")
     smax = float(ps_.max())
     s_err = float((s - ps_).abs().max())
     recon = torch.einsum("...ij,...j,...jk->...ik", u, s, vt)
@@ -158,8 +168,8 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     require(v_err <= 1e-4, f"K4 V V^T: {v_err} > 1e-4")
     results["jacobi_svd8"] = dict(
         shape=list(coefs.shape), max_abs_err=s_err, s_max=smax,
-        recon_err=rec_err, orth_err=orth_err, orth_err_plain=orth_plain,
-        v_orth_err=v_err,
+        equals_twin=True, s_only_equals_twin=True, recon_err=rec_err,
+        orth_err=orth_err, orth_err_plain=orth_plain, v_orth_err=v_err,
         ms=cuda_time(lambda: svd_cuda.jacobi_svd8(coefs), 20),
         plain_ms=cuda_time(lambda: svd_cuda.jacobi_svd8_plain(coefs), 5),
         library_ms=cuda_time(lambda: torch.linalg.svd(coefs), 5),
@@ -220,6 +230,7 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     smax = float(ps1.max())
     err = float((s1 - ps1).abs().max())
     require(err <= 1e-4 * smax, f"K1 frames vs twin: {err} > 1e-4*{smax}")
+    require(torch.equal(s1, ps1), f"K1 frames vs twin: not bit-equal ({err})")
     planes_u8 = torch.movedim(x, -1, -3).reshape(-1, H, W).contiguous()
     blocks = dct.blockify(planes_u8.to(torch.float32)).reshape(-1, 8, 8)
     svdvals_ms = cuda_time(lambda: torch.linalg.svdvals(blocks), 3)
@@ -236,8 +247,9 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     perr = float((sp - psp).abs().max())
     require(perr <= 1e-4 * float(psp.max()),
             f"K1 planes vs twin: {perr} > 1e-4*{float(psp.max())}")
+    require(torch.equal(sp, psp), f"K1 planes vs twin: not bit-equal ({perr})")
     results["spectrum_blocks"] = dict(
-        shape=list(x.shape), max_abs_err=err, s_max=smax,
+        shape=list(x.shape), max_abs_err=err, s_max=smax, equals_twin=True,
         ms=cuda_time(k1, 10), plain_ms=cuda_time(k1_plain, 3),
         library_ms=svdvals_ms,
         planes_shape=list(planes_u8.shape), planes_max_abs_err=perr,
@@ -288,8 +300,13 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     emit({"phase": "kernel_vs_plain", "kernel": "K3 roundtrip_frames_blocks",
           **results["roundtrip_frames_blocks"]})
 
-    # K2r on the [24, H, W] planes in f32 (plane p takes sws[p % 3])
+    # K2r on the [24, H, W] planes in f32 (plane p takes sws[p % 3]); K1
+    # on them equal to its twin
     planes_f32 = planes_u8.to(torch.float32)
+    require(torch.equal(
+        wm_cuda.spectrum_blocks(planes_f32, sweeps=SWEEPS),
+        wm_cuda.spectrum_blocks_plain(planes_f32, sweeps=SWEEPS)),
+        "K1 f32 planes vs twin: not bit-equal")
 
     def k2r():
         return wm_cuda.embed_blocks_recon(planes_f32, sws, sweeps=SWEEPS)
@@ -360,6 +377,92 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
           "max_abs_err": int(ds.max()),
           "bytes_differing": float((ds > 0).float().mean())})
     return results
+
+
+def wm_coefs(wm_u8, blk, intra):
+    """K4's input on the slice: the DCT coefficients of the keyed color
+    watermark's 8x8 blocks, [3, N, 8, 8] f32."""
+    import torch
+    from dctsvd_tpu_torch.ops import dct, permute
+    planes = torch.movedim(wm_u8.to(torch.float32), -1, -3)
+    return dct.dct2_blocks(permute.permute_block_tensor(
+        dct.blockify(planes), blk, intra)).contiguous()
+
+
+def jacobi_times(covers, coefs, mix: dict, t3: float) -> dict:
+    """K1 (u8 channels-last frames, 8 and 32 of them; the 8 frames' 24
+    planes in u8 and in f32; s1.25) and K4 (U/S/Vt and S only on the
+    watermark's [3, N, 8, 8], 5 sweeps): each first checked against its
+    twin run on the card, then two readings of 20 launches (CUDA events,
+    after a warm-up); the f32 operations a second (the bound's count)
+    and, from the SASS mix of the instance the row runs (``mix``, K1's
+    by channels and type), the instructions a second, each against T3's
+    unfused rate ``t3`` (one instruction per operation)."""
+    import torch
+    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+
+    x = covers[:KERNEL_FRAMES].contiguous()
+    planes_u8 = torch.movedim(x, -1, -3).reshape(-1, H, W).contiguous()
+    k1 = (wm_cuda.spectrum_blocks, wm_cuda.spectrum_blocks_plain)
+    k4 = (svd_cuda.jacobi_svd8, svd_cuda.jacobi_svd8_plain)
+    full, extra = wm_cuda.sched_split(SWEEPS)
+    k1_ops = jacobi_ops(full * len(wm_cuda.PAIRS) + extra)
+    k4_ops = jacobi_ops(5 * len(wm_cuda.PAIRS), with_v=True) + 64
+    frames = dict(sweeps=SWEEPS, channels_last=True)
+    planes = dict(sweeps=SWEEPS)
+    # name: kernel, twin, input, keywords, f32 operations a block, the
+    # instance's mangled name (K1: type and channels; older trees named
+    # K1's instances by type alone, "kernelIhE")
+    cases = {
+        "K1 frames u8 8": (*k1, x, frames, k1_ops, "kernelIhLi3E"),
+        "K1 frames u8 32": (*k1, covers, frames, k1_ops, "kernelIhLi3E"),
+        "K1 planes u8 24": (*k1, planes_u8, planes, k1_ops, "kernelIhLi1E"),
+        "K1 planes f32 24": (*k1, planes_u8.to(torch.float32), planes,
+                             k1_ops, "kernelIfLi1E"),
+        "K4 U/S/Vt": (*k4, coefs, {}, k4_ops, "kernelILb1E"),
+        "K4 S": (*k4, coefs, dict(compute_uv=False),
+                 jacobi_ops(5 * len(wm_cuda.PAIRS)), "kernelILb0E"),
+    }
+    rows = {}
+    for name, (fn, plain, arg, kw, ops, inst) in cases.items():
+        got, ref = fn(arg, **kw), plain(arg, **kw)
+        got, ref = ((t,) if torch.is_tensor(t) else t for t in (got, ref))
+        blocks = arg.numel() // 64
+        ms = [cuda_time(lambda: fn(arg, **kw), 20) for _ in range(2)]
+        kind = "svd8_kernel" if name.startswith("K4") else "spectrum_kernel"
+        found = [n for n in mix if kind in n and (inst in n or inst[:8]
+                                                  + "E" in n)]
+        r = rows[name] = dict(
+            shape=list(arg.shape),
+            equals_twin=all(torch.equal(a, b) for a, b in zip(got, ref)),
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(got, ref)),
+            ms=ms, op_per_s=blocks * ops / (sum(ms) / 2e3),
+            instance=found[0] if found else None)
+        r["share_of_t3"] = r["op_per_s"] / t3
+        if found:
+            per_block = sum(mix[found[0]]["per_lane"].values())
+            r.update(instructions_per_block=per_block,
+                     issue_share_of_t3=blocks * per_block / (sum(ms) / 2e3)
+                     / t3)
+        del got, ref
+    return rows
+
+
+def t3_rate(dev) -> float:
+    """T3's unfused f32 rate (ilp8, 1032 operations an element, on the
+    probes' [96, 135, 8, 240]), as the probes phase measures it."""
+    import torch
+    from dctsvd_tpu_torch.ops import probe_cuda
+    from dctsvd_tpu_torch.tools import exp_vpu_roofline
+
+    gen = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    x = torch.randn((3 * BATCH, H // 8, 8, W // 8), generator=gen,
+                    device=dev)
+    n_ops = exp_vpu_roofline.N_OPS[-1]
+    _, ops = probe_cuda.chain_steps("ilp8", n_ops)
+    ms = cuda_time(lambda: exp_vpu_roofline.run(x, "ilp8", n_ops), 10)
+    return x.numel() * ops / (ms * 1e-3)
 
 
 def paint_k_times(dev, covers) -> dict:
@@ -448,7 +551,10 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     for fn in wrappers:
         fn.launches = 0
     t0 = time.perf_counter()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     pw = blocked.prepare_wm_color(wm_u8, blk, intra)
+    stop.record()
     stego, sc, psnr, ssim = blocked.embed_color_prepared(covers, pw.sw,
                                                          ALPHA)
     rec = blocked.extract_color_prepared(stego, sc, pw.ebasis, pw.inv_blk,
@@ -462,6 +568,7 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     launches = {fn.__name__: fn.launches for fn in wrappers}
     for name, n in launches.items():
         require(n >= 1, f"{name} was not launched on the main path")
+    prepare_ms = [start.elapsed_time(stop)]
 
     require(stego.shape == covers.shape and stego.dtype == torch.uint8,
             f"stego {tuple(stego.shape)} {stego.dtype}")
@@ -489,20 +596,33 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
         return blocked.extract_color_prepared(st, sc_, pw.ebasis,
                                               pw.inv_blk, ALPHA, sw=pw.sw)
 
-    step()
-    torch.cuda.synchronize()
-    iters = 5
-    t1 = time.perf_counter()
-    for _ in range(iters):
+    def rate(step) -> float:
         step()
-    torch.cuda.synchronize()
-    fps = BATCH * iters / (time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        iters = 5
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        return BATCH * iters / (time.perf_counter() - t1)
+
+    fps = rate(step)
+    # detect alone (K1 and the score), and prepare again (its K4 share
+    # shows beside K4's time in kernel_vs_plain), CUDA events around it
+    detect_fps = rate(lambda: blocked.detect_color(stego, sc, pw.sw, ALPHA))
+    for _ in range(3):
+        start.record()
+        blocked.prepare_wm_color(wm_u8, blk, intra)
+        stop.record()
+        torch.cuda.synchronize()
+        prepare_ms.append(start.elapsed_time(stop))
     out = dict(phase="slice_1080p_color", batch=BATCH, launches=launches,
                first_run_s=seconds, psnr_min=float(psnr.min()),
                ssim_min=float(ssim.min()),
                detect_min=float(scores.min()), clean_max=float(clean.max()),
                extract_nc_min=float(ncs.min()),
-               embed_extract_fps=fps, card=smi_line())
+               embed_extract_fps=fps, detect_fps=detect_fps,
+               prepare_ms=prepare_ms, card=smi_line())
     emit(out)
     return launches
 
@@ -970,6 +1090,34 @@ def main(argv) -> int:
     gen = torch.Generator(device=dev).manual_seed(20261016)
     covers = torch.randint(0, 256, (BATCH, H, W, 3), generator=gen,
                            device=dev, dtype=torch.uint8)
+    wm_u8 = torch.randint(0, 256, (H, W, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    key = crypto.derive_key(PASSWORD, bytes(8))
+    blk_np, intra_np = crypto.block_permutation_indices(
+        key, blocked.n_blocks_of(H, W))
+    blk = torch.as_tensor(blk_np, device=dev)
+    intra = torch.as_tensor(intra_np, device=dev)
+    if argv == ["--jacobi-times"]:
+        # the instances' registers and spills (when this run built the
+        # library) and their SASS by class, at each kernel's schedule
+        def ours(name):
+            return "spectrum_kernel" in name or "svd8_kernel" in name
+
+        sass = kernels.sass_dump(kernels.BUILD_INFO["path"])
+        mix = {n: m for sw, kind in ((SWEEPS, "spectrum_kernel"),
+                                     (5, "svd8_kernel"))
+               for n, m in kernels.sass_mix(sass, sw).items() if kind in n}
+        t3 = t3_rate(dev)
+        rows = jacobi_times(covers, wm_coefs(wm_u8, blk, intra), mix, t3)
+        emit({"phase": "jacobi_times",
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"],
+              "ptxas": {k: v for k, v in kernels.ptxas_report(
+                  kernels.BUILD_INFO["ptxas"]).items() if ours(k)},
+              "sass": mix, "t3_unfused_op_per_s": t3, "times": rows,
+              "card": card})
+        bad = [name for name, r in rows.items() if not r["equals_twin"]]
+        require(not bad, f"not equal to the twin on the card: {bad}")
+        return 0
     if argv == ["--paint-k-times"]:
         emit({"phase": "paint_k_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
@@ -989,14 +1137,6 @@ def main(argv) -> int:
           "library": os.path.relpath(kernels.BUILD_INFO["path"], REPO),
           "ptxas": ptxas, "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
-
-    wm_u8 = torch.randint(0, 256, (H, W, 3), generator=gen, device=dev,
-                          dtype=torch.uint8)
-    key = crypto.derive_key(PASSWORD, bytes(8))
-    blk_np, intra_np = crypto.block_permutation_indices(
-        key, blocked.n_blocks_of(H, W))
-    blk = torch.as_tensor(blk_np, device=dev)
-    intra = torch.as_tensor(intra_np, device=dev)
 
     results = phase_kernels(dev, covers, wm_u8, blk, intra)
     phase_paint_k_sweep(dev, covers)

@@ -9,16 +9,28 @@
 // Plain twin: dctsvd_tpu_torch/ops/wm_cuda.py::spectrum_blocks_plain.
 //
 // Design: one thread per block, the block's 64 columns-of-rows in
-// registers (jacobi8.cuh), addressed by stride (blocks.cuh), so there is
-// no view transpose.
+// registers (jacobi8.cuh), read by stride from the input, so there is no
+// view transpose; 5 CTAs of 128 threads per SM (96 registers, no spills).
 //
-// What bounds it on the H100: the f32 operations of the 28 unrolled
-// rotations per sweep (-fmad=false), issued by 5 blocks of 128 threads per
-// SM (ptxas: 96 registers, no spills), and for channels-last frames the
-// uncoalesced 3-byte-stride u8 reads. Staging a band of blocks through
-// shared memory for coalesced loads is later work (the probes found it
-// slower, PERF.md). chip_smoke.py prints the registers of each build
-// (`nvcc -Xptxas -v`).
+// What bounds it on the H100: the issue of its instructions. Most of a
+// block's instructions are the f32 operations of its rotations, which the
+// twin's order fixes under -fmad=false; the rest of the time is the
+// dependent chain of each rotation (a dot, two rsqrt, the update), which
+// 5 CTAs an SM hide only in part. `chip_smoke.py --jacobi-times` counts
+// the instructions by class (SASS) and their rate against T3's (PERF.md).
+// What the design does about the rest: the first form spent instructions
+// on 64-bit divisions and addresses (block_addr) and read its bytes 6
+// cache lines a warp load. Now the grid is (blocks of a frame, frames), so
+// all index arithmetic is 32-bit within a frame, the channel count is a
+// template constant for 1 and 3 channels (its divisions and pixel strides
+// become constants), the C channels of one pixel block go to neighbouring
+// threads (K2's order, 2-3 lines a warp load), and c^2's rsqrt skips the
+// subnormal fix-up (rotation's kNormalIc). Forms measured slower
+// (PERF.md): 8-byte row reads with the prmt conversion (their f32
+// subtracts and shifts cost more issue than the byte loads they saved;
+// only f32 planes read 16-byte rows), 2 lanes a block (more instructions),
+// 6 CTAs an SM (spills), the CTA's band staged in shared memory.
+// chip_smoke.py prints the registers of each build (`nvcc -Xptxas -v`).
 //
 // dctsvd_embed_blocks and dctsvd_roundtrip_blocks take k at run time and
 // pick the instance compiled for it; a k outside 1..8 returns
@@ -26,6 +38,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -35,23 +48,80 @@
 
 namespace dctsvd {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The least CTAs of kThreads threads per SM that K1's __launch_bounds__
+// asks for (96 registers).
+constexpr int kSpectrumMinBlocks = 5;
+
+// Row r of channel ch of an 8x8 pixel block, its 8 pixels as floats; row
+// points at channel 0 of the row's first pixel. f32 planes (kC = 1, rows
+// 16-byte aligned) read two 16-byte words; every other layout reads each
+// pixel by itself at stride kC (c when kC = 0), u8 converted by I2F.
+template <int kC, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int c,
+                                         int ch, float (&px)[kB]) {
+  if constexpr (kC == 1 && sizeof(T) == 4) {
+    const float4* p = reinterpret_cast<const float4*>(row);
+    const float4 a = p[0], b = p[1];
+    px[0] = a.x; px[1] = a.y; px[2] = a.z; px[3] = a.w;
+    px[4] = b.x; px[5] = b.y; px[6] = b.z; px[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kB; ++k)
+      px[k] = static_cast<float>(row[(kC > 0 ? kC : c) * k + ch]);
+  }
+}
+
+// Grid (units / kThreads, frames): frame blockIdx.y holds `units` = n_blk
+// * c (block, channel) pairs, c interleaved channels a pixel (c = 1 for
+// planes, where a frame is a plane), and the channels of one pixel block
+// go to neighbouring threads. Index arithmetic is 32-bit within a frame (a
+// frame has fewer than 2^31 elements; the host checks), the frame's offset
+// 64-bit; kC = c as a constant (1 or 3) turns the divisions by c and the
+// pixel strides into constants.
+template <typename T, int kC>
+__global__ void __launch_bounds__(kThreads, kSpectrumMinBlocks)
     spectrum_kernel(const T* __restrict__ x, float* __restrict__ out,
-                    int64_t total, int64_t n_blk, int chans, int h, int w,
-                    int full, int extra) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (tid >= total) return;
-  const BlockAddr a = block_addr(tid, n_blk, chans, h, w);
+                    int units, int chans, int w, int full, int extra) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= units) return;
+  const int c = kC > 0 ? kC : chans;
+  const int wb = w / kB;
+  const int n = t / c, ch = t - n * c;
+  const int by = n / wb, bx = n - by * wb;
+  const int64_t frame = blockIdx.y;
+  const T* xb = x + frame * units * (kB * kB) + (by * kB * w + bx * kB) * c;
   float g[kB][kB], unused[kB][kB], s[kB];
 #pragma unroll
-  for (int c = 0; c < kB; ++c) load_col(x, a, c, g[c]);
-  jacobi8<false>(g, unused, full, extra, s);
-  sort8<0>(s, unused, unused);
-  float* o = out + tid * kB;
+  for (int r = 0; r < kB; ++r) {
+    float px[kB];
+    load_row<kC>(xb + r * w * c, c, ch, px);
 #pragma unroll
-  for (int j = 0; j < kB; ++j) o[j] = s[j];
+    for (int k = 0; k < kB; ++k) g[k][r] = px[k];
+  }
+  jacobi8<false, false, 1, true>(g, unused, full, extra, s);
+  sort8<0>(s, unused, unused);
+  float4* o = reinterpret_cast<float4*>(
+      out + ((frame * c + ch) * (units / c) + n) * kB);
+  o[0] = make_float4(s[0], s[1], s[2], s[3]);
+  o[1] = make_float4(s[4], s[5], s[6], s[7]);
+}
+
+template <typename T, int kC>
+static void launch_spectrum(const void* x, float* out, int frames, int chans,
+                            int h, int w, int full, int extra,
+                            cudaStream_t st) {
+  const int units = (h / kB) * (w / kB) * chans;
+  const int64_t frame_elems = static_cast<int64_t>(units) * kB * kB;
+  const int64_t frame_out = static_cast<int64_t>(units) * kB;
+  const unsigned gx = static_cast<unsigned>((units + kThreads - 1) /
+                                            kThreads);
+  for (int f0 = 0; f0 < frames; f0 += 65535) {  // gridDim.y's limit
+    const unsigned gy =
+        static_cast<unsigned>(std::min(frames - f0, 65535));
+    spectrum_kernel<T, kC><<<dim3(gx, gy), kThreads, 0, st>>>(
+        static_cast<const T*>(x) + f0 * frame_elems, out + f0 * frame_out,
+        units, chans, w, full, extra);
+  }
 }
 
 // Calls f(std::integral_constant<int, k>) for k in 1..8; false for any
@@ -73,29 +143,33 @@ static bool with_k(int k, F&& f) {
 
 }  // namespace dctsvd
 
-using dctsvd::grid_for;
-using dctsvd::kThreads;
+using dctsvd::launch_spectrum;
 using dctsvd::PaintLaunch;
-using dctsvd::spectrum_kernel;
 using dctsvd::with_k;
 
-// x: u8 (x_is_u8) or f32; out: f32 [P, N, 8]. Returns the cudaError_t of
-// the launch.
+// x: u8 (x_is_u8) or f32, planes / chans frames of [H, W, chans]
+// (chans = 1: planes [P, H, W]); out: f32 [P, N, 8]. A frame of 2^31
+// elements or more returns cudaErrorInvalidValue and launches nothing.
+// Returns the cudaError_t of the launch.
 extern "C" int dctsvd_spectrum_blocks(const void* x, int x_is_u8, void* out,
                                       int planes, int chans, int h, int w,
                                       int full, int extra, void* stream) {
-  const int64_t n_blk = static_cast<int64_t>(h / 8) * (w / 8);
-  const int64_t total = static_cast<int64_t>(planes) * n_blk;
+  if (static_cast<int64_t>(h) * w * chans >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (x_is_u8)
-    spectrum_kernel<uint8_t><<<grid_for(total), kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(x), o, total, n_blk, chans, h, w, full,
-        extra);
+  const int f = planes / chans;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (x_is_u8 && chans == 1)
+    launch_spectrum<uint8_t, 1>(x, o, f, chans, h, w, full, extra, st);
+  else if (x_is_u8 && chans == 3)
+    launch_spectrum<uint8_t, 3>(x, o, f, chans, h, w, full, extra, st);
+  else if (x_is_u8)
+    launch_spectrum<uint8_t, 0>(x, o, f, chans, h, w, full, extra, st);
+  else if (chans == 1 && aligned)
+    launch_spectrum<float, 1>(x, o, f, chans, h, w, full, extra, st);
   else
-    spectrum_kernel<float><<<grid_for(total), kThreads, 0, st>>>(
-        static_cast<const float*>(x), o, total, n_blk, chans, h, w, full,
-        extra);
+    launch_spectrum<float, 0>(x, o, f, chans, h, w, full, extra, st);
   return static_cast<int>(cudaGetLastError());
 }
 

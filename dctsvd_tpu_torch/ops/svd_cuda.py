@@ -158,6 +158,8 @@ def jacobi_svd8(a: torch.Tensor, sweeps=5, compute_uv: bool = True):
         raise ValueError(f"jacobi_svd8: unsupported device {a.device}")
     lead = a.shape[:-2]
     x = a.contiguous().reshape(-1, B, B)
+    if x.data_ptr() % 16:           # K4 reads its blocks as 16-byte pieces
+        x = x.clone()
     nb = x.shape[0]
     s = torch.empty(nb, B, dtype=torch.float32, device=a.device)
     u = vt = None

@@ -105,6 +105,89 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+# SASS opcodes (before the first '.') by class, for sass_mix.
+_SASS_CLASSES = {
+    "f32": ("FADD", "FMUL", "FFMA", "FMNMX", "FADD32I", "FMUL32I",
+            "FFMA32I"),
+    "f32_compare_select": ("FSETP", "FSEL", "FSET", "FCHK"),
+    "mufu": ("MUFU",),
+    "conversion": ("I2F", "F2I", "F2F", "I2FP", "F2IP", "FRND"),
+    "integer": ("IMAD", "IADD3", "IADD", "LOP3", "SHF", "LEA", "ISETP",
+                "SEL", "IABS", "PRMT", "IMNMX", "MOV", "IMUL", "FLO",
+                "POPC", "ISCADD"),
+    "load": ("LDG", "LDS", "LD", "LDC", "LDL"),
+    "store": ("STG", "STS", "ST", "STL"),
+    "async_copy": ("LDGSTS", "LDGDEPBAR", "DEPBAR"),
+    "shuffle": ("SHFL",),
+}
+_SASS_CLASS = {op: cls for cls, ops in _SASS_CLASSES.items() for op in ops}
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_mix(sass: str, sweeps: float) -> dict:
+    """``{mangled kernel name: {"main", "sweep", "per_lane"}}``: the
+    instructions of each kernel of ``cuobjdump -sass`` output by class
+    (``_SASS_CLASSES``; "other" for the rest, NOPs left out). "main" counts
+    the kernel's body once, up to the branch-to-self that ends it (the
+    slow-path subroutines of IEEE division and square root after it are
+    left out); "sweep" the body of its outermost loop (the `full` sweeps of
+    jacobi8, one sweep of 28 pairs; empty without a loop). "per_lane" is
+    what one lane executes at ``sweeps`` (a whole number of sweeps plus
+    a fraction of one), counting the loop body once per sweep, on the
+    assumption that the unrolled pair prefix after the loop compiles to
+    the same instructions as the loop body and runs the same fraction
+    of them: main + sweep * (sweeps - 2)."""
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        # a branch names its target by label (`(.L_x_3)`) or by address
+        labels, insns = {}, []
+        for ln in part.splitlines():
+            s = ln.strip()
+            if s.startswith(".L_") and s.endswith(":"):
+                labels[s[:-1]] = len(insns)
+                continue
+            m = _SASS_INSN.search(ln)
+            if m:
+                labels[int(m[1], 16)] = len(insns)
+                insns.append((m[2].split(".")[0], m[3]))
+        end, loop = len(insns), None
+        for i, (op, rest) in enumerate(insns):
+            t = re.search(r"\(\s*(\.L_\w+)\s*\)|\b0x([0-9a-f]+)\b", rest)
+            target = t and (t[1] or int(t[2], 16))
+            if op == "BRA" and target in labels:
+                j = labels[target]
+                if j == i:               # the branch-to-self after EXIT
+                    end = i
+                    break
+                if j < i and (loop is None or i - j > loop[1] - loop[0]):
+                    loop = (j, i + 1)
+
+        def count(lo, hi):
+            c = {}
+            for op, _ in insns[lo:hi]:
+                if op != "NOP":
+                    cls = _SASS_CLASS.get(op, "other")
+                    c[cls] = c.get(cls, 0) + 1
+            return c
+
+        main = count(0, end)
+        sweep = count(*loop) if loop else {}
+        per_lane = {k: main.get(k, 0) + sweep.get(k, 0) * (sweeps - 2)
+                    for k in main}
+        out[name] = dict(main=main, sweep=sweep, per_lane=per_lane)
+    return out
+
+
+def sass_dump(path: str) -> str:
+    """``cuobjdump -sass`` of the library at ``path`` (the toolkit's
+    cuobjdump, beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def _sources():
     cu = sorted(_CSRC.glob("*.cu"))
     hashed = sorted(_CSRC.glob("*.cu*"))

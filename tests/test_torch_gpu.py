@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on a GPU: each against its plain twin (K2 and
-K3 bit for bit, against the twin run on the card, at every k, and near
-the twin run on the CPU), the launch
+"""The port's CUDA kernels on a GPU: each against its plain twin (K1, K2,
+K3 and K4 bit for bit, against the twin run on the card, K2 and K3 at
+every k, and near the twin run on the CPU), the launch
 counters, the slice on the card against the slice on the CPU, the
 serve steps on the card against the split calls, and the probe kernels
 (copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
@@ -41,9 +41,20 @@ def _frames(shape=(2, 64, 80, 3), seed=SEED):
     return np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
 
 
+PAINT_K = list(range(1, 9))
+PAINT_SHAPE = (1, 72, 88, 3)    # 99 blocks a plane, 297 in all: not a
+                                # multiple of the 128 threads of a block
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 80, 3), PAINT_SHAPE],
+                         ids=["2x64x80", "ragged"])
+@pytest.mark.parametrize("sweeps", [1.25, 2])
 @pytest.mark.parametrize("layout", ["frames", "planes_u8", "planes_f32"])
-def test_spectrum_kernel_matches_twin(dev, layout):
-    x = _frames()
+def test_spectrum_kernel_matches_twin(dev, layout, sweeps, shape):
+    """K1 equals its twin run on the card bit for bit in each layout (u8
+    channels-last frames, u8 and f32 planes), and its twin run on the CPU
+    within 1e-4 of s_max."""
+    x = _frames(shape)
     cl = layout == "frames"
     if not cl:
         x = np.ascontiguousarray(np.moveaxis(x, -1, -3))
@@ -51,17 +62,34 @@ def test_spectrum_kernel_matches_twin(dev, layout):
             x = x.astype(np.float32)
     xt = torch.from_numpy(x)
     n0 = wm_cuda.spectrum_blocks.launches
-    got = wm_cuda.spectrum_blocks(xt.to(dev), sweeps=1.25, channels_last=cl)
+    got = wm_cuda.spectrum_blocks(xt.to(dev), sweeps=sweeps,
+                                  channels_last=cl)
     torch.cuda.synchronize()
     assert wm_cuda.spectrum_blocks.launches == n0 + 1
-    ref = wm_cuda.spectrum_blocks_plain(xt, sweeps=1.25, channels_last=cl)
+    assert torch.equal(got, wm_cuda.spectrum_blocks_plain(
+        xt.to(dev), sweeps=sweeps, channels_last=cl))
+    ref = wm_cuda.spectrum_blocks_plain(xt, sweeps=sweeps, channels_last=cl)
     smax = float(ref.max())
     assert float((got.cpu() - ref).abs().max()) <= 1e-4 * smax
 
 
-PAINT_K = list(range(1, 9))
-PAINT_SHAPE = (1, 72, 88, 3)    # 99 blocks a plane, 297 in all: not a
-                                # multiple of the 128 threads of a block
+@pytest.mark.parametrize("case", ["u8 frames off 16 bytes", "u8 4 channels",
+                                  "f32 frames"])
+def test_spectrum_kernel_byte_path_matches_twin(dev, case):
+    """The layouts K1 reads pixel by pixel (a pointer off a 16-byte
+    boundary, other channel counts, f32 channels-last) equal the twin run
+    on the card."""
+    shape = (2, 16, 24, 4) if case == "u8 4 channels" else (2, 16, 24, 3)
+    x = torch.from_numpy(_frames(shape)).to(dev)
+    if case == "f32 frames":
+        x = x.to(torch.float32) + 0.5
+    elif case == "u8 frames off 16 bytes":
+        base = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+        x = base[1:].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    got = wm_cuda.spectrum_blocks(x, sweeps=1.25, channels_last=True)
+    assert torch.equal(got, wm_cuda.spectrum_blocks_plain(
+        x, sweeps=1.25, channels_last=True))
 
 
 def _paint_inputs(dtype: str, seed=SEED + 7):
@@ -99,19 +127,40 @@ def test_embed_kernel_matches_twin(dev, k, sweeps, kinds):
     assert torch.equal(sc, psc)
 
 
-def test_svd8_kernel_matches_twin(dev):
-    a = torch.randn(3, 500, 8, 8, generator=torch.Generator().manual_seed(5))
+@pytest.mark.parametrize("shape", [(3, 500), (1,)], ids=["1500", "1"])
+def test_svd8_kernel_matches_twin(dev, shape):
+    """K4's U, S and Vt and its S-only instance equal the twin run on the
+    card bit for bit, on block counts that leave a CTA partly empty; U S Vt
+    rebuild the input within 1e-4 of s_max."""
+    a = torch.randn(*shape, 8, 8,
+                    generator=torch.Generator().manual_seed(5))
     n0 = svd_cuda.jacobi_svd8.launches
     u, s, vt = svd_cuda.jacobi_svd8(a.to(dev))
     s_only = svd_cuda.jacobi_svd8(a.to(dev), compute_uv=False)
     torch.cuda.synchronize()
     assert svd_cuda.jacobi_svd8.launches == n0 + 2
+    for got, ref in zip((u, s, vt), svd_cuda.jacobi_svd8_plain(a.to(dev))):
+        assert torch.equal(got, ref)
+    assert torch.equal(s_only, svd_cuda.jacobi_svd8_plain(
+        a.to(dev), compute_uv=False))
     pu, ps, pvt = svd_cuda.jacobi_svd8_plain(a)
     smax = float(ps.max())
     assert float((s.cpu() - ps).abs().max()) <= 1e-4 * smax
     assert float((s_only.cpu() - ps).abs().max()) <= 1e-4 * smax
     rec = torch.einsum("...ij,...j,...jk->...ik", u, s, vt).cpu()
     assert float((rec - a).abs().max()) <= 1e-4 * smax
+
+
+def test_svd8_kernel_off_16_bytes(dev):
+    """A view off a 16-byte boundary is copied to an aligned one first (K4
+    reads 16-byte pieces) and still equals the twin."""
+    a = torch.randn(37, 8, 8, generator=torch.Generator().manual_seed(6))
+    base = torch.empty(a.numel() + 1, device=dev)
+    av = base[1:].view(a.shape).copy_(a.to(dev))
+    assert av.is_contiguous() and av.data_ptr() % 16
+    for got, ref in zip(svd_cuda.jacobi_svd8(av),
+                        svd_cuda.jacobi_svd8_plain(av)):
+        assert torch.equal(got, ref)
 
 
 def _sws(seed=SEED + 1, n=80):

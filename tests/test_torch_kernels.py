@@ -251,3 +251,51 @@ def test_ptxas_report_keeps_each_instance_apart(mangled, counts):
     rep = kernels.ptxas_report(PTXAS_LOG + PTXAS_LOG_K5)
     assert len(rep) == 4
     assert rep[mangled] == counts
+
+
+# one kernel of a cuobjdump -sass listing, as cuobjdump prints it: a loop
+# (the sweeps) between a load and a store, EXIT and the branch-to-self
+# that ends the body, then a subroutine that is not counted
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN6dctsvd4kernEv
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;             /* 0x00000a00ff017b82 */
+                                                                      /* 0x000fe40000000800 */
+        /*0010*/                   LDG.E.U8 R2, desc[UR4][R2.64] ;    /* 0x0000000402027981 */
+        /*0020*/                   I2FP.F32.U32 R3, R2 ;              /* 0x0000000200037245 */
+.L_x_0:
+        /*0030*/                   FMUL R4, R3, R3 ;
+        /*0040*/                   FADD R3, R4, R3 ;
+        /*0050*/                   MUFU.RSQ R5, R3 ;
+        /*0060*/                   ISETP.NE.AND P0, PT, R6, RZ, PT ;
+        /*0070*/               @P0 BRA `(.L_x_0) ;
+        /*0080*/                   FSEL R3, R3, R5, P1 ;
+        /*0090*/                   STG.E desc[UR4][R8.64], R3 ;
+        /*00a0*/                   EXIT ;
+.L_x_1:
+        /*00b0*/                   BRA `(.L_x_1);
+        /*00c0*/                   NOP;
+        /*00d0*/                   FFMA R1, R2, R3, R4 ;
+"""
+
+
+# the same listing with branch targets as addresses and no label lines
+SASS_BY_ADDRESS = "\n".join(
+    ln for ln in SASS.replace("`(.L_x_0)", "0x30").replace(
+        "`(.L_x_1)", "0xb0").splitlines() if not ln.startswith(".L_"))
+
+
+@pytest.mark.parametrize("sass", [SASS, SASS_BY_ADDRESS],
+                         ids=["labels", "addresses"])
+@pytest.mark.parametrize("sweeps", [1.25, 5])
+def test_sass_mix_counts_the_sweep_loop(sweeps, sass):
+    """The body up to the branch-to-self by class, the loop body apart,
+    and one lane's count at a schedule: main + sweep * (sweeps - 2)."""
+    mix = kernels.sass_mix(sass, sweeps)["_ZN6dctsvd4kernEv"]
+    assert mix["main"] == dict(load=2, conversion=1, f32=2, mufu=1,
+                               integer=1, other=2, f32_compare_select=1,
+                               store=1)
+    assert mix["sweep"] == dict(f32=2, mufu=1, integer=1, other=1)
+    assert mix["per_lane"]["f32"] == 2 + 2 * (sweeps - 2)
+    assert mix["per_lane"]["store"] == 1
