@@ -7,6 +7,8 @@
                                             # cols_view instances' times
     python3 chip_smoke.py --jacobi-times    # only K1's and K4's times, with
                                             # their ptxas and SASS mix
+    python3 chip_smoke.py --svd-drivers     # only the three cuSOLVER
+                                            # drivers of the parity SVD
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
 an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
@@ -27,8 +29,18 @@ runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
 tools``) at 1080p batch 32, with their launch counters, then holds each
 probe kernel against its twin (``cols_view`` in all four instances, each
 timed beside its ``copy_`` yardstick); prints the f32 operation rate of
-K1, K2, K3 and K4 beside the issue rate T3 measured; and prints one JSON
-line per phase.
+K1, K2, K3 and K4 beside the issue rate T3 measured. Then the rest of
+the image API at 1080p: the
+parity path gray and color (its gates, ``svd_full``'s bit stability, the
+exact cancellation of Sc, CUDA-event times) and, on a small frame,
+against the CPU; the enhancement chains (any degradation fails the run)
+with each stage's time, and against the CPU on a small plane; text and
+JSON payloads with both methods, with the blocked method's K1, K2 and K4
+launches; detect resync (color and gray) of a rolled and of a rotated
+stego, with K1's launches on each search and K1 held to its twin on one
+chunk of 64 rolled frames and one of 64 rolled luma planes; and the CLI
+with the parity defaults and the payload subcommands. It prints one JSON line per
+phase.
 Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
@@ -45,6 +57,7 @@ agree with the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -67,6 +80,9 @@ SWEEPS = 1.25         # the serving default tier (DCTSVD_FUSED_SWEEPS)
 K = 4                 # embedded components per block at kfrac 0.6
 DETECT_THRESH = 0.30  # utils/config.DETECT_THRESH_BLOCKED
 PASSWORD = "chip-smoke"
+PAYLOAD_TEXT = "chip smoke: watermark payload, 1080p"
+PAYLOAD_NONCES = 8    # seeded embed nonces for the parity payloads
+NONCE_SEED = 20261018
 
 # f32 operations per 8x8 block, counted from csrc/ (a rsqrt, sqrt or
 # division counts as one operation; compares and selects count none).
@@ -1023,22 +1039,36 @@ def phase_reference(dev):
           "psnr_gpu": ps_g})
 
 
-def phase_files(dev, covers, wm_u8):
-    """The CLI on one 1080p PNG: embed -> extract -> detect, and a wrong
-    password."""
+def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered):
+    """The CLI on 1080p PNGs: the blocked embed -> extract -> detect and a
+    wrong password; then the default parity embed (color) -> extract with
+    the enhancement chain -> detect and its wrong password; and a payload
+    through embed-payload -> extract-payload with each method: blocked at
+    1080p, recovered exactly; the parity default on phase_payload's
+    360×640 crop with its first nonce (``cli.main`` run with the embed
+    nonce pinned), recovered exactly if the API recovered it
+    (``parity_text_recovered``) and not recovered if it did not."""
     from dctsvd_tpu_torch.io import image_io
     env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
         cp, wp = os.path.join(td, "cover.png"), os.path.join(td, "wm.png")
+        sp = os.path.join(td, "smooth.png")
         image_io.write_png(cp, covers[0].cpu().numpy())
         image_io.write_png(wp, wm_u8.cpu().numpy())
+        image_io.write_png(sp, smooth_np)
         stego = os.path.join(td, "stego.png")
 
-        def cli(*args, check=True):
+        def cli(*args, check=True, nonce=None):
+            entry = ["-m", "dctsvd_tpu_torch.cli"]
+            if nonce is not None:
+                entry = ["-c", "import sys; from dctsvd_tpu_torch.utils "
+                         "import crypto; n = bytes.fromhex(sys.argv.pop(1)); "
+                         "crypto.make_nonce = lambda: n; "
+                         "from dctsvd_tpu_torch import cli; "
+                         "sys.exit(cli.main(sys.argv[1:]))", nonce.hex()]
             proc = subprocess.run(
-                [sys.executable, "-m", "dctsvd_tpu_torch.cli",
-                 "--device", str(dev), *args], cwd=REPO, env=env,
-                capture_output=True, text=True)
+                [sys.executable, *entry, "--device", str(dev), *args],
+                cwd=REPO, env=env, capture_output=True, text=True)
             if check and proc.returncode != 0:
                 raise SmokeFailure(f"cli {args[0]} failed "
                                    f"({proc.returncode}): {proc.stderr}")
@@ -1060,8 +1090,591 @@ def phase_files(dev, covers, wm_u8):
                   "wrong-password", check=False)
         require(bad.returncode != 0 and "HMAC" in bad.stderr,
                 "wrong password was not refused by the HMAC check")
+
+        t0 = time.perf_counter()
+        full = os.path.join(td, "full.png")
+        emb_f = json.loads(cli("embed", sp, wp, "--out", full, "--color",
+                               "--password", PASSWORD).stdout)
+        meta_f = emb_f["meta"]
+        ext_f = json.loads(cli("extract", full, meta_f, "--out",
+                               os.path.join(td, "full_wm.png"),
+                               "--password", PASSWORD).stdout)
+        got = image_io.read_bgr(ext_f["watermark"])
+        require(got.shape == (H, W, 3), f"parity extracted shape {got.shape}")
+        det_f = json.loads(cli("detect", full, meta_f).stdout)
+        require(det_f["watermarked"] is True and det_f["score"] > 0.9,
+                f"CLI parity detect {det_f}")
+        bad_f = cli("extract", full, meta_f, "--out",
+                    os.path.join(td, "bad_f.png"), "--password",
+                    "wrong-password", check=False)
+        require(bad_f.returncode != 0 and "HMAC" in bad_f.stderr,
+                "wrong password on a parity meta was not refused")
+        # payloads: blocked at 1080p, the parity default on a 360x640
+        # crop, with phase_payload's text and first nonce
+        crop = os.path.join(td, "crop.png")
+        image_io.write_png(crop, smooth_np[:360, :640])
+        text = PAYLOAD_TEXT
+        payload = {}
+        for i, (src, extra, expect) in enumerate((
+                (sp, ("--method", "blocked"), True),
+                (crop, ("--alpha", "0.15"), parity_text_recovered))):
+            pay = os.path.join(td, f"pay{i}.png")
+            emb_p = json.loads(cli("embed-payload", src, text, "--out", pay,
+                                   "--password", PASSWORD, *extra,
+                                   nonce=seeded_nonces(1)[0]).stdout)
+            ext_p = cli("extract-payload", pay, emb_p["meta"], "--password",
+                        PASSWORD, check=False)
+            if expect:
+                require(ext_p.returncode == 0 and
+                        json.loads(ext_p.stdout)["payload"] == text,
+                        f"CLI payload {extra}: {ext_p.stdout} "
+                        f"{ext_p.stderr[-500:]}")
+            else:
+                require(ext_p.returncode != 0 or
+                        json.loads(ext_p.stdout)["payload"] != text,
+                        f"CLI payload {extra}: recovered where the API did "
+                        f"not")
+            payload["blocked_1080p" if i == 0 else "full_360x640"] = (
+                "recovered" if expect else "not recovered, as by the API")
         emit({"phase": "cli_files", "psnr": emb["psnr"], "ssim": emb["ssim"],
-              "detect": det, "wrong_password": "refused"})
+              "detect": det, "wrong_password": "refused",
+              "parity_color": {"psnr": emb_f["psnr"], "ssim": emb_f["ssim"],
+                               "detect": det_f, "enhanced_extract": True,
+                               "wrong_password": "refused"},
+              "payload": payload,
+              "parity_calls_s": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
+# The rest of the image API: the parity path, enhancement, payloads, resync
+# ---------------------------------------------------------------------------
+
+def smooth_frame(seed: int):
+    """A seeded 1080p u8 BGR cover, uniform noise blurred at σ 3 (the
+    tests' synthetic host), made on the host with cv2."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return cv2.GaussianBlur(rng.integers(0, 256, (H, W, 3), np.uint8),
+                            (0, 0), 3.0)
+
+
+def flat_cover(cover):
+    """A screenshot-like cover: flat gray with one patch of ``cover``
+    (200x300 at 1080p), so each plane's rank is at most the patch's height
+    and its SVD has a null space (880 wide at 1080p)."""
+    import torch
+    h, w = cover.shape[0], cover.shape[1]
+    ph, pw, y0, x0 = h * 5 // 27, w * 5 // 32, h * 10 // 27, w * 5 // 12
+    flat = torch.full_like(cover, 128)
+    flat[y0:y0 + ph, x0:x0 + pw] = cover[:ph, :pw]
+    return flat
+
+
+def nc_np(a, b) -> float:
+    import numpy as np
+    a = a.astype(np.float64).ravel() - a.mean()
+    b = b.astype(np.float64).ravel() - b.mean()
+    return float(a @ b / np.sqrt((a @ a) * (b @ b)))
+
+
+def svd_drivers(dev, cover_np, wm_np):
+    """The three cuSOLVER drivers of torch.linalg.svd on the inputs the
+    parity embed decomposes at 1080p: the cover's [3, 1080, 1920] f32 DCT
+    planes, the keyed watermark's, and a rank-deficient cover's. For each, the time (CUDA events,
+    mean of 3 calls after a warm-up), whether two runs give the same bits,
+    the largest |S − S_cpu| / s_max against LAPACK on the CPU, the
+    reconstruction error, and U's and Vt's orthogonality error."""
+    import torch
+    from dctsvd_tpu_torch.ops import dct, resize, svd as svd_ops
+    from dctsvd_tpu_torch.ops.permute import permute_plane
+    from dctsvd_tpu_torch.utils import crypto
+
+    def planes(img):
+        return torch.movedim(img, -1, 0).to(torch.float32)
+
+    idx = crypto.permutation_indices(crypto.derive_key(PASSWORD, bytes(8)),
+                                     H * W)
+    wm = resize.resize_area_u8(torch.as_tensor(wm_np, device=dev), H, W)
+    flat = flat_cover(torch.as_tensor(cover_np, device=dev))
+    inputs = {"cover": dct.dct2(planes(torch.as_tensor(cover_np,
+                                                       device=dev))),
+              "watermark": dct.dct2(permute_plane(
+                  planes(wm), torch.as_tensor(idx, device=dev))),
+              "flat_cover": dct.dct2(planes(flat))}
+    eye = torch.eye(min(H, W), device=dev)
+    rows = {}
+    for name, x in inputs.items():
+        s_cpu = torch.linalg.svd(x.cpu(), full_matrices=False).S
+        smax = float(s_cpu.max())
+        for drv in ("gesvd", "gesvdj", "gesvda"):
+            def run():
+                return torch.linalg.svd(x, full_matrices=False, driver=drv)
+            key = f"{name}_{drv}"
+            try:
+                a, b = run(), run()
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                rows[key] = {"error": str(err)[:300]}
+                continue
+            recon = torch.matmul(a.U * a.S[..., None, :], a.Vh)
+            rows[key] = dict(
+                bit_stable=all(torch.equal(p, q) for p, q in zip(a, b)),
+                s_err_rel=float((a.S.cpu() - s_cpu).abs().max()) / smax,
+                recon_err_rel=float((recon - x).abs().max()) / smax,
+                u_orth_err=float((a.U.mT @ a.U - eye).abs().max()),
+                vt_orth_err=float((a.Vh @ a.Vh.mT - eye).abs().max()),
+                ms=cuda_time(run, 3))
+    pinned = [v for k, v in rows.items() if k.endswith(svd_ops.SVD_DRIVER)]
+    require(all(r.get("bit_stable") for r in pinned),
+            f"the pinned driver {svd_ops.SVD_DRIVER} is not bit-stable: "
+            f"{rows}")
+    emit({"phase": "svd_drivers", "shape": [3, H, W],
+          "pinned": svd_ops.SVD_DRIVER, "drivers": rows, "card": smi_line()})
+
+
+def phase_parity(dev, cover_np, wm_np):
+    """The parity path (models/image) at 1080p, gray and color, α 0.12,
+    with a password permutation, and gray on a rank-deficient cover
+    (flat_cover): the roundtrip gates of
+    tests/test_image_roundtrip.py (the clean host being the unmarked
+    cover, as there), svd_full's bit stability and the exact cancellation
+    of Sc, and CUDA-event times after one untimed embed. Returns the
+    extracted gray and color watermarks (for enhance)."""
+    import torch
+    from dctsvd_tpu_torch.models import image
+    from dctsvd_tpu_torch.ops import color, dct, resize
+    from dctsvd_tpu_torch.ops.svd import svd_full
+    from dctsvd_tpu_torch.utils import crypto
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on for CUDA matmuls")
+    key = crypto.derive_key(PASSWORD, bytes(8))
+    idx = crypto.permutation_indices(key, H * W)
+    perm = torch.as_tensor(idx, device=dev)
+    inv = torch.as_tensor(crypto.inverse_permutation(idx), device=dev)
+    cover = torch.as_tensor(cover_np, device=dev)
+    flat = flat_cover(cover)
+    wm = resize.resize_area_u8(torch.as_tensor(wm_np, device=dev), H, W)
+    wm_gray = color.bgr_to_gray(wm)
+    out, extracted = {}, {}
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed(fn):
+        start.record()
+        res = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(stop)
+
+    # one untimed embed first: the first cuSOLVER call of the process
+    # sets the library up, which no request after it pays
+    image.embed_gray(cover, wm_gray, perm, ALPHA)
+    torch.cuda.synchronize()
+    for mode, cover in (("gray", cover), ("color", cover),
+                        ("gray_flat_cover", flat)):
+        if mode != "color":
+            res, embed_ms = timed(lambda: image.embed_gray(
+                cover, wm_gray, perm, ALPHA))
+            sc, planes, ref = res.sc, color.luma_f32(cover), wm_gray
+            ext, det = image.extract_gray, image.detect_gray
+        else:
+            res, embed_ms = timed(lambda: image.embed_color(
+                cover, wm, perm, ALPHA))
+            sc, ref = res.s_cover, wm
+            planes = torch.movedim(cover.to(torch.float32), -1, 0)
+            ext, det = image.extract_color, image.detect_color
+        rec, extract_ms = timed(lambda: ext(res.stego_bgr, sc, res.uw,
+                                            res.vwt, inv, ALPHA))
+        score, detect_ms = timed(lambda: det(res.stego_bgr, sc, res.sw,
+                                             ALPHA))
+        score = float(score)
+        # svd_full's bit stability, and the exact cancellation of Sc on
+        # the unmodified cover
+        c = dct.dct2(planes)
+        u1, s1, v1 = svd_full(c)
+        u2, s2, v2 = svd_full(c)
+        stable = (torch.equal(u1, u2) and torch.equal(s1, s2)
+                  and torch.equal(v1, v2))
+        residue = float((svd_full(c, compute_uv=False) - sc).abs().max())
+        cover_score = float(det(cover, sc, res.sw, ALPHA))
+        svd_ms = cuda_time(lambda: svd_full(c), 3)
+        ps, ss = float(res.psnr), float(res.ssim)
+        nc = nc_np(rec.cpu().numpy(), ref.cpu().numpy())
+        require(ps > 20.0, f"parity {mode} PSNR {ps} <= 20")
+        require(score > 0.9, f"parity {mode} own-stego detect {score}")
+        require(cover_score < 0.6, f"parity {mode} clean detect "
+                f"{cover_score}")
+        require(nc > 0.55, f"parity {mode} extraction NC {nc} <= 0.55")
+        require(stable, f"svd_full {mode}: two runs differ")
+        require(residue == 0.0, f"parity {mode}: S(cover) - Sc = {residue}")
+        require(bool(torch.isfinite(res.sw).all()) and rec.dtype ==
+                torch.uint8 and tuple(rec.shape) == tuple(ref.shape),
+                f"parity {mode} outputs")
+        extracted[mode] = rec
+        out[mode] = dict(psnr=ps, ssim=ss, detect=score,
+                         clean_detect=cover_score,
+                         extract_nc=nc, svd_bit_stable=stable,
+                         sc_residue=residue, embed_ms=embed_ms,
+                         extract_ms=extract_ms, detect_ms=detect_ms,
+                         svd_full_ms=svd_ms, svd_shape=list(c.shape))
+    emit({"phase": "parity_1080p", "alpha": ALPHA, **out,
+          "card": smi_line()})
+    return extracted
+
+
+def phase_parity_reference(dev):
+    """The parity path on the card against the CPU on one small frame:
+    stego bytes within 1 quantum on at most 1 %, PSNR within 0.01 dB,
+    SSIM within 1e-3, detect within 1e-3, extractions' NC >= 0.999."""
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.models import image
+    from dctsvd_tpu_torch.utils import crypto
+
+    rng = np.random.default_rng(11)
+    h, w = 64, 80
+    cover = rng.integers(0, 256, (h, w, 3), np.uint8)
+    wm = rng.integers(0, 256, (h, w, 3), np.uint8)
+    key = crypto.derive_key(PASSWORD, bytes(8))
+    idx = crypto.permutation_indices(key, h * w)
+    inv = crypto.inverse_permutation(idx)
+    rows = {}
+    for mode in ("gray", "color"):
+        got = {}
+        for d in ("cpu", dev):
+            t = {k: torch.as_tensor(v, device=d) for k, v in
+                 dict(cover=cover, wm=wm, idx=idx, inv=inv).items()}
+            if mode == "gray":
+                res = image.embed_gray(t["cover"], t["wm"][..., 1],
+                                       t["idx"], ALPHA)
+                sc = res.sc
+                rec = image.extract_gray(res.stego_bgr, sc, res.uw, res.vwt,
+                                         t["inv"], ALPHA)
+                score = image.detect_gray(res.stego_bgr, sc, res.sw, ALPHA)
+            else:
+                res = image.embed_color(t["cover"], t["wm"], t["idx"], ALPHA)
+                sc = res.s_cover
+                rec = image.extract_color(res.stego_bgr, sc, res.uw,
+                                          res.vwt, t["inv"], ALPHA)
+                score = image.detect_color(res.stego_bgr, sc, res.sw, ALPHA)
+            got[str(d)] = (res.stego_bgr.cpu().numpy(), rec.cpu().numpy(),
+                           float(score), float(res.psnr), float(res.ssim))
+        (st_c, rec_c, sc_c, ps_c, ss_c), (st_g, rec_g, sc_g, ps_g, ss_g) = \
+            got.values()
+        d_st = np.abs(st_c.astype(int) - st_g.astype(int))
+        nc = nc_np(rec_c, rec_g)
+        require(d_st.max() <= 1 and (d_st > 0).mean() <= 0.01,
+                f"parity {mode} stego GPU vs CPU: max {d_st.max()}")
+        require(abs(ps_c - ps_g) <= 0.01 and abs(ss_c - ss_g) <= 1e-3,
+                f"parity {mode} PSNR/SSIM GPU vs CPU: {ps_g}/{ps_c}, "
+                f"{ss_g}/{ss_c}")
+        require(abs(sc_c - sc_g) <= 1e-3,
+                f"parity {mode} detect GPU {sc_g} vs CPU {sc_c}")
+        require(nc >= 0.999, f"parity {mode} extraction NC GPU/CPU {nc}")
+        rows[mode] = dict(stego_max_abs_diff=int(d_st.max()),
+                          stego_diff_share=float((d_st > 0).mean()),
+                          psnr_cpu=ps_c, psnr_gpu=ps_g, ssim_cpu=ss_c,
+                          ssim_gpu=ss_g, detect_cpu=sc_c, detect_gpu=sc_g,
+                          extract_nc=nc)
+    emit({"phase": "parity_reference_small", "shape": [64, 80, 3], **rows})
+
+
+def phase_enhance(dev, extracted):
+    """The enhancement chains on the 1080p extracted watermarks, with any
+    degradation warning an error; each stage's time; and every stage on
+    the card against the CPU on a small plane (unsharp and CLAHE within 1
+    quantum, NLM within 1 on >= 99 % of pixels, the chains' mean |Δ| <
+    0.5)."""
+    import warnings
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.models import enhance
+    from dctsvd_tpu_torch.ops import color
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+
+    gray, frames = extracted["gray"], extracted["color"]
+    ycc = color.bgr_to_ycrcb(frames)[..., 0]
+    stages = {
+        "nlm_gray": lambda: e_ops.nlm_gray_u8(gray, 7.0),
+        "clahe_gray": lambda: e_ops.clahe_u8(gray),
+        "unsharp_gray": lambda: e_ops.unsharp_u8(gray, 1.25, -0.25),
+        "chain_gray": lambda: enhance.enhance_gray_u8(gray),
+        "nlm_color": lambda: e_ops.nlm_color_u8(frames, 3.0, 3.0),
+        "clahe_luma": lambda: e_ops.clahe_u8(ycc),
+        "unsharp_color": lambda: e_ops.unsharp_u8(
+            torch.movedim(frames, -1, -3), 1.15, -0.15),
+        "chain_color": lambda: enhance.enhance_color_u8(frames),
+    }
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out_g = enhance.enhance_gray_u8(gray)
+        out_c = enhance.enhance_color_u8(frames)
+        ms = {name: cuda_time(fn, 2) for name, fn in stages.items()}
+    require(out_g.shape == gray.shape and out_c.shape == frames.shape
+            and out_g.dtype == torch.uint8, "enhance outputs")
+
+    rng = np.random.default_rng(13)
+    plane = cv2.GaussianBlur(rng.integers(0, 256, (64, 80), np.uint8),
+                             (0, 0), 1.0)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (64, 80, 3), np.uint8),
+                           (0, 0), 1.0)
+
+    def both(fn, x):
+        return [fn(torch.as_tensor(x, device=d)).cpu().numpy().astype(int)
+                for d in ("cpu", dev)]
+
+    diffs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for name, fn, x in (
+                ("unsharp", lambda t: e_ops.unsharp_u8(t, 1.25, -0.25),
+                 plane),
+                ("clahe", e_ops.clahe_u8, plane),
+                ("nlm_gray", e_ops.nlm_gray_u8, plane),
+                ("nlm_color", e_ops.nlm_color_u8, img),
+                ("chain_gray", enhance.enhance_gray_u8, plane),
+                ("chain_color", enhance.enhance_color_u8, img)):
+            a, b = both(fn, x)
+            d = np.abs(a - b)
+            diffs[name] = dict(max=int(d.max()), share=float((d > 0).mean()),
+                               share_over_1=float((d > 1).mean()),
+                               mean=float(d.mean()))
+    for name in ("unsharp", "clahe"):
+        require(diffs[name]["max"] <= 1, f"{name} GPU vs CPU {diffs[name]}")
+    for name in ("nlm_gray", "nlm_color"):
+        d = diffs[name]
+        require(d["share_over_1"] <= 0.01, f"{name} GPU vs CPU {d}")
+    for name in ("chain_gray", "chain_color"):
+        require(diffs[name]["mean"] < 0.5, f"{name} GPU vs CPU {diffs[name]}")
+    emit({"phase": "enhance_1080p", "ms": ms, "gpu_vs_cpu_64x80": diffs,
+          "card": smi_line()})
+
+
+def seeded_nonces(n: int) -> list:
+    """The first n embed nonces of a seeded sequence."""
+    import numpy as np
+    from dctsvd_tpu_torch.utils import crypto
+    rng = np.random.default_rng(NONCE_SEED)
+    return [rng.bytes(crypto.NONCE_BYTES) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def pinned_nonce(nonce: bytes):
+    """Embeds in this block take ``nonce`` instead of a random one."""
+    from dctsvd_tpu_torch.utils import crypto
+    made = crypto.make_nonce
+    crypto.make_nonce = lambda: nonce
+    try:
+        yield
+    finally:
+        crypto.make_nonce = made
+
+
+def phase_payload(dev, cover_np):
+    """A text and a JSON payload through api.embed_payload /
+    extract_payload, each embed with a nonce of a seeded sequence. The
+    blocked method at 1080p must recover both exactly; K1's, K2's and
+    K4's launches are counted from 0 just before its embeds and read just
+    after its extracts. The parity method's min–max normalised bit-plane
+    does not decode at 1080p in either package (outcome recorded), and on
+    a 360×640 crop it decodes for some keys and not others, in the JAX
+    package exactly as here: so it runs there with each of PAYLOAD_NONCES
+    nonces on the card and on the CPU, the card must recover the payload
+    for the same nonces as the CPU (whose outcomes the CPU tests hold to
+    the JAX package's), and each payload must come back exactly for at
+    least one nonce. Returns the launches, and whether the card recovered
+    the text with the first nonce."""
+    import torch
+    from dctsvd_tpu_torch import api
+    from dctsvd_tpu_torch.io import image_io
+    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+    wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
+                wm_cuda.spectrum_blocks]
+    payloads = {"text": PAYLOAD_TEXT,
+                "json": {"owner": "chip-smoke", "id": 20261017,
+                         "tags": ["parity", "blocked"]}}
+    nonces = seeded_nonces(PAYLOAD_NONCES)
+    rows, parity = {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
+        covers = {"1080p": os.path.join(td, "cover.png"),
+                  "360x640": os.path.join(td, "crop.png")}
+        image_io.write_png(covers["1080p"], cover_np)
+        image_io.write_png(covers["360x640"], cover_np[:360, :640])
+
+        def run(method, size, kind, nonce, device):
+            payload = payloads[kind]
+            base = os.path.join(td, f"{method}_{size}_{kind}")
+            t0 = time.perf_counter()
+            with pinned_nonce(nonce):
+                out, meta, ps, _ = api.embed_payload(
+                    covers[size], payload, base + ".png",
+                    base + "_meta.npz", alpha=0.15, password=PASSWORD,
+                    method=method, device=device)
+            t1 = time.perf_counter()
+            try:
+                got = api.extract_payload(out, meta, password=PASSWORD,
+                                          device=device)
+                outcome = "recovered" if got == payload else f"wrong: {got!r}"
+            except ValueError as err:
+                outcome = f"ValueError: {err}"
+            return dict(outcome=outcome, psnr=ps, embed_s=t1 - t0,
+                        extract_s=time.perf_counter() - t1)
+
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+        for kind in payloads:
+            rows[f"blocked_1080p_{kind}"] = run("blocked", "1080p", kind,
+                                                nonces[0], dev)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        for kind in payloads:
+            rows[f"full_1080p_{kind}"] = run("full", "1080p", kind,
+                                             nonces[0], dev)
+            card = [run("full", "360x640", kind, n, dev) for n in nonces]
+            cpu = [run("full", "360x640", kind, n, "cpu")["outcome"]
+                   for n in nonces]
+            got = [r["outcome"] for r in card]
+            parity[kind] = dict(
+                card=got, cpu=cpu, recovered=got.count("recovered"),
+                same_outcomes=got == cpu,
+                embed_s=[r["embed_s"] for r in card],
+                extract_s=[r["extract_s"] for r in card])
+    for kind in payloads:
+        r = rows[f"blocked_1080p_{kind}"]["outcome"]
+        require(r == "recovered", f"blocked 1080p {kind} payload: {r}")
+        got, cpu = parity[kind]["card"], parity[kind]["cpu"]
+        require([o == "recovered" for o in got] ==
+                [o == "recovered" for o in cpu],
+                f"parity 360x640 {kind} payload: the card recovered it for "
+                f"other nonces than the CPU: {got} vs {cpu}")
+        require(parity[kind]["recovered"] >= 1,
+                f"parity 360x640 {kind} payload recovered for no nonce: "
+                f"{got}")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched on the blocked payload "
+                f"path: {launches}")
+    emit({"phase": "payload_1080p", **rows, "full_360x640": parity,
+          "nonces": [n.hex() for n in nonces],
+          "blocked_launches": launches, "card": smi_line()})
+    return launches, parity["text"]["card"][0] == "recovered"
+
+
+def phase_resync(dev, cover_np, wm_u8, blk, intra):
+    """detect resync at 1080p on blocked stegos: a color and a gray stego
+    rolled by (3, −5) px (the translation search, and detect_paths(resync=
+    True) on the color one), and the color stego rotated 0.3° with cv2 (the
+    rotation search at rot_range 0.5). K1's launch counter is set to 0 just
+    before each search and read just after, so the aligned detects lie
+    outside the windows; each count must equal the chunks the search
+    scans. Before that, K1 is held to its twin, bit for bit, on the first
+    chunk of 64 rolls of each search's input, gathered as the search
+    gathers it: u8 color frames [64, H, W, 3] and f32 luma planes
+    [64, H, W]. Returns K1's launches on each search."""
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.io import meta as metaio
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, wm_cuda
+
+    chunk, step, rot_range = 64, 0.05, 0.5
+    cover = torch.as_tensor(cover_np, device=dev)
+    res = blocked.embed_color(cover, wm_u8, blk, intra, ALPHA)
+    gres = blocked.embed_gray(cover, color.bgr_to_gray(wm_u8), blk, intra,
+                              ALPHA)
+    stego = res.stego_bgr.cpu().numpy()
+    meta = metaio.Meta(mode=metaio.MODE_BLOCKED_COLOR, payload_type="image",
+                       alpha=ALPHA, kfrac=0.6, shape=(H, W), nonce=None,
+                       digest=None, arrays={"Sc": res.sc.cpu().numpy(),
+                                            "Sw": res.sw.cpu().numpy()},
+                       sweeps=1, sweeps_xpairs=7)
+    sc, sw = res.sc, res.sw
+    rolled = torch.as_tensor(np.roll(stego, (3, -5), axis=(0, 1)),
+                             device=dev)
+    grolled = torch.roll(gres.stego_bgr, (3, -5), dims=(0, 1))
+    m = cv2.getRotationMatrix2D((W / 2, H / 2), 0.3, 1.0)
+    rotated = torch.as_tensor(cv2.warpAffine(
+        stego, m, (W, H), borderMode=cv2.BORDER_REPLICATE), device=dev)
+
+    # K1 against its twin at the searches' shapes
+    shifts = blocked._resync_shifts(blocked.BLOCK, 0)
+    n_chunks = -(-len(shifts) // chunk)
+    first = torch.as_tensor(np.asarray(shifts[:chunk], np.int64), device=dev)
+    sched = blocked.replay_sweeps(SWEEPS)
+    twin = {}
+    for name, stack, kw in (
+            ("frames_u8", blocked._roll_stack(rolled, first),
+             dict(channels_last=True)),
+            ("luma_f32", blocked._roll_stack(color.luma_f32(grolled), first),
+             {})):
+        got = wm_cuda.spectrum_blocks(stack, sweeps=sched, **kw)
+        ref = wm_cuda.spectrum_blocks_plain(stack, sweeps=sched, **kw)
+        err = float((got - ref).abs().max())
+        require(torch.equal(got, ref),
+                f"K1 on a resync chunk {name} {list(stack.shape)} vs twin: "
+                f"not bit-equal ({err})")
+        twin[name] = dict(shape=list(stack.shape), max_abs_err=err,
+                          equals_twin=True)
+        del stack, got, ref
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        wm_cuda.spectrum_blocks.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, wm_cuda.spectrum_blocks.launches
+
+    plain = float(blocked.detect_color(rolled, sc, sw, ALPHA, sweeps=SWEEPS))
+    (score, shift, angle), shift_s, n_shift = counted(
+        lambda: blocked.detect_color_resync(rolled, sc, sw, ALPHA,
+                                            sweeps=SWEEPS))
+    (found, path_score), path_s, n_path = counted(
+        lambda: blocked.detect_paths(rolled.cpu().numpy(), meta,
+                                     DETECT_THRESH, resync=True, device=dev))
+    gplain = float(blocked.detect_gray(grolled, gres.sc, gres.sw, ALPHA,
+                                       sweeps=SWEEPS))
+    (gscore, gshift, _), gray_s, n_gray = counted(
+        lambda: blocked.detect_gray_resync(grolled, gres.sc, gres.sw, ALPHA,
+                                           sweeps=SWEEPS))
+    rot_plain = float(blocked.detect_color(rotated, sc, sw, ALPHA,
+                                           sweeps=SWEEPS))
+    (rscore, rshift, rangle), rot_s, n_rot = counted(
+        lambda: blocked.detect_color_resync(
+            rotated, sc, sw, ALPHA, sweeps=SWEEPS, rot_range=rot_range,
+            rot_step=step))
+    angles = len(blocked._resync_angles(rot_range, step))
+    angles += 8 if rangle != 0.0 else 0          # the step/5 refinement
+    launches = {"resync_shift_color": n_shift,
+                "detect_paths_resync": n_path,
+                "resync_shift_gray": n_gray,
+                "resync_rotation_color": n_rot}
+    require(shift == (3, -5), f"resync shift {shift} != (3, -5)")
+    require(score >= DETECT_THRESH and found and path_score >= score - 1e-6,
+            f"resync scores {score}, {path_score} (found {found})")
+    require(gshift == (3, -5) and gscore >= DETECT_THRESH,
+            f"gray resync shift {gshift}, score {gscore}")
+    require(abs(rangle - 0.3) <= step / 5 + 1e-6,
+            f"rotation resync angle {rangle} vs 0.3")
+    require(rscore >= DETECT_THRESH, f"rotation resync score {rscore}")
+    require(n_shift == n_chunks and n_gray == n_chunks
+            and n_path == n_chunks + 1 and n_rot == n_chunks * angles,
+            f"K1 launches on the resync searches {launches}, expected "
+            f"{n_chunks} a scan of {len(shifts)} shifts")
+    emit({"phase": "resync_1080p", "spectrum_blocks_launches": launches,
+          "k1_chunk_vs_twin": twin,
+          "shift_color": dict(plain=plain, score=score, found=list(shift),
+                              angle=angle, search_s=shift_s),
+          "detect_paths": dict(score=path_score, found=found, s=path_s),
+          "shift_gray": dict(plain=gplain, score=gscore, found=list(gshift),
+                             search_s=gray_s),
+          "rotation_color": dict(plain=rot_plain, score=rscore, angle=rangle,
+                                 shift=list(rshift), search_s=rot_s),
+          "card": smi_line()})
+    return launches
 
 
 def main(argv) -> int:
@@ -1118,6 +1731,10 @@ def main(argv) -> int:
         bad = [name for name, r in rows.items() if not r["equals_twin"]]
         require(not bad, f"not equal to the twin on the card: {bad}")
         return 0
+    if argv == ["--svd-drivers"]:
+        svd_drivers(dev, smooth_frame(20261017),
+                    wm_u8[::8, ::8].cpu().numpy())
+        return 0
     if argv == ["--paint-k-times"]:
         emit({"phase": "paint_k_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
@@ -1144,7 +1761,17 @@ def main(argv) -> int:
     launches.update(phase_serve(dev, covers, wm_u8, blk, intra))
     launches.update(phase_variants(dev, covers))
     phase_reference(dev)
-    phase_files(dev, covers, wm_u8)
+    smooth = smooth_frame(20261017)
+    wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
+    extracted = phase_parity(dev, smooth, wm_np)
+    phase_parity_reference(dev)
+    phase_enhance(dev, extracted)
+    payload_launches, parity_text_recovered = phase_payload(dev, smooth)
+    # resync on a noise cover: on smooth content neighbouring shifts and
+    # angles score within the statistic's noise of the true one
+    resync_launches = phase_resync(dev, covers[0].cpu().numpy(), wm_u8, blk,
+                                   intra)
+    phase_files(dev, covers, wm_u8, smooth, parity_text_recovered)
     probe_launches, probe_results, t3 = phase_probes(dev, covers)
     launches.update(probe_launches)
     results.update(probe_results)
@@ -1181,11 +1808,20 @@ def main(argv) -> int:
         "spectrum_probe": ("dctsvd_tpu_torch/csrc/probes.cu",
                            "tools/profile_view.py:44"),
     }
+    # launches of K1, K2 and K4 on each path that drives them: the slice's,
+    # the blocked payloads', and (K1) each resync search's
+    paths = {name: {"slice": launches[name],
+                    "payload": payload_launches[name]}
+             for name in payload_launches}
+    paths["spectrum_blocks"].update(resync_launches)
+    for name, by_path in paths.items():
+        launches[name] = sum(by_path.values())
     table = []
     for name, (src, repl) in sources.items():
         r = results[name]
+        extra = {"launches_by_path": paths[name]} if name in paths else {}
         table.append(dict(name=name, route="cuda", source=src,
-                          replaces=repl, launches=launches[name],
+                          replaces=repl, launches=launches[name], **extra,
                           max_abs_err=r["max_abs_err"], ms=r["ms"],
                           plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                           bound_by=r["bound_by"],

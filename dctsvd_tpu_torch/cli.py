@@ -1,15 +1,19 @@
 """Command-line interface of the port (counterpart of
-``dctsvd_tpu/cli.py``): ``embed``, ``extract`` and ``detect`` with the JAX
-package's flags, plus ``--device`` (default ``cuda``).
+``dctsvd_tpu/cli.py``): ``embed``, ``extract``, ``detect``,
+``embed-payload`` and ``extract-payload`` with the JAX package's flags,
+plus ``--device`` (default ``cuda``).
 
     python -m dctsvd_tpu_torch.cli embed cover.png wm.png --out s.png \\
-        --method blocked --color --password pw
+        --password pw                       # parity path (--method full)
     python -m dctsvd_tpu_torch.cli extract s.png s_meta.npz --out wm.png \\
-        --no-enhance --password pw
+        --password pw                       # with the enhancement chain
     python -m dctsvd_tpu_torch.cli detect s.png s_meta.npz
+    python -m dctsvd_tpu_torch.cli embed-payload cover.png "text" \\
+        --out p.png --password pw
+    python -m dctsvd_tpu_torch.cli extract-payload p.png p_meta.npz \\
+        --password pw
 
-``--method full``, ``extract`` without ``--no-enhance`` and ``detect
---resync`` are not ported yet and raise NotImplementedError.
+The video subcommands are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +29,17 @@ from dctsvd_tpu_torch.utils.config import ALPHA_GUI_DEFAULT, K_FRAC_DEFAULT
 def _default_meta(out_path: str) -> str:
     """<out base>_meta.npz next to the output."""
     return os.path.splitext(out_path)[0] + "_meta.npz"
+
+
+def _add_common_embed(p):
+    p.add_argument("--alpha", type=float, default=ALPHA_GUI_DEFAULT,
+                   help="embedding strength (GUI default 0.12; "
+                        "recommended 0.10-0.18 gray, 0.15-0.22 color)")
+    p.add_argument("--kfrac", type=float, default=K_FRAC_DEFAULT)
+    p.add_argument("--password", required=False)
+    p.add_argument("--method", choices=["full", "blocked"], default="full",
+                   help="full = parity whole-frame DCT+SVD; blocked = 8x8 "
+                        "batched Jacobi")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,14 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meta", default=None)
     p.add_argument("--color", action="store_true",
                    help="per-BGR-channel embed instead of Y-channel")
-    p.add_argument("--alpha", type=float, default=ALPHA_GUI_DEFAULT,
-                   help="embedding strength (GUI default 0.12; "
-                        "recommended 0.10-0.18 gray, 0.15-0.22 color)")
-    p.add_argument("--kfrac", type=float, default=K_FRAC_DEFAULT)
-    p.add_argument("--password", required=False)
-    p.add_argument("--method", choices=["full", "blocked"], default="full",
-                   help="full = parity whole-frame DCT+SVD (not ported "
-                        "yet); blocked = 8x8 batched Jacobi")
+    _add_common_embed(p)
 
     p = sub.add_parser("extract", help="extract the watermark (password)")
     p.add_argument("stego")
@@ -61,21 +69,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "open-mode metas")
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--no-enhance", action="store_true",
-                   help="skip the NLM->CLAHE->unsharp chain (required: "
-                        "the chain is not ported yet)")
+                   help="skip the NLM->CLAHE->unsharp chain")
 
     p = sub.add_parser("detect", help="no-password NC detection")
     p.add_argument("stego")
     p.add_argument("meta")
     p.add_argument("--thresh", type=float, default=None,
-                   help="decision threshold (default: the ROC-backed 0.30 "
-                        "for blocked metas)")
+                   help="decision threshold (default: 0.6 for parity "
+                        "metas, the ROC-backed 0.30 for blocked metas)")
     p.add_argument("--resync", action="store_true",
-                   help="translation search (not ported yet)")
+                   help="blocked metas: also search candidate translations "
+                        "(one batched detect per chunk of 64 rolls)")
     p.add_argument("--resync-rot", type=float, default=0.0, metavar="DEG",
-                   help="with --resync: rotation search (not ported yet)")
+                   help="with --resync: also search attacker rotations "
+                        "within +-DEG degrees")
     p.add_argument("--resync-rot-step", type=float, default=0.05,
-                   metavar="DEG")
+                   metavar="DEG", help="angle grid resolution")
+
+    p = sub.add_parser("embed-payload", help="embed a text/JSON payload")
+    p.add_argument("cover")
+    p.add_argument("payload", help="text, or @file.json for JSON")
+    p.add_argument("--out", default="stego.png")
+    p.add_argument("--meta", default=None)
+    p.add_argument("--repeat", type=int, default=8)
+    _add_common_embed(p)
+
+    p = sub.add_parser("extract-payload", help="recover a text/JSON payload")
+    p.add_argument("stego")
+    p.add_argument("meta")
+    p.add_argument("--password")
     return ap
 
 
@@ -104,6 +126,22 @@ def main(argv=None) -> int:
                                   device=args.device)
         print(json.dumps({"watermarked": found, "score": round(score, 4)}))
         return 0 if found else 1
+    elif args.cmd == "embed-payload":
+        payload = args.payload
+        if payload.startswith("@"):
+            with open(payload[1:]) as f:
+                payload = json.load(f)
+        meta = args.meta or _default_meta(args.out)
+        out, meta_p, ps, _ = api.embed_payload(
+            args.cover, payload, args.out, meta, alpha=args.alpha,
+            password=args.password, kfrac=args.kfrac, repeat=args.repeat,
+            method=args.method, device=args.device)
+        print(json.dumps({"stego": out, "meta": meta_p,
+                          "psnr": round(ps, 2)}))
+    elif args.cmd == "extract-payload":
+        got = api.extract_payload(args.stego, args.meta,
+                                  password=args.password, device=args.device)
+        print(json.dumps({"payload": got}))
     return 0
 
 

@@ -1,8 +1,8 @@
 """Blocked (8×8) DCT–SVD watermarking: embed, extract, detect and the
 serve steps.
 
-Counterpart of ``dctsvd_tpu/models/blocked.py`` for the slice the port
-carries (no resync, no enhancement). The frame becomes a grid of 8×8
+Counterpart of ``dctsvd_tpu/models/blocked.py``, with detect resync
+(translation and rotation search). The frame becomes a grid of 8×8
 blocks; each block's leading singular values carry the keyed,
 block-permuted watermark's singular values (α·Sw), and extraction and
 detection read them back as (S(stego) − Sc)/α.
@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from dctsvd_tpu_torch.io import image_io, meta as metaio
-from dctsvd_tpu_torch.ops import color, dct, metrics, permute, svd, wm_cuda
+from dctsvd_tpu_torch.ops import (color, dct, enhance, metrics, permute, svd,
+                                  wm_cuda)
 from dctsvd_tpu_torch.utils import crypto
 from dctsvd_tpu_torch.utils.config import BLOCK, K_FRAC_DEFAULT
 
@@ -56,21 +57,12 @@ def n_blocks_of(h: int, w: int, b: int = BLOCK) -> int:
     return (-(-h // b)) * (-(-w // b))
 
 
-def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
-    """Source indices of numpy/jnp 'reflect' padding (edge not repeated)
-    of an axis of length n extended by pad at the end."""
-    idx = torch.arange(n + pad, device=device)
-    if n == 1:
-        return torch.zeros_like(idx)
-    period = 2 * (n - 1)
-    m = idx % period
-    return torch.where(m < n, m, period - m)
-
-
 def _pad_axis(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    """numpy/jnp 'reflect' padding of one axis by ``pad`` at its end."""
     if not pad:
         return x
-    return x.index_select(dim, _reflect_index(x.shape[dim], pad, x.device))
+    return x.index_select(dim, enhance.reflect_index(x.shape[dim], 0, pad,
+                                                     x.device))
 
 
 def _pad_to_blocks(x: torch.Tensor,
@@ -721,16 +713,21 @@ def _sw_hat(s_cw, sc, alpha, k):
             / torch.clamp(_alpha(alpha, s_cw.device), min=1e-8))
 
 
+def _gray_scores(s_cw, sc, sw, alpha, kfrac: float, h: int, w: int):
+    """detect_gray's statistic on a measured luma spectrum."""
+    k = k_of_block(kfrac)
+    return _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
+                    -(-h // BLOCK), -(-w // BLOCK))
+
+
 def detect_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                 sw: torch.Tensor, alpha, kfrac: float = K_FRAC_DEFAULT,
                 sweeps=None) -> torch.Tensor:
     """Median-of-band NC between stored and recovered per-block singular
     values, restricted to the k embedded components."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
-    k = k_of_block(kfrac)
-    s_cw = _plane_spectrum(color.luma_f32(stego_bgr_u8), sweeps)
-    return _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
-                    -(-h // BLOCK), -(-w // BLOCK))
+    return _gray_scores(_plane_spectrum(color.luma_f32(stego_bgr_u8),
+                                        sweeps), sc, sw, alpha, kfrac, h, w)
 
 
 def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
@@ -740,6 +737,188 @@ def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
     return _color_scores(_frames_spectrum(stego_bgr_u8, sweeps), sc, sw,
                          alpha, kfrac, h, w)
+
+
+# ---------------------------------------------------------------------------
+# Resync: geometry-searching detect
+# ---------------------------------------------------------------------------
+# The 8×8 grid makes an unaided blocked detect collapse under a shift of a
+# few pixels. Rolling the stego by candidate offsets and scoring each roll
+# recovers the aligned score; whole-block offsets scramble the keyed block
+# permutation, so they must be part of the search radius. Rotation has a
+# resampling realignment: counter-rotating the stego about its center with
+# the bilinear warp an attacker used restores the grid everywhere at once,
+# so rotation is one more search axis (candidate angle × candidate shift).
+# The angle grid must be fine (a residual dθ misaligns a block at radius r
+# by ~r·dθ px), and the 0.0 candidate is always in it (derotation by 0 is
+# exact). Each chunk of rolls is one spectrum launch (K1 on the GPU).
+
+def _derotate(img: torch.Tensor, angle_deg: float,
+              color_frames: bool = False) -> torch.Tensor:
+    """Inverse-rotate ``img`` ([H, W] plane, or [H, W, C] frames with
+    ``color_frames``) about its center by ``angle_deg`` degrees: the
+    realignment candidate for a stego rotated with
+    ``cv2.getRotationMatrix2D((w/2, h/2), angle_deg, 1.0)`` + warpAffine.
+    Integer-tap bilinear sampling with zeros outside the frame
+    (``map_coordinates(order=1, mode='constant')``), so
+    ``_derotate(x, 0.0)`` is exactly x; integer inputs are rounded half
+    to even and clipped to [0, 255]."""
+    x = torch.movedim(img, -1, 0) if color_frames else img
+    h, w = x.shape[-2], x.shape[-1]
+    dev = x.device
+    # cv2 convention: center (w/2, h/2), y-down; the inverse map samples
+    # src = R(+a)·(dst − c) + c with R = [[cos, sin], [−sin, cos]]
+    th = torch.deg2rad(torch.tensor(angle_deg, dtype=torch.float32,
+                                    device=dev))
+    c, s = torch.cos(th), torch.sin(th)
+    cy, cx = h * 0.5, w * 0.5
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - cy
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx
+    src_x = c * xx + s * yy + cx
+    src_y = -s * xx + c * yy + cy
+
+    def taps(coord):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        i0 = lower.to(torch.int64)
+        return [(i0, 1 - upper_w), (i0 + 1, upper_w)]
+
+    planes = x.to(torch.float32).reshape(-1, h * w)
+    out = None
+    for iy, wy in taps(src_y):
+        for ix, wx in taps(src_x):
+            valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            flat = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(-1)
+            val = planes.index_select(-1, flat).reshape(-1, h, w)
+            term = (wy * wx) * torch.where(valid, val, 0.0)
+            out = term if out is None else out + term
+    out = out.reshape(x.shape)
+    if not img.dtype.is_floating_point:
+        out = torch.round(out).clamp(0, 255)
+    out = out.to(img.dtype)
+    return torch.movedim(out, 0, -1) if color_frames else out
+
+
+def _resync_angles(rot_range: float, rot_step: float):
+    """Candidate attacker angles: 0 first (lossless identity), then the
+    ± grid out to rot_range, nearest first so equal scores keep the
+    smallest-magnitude estimate."""
+    if rot_range <= 0.0:
+        return [0.0]
+    n = int(round(rot_range / rot_step))
+    out = [0.0]
+    for k in range(1, n + 1):
+        out += [k * rot_step, -k * rot_step]
+    return out
+
+
+def _resync_shifts(window: int, block_radius: int):
+    """Candidate roll offsets covering every attacker translation with
+    |t| <= 8*block_radius + window - 1 per axis (window=8 spans all
+    sub-block offsets; block_radius adds whole-block rings)."""
+    r = BLOCK * block_radius + (window - 1)
+    return [(dy, dx) for dy in range(-r, r + 1)
+            for dx in range(-r, r + 1)]
+
+
+def _roll_stack(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """The rolls of ONE image ([H, W] or [H, W, C]) by each of an [S, 2]
+    tensor of offsets (``torch.roll`` semantics), stacked on a leading
+    axis [S, H, W(, C)] by one indexing op."""
+    h, w = img.shape[0], img.shape[1]
+    rows = torch.remainder(
+        torch.arange(h, device=img.device)[None, :] - shifts[:, :1], h)
+    cols = torch.remainder(
+        torch.arange(w, device=img.device)[None, :] - shifts[:, 1:], w)
+    return img[rows[:, :, None], cols[:, None, :]]
+
+
+def _detect_shift_chunk(img: torch.Tensor, sc: torch.Tensor,
+                        sw: torch.Tensor, alpha, shifts: torch.Tensor,
+                        kfrac: float = K_FRAC_DEFAULT, sweeps=None,
+                        color_frames: bool = False) -> torch.Tensor:
+    """Detect scores [S] for an [S, 2] tensor of roll offsets of ONE image
+    ([H, W] luma plane, or [H, W, 3] u8 BGR with ``color_frames``): the
+    rolls stack on a leading batch axis, whose spectrum is one launch."""
+    h, w = img.shape[0], img.shape[1]
+    stack = _roll_stack(img, shifts)
+    if color_frames:
+        return _color_scores(_frames_spectrum(stack, sweeps), sc, sw, alpha,
+                             kfrac, h, w)
+    return _gray_scores(_plane_spectrum(stack, sweeps), sc, sw, alpha,
+                        kfrac, h, w)
+
+
+def _detect_resync(img, sc, sw, alpha, *, kfrac, sweeps, window,
+                   block_radius, chunk, color_frames, rot_range=0.0,
+                   rot_step=0.05):
+    shifts = np.asarray(_resync_shifts(window, block_radius), np.int64)
+    # pad to a chunk multiple with (0, 0): every chunk has one shape, and a
+    # duplicate aligned candidate can only tie, never beat, the argmax
+    pad = (-len(shifts)) % chunk
+    if pad:
+        shifts = np.concatenate([shifts, np.zeros((pad, 2), np.int64)])
+    shifts_t = torch.as_tensor(shifts, device=img.device)
+    best_score, best_shift, best_angle = -np.inf, (0, 0), 0.0
+
+    def scan(angles):
+        nonlocal best_score, best_shift, best_angle
+        for a in angles:
+            cand = img if a == 0.0 else _derotate(img, a,
+                                                  color_frames=color_frames)
+            for i in range(0, len(shifts), chunk):
+                scores = _detect_shift_chunk(
+                    cand, sc, sw, alpha, shifts_t[i:i + chunk], kfrac=kfrac,
+                    sweeps=sweeps, color_frames=color_frames).cpu().numpy()
+                j = int(np.argmax(scores))          # first best wins
+                if float(scores[j]) > best_score:
+                    best_score = float(scores[j])
+                    best_shift, best_angle = tuple(shifts[i + j]), a
+
+    scan(_resync_angles(rot_range, rot_step))
+    if rot_range > 0.0 and best_angle != 0.0:
+        # refine around the coarse argmax at step/5: an angle off the
+        # coarse grid leaves a residual of up to step/2
+        fine = rot_step / 5.0
+        scan([best_angle + k * fine for k in (-4, -3, -2, -1, 1, 2, 3, 4)])
+    # the roll that realigned is the INVERSE of the attacker translation;
+    # the angle grid is already in attacker units
+    return (best_score, (-int(best_shift[0]), -int(best_shift[1])),
+            float(best_angle))
+
+
+def detect_gray_resync(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
+                       sw: torch.Tensor, alpha, kfrac: float = K_FRAC_DEFAULT,
+                       sweeps=None, window: int = BLOCK,
+                       block_radius: int = 0, chunk: int = 64,
+                       rot_range: float = 0.0, rot_step: float = 0.05):
+    """Geometry-searching detect on ONE [H, W, 3] frame: the best detect
+    score over every candidate realignment. Returns (score, (ty, tx),
+    angle): the estimated attacker translation in pixels and rotation in
+    degrees ((0, 0), 0.0 for an aligned stego). The defaults scan the
+    15×15 sub-block offsets; ``block_radius`` adds whole-block rings and
+    ``rot_range`` > 0 the counter-rotation axis (each angle re-runs the
+    shift scan)."""
+    return _detect_resync(color.luma_f32(stego_bgr_u8), sc, sw, alpha,
+                          kfrac=kfrac, sweeps=sweeps, window=window,
+                          block_radius=block_radius, chunk=chunk,
+                          color_frames=False, rot_range=rot_range,
+                          rot_step=rot_step)
+
+
+def detect_color_resync(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
+                        sw: torch.Tensor, alpha,
+                        kfrac: float = K_FRAC_DEFAULT, sweeps=None,
+                        window: int = BLOCK, block_radius: int = 0,
+                        chunk: int = 64, rot_range: float = 0.0,
+                        rot_step: float = 0.05):
+    """:func:`detect_gray_resync` on the per-channel statistic; rolls and
+    derotations act on the u8 frames."""
+    return _detect_resync(stego_bgr_u8, sc, sw, alpha, kfrac=kfrac,
+                          sweeps=sweeps, window=window,
+                          block_radius=block_radius, chunk=chunk,
+                          color_frames=True, rot_range=rot_range,
+                          rot_step=rot_step)
 
 
 # ---------------------------------------------------------------------------
@@ -903,25 +1082,40 @@ def extract_array(stego: np.ndarray, meta: metaio.Meta, key: bytes, *,
 def extract_paths(stego: np.ndarray, meta: metaio.Meta, out_path: str,
                   key: bytes, *, normalize: bool, enhance: bool,
                   device=DEFAULT_DEVICE) -> str:
-    if enhance:
-        raise NotImplementedError(
-            "the extraction enhancement chain (NLM -> CLAHE -> unsharp) is "
-            "not ported yet: ROADMAP.md queue 1 item 7; pass enhance=False")
     wm_np = extract_array(stego, meta, key, normalize=normalize,
                           device=device)
+    if enhance:
+        from dctsvd_tpu_torch.models import enhance as m_enhance
+        fn = (m_enhance.enhance_color_np
+              if meta.mode == metaio.MODE_BLOCKED_COLOR
+              else m_enhance.enhance_gray_np)
+        wm_np = fn(wm_np, device=device)
     out_path = metaio.default_wm_path(out_path)
     image_io.write_png(out_path, wm_np)
     return out_path
 
 
-def detect_paths(stego: np.ndarray, meta: metaio.Meta, thresh: float, *,
+def detect_paths(stego: np.ndarray, meta: metaio.Meta, thresh: float,
+                 resync: bool = False, block_radius: int = 0,
+                 rot_range: float = 0.0, rot_step: float = 0.05, *,
                  device=DEFAULT_DEVICE):
-    """No-password blocked detect: (score >= thresh, score)."""
-    fn = (detect_color if meta.mode == metaio.MODE_BLOCKED_COLOR
-          else detect_gray)
-    score = float(fn(_to_device(stego, device),
-                     _to_device(meta.arrays["Sc"], device),
-                     _to_device(meta.arrays["Sw"], device),
-                     float(meta.alpha), kfrac=meta.kfrac,
+    """No-password blocked detect: (score >= thresh, score).
+    ``resync=True`` always runs the translation search (and, with
+    ``rot_range`` > 0, the rotation search) and keeps the better of the
+    aligned and the realigned score: the (0, 0) candidate is scored
+    exactly, so an aligned stego keeps its score."""
+    is_color = meta.mode == metaio.MODE_BLOCKED_COLOR
+    fn = detect_color if is_color else detect_gray
+    stego_t = _to_device(stego, device)
+    sc = _to_device(meta.arrays["Sc"], device)
+    sw = _to_device(meta.arrays["Sw"], device)
+    score = float(fn(stego_t, sc, sw, float(meta.alpha), kfrac=meta.kfrac,
                      sweeps=meta.sched()))
+    if resync:
+        rfn = detect_color_resync if is_color else detect_gray_resync
+        score2, _shift, _angle = rfn(stego_t, sc, sw, float(meta.alpha),
+                                     kfrac=meta.kfrac, sweeps=meta.sched(),
+                                     block_radius=block_radius,
+                                     rot_range=rot_range, rot_step=rot_step)
+        score = max(score, score2)
     return bool(score >= thresh), score

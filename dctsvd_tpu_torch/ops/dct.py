@@ -1,9 +1,11 @@
-"""Orthonormal 8×8 block DCT-II/III as plain f32 tensor products.
+"""Orthonormal DCT-II/III as plain f32 tensor products: the whole-plane
+transform of the parity path and the 8×8 block transform of the blocked
+scheme.
 
-Counterpart of ``dctsvd_tpu/ops/dct.py`` for the blocked scheme: the basis
-is built in float64 on the host and cast once, block tensors keep the
-``[..., N, b, b]`` row-major layout (``n = by·Wb + bx``), and every product
-runs in full f32 (TF32 must stay off on the GPU, see ``chip_smoke.py``).
+Counterpart of ``dctsvd_tpu/ops/dct.py``: the basis is built in float64 on
+the host and cast once, block tensors keep the ``[..., N, b, b]``
+row-major layout (``n = by·Wb + bx``), and every product runs in full f32
+(TF32 must stay off on the GPU, see ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -93,3 +95,20 @@ def idct2_blocks_to_plane(blocks: torch.Tensor, h: int, w: int, b: int = 8,
     v = blocks.reshape(*lead, h // b, w // b, b, b)
     out = torch.einsum("...hwac,ijac->...hiwj", v, t)
     return out.reshape(*lead, h, w)
+
+
+def dct2(x: torch.Tensor) -> torch.Tensor:
+    """Whole-plane 2-D DCT-II of the trailing two axes (any leading batch):
+    D_H · X · D_Wᵀ, two f32 products (equivalent to cv2.dct per plane)."""
+    h, w = x.shape[-2], x.shape[-1]
+    dh = dct_matrix(h, x.device, x.dtype)
+    dw = dct_matrix(w, x.device, x.dtype)
+    return torch.matmul(torch.matmul(dh, x), dw.T)
+
+
+def idct2(x: torch.Tensor) -> torch.Tensor:
+    """Inverse (DCT-III) of :func:`dct2`: D_Hᵀ · X · D_W."""
+    h, w = x.shape[-2], x.shape[-1]
+    dh = dct_matrix(h, x.device, x.dtype)
+    dw = dct_matrix(w, x.device, x.dtype)
+    return torch.matmul(torch.matmul(dh.T, x), dw)

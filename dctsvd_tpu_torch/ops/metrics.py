@@ -1,52 +1,18 @@
 """Quality metrics (PSNR / SSIM / NC) on tensors with leading batch dims.
 
-Counterpart of ``dctsvd_tpu/ops/metrics.py`` plus the Gaussian blur of
-``dctsvd_tpu/ops/enhance.py`` that SSIM uses:
+Counterpart of ``dctsvd_tpu/ops/metrics.py``; SSIM uses the Gaussian blur
+of ``ops/enhance.py`` (the shift-and-add form in f32):
   - psnr: 20·log10(255/max(√mse, 1e-12)), capped at 99.0 for mse ≤ 1e-12;
   - ssim: simplified luminance SSIM over 11×11 σ=1.5 Gaussian windows with
     reflect-101 borders, C1=(0.01·255)², C2=(0.03·255)²;
   - nc: zero-mean cosine similarity with +1e-8 in the denominator.
-
-The blur is the shift-and-add form in f32, never ``conv2d``: cuDNN runs f32
-convolutions in TF32 by default.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-
-@functools.lru_cache(maxsize=8)
-def _gauss1d(ksize: int, sigma: float) -> np.ndarray:
-    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
-    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
-    return k / k.sum()
-
-
-def gaussian_blur(x: torch.Tensor, sigma: float = 1.0,
-                  ksize: int | None = None) -> torch.Tensor:
-    """cv2.GaussianBlur(x, (0,0), sigma) on float [..., H, W] with cv2's u8
-    auto kernel size (cvRound(sigma*6 + 1) | 1) and reflect-101 borders."""
-    if ksize is None:
-        ksize = int(round(sigma * 6 + 1)) | 1
-    k = torch.as_tensor(_gauss1d(ksize, sigma), dtype=torch.float32,
-                        device=x.device)
-    pad = ksize // 2
-    *lead, h, w = x.shape
-    xp = F.pad(x.to(torch.float32).reshape(-1, 1, h, w),
-               (pad, pad, pad, pad), mode="reflect")
-    xp = xp.reshape(*lead, h + 2 * pad, w + 2 * pad)
-    y = torch.zeros_like(xp[..., pad:pad + h, :])
-    for i in range(ksize):
-        y = y + k[i] * xp[..., i:i + h, :]
-    z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for i in range(ksize):
-        z = z + k[i] * y[..., i:i + w]
-    return z
+from dctsvd_tpu_torch.ops.enhance import gaussian_blur
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor,

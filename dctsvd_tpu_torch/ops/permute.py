@@ -1,10 +1,25 @@
-"""Keyed block-level (un)permutation as gathers (counterpart of
+"""Keyed (un)permutation as gathers (counterpart of
 ``dctsvd_tpu/ops/permute.py``). The index arrays come from the host
-(utils/crypto.block_permutation_indices, NumPy PCG64)."""
+(utils/crypto.permutation_indices and block_permutation_indices, NumPy
+PCG64)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def permute_plane(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """scrambled = flat[idx], reshaped back; the trailing two axes are
+    H, W (the parity path's whole-plane shuffle)."""
+    *lead, h, w = img.shape
+    flat = img.reshape(*lead, h * w)
+    return flat.index_select(-1, idx).reshape(*lead, h, w)
+
+
+def unpermute_plane(img: torch.Tensor, inv_idx: torch.Tensor) -> torch.Tensor:
+    """restored = scrambled_flat[inv]; pass inv =
+    crypto.inverse_permutation(idx)."""
+    return permute_plane(img, inv_idx)
 
 
 def permute_block_tensor(blocks: torch.Tensor, blk_idx: torch.Tensor,

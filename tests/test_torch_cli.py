@@ -1,7 +1,8 @@
 """The port's path-level entry points (api, cli, extract_array /
-detect_paths) on the CPU, and metas crossing between the two packages: a
-meta written by either one verifies, extracts and detects in the other.
-Unported paths raise NotImplementedError instead of doing something else."""
+detect_paths) on the CPU, and blocked metas crossing between the two
+packages: a meta written by either one verifies, extracts and detects in
+the other. The API's and the CLI's defaults (the parity path, the
+enhancement chain) and detect resync run."""
 
 import warnings
 
@@ -182,25 +183,24 @@ def test_gray_and_open_mode_metas_cross(pngs):
 
 
 def test_unported_paths_raise(pngs, port_color, tmp_path):
+    """The paths that raised NotImplementedError before they were ported —
+    the parity embed (the default method), extract with the enhancement
+    chain (the default), detect resync, and a parity meta's extract and
+    detect — now run on the CPU."""
     d, cp, wp = pngs
     out, mp, _, _ = port_color
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tapi.embed(cp, wp, str(tmp_path / "s.png"), str(tmp_path / "m.npz"),
-                   password=PW, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tapi.extract(out, mp, str(tmp_path / "x.png"), password=PW,
+    s, parity, ps, _ = tapi.embed(cp, wp, str(tmp_path / "s.png"),
+                                  str(tmp_path / "m.npz"), password=PW,
+                                  device="cpu")
+    assert tmeta.load_meta(parity).mode == tmeta.MODE_GRAY and ps > 20
+    x = tapi.extract(out, mp, str(tmp_path / "x.png"), password=PW,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tapi.detect(out, mp, resync=True, device="cpu")
-    z = np.zeros((4,), np.float32)
-    parity = jmeta.save_gray_meta(str(tmp_path / "parity.npz"), sc=z, uw=z,
-                                  vwt=z, sw=z, shape=(H, W), alpha=0.1,
-                                  kfrac=0.6, nonce=None, digest=None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tapi.detect(out, parity, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tapi.extract(out, parity, str(tmp_path / "y.png"), enhance=False,
-                     device="cpu")
+    assert cv2.imread(x).shape == (H, W, 3)
+    assert tapi.detect(out, mp, resync=True, device="cpu")[0]
+    assert tapi.detect(s, parity, device="cpu")[0]
+    y = tapi.extract(s, parity, str(tmp_path / "y.png"), password=PW,
+                     enhance=False, device="cpu")
+    assert cv2.imread(y, cv2.IMREAD_GRAYSCALE).shape == (H, W)
 
 
 def test_cli_embed_extract_detect(pngs, tmp_path, capsys):
@@ -232,12 +232,17 @@ def test_cli_embed_extract_detect(pngs, tmp_path, capsys):
     ["detect", "{stego}", "{meta}", "--resync"],
 ])
 def test_cli_unported_paths_raise(pngs, port_color, tmp_path, argv):
+    """The CLI's defaults that raised NotImplementedError before the
+    parity path, the enhancement chain and resync were ported now run:
+    embed with no --method, extract without --no-enhance, detect
+    --resync."""
     d, cp, wp = pngs
     out, mp, _, _ = port_color
     argv = [a.format(cp=cp, wp=wp, stego=out, meta=mp) for a in argv]
     argv += ["--out", str(tmp_path / "o.png")] if argv[0] != "detect" else []
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tcli.main(["--device", "cpu"] + argv)
+    assert tcli.main(["--device", "cpu"] + argv) == 0
+    if argv[0] != "detect":
+        assert cv2.imread(str(tmp_path / "o.png")) is not None
 
 
 def test_restore_meta_scale(port_color, tmp_path):
@@ -250,3 +255,27 @@ def test_restore_meta_scale(port_color, tmp_path):
     with pytest.warns(UserWarning, match="rescaling"):
         found, score = tapi.detect(sp, mp, device="cpu")
     assert isinstance(found, bool) and np.isfinite(score)
+
+
+def test_cli_payload_both_methods(tmp_path, capsys):
+    """embed-payload / extract-payload: text through the parity default,
+    a JSON file through the blocked method."""
+    import json
+    rng = np.random.default_rng(SEED + 1)
+    cp = str(tmp_path / "cover.png")
+    cv2.imwrite(cp, cv2.GaussianBlur(
+        rng.integers(0, 256, (128, 160, 3), np.uint8), (0, 0), 3.0))
+    text, obj = "cli payload", {"owner": "cli", "n": 3}
+    spec = tmp_path / "obj.json"
+    spec.write_text(json.dumps(obj))
+    for method, payload, arg in (("full", text, text),
+                                 ("blocked", obj, "@" + str(spec))):
+        out = str(tmp_path / f"{method}.png")
+        assert tcli.main(["--device", "cpu", "embed-payload", cp, arg,
+                          "--out", out, "--password", PW, "--alpha", "0.15",
+                          "--method", method]) == 0
+        emb = json.loads(capsys.readouterr().out)
+        assert emb["meta"].endswith(f"{method}_meta.npz")
+        assert tcli.main(["--device", "cpu", "extract-payload", out,
+                          emb["meta"], "--password", PW]) == 0
+        assert json.loads(capsys.readouterr().out)["payload"] == payload

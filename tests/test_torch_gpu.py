@@ -2,9 +2,10 @@
 K3 and K4 bit for bit, against the twin run on the card, K2 and K3 at
 every k, and near the twin run on the CPU), the launch
 counters, the slice on the card against the slice on the CPU, the
-serve steps on the card against the split calls, and the probe kernels
+serve steps on the card against the split calls, the probe kernels
 (copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
-against K1.
+against K1, and the parity path, the enhancement stages and detect resync
+on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from dctsvd_tpu_torch.models import blocked as tb
-from dctsvd_tpu_torch.ops import dct, probe_cuda, svd_cuda, wm_cuda
+from dctsvd_tpu_torch.models import enhance as tenh
+from dctsvd_tpu_torch.models import image as timg
+from dctsvd_tpu_torch.ops import dct, probe_cuda, svd, svd_cuda, wm_cuda
+from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.utils import crypto
 
 torch.set_num_threads(2)
@@ -463,3 +467,138 @@ def test_spectrum_probe_s0_is_the_sorted_column_norms(dev):
     for out in outs:
         assert torch.equal(out, outs[0])
     assert float((outs[0] - norms).abs().max()) <= 1e-6 * float(norms.max())
+
+
+def _nc(a, b):
+    a = a.astype(np.float64).ravel() - a.mean()
+    b = b.astype(np.float64).ravel() - b.mean()
+    return float(a @ b / np.sqrt((a @ a) * (b @ b)))
+
+
+def test_svd_full_is_stable_and_cancels(dev):
+    """svd_full pins one cuSOLVER driver: two calls give the same bits, and
+    compute_uv=False returns exactly the S of the full call."""
+    x = torch.as_tensor(_frames((3, 72, 96), SEED + 8), device=dev)
+    c = dct.dct2(x.to(torch.float32))
+    u, s, vt = svd.svd_full(c)
+    u2, s2, vt2 = svd.svd_full(c)
+    assert torch.equal(u, u2) and torch.equal(s, s2) and torch.equal(vt, vt2)
+    assert torch.equal(svd.svd_full(c, compute_uv=False), s)
+    s_cpu = torch.linalg.svd(c.cpu(), full_matrices=False).S
+    assert float((s.cpu() - s_cpu).abs().max()) <= 1e-5 * float(s_cpu.max())
+
+
+@pytest.mark.parametrize("mode", ["gray", "color"])
+def test_parity_on_gpu_matches_cpu(dev, mode):
+    """Parity embed, extract and detect on the card against the CPU: stego
+    within 1 quantum on at most 1 % of bytes, PSNR within 0.01 dB, SSIM
+    within 1e-3, detect within 1e-3, extractions' NC >= 0.999."""
+    h, w = 60, 84
+    cover = _frames((h, w, 3), SEED + 9)
+    wm = _frames((h, w, 3), SEED + 10)
+    idx = crypto.permutation_indices(crypto.derive_key("gpu", bytes(8)),
+                                     h * w)
+    inv = crypto.inverse_permutation(idx)
+    out = {}
+    for d in ("cpu", dev):
+        c, m = torch.as_tensor(cover, device=d), torch.as_tensor(wm, device=d)
+        i, v = torch.as_tensor(idx, device=d), torch.as_tensor(inv, device=d)
+        if mode == "gray":
+            res = timg.embed_gray(c, m[..., 0], i, ALPHA)
+            sc = res.sc
+            rec = timg.extract_gray(res.stego_bgr, sc, res.uw, res.vwt, v,
+                                    ALPHA)
+            score = timg.detect_gray(res.stego_bgr, sc, res.sw, ALPHA)
+        else:
+            res = timg.embed_color(c, m, i, ALPHA)
+            sc = res.s_cover
+            rec = timg.extract_color(res.stego_bgr, sc, res.uw, res.vwt, v,
+                                     ALPHA)
+            score = timg.detect_color(res.stego_bgr, sc, res.sw, ALPHA)
+        out[str(d)] = (res.stego_bgr.cpu().numpy(), rec.cpu().numpy(),
+                       float(score), float(res.psnr), float(res.ssim))
+    (st_c, rec_c, s_c, p_c, ss_c), (st_g, rec_g, s_g, p_g, ss_g) = \
+        out.values()
+    d = np.abs(st_c.astype(int) - st_g.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.01
+    assert abs(p_c - p_g) <= 0.01 and abs(ss_c - ss_g) <= 1e-3
+    assert abs(s_c - s_g) <= 1e-3 and s_g > 0.9
+    assert _nc(rec_c, rec_g) >= 0.999
+
+
+def test_enhance_on_gpu_matches_cpu(dev):
+    """Every enhancement stage on the card against the CPU: unsharp and
+    CLAHE within 1 quantum, NLM within 1 quantum on >= 99 % of pixels, the
+    chains' mean |Δ| < 0.5; no stage degrades."""
+    import warnings
+    plane = _frames((40, 52), SEED + 11)
+    img = _frames((40, 52, 3), SEED + 12)
+    cases = [(lambda t: e_ops.unsharp_u8(t, 1.25, -0.25), plane, "q1"),
+             (e_ops.clahe_u8, plane, "q1"),
+             (e_ops.nlm_gray_u8, plane, "nlm"),
+             (e_ops.nlm_color_u8, img, "nlm"),
+             (tenh.enhance_gray_u8, plane, "chain"),
+             (tenh.enhance_color_u8, img, "chain")]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for fn, x, tol in cases:
+            a, b = (fn(torch.as_tensor(x, device=d)).cpu().numpy().astype(int)
+                    for d in ("cpu", dev))
+            diff = np.abs(a - b)
+            if tol == "q1":
+                assert diff.max() <= 1
+            elif tol == "nlm":
+                assert (diff <= 1).mean() >= 0.99
+            else:
+                assert diff.mean() < 0.5
+
+
+def test_resync_on_gpu_matches_cpu(dev):
+    """Resync on the card: one K1 launch a chunk, chunk scores within 1e-3
+    of the CPU's, the same recovered shift, and _derotate within 1
+    quantum of the CPU and exact at 0°."""
+    h, w = 64, 80
+    cover = _frames((h, w, 3), SEED + 13)
+    wm = _frames((h, w, 3), SEED + 14)
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    got = {}
+    for d in ("cpu", dev):
+        res = tb.embed_color(torch.as_tensor(cover, device=d),
+                             torch.as_tensor(wm, device=d),
+                             torch.as_tensor(blk, device=d),
+                             torch.as_tensor(intra, device=d), ALPHA)
+        rolled = torch.roll(res.stego_bgr, (2, -3), dims=(0, 1))
+        shifts = torch.as_tensor(tb._resync_shifts(4, 0), device=d)
+        n0 = wm_cuda.spectrum_blocks.launches
+        chunk = tb._detect_shift_chunk(rolled, res.sc, res.sw, ALPHA, shifts,
+                                       color_frames=True)
+        launched = wm_cuda.spectrum_blocks.launches - n0
+        found = tb.detect_color_resync(rolled, res.sc, res.sw, ALPHA,
+                                       window=4, chunk=16)
+        rot = tb._derotate(res.stego_bgr, 0.7, color_frames=True)
+        assert torch.equal(tb._derotate(res.stego_bgr, 0.0,
+                                        color_frames=True), res.stego_bgr)
+        got[str(d)] = (chunk.cpu(), found, rot.cpu(), launched)
+    (c_c, f_c, r_c, n_c), (c_g, f_g, r_g, n_g) = got.values()
+    assert n_c == 0 and n_g == 1
+    assert float((c_c - c_g).abs().max()) <= 1e-3
+    assert f_c[1] == f_g[1] == (2, -3) and abs(f_c[0] - f_g[0]) <= 1e-3
+    assert int((r_c.to(torch.int16) - r_g.to(torch.int16)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("layout", ["frames_u8", "luma_f32"])
+def test_spectrum_on_a_resync_chunk_equals_twin(dev, layout):
+    """K1 on one chunk of 64 rolls, gathered as the resync search gathers
+    it (u8 color frames, or f32 luma planes for gray resync), is bit-equal
+    to its plain twin."""
+    from dctsvd_tpu_torch.ops import color
+    img = torch.as_tensor(_frames((96, 128, 3), SEED + 15), device=dev)
+    if layout == "luma_f32":
+        img = color.luma_f32(img)
+    shifts = torch.as_tensor(tb._resync_shifts(tb.BLOCK, 0)[:64], device=dev)
+    stack = tb._roll_stack(img, shifts)
+    kw = dict(channels_last=True) if layout == "frames_u8" else {}
+    got = wm_cuda.spectrum_blocks(stack, sweeps=1.25, **kw)
+    assert torch.equal(got, wm_cuda.spectrum_blocks_plain(stack, sweeps=1.25,
+                                                          **kw))
