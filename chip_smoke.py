@@ -38,9 +38,17 @@ with each stage's time, and against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
 stego, with K1's launches on each search and K1 held to its twin on one
-chunk of 64 rolled frames and one of 64 rolled luma planes; and the CLI
-with the parity defaults and the payload subcommands. It prints one JSON line per
-phase.
+chunk of 64 rolled frames and one of 64 rolled luma planes. Then video
+(``models/video``) on a seeded 48-frame 1080p clip: the blocked and the
+full scheme, gray and color, each embed and extract timed with K1's, K2's
+and K4's launches in windows of their own, the decode / device / encode
+split, a text video and detect; K1, K2 and K4 bit-equal to their twins on
+a chunk of decoded 1080p frames; a resumed embed after an injected crash,
+byte-identical to an uninterrupted one; the with-audio variant (a muxed
+tone with ffmpeg, the silent fallback without); both schemes on a small
+clip against the CPU. Last, the CLI with the parity defaults, the payload
+subcommands and the video subcommands (with ``--profile``). It prints one
+JSON line per phase.
 Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
@@ -1039,7 +1047,71 @@ def phase_reference(dev):
           "psnr_gpu": ps_g})
 
 
-def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered):
+def cli_call(dev, *args, check=True, nonce=None):
+    """``python -m dctsvd_tpu_torch.cli --device DEV ARGS`` in a child
+    process (with the embed nonce pinned to ``nonce`` if given); raises on
+    a non-zero exit when ``check``."""
+    entry = ["-m", "dctsvd_tpu_torch.cli"]
+    if nonce is not None:
+        entry = ["-c", "import sys; from dctsvd_tpu_torch.utils "
+                 "import crypto; n = bytes.fromhex(sys.argv.pop(1)); "
+                 "crypto.make_nonce = lambda: n; "
+                 "from dctsvd_tpu_torch import cli; "
+                 "sys.exit(cli.main(sys.argv[1:]))", nonce.hex()]
+    proc = subprocess.run(
+        [sys.executable, *entry, "--device", str(dev), *args],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True)
+    if check and proc.returncode != 0:
+        raise SmokeFailure(f"cli {args[0]} failed "
+                           f"({proc.returncode}): {proc.stderr}")
+    return proc
+
+
+def cli_video(dev, td: str, clip: str, wm_png: str) -> dict:
+    """phase_files' video part: the video subcommands on the clip, each
+    command's result read from the last line of its standard output."""
+    from dctsvd_tpu_torch.io import image_io
+
+    def cli(*args):
+        proc = cli_call(dev, *args)
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    info = cli("video-info", clip)
+    require((info["width"], info["height"], info["total_frames"]) ==
+            (W, H, VIDEO_FRAMES), f"CLI video-info {info}")
+    vout, prof = os.path.join(td, "v.mp4"), os.path.join(td, "prof")
+    vemb = cli("--profile", prof, "video-embed", clip, "--watermark",
+               wm_png, "--out", vout, "--scheme", "blocked", "--color",
+               "--frame-interval", str(VIDEO_INTERVAL), "--alpha",
+               str(VIDEO_ALPHA))
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    require(traces and all(os.path.getsize(f) > 0 for f in traces),
+            f"--profile left no trace: {traces}")
+    vwm = os.path.join(td, "v_wm.png")
+    vext = cli("video-extract", vout, vemb["meta"], "--out", vwm)
+    vnc = nc_np(image_io.read_bgr(vwm)[..., 0], circle_ref(wm_png, H, W))
+    require(vext["text"] is None and vnc > 0.4,
+            f"CLI video-extract {vext}, NC {vnc}")
+    vdet = cli("video-detect", vout, "--sample-rate", str(VIDEO_INTERVAL))
+    require(vdet["total_frames_analyzed"] ==
+            len(range(0, VIDEO_FRAMES, VIDEO_INTERVAL))
+            and 0.0 < vdet["watermark_likelihood"] <= 1.0,
+            f"CLI video-detect {vdet}")
+    tout = os.path.join(td, "t.mp4")
+    temb = cli("video-embed", clip, "--text", VIDEO_TEXT, "--out", tout,
+               "--frame-interval", str(2 * VIDEO_INTERVAL))
+    text = cli("video-extract", tout, temb["meta"], "--out",
+               os.path.join(td, "t_wm.png"))["text"]
+    require(text == VIDEO_TEXT, f"CLI video text {text!r}")
+    return dict(info=info, blocked_color_nc=vnc, detect=vdet, text=text,
+                profile_trace_bytes=[os.path.getsize(f) for f in traces],
+                video_calls_s=time.perf_counter() - t0)
+
+
+def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
+                clip, wm_png):
     """The CLI on 1080p PNGs: the blocked embed -> extract -> detect and a
     wrong password; then the default parity embed (color) -> extract with
     the enhancement chain -> detect and its wrong password; and a payload
@@ -1047,9 +1119,12 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered):
     1080p, recovered exactly; the parity default on phase_payload's
     360×640 crop with its first nonce (``cli.main`` run with the embed
     nonce pinned), recovered exactly if the API recovered it
-    (``parity_text_recovered``) and not recovered if it did not."""
+    (``parity_text_recovered``) and not recovered if it did not. Then the
+    video subcommands on the 1080p clip: video-info; video-embed --scheme
+    blocked --color (under --profile DIR, which must leave a non-empty
+    trace file) -> video-extract (NC > 0.4) -> video-detect; video-embed
+    --text (full) -> video-extract, the text recovered."""
     from dctsvd_tpu_torch.io import image_io
-    env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
         cp, wp = os.path.join(td, "cover.png"), os.path.join(td, "wm.png")
         sp = os.path.join(td, "smooth.png")
@@ -1059,20 +1134,7 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered):
         stego = os.path.join(td, "stego.png")
 
         def cli(*args, check=True, nonce=None):
-            entry = ["-m", "dctsvd_tpu_torch.cli"]
-            if nonce is not None:
-                entry = ["-c", "import sys; from dctsvd_tpu_torch.utils "
-                         "import crypto; n = bytes.fromhex(sys.argv.pop(1)); "
-                         "crypto.make_nonce = lambda: n; "
-                         "from dctsvd_tpu_torch import cli; "
-                         "sys.exit(cli.main(sys.argv[1:]))", nonce.hex()]
-            proc = subprocess.run(
-                [sys.executable, *entry, "--device", str(dev), *args],
-                cwd=REPO, env=env, capture_output=True, text=True)
-            if check and proc.returncode != 0:
-                raise SmokeFailure(f"cli {args[0]} failed "
-                                   f"({proc.returncode}): {proc.stderr}")
-            return proc
+            return cli_call(dev, *args, check=check, nonce=nonce)
 
         emb = json.loads(cli("embed", cp, wp, "--out", stego, "--method",
                              "blocked", "--color", "--password",
@@ -1136,13 +1198,16 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered):
                         f"not")
             payload["blocked_1080p" if i == 0 else "full_360x640"] = (
                 "recovered" if expect else "not recovered, as by the API")
+
+        t1 = time.perf_counter()
+        video_cli = cli_video(dev, td, clip, wm_png)
         emit({"phase": "cli_files", "psnr": emb["psnr"], "ssim": emb["ssim"],
               "detect": det, "wrong_password": "refused",
               "parity_color": {"psnr": emb_f["psnr"], "ssim": emb_f["ssim"],
                                "detect": det_f, "enhanced_extract": True,
                                "wrong_password": "refused"},
-              "payload": payload,
-              "parity_calls_s": time.perf_counter() - t0})
+              "payload": payload, "video": video_cli,
+              "parity_calls_s": t1 - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -1677,6 +1742,508 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Video: both schemes at 1080p, resume, the audio contract, small reference
+# ---------------------------------------------------------------------------
+
+VIDEO_FRAMES = 48       # frames of the 1080p clip (2 s at 24 fps)
+VIDEO_FPS = 24.0
+VIDEO_ALPHA = 0.08      # tests/test_video.py's
+VIDEO_INTERVAL = 8      # -> 6 marked frames, 2 dispatches of 4
+VIDEO_CHUNK = 4         # models/video.py's default chunk
+VIDEO_SEED = 20261024
+VIDEO_TEXT = "CHIP SMOKE 1080p"
+
+
+def write_clip(path: str, h: int, w: int, n: int, seed: int = VIDEO_SEED):
+    """tests/test_video.py's synthetic clip at h×w: a σ3-blurred seeded
+    noise frame rolled 2 px a frame, written by the port's VideoWriter."""
+    import cv2
+    import numpy as np
+    from dctsvd_tpu_torch.io import video_io
+    rng = np.random.default_rng(seed)
+    base = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8),
+                            (0, 0), 3.0)
+    with video_io.VideoWriter(path, VIDEO_FPS, w, h) as wr:
+        for i in range(n):
+            wr.write(np.roll(base, i * 2, axis=1))
+
+
+def write_circle(path: str):
+    """tests/test_video.py's watermark: a filled circle on 48×48."""
+    import cv2
+    import numpy as np
+    wm = np.zeros((48, 48), np.uint8)
+    cv2.circle(wm, (24, 24), 16, 255, -1)
+    cv2.imwrite(path, wm)
+
+
+def circle_ref(wm_png: str, h: int, w: int):
+    """The watermark resized to the frame as the NC reference
+    (INTER_AREA)."""
+    import cv2
+    return cv2.resize(cv2.imread(wm_png, cv2.IMREAD_GRAYSCALE), (w, h),
+                      interpolation=cv2.INTER_AREA)
+
+
+def video_probe() -> dict:
+    """cv2's version, the Video I/O lines of its build information and
+    whether an ffmpeg binary runs."""
+    import cv2
+    from dctsvd_tpu_torch.io import video_io
+    lines, on = [], False
+    for line in cv2.getBuildInformation().splitlines():
+        if "Video I/O" in line:
+            on = True
+        elif on and (not line.strip() or not line.startswith("    ")):
+            break
+        if on:
+            lines.append(line.strip())
+    return dict(cv2=cv2.__version__, video_io=lines,
+                ffmpeg=video_io.ffmpeg_available())
+
+
+def video_wrappers():
+    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+    return {"spectrum_blocks": wm_cuda.spectrum_blocks,
+            "embed_blocks": wm_cuda.embed_blocks,
+            "jacobi_svd8": svd_cuda.jacobi_svd8}
+
+
+def counted_run(fn):
+    """(fn(), seconds, launches of K1, K2, K4): the counters set to 0 just
+    before and read just after, the card synchronised on both sides."""
+    import torch
+    wrappers = video_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, {n: w.launches for n, w in wrappers.items()}
+
+
+def video_split(dev, clip: str, wm_plane, scheme: str, color: bool,
+                out_path: str) -> dict:
+    """The embed's work done serially under utils/profiling.StageTimer:
+    decode (every frame read, and the marked ones put in the device
+    layout), device (upload, the embed of each chunk, download) and
+    encode (every frame written). The pipeline overlaps the three."""
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import video
+    from dctsvd_tpu_torch.utils import profiling
+    timer = profiling.StageTimer()
+    hwc = color and scheme == "blocked"
+    with timer.stage("decode"):
+        with video_io.VideoReader(clip) as reader:
+            frames = [f for f in reader]
+        idx = list(range(0, len(frames), VIDEO_INTERVAL))
+        if hwc:
+            planes = [frames[i] for i in idx]
+        elif color:
+            planes = [np.moveaxis(frames[i], -1, 0) for i in idx]
+        else:
+            planes = [cv2.cvtColor(frames[i], cv2.COLOR_BGR2GRAY)
+                      for i in idx]
+    wm_d = torch.as_tensor(wm_plane, device=dev)
+    if scheme == "blocked":
+        _, sw, _ = video._wm_svd_blocked(wm_d)
+        fn = (video._embed_frames_color_blocked if color
+              else video._embed_frame_gray_blocked)
+    else:
+        _, sw, _ = video._wm_svd(wm_d)
+        fn = video._embed_frame_color if color else video._embed_frame_gray
+    torch.cuda.synchronize()
+    marked = []
+    for c0 in range(0, len(planes), VIDEO_CHUNK):
+        part = planes[c0:c0 + VIDEO_CHUNK]
+        part = part + [part[-1]] * (VIDEO_CHUNK - len(part))
+        with timer.stage("device"):
+            m, s = fn(torch.from_numpy(np.stack(part)).to(dev), sw,
+                      VIDEO_ALPHA)
+            m, s = m.cpu().numpy(), s.cpu().numpy()
+        marked.extend(m[:len(planes) - c0])
+    with timer.stage("encode"):
+        h, w = frames[0].shape[:2]
+        with video_io.VideoWriter(out_path, VIDEO_FPS, w, h) as wr:
+            for i, f in enumerate(frames):
+                if i % VIDEO_INTERVAL:
+                    wr.write(f)
+                    continue
+                m = marked[i // VIDEO_INTERVAL]
+                if hwc:
+                    wr.write(m)
+                elif color:
+                    wr.write(np.ascontiguousarray(np.moveaxis(m, 0, -1)))
+                else:
+                    wr.write(cv2.cvtColor(m, cv2.COLOR_GRAY2BGR))
+    return {k: dict(seconds=v, calls=timer.counts[k])
+            for k, v in timer.totals.items()}
+
+
+def video_kernels_vs_twin(dev, clip: str, marked_color: str, meta_path: str,
+                          wm_plane) -> dict:
+    """K2 on one chunk of 4 decoded 1080p frames (channels-last u8, and
+    their u8 gray planes), K1 on 4 decoded frames of the blocked color
+    stego at its meta's schedule, and K4 on the watermark's natural-order
+    blocks (5 sweeps), each bit-equal to its twin run on the card and
+    timed beside it (CUDA events)."""
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.io import meta as metaio
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import blocked, video
+    from dctsvd_tpu_torch.ops import dct, svd_cuda, wm_cuda
+
+    def decoded(path):
+        with video_io.VideoReader(path) as r:
+            return np.stack([r.seek_read(i) for i in
+                             range(0, VIDEO_CHUNK * VIDEO_INTERVAL,
+                                   VIDEO_INTERVAL)])
+
+    frames = decoded(clip)
+    gray = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2GRAY) for f in frames])
+    frames_d = torch.as_tensor(frames, device=dev)
+    gray_d = torch.as_tensor(gray, device=dev)
+    stego_d = torch.as_tensor(decoded(marked_color), device=dev)
+    wm_d = torch.as_tensor(wm_plane, device=dev)
+    padded, _, _ = blocked._pad_to_blocks(wm_d.to(torch.float32))
+    coefs = dct.dct2_plane_blocks(padded)
+    _, sw, _ = video._wm_svd_blocked(wm_d)
+    mask = (torch.arange(8, device=dev) < K).to(torch.float32)
+    sws = blocked._scaled_sws(sw, torch.tensor(VIDEO_ALPHA, device=dev),
+                              mask)
+    sched = blocked.replay_sweeps(metaio.load_video_meta(meta_path).sched())
+    cases = {
+        "K2 embed_blocks frames_u8": (
+            lambda: wm_cuda.embed_blocks(frames_d, sws, sweeps=SWEEPS, k=K,
+                                         out_u8=True, channels_last=True),
+            lambda: wm_cuda.embed_blocks_plain(
+                frames_d, sws, sweeps=SWEEPS, k=K, out_u8=True,
+                channels_last=True), frames_d),
+        "K2 embed_blocks gray_u8": (
+            lambda: wm_cuda.embed_blocks(gray_d, sws, sweeps=SWEEPS, k=K,
+                                         out_u8=True),
+            lambda: wm_cuda.embed_blocks_plain(gray_d, sws, sweeps=SWEEPS,
+                                               k=K, out_u8=True), gray_d),
+        "K1 spectrum_blocks stego_frames_u8": (
+            lambda: wm_cuda.spectrum_blocks(stego_d, sweeps=sched,
+                                            channels_last=True),
+            lambda: wm_cuda.spectrum_blocks_plain(stego_d, sweeps=sched,
+                                                  channels_last=True),
+            stego_d),
+        "K4 jacobi_svd8 wm_natural": (
+            lambda: svd_cuda.jacobi_svd8(coefs),
+            lambda: svd_cuda.jacobi_svd8_plain(coefs), coefs),
+    }
+    out = {}
+    for name, (kern, plain, x) in cases.items():
+        got, ref = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(float((a.to(torch.float32) - b.to(torch.float32))
+                        .abs().max()) for a, b in zip(got, ref))
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{name} on a decoded 1080p video chunk "
+                f"{list(x.shape)}: not bit-equal to its twin ({err})")
+        out[name] = dict(shape=list(x.shape), equals_twin=True,
+                         max_abs_err=err, ms=cuda_time(kern, 10),
+                         plain_ms=cuda_time(plain, 2))
+    return out
+
+
+def phase_video(dev, td: str, clip: str, wm_png: str):
+    """models/video at 1080p through its entry points: the blocked and the
+    full scheme, gray and color, at frame interval 8 (6 marked frames of
+    48, 2 dispatches), each embed and extract timed end to end with K1's,
+    K2's and K4's launches counted in a window of its own; the meta shapes
+    of tests/test_video.py at this size; extraction NC > 0.4 against the
+    resized watermark; the decode / device / encode split of each embed
+    (StageTimer, serial); svd_full's time per marked frame; a text video
+    (full, gray) round trip; detect at sample rate 8 (6 frames, likelihood
+    in (0, 1], a missing path an error dict); then K1, K2 and K4 bit-equal
+    to their twins on a chunk of decoded 1080p frames. Returns the launches
+    of K1, K2 and K4 over the video runs."""
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.io import meta as metaio
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import video
+    from dctsvd_tpu_torch.ops import dct
+    from dctsvd_tpu_torch.ops.svd import svd_full
+
+    probe = video_probe()
+    ref = circle_ref(wm_png, H, W)
+    n_blocks = (H // 8) * (W // 8)
+    marked_idx = list(range(0, VIDEO_FRAMES, VIDEO_INTERVAL))
+    nm = len(marked_idx)
+    dispatches = -(-nm // VIDEO_CHUNK)
+    expect_shape = {("blocked", False): (nm, n_blocks, 8),
+                    ("blocked", True): (nm, 3, n_blocks, 8),
+                    ("full", False): (nm, min(H, W)),
+                    ("full", True): (nm, 3, min(H, W))}
+    wm_plane = video._prepare_wm_plane(wm_png, None, 0, W, H, device=dev)
+    total = {n: 0 for n in video_wrappers()}
+    runs = {}
+    for scheme in ("blocked", "full"):
+        for color in (False, True):
+            name = f"{scheme}_{'color' if color else 'gray'}"
+            out = os.path.join(td, f"{name}.mp4")
+            meta_p = os.path.join(td, f"{name}_meta.npz")
+            embed = (video.embed_watermark_video_color if color
+                     else video.embed_watermark_video)
+            _, embed_s, n_embed = counted_run(lambda: embed(
+                clip, wm_png, out, meta_p, alpha=VIDEO_ALPHA,
+                frame_interval=VIDEO_INTERVAL, scheme=scheme, device=dev))
+            wm_out = os.path.join(td, f"{name}_wm.png")
+            _, extract_s, n_extract = counted_run(
+                lambda: video.extract_watermark_video(out, meta_p, wm_out,
+                                                      device=dev))
+            meta = metaio.load_video_meta(meta_p)
+            nc = nc_np(cv2.imread(wm_out, cv2.IMREAD_GRAYSCALE), ref)
+            if scheme == "blocked":
+                want_e = {"jacobi_svd8": 1, "embed_blocks": dispatches,
+                          "spectrum_blocks": 0}
+                want_x = {"jacobi_svd8": 0, "embed_blocks": 0,
+                          "spectrum_blocks": dispatches}
+            else:
+                want_e = want_x = {n: 0 for n in total}
+            require(n_embed == want_e and n_extract == want_x,
+                    f"video {name} launches: embed {n_embed} (expected "
+                    f"{want_e}), extract {n_extract} (expected {want_x})")
+            require(list(meta.frame_indices) == marked_idx,
+                    f"video {name} frame indices {list(meta.frame_indices)}")
+            require(meta.s_orig.shape == expect_shape[(scheme, color)],
+                    f"video {name} s_orig {meta.s_orig.shape}")
+            require(meta.uw.shape == ((n_blocks, 8, 8) if scheme == "blocked"
+                                      else (H, min(H, W))),
+                    f"video {name} uw {meta.uw.shape}")
+            require(meta.scheme == scheme and meta.is_color == color,
+                    f"video {name} meta scheme {meta.scheme}")
+            require(nc > 0.4, f"video {name} extraction NC {nc} <= 0.4")
+            for n in total:
+                total[n] += n_embed[n] + n_extract[n]
+            split = video_split(dev, clip, wm_plane, scheme, color,
+                                os.path.join(td, f"{name}_split.mp4"))
+            runs[name] = dict(
+                embed_s=embed_s, embed_fps=VIDEO_FRAMES / embed_s,
+                extract_s=extract_s, extract_marked_fps=nm / extract_s,
+                extract_nc=nc, launches_embed=n_embed,
+                launches_extract=n_extract, split_s=split,
+                s_orig_shape=list(meta.s_orig.shape),
+                sweeps=[meta.sweeps, meta.sweeps_xpairs])
+    # svd_full per marked frame: one gray plane, three color planes
+    with video_io.VideoReader(clip) as reader:
+        frame = reader.seek_read(0)
+    gray = torch.as_tensor(cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY),
+                           device=dev).to(torch.float32)
+    planes = torch.movedim(torch.as_tensor(frame, device=dev), -1, 0).to(
+        torch.float32)
+    svd_ms = {"gray_1_plane": cuda_time(lambda: svd_full(dct.dct2(gray)), 3),
+              "color_3_planes": cuda_time(
+                  lambda: svd_full(dct.dct2(planes)), 3)}
+
+    text_out = os.path.join(td, "text.mp4")
+    text_meta = os.path.join(td, "text_meta.npz")
+    t0 = time.perf_counter()
+    video.embed_text_watermark_video(clip, VIDEO_TEXT, text_out, text_meta,
+                                     alpha=VIDEO_ALPHA,
+                                     frame_interval=VIDEO_INTERVAL * 2,
+                                     device=dev)
+    got_text = video.extract_text_watermark_video(
+        text_out, text_meta, os.path.join(td, "text_wm.png"), device=dev)
+    text_s = time.perf_counter() - t0
+    require(got_text == VIDEO_TEXT, f"video text round trip: {got_text!r}")
+
+    det, detect_s, _ = counted_run(lambda: video.detect_watermark_video(
+        os.path.join(td, "full_gray.mp4"), frame_sample_rate=VIDEO_INTERVAL,
+        device=dev))
+    missing = video.detect_watermark_video(os.path.join(td, "missing.mp4"),
+                                           device=dev)
+    require(det.get("total_frames_analyzed") == nm
+            and 0.0 < det["watermark_likelihood"] <= 1.0,
+            f"video detect: {det}")
+    require(set(missing) == {"error"}, f"detect on a missing path: {missing}")
+    twin = video_kernels_vs_twin(dev, clip,
+                                 os.path.join(td, "blocked_color.mp4"),
+                                 os.path.join(td, "blocked_color_meta.npz"),
+                                 wm_plane)
+    det.pop("frame_statistics")
+    emit({"phase": "video_1080p", "machine": probe,
+          "clip": dict(frames=VIDEO_FRAMES, fps=VIDEO_FPS, shape=[H, W, 3],
+                       alpha=VIDEO_ALPHA, frame_interval=VIDEO_INTERVAL,
+                       marked=nm, chunk=VIDEO_CHUNK),
+          **runs, "svd_full_ms": svd_ms,
+          "text": dict(recovered=got_text, frame_interval=2 * VIDEO_INTERVAL,
+                       embed_extract_s=text_s),
+          "detect": dict(det, seconds=detect_s), "missing_path": missing,
+          "kernels_vs_twin_on_video_chunk": twin,
+          "launches_video": total, "card": smi_line()})
+    return total
+
+
+def phase_video_resume(dev, td: str, clip: str, wm_png: str):
+    """A blocked color embed with resume=True and segment_frames=16: a crash
+    injected at the second dispatch (``_embed_frames_color_blocked``
+    patched), then the rerun; its output must be byte-identical to an
+    uninterrupted resumed run, with equal s_orig."""
+    import numpy as np
+    from dctsvd_tpu_torch.io import meta as metaio
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import video
+    wm_plane = video._prepare_wm_plane(wm_png, None, 0, W, H, device=dev)
+    kw = dict(color=True, resume=True, segment_frames=16, scheme="blocked",
+              device=dev)
+    out_a = os.path.join(td, "resume_a.mp4")
+    meta_a = os.path.join(td, "resume_a.npz")
+    t0 = time.perf_counter()
+    video._embed_video_impl(clip, out_a, meta_a, wm_plane, VIDEO_ALPHA,
+                            VIDEO_INTERVAL, **kw)
+    plain_s = time.perf_counter() - t0
+    out_b = os.path.join(td, "resume_b.mp4")
+    meta_b = os.path.join(td, "resume_b.npz")
+    orig = video._embed_frames_color_blocked
+    calls = {"n": 0}
+
+    def crash(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("injected crash")
+        return orig(*args, **kwargs)
+
+    video._embed_frames_color_blocked = crash
+    try:
+        video._embed_video_impl(clip, out_b, meta_b, wm_plane, VIDEO_ALPHA,
+                                VIDEO_INTERVAL, **kw)
+        raise SmokeFailure("the injected crash did not propagate")
+    except RuntimeError as err:
+        require("injected" in str(err), f"resume crash: {err}")
+    finally:
+        video._embed_frames_color_blocked = orig
+    ck = metaio.load_video_meta(meta_b)
+    segs = video_io.SegmentedVideoWriter.existing_segments(out_b)
+    require(ck.frames_done > 0 and ck.segments_done >= 1 and segs
+            and not os.path.exists(out_b),
+            f"resume checkpoint: frames_done {ck.frames_done}, segments "
+            f"{ck.segments_done}, files {segs}")
+    require(len(ck.s_orig) == len(ck.frame_indices),
+            "a checkpoint without an s_orig row for each recorded frame")
+    t0 = time.perf_counter()
+    video._embed_video_impl(clip, out_b, meta_b, wm_plane, VIDEO_ALPHA,
+                            VIDEO_INTERVAL, **kw)
+    resumed_s = time.perf_counter() - t0
+    full, res = metaio.load_video_meta(meta_a), metaio.load_video_meta(meta_b)
+    with open(out_a, "rb") as fa, open(out_b, "rb") as fb:
+        same = fa.read() == fb.read()
+    require(same, "the resumed output is not byte-identical to the "
+            "uninterrupted run's")
+    require(list(res.frame_indices) == list(full.frame_indices)
+            and np.array_equal(res.s_orig, full.s_orig),
+            "the resumed meta's s_orig differs from the uninterrupted run's")
+    emit({"phase": "video_resume_1080p", "segment_frames": 16,
+          "crash_at_dispatch": 2, "checkpoint_frames_done": ck.frames_done,
+          "checkpoint_segments": ck.segments_done,
+          "byte_identical": same, "s_orig_equal": True,
+          "uninterrupted_s": plain_s, "resumed_s": resumed_s,
+          "output_bytes": os.path.getsize(out_b), "card": smi_line()})
+
+
+def phase_video_audio(dev, td: str, clip: str, wm_png: str):
+    """The with-audio color embed (blocked): with an ffmpeg binary, a
+    generated tone is muxed into the host clip (lavfi sine) and the embed
+    must report had_audio True; without one it must report False and
+    leave the silent output in place."""
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import video
+    host = clip
+    have = video_io.ffmpeg_available()
+    if have:
+        host = os.path.join(td, "clip_tone.mp4")
+        proc = subprocess.run(
+            ["ffmpeg", "-y", "-i", clip, "-f", "lavfi", "-i",
+             "sine=frequency=440:duration=2", "-c:v", "copy", "-c:a", "aac",
+             "-shortest", host], capture_output=True, timeout=120)
+        require(proc.returncode == 0, f"muxing a tone: {proc.stderr[-300:]}")
+    out = os.path.join(td, "audio.mp4")
+    t0 = time.perf_counter()
+    _, _, had_audio = video.embed_watermark_video_color_with_audio(
+        host, wm_png, out, os.path.join(td, "audio_meta.npz"),
+        alpha=VIDEO_ALPHA, frame_interval=VIDEO_INTERVAL, scheme="blocked",
+        device=dev)
+    seconds = time.perf_counter() - t0
+    require(had_audio is have, f"had_audio {had_audio} with ffmpeg {have}")
+    require(os.path.exists(out) and not os.path.exists(out + ".temp.mp4"),
+            "with-audio output missing or its temp left behind")
+    emit({"phase": "video_audio",
+          "case": "ffmpeg present: tone muxed" if have else
+          "no ffmpeg binary: silent fallback",
+          "had_audio": had_audio, "seconds": seconds, "card": smi_line()})
+
+
+def phase_video_reference(dev, td: str):
+    """Both schemes, gray and color, on a 96×128×24 clip on the card and on
+    the CPU: frame indices equal; s_orig within 1e-5·s_max (full) or
+    1e-3·s_max with 99 % within 1e-4·s_max (blocked; the CPU tests'
+    bounds); each extraction NC > 0.4 and the two extractions' NC >=
+    0.99."""
+    import cv2
+    import numpy as np
+    from dctsvd_tpu_torch.io import meta as metaio
+    from dctsvd_tpu_torch.models import video
+    h, w = 96, 128
+    clip = os.path.join(td, "small.mp4")
+    wm_png = os.path.join(td, "small_wm.png")
+    write_clip(clip, h, w, 24)
+    write_circle(wm_png)
+    ref = circle_ref(wm_png, h, w)
+    rows = {}
+    for scheme in ("full", "blocked"):
+        for color in (False, True):
+            name = f"{scheme}_{'color' if color else 'gray'}"
+            got = []
+            for d in ("cpu", dev):
+                base = os.path.join(td, f"small_{name}_{d}")
+                embed = (video.embed_watermark_video_color if color
+                         else video.embed_watermark_video)
+                embed(clip, wm_png, base + ".mp4", base + ".npz",
+                      alpha=VIDEO_ALPHA, frame_interval=5, scheme=scheme,
+                      device=d)
+                video.extract_watermark_video(base + ".mp4", base + ".npz",
+                                              base + ".png", device=d)
+                got.append((metaio.load_video_meta(base + ".npz"),
+                            cv2.imread(base + ".png", cv2.IMREAD_GRAYSCALE)))
+            (m_c, x_c), (m_g, x_g) = got
+            smax = float(np.abs(m_c.s_orig).max())
+            err = np.abs(m_g.s_orig - m_c.s_orig) / smax
+            nc_pair, nc_c, nc_g = nc_np(x_c, x_g), nc_np(x_c, ref), nc_np(
+                x_g, ref)
+            require(list(m_c.frame_indices) == list(m_g.frame_indices),
+                    f"small video {name}: frame indices differ")
+            if scheme == "full":
+                require(err.max() <= 1e-5,
+                        f"small video {name}: s_orig {err.max()} > 1e-5")
+            else:
+                require(err.max() <= 1e-3 and (err <= 1e-4).mean() >= 0.99,
+                        f"small video {name}: s_orig {err.max()}, "
+                        f"{(err <= 1e-4).mean()} within 1e-4")
+            require(nc_pair >= 0.99 and min(nc_c, nc_g) > 0.4,
+                    f"small video {name}: NC card-cpu {nc_pair}, "
+                    f"{nc_c}, {nc_g}")
+            rows[name] = dict(s_orig_max_rel_err=float(err.max()),
+                              share_within_1e4=float((err <= 1e-4).mean()),
+                              nc_card_vs_cpu=nc_pair, nc_cpu=nc_c,
+                              nc_card=nc_g)
+    emit({"phase": "video_reference_small", "shape": [h, w, 3], "frames": 24,
+          **rows, "card": smi_line()})
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1771,7 +2338,16 @@ def main(argv) -> int:
     # angles score within the statistic's noise of the true one
     resync_launches = phase_resync(dev, covers[0].cpu().numpy(), wm_u8, blk,
                                    intra)
-    phase_files(dev, covers, wm_u8, smooth, parity_text_recovered)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vtd:
+        clip, wm_png = (os.path.join(vtd, f) for f in ("clip.mp4", "wm.png"))
+        write_clip(clip, H, W, VIDEO_FRAMES)
+        write_circle(wm_png)
+        video_launches = phase_video(dev, vtd, clip, wm_png)
+        phase_video_resume(dev, vtd, clip, wm_png)
+        phase_video_audio(dev, vtd, clip, wm_png)
+        phase_video_reference(dev, vtd)
+        phase_files(dev, covers, wm_u8, smooth, parity_text_recovered, clip,
+                    wm_png)
     probe_launches, probe_results, t3 = phase_probes(dev, covers)
     launches.update(probe_launches)
     results.update(probe_results)
@@ -1809,9 +2385,10 @@ def main(argv) -> int:
                            "tools/profile_view.py:44"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
-    # the blocked payloads', and (K1) each resync search's
+    # the blocked payloads', the video runs', and (K1) each resync search's
     paths = {name: {"slice": launches[name],
-                    "payload": payload_launches[name]}
+                    "payload": payload_launches[name],
+                    "video": video_launches[name]}
              for name in payload_launches}
     paths["spectrum_blocks"].update(resync_launches)
     for name, by_path in paths.items():

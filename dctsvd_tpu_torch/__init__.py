@@ -4,8 +4,10 @@ The port of ``dctsvd_tpu`` (JAX on a TPU) to an NVIDIA H100. It carries
 the image API: the parity path (whole-frame DCT + SVD, ``method='full'``)
 and the blocked (8×8) scheme — embed, extract and detect, gray and color,
 the enhancement chain, text/JSON payloads, detect resync and the serve
-steps — with the blocked scheme's Jacobi kernels written by hand in CUDA
-C++ for ``sm_90a`` (``csrc/``; K1 spectrum, K2 embed, K3 embed + verify,
+steps — and video (``models/video.py``: both schemes, text watermarks,
+resume and the audio remux; the CLI's ``video-*`` subcommands), with the
+blocked scheme's Jacobi kernels written by hand in CUDA C++ for
+``sm_90a`` (``csrc/``; K1 spectrum, K2 embed, K3 embed + verify,
 K4 8×8 SVD, K2r, K1g), and the measurement probes of the JAX package's
 ``tools/`` (``tools/``, kernels in ``csrc/probes.cu``), each kernel with a
 plain PyTorch twin that runs for CPU tensors. It imports ``torch`` and

@@ -1,7 +1,8 @@
 """Command-line interface of the port (counterpart of
 ``dctsvd_tpu/cli.py``): ``embed``, ``extract``, ``detect``,
-``embed-payload`` and ``extract-payload`` with the JAX package's flags,
-plus ``--device`` (default ``cuda``).
+``embed-payload``, ``extract-payload`` and the four ``video-*``
+subcommands with the JAX package's flags, plus ``--device`` (default
+``cuda``).
 
     python -m dctsvd_tpu_torch.cli embed cover.png wm.png --out s.png \\
         --password pw                       # parity path (--method full)
@@ -12,18 +13,29 @@ plus ``--device`` (default ``cuda``).
         --out p.png --password pw
     python -m dctsvd_tpu_torch.cli extract-payload p.png p_meta.npz \\
         --password pw
+    python -m dctsvd_tpu_torch.cli video-embed clip.mp4 --watermark wm.png \\
+        --out marked.mp4 [--color] [--scheme blocked] [--resume]
+    python -m dctsvd_tpu_torch.cli video-extract marked.mp4 marked_meta.npz
+    python -m dctsvd_tpu_torch.cli video-detect marked.mp4
+    python -m dctsvd_tpu_torch.cli video-info clip.mp4
 
-The video subcommands are not ported.
+Global flags: ``--device``, ``--profile DIR`` (a ``torch.profiler`` Chrome
+trace of the command, written into DIR) and ``--log-level``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
 
-from dctsvd_tpu_torch.utils.config import ALPHA_GUI_DEFAULT, K_FRAC_DEFAULT
+from dctsvd_tpu_torch.utils.config import (ALPHA_GUI_DEFAULT,
+                                           ALPHA_VIDEO_DEFAULT,
+                                           FONT_SIZE_DEFAULT,
+                                           FRAME_INTERVAL_DEFAULT,
+                                           K_FRAC_DEFAULT)
 
 
 def _default_meta(out_path: str) -> str:
@@ -45,10 +57,15 @@ def _add_common_embed(p):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="dctsvd-tpu-torch",
-        description="DCT-SVD image watermarking on PyTorch + CUDA")
+        description="DCT-SVD image/video watermarking on PyTorch + CUDA")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain twins)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler Chrome trace of the "
+                         "command into DIR")
+    ap.add_argument("--log-level", default="INFO",
+                    choices=["DEBUG", "INFO", "WARNING", "ERROR"])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("embed", help="embed an image watermark")
@@ -98,11 +115,106 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("stego")
     p.add_argument("meta")
     p.add_argument("--password")
+
+    p = sub.add_parser("video-embed", help="per-frame video embed")
+    p.add_argument("host")
+    p.add_argument("--watermark", help="watermark image path")
+    p.add_argument("--text", help="text watermark instead of an image")
+    p.add_argument("--out", default="marked.mp4")
+    p.add_argument("--meta", default=None)
+    p.add_argument("--alpha", type=float, default=ALPHA_VIDEO_DEFAULT)
+    p.add_argument("--frame-interval", type=int,
+                   default=FRAME_INTERVAL_DEFAULT)
+    p.add_argument("--font-size", type=int, default=FONT_SIZE_DEFAULT)
+    p.add_argument("--color", action="store_true")
+    p.add_argument("--audio", action="store_true",
+                   help="preserve audio via ffmpeg (graceful fallback); "
+                        "implies the per-channel color embed")
+    p.add_argument("--scheme", choices=["full", "blocked"], default="full",
+                   help="full = whole-frame SVD (reference parity); "
+                        "blocked = the 8x8 kernels")
+    p.add_argument("--resume", action="store_true",
+                   help="checkpointed segment writing; rerun with the same "
+                        "args to continue an interrupted embed")
+
+    p = sub.add_parser("video-extract", help="extract a video watermark")
+    p.add_argument("video")
+    p.add_argument("meta")
+    p.add_argument("--out", default="wm.png")
+
+    p = sub.add_parser("video-detect", help="blind statistical detect")
+    p.add_argument("video")
+    p.add_argument("--sample-rate", type=int, default=30)
+
+    p = sub.add_parser("video-info", help="fps, size and frame count")
+    p.add_argument("video")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from dctsvd_tpu_torch.utils import profiling
+    profiling.setup_logging(getattr(logging, args.log_level))
+    with profiling.trace(args.profile):
+        return _run(args)
+
+
+def _video_embed(args) -> int:
+    from dctsvd_tpu_torch.models import video as m_video
+    # exactly one watermark source: cv2.imread(None) deep in the frame
+    # loop is an opaque crash, and silently preferring one of two given
+    # watermarks embeds something the user did not ask for
+    if bool(args.watermark) == bool(args.text):
+        print("error: video-embed needs exactly one of --watermark "
+              "or --text", file=sys.stderr)
+        return 2
+    meta = args.meta or _default_meta(args.out)
+    kw = dict(alpha=args.alpha, frame_interval=args.frame_interval,
+              scheme=args.scheme, resume=args.resume, device=args.device)
+    text_kw = dict(font_size=args.font_size, **kw)
+    if args.text and args.audio:
+        res = m_video.embed_text_watermark_video_color_with_audio(
+            args.host, args.text, args.out, meta, **text_kw)
+    elif args.audio:
+        res = m_video.embed_watermark_video_color_with_audio(
+            args.host, args.watermark, args.out, meta, **kw)
+    elif args.text and args.color:
+        res = m_video.embed_text_watermark_video_color(
+            args.host, args.text, args.out, meta, **text_kw)
+    elif args.text:
+        res = m_video.embed_text_watermark_video(
+            args.host, args.text, args.out, meta, **text_kw)
+    elif args.color:
+        res = m_video.embed_watermark_video_color(
+            args.host, args.watermark, args.out, meta, **kw)
+    else:
+        res = m_video.embed_watermark_video(
+            args.host, args.watermark, args.out, meta, **kw)
+    print(json.dumps({"video": res[0], "meta": res[1]}))
+    return 0
+
+
+def _run(args) -> int:
+    if args.cmd == "video-embed":
+        return _video_embed(args)
+    if args.cmd == "video-extract":
+        from dctsvd_tpu_torch.models import video as m_video
+        text = m_video.extract_text_watermark_video(
+            args.video, args.meta, args.out, device=args.device)
+        print(json.dumps({"watermark": args.out, "text": text}))
+        return 0
+    if args.cmd == "video-detect":
+        from dctsvd_tpu_torch.models import video as m_video
+        stats = m_video.detect_watermark_video(
+            args.video, frame_sample_rate=args.sample_rate,
+            device=args.device)
+        stats.pop("frame_statistics", None)
+        print(json.dumps(stats))
+        return 0
+    if args.cmd == "video-info":
+        from dctsvd_tpu_torch.io import video_io
+        print(json.dumps(video_io.get_video_info(args.video)))
+        return 0
     from dctsvd_tpu_torch import api
     if args.cmd == "embed":
         meta = args.meta or _default_meta(args.out)

@@ -66,6 +66,18 @@ def dct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ki,...nij,lj->...nkl", d, blocks, d)
 
 
+def dct2_plane_blocks(x: torch.Tensor, b: int = 8) -> torch.Tensor:
+    """[..., H, W] plane -> [..., N, b, b] block-DCT coefficients, equal to
+    ``dct2_blocks(blockify(x))`` in one contraction with the Kronecker
+    basis F[k, l, i, j] = D[k, i]·D[l, j]. H and W must be multiples of
+    b (callers pad first)."""
+    *lead, h, w = x.shape
+    v = x.reshape(*lead, h // b, b, w // b, b)
+    f = torch.as_tensor(_dct_kron_np(b), dtype=x.dtype, device=x.device)
+    out = torch.einsum("...hiwj,klij->...hwkl", v, f)
+    return out.reshape(*lead, (h // b) * (w // b), b, b)
+
+
 def _idct_t_np(b: int) -> np.ndarray:
     """T[p=(i,j), q=(a,c)] = D[a,i]·D[c,j]  (y = Dᵀ X D), f64 [b·b, b·b]."""
     return _dct_kron_np(b).transpose(2, 3, 0, 1).reshape(b * b, b * b)

@@ -602,3 +602,139 @@ def test_spectrum_on_a_resync_chunk_equals_twin(dev, layout):
     got = wm_cuda.spectrum_blocks(stack, sweeps=1.25, **kw)
     assert torch.equal(got, wm_cuda.spectrum_blocks_plain(stack, sweeps=1.25,
                                                           **kw))
+
+
+def _video_chunk(k=4, h=96, w=128, seed=SEED + 16):
+    """k frames of tests/test_video.py's synthetic clip at h×w: a
+    σ3-blurred noise frame rolled 2 px a frame, u8 BGR [k, h, w, 3]."""
+    import cv2
+    base = cv2.GaussianBlur(_frames((h, w, 3), seed), (0, 0), 3.0)
+    return np.stack([np.roll(base, 2 * i, axis=1) for i in range(k)])
+
+
+def _circle(h=96, w=128):
+    import cv2
+    wm = np.zeros((48, 48), np.uint8)
+    cv2.circle(wm, (24, 24), 16, 255, -1)
+    return cv2.resize(wm, (w, h), interpolation=cv2.INTER_AREA)
+
+
+def _close_u8(a, b):
+    d = (a.cpu().to(torch.int16) - b.cpu().to(torch.int16)).abs()
+    return int(d.max()) <= 1 and float((d > 0).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("color", [False, True], ids=["gray", "color"])
+@pytest.mark.parametrize("scheme", ["full", "blocked"])
+def test_video_device_functions_on_gpu_match_cpu(dev, scheme, color):
+    """models/video's device functions on a 96×128 chunk of 4 frames of
+    the smooth (σ3-blurred) clip, card against CPU: the watermark's Sw
+    within 1e-5·s_max; s_orig within 1e-5·s_max (full) or within
+    1e-3·s_max and 1e-4·s_max on >= 99 % (blocked: tests/test_torch_video
+    .py's bounds on smooth frames); marked bytes within 1 quantum on <= 1 %
+    (full), and for the blocked scheme at most 1 % of bytes differing and
+    at most 0.1 % by more than 1 quantum: on near-rank-1 blocks the
+    unconverged s1.25 rotations amplify the last-ulp differences between
+    the card's and the CPU's arithmetic (measured on an H100: 0.076 % of
+    color bytes differ, 0.015 % by 2-6 quanta; 0 on noise frames; K2 is
+    bit-equal to its twin run on the card either way). The recovery runs
+    on the card and on the CPU from the same inputs (the CPU's marked
+    frames, s_orig and watermark factors): within 1e-3·max|est| (full),
+    within 2 quanta after clipping (blocked). Blocked: K4, K2 and K1
+    launched once each."""
+    from dctsvd_tpu_torch.models import video as tv
+    import cv2
+    frames = _video_chunk()
+    if color and scheme == "full":
+        planes = np.ascontiguousarray(np.moveaxis(frames, -1, 1))
+    elif color:
+        planes = frames
+    else:
+        planes = np.stack([cv2.cvtColor(f, cv2.COLOR_BGR2GRAY)
+                           for f in frames])
+    wm = _circle()
+    fns = (svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
+           wm_cuda.spectrum_blocks)
+    got, cpu = [], None
+    for d in ("cpu", dev):
+        n0 = [f.launches for f in fns]
+        x = torch.as_tensor(planes, device=d)
+        if scheme == "full":
+            uw, sw, vtw = tv._wm_svd(torch.as_tensor(wm, device=d))
+            fn = tv._embed_frame_color if color else tv._embed_frame_gray
+        else:
+            uw, sw, vtw = tv._wm_svd_blocked(torch.as_tensor(wm, device=d))
+            fn = (tv._embed_frames_color_blocked if color
+                  else tv._embed_frame_gray_blocked)
+        marked, s_orig = fn(x, sw, ALPHA)
+        # the recovery from the CPU's outputs, moved to this device
+        if cpu is None:
+            cpu = (marked, s_orig, uw, sw, vtw)
+        m_in, s_in, uw_in, sw_in, vtw_in = (t.to(d) for t in cpu)
+        if scheme == "full":
+            est = tv._recover_wm(tv._frame_singular_values(m_in), s_in,
+                                 uw_in, vtw_in, ALPHA)
+        else:
+            est = tv._recover_wm_blocked(m_in, s_in, uw_in, vtw_in, ALPHA,
+                                         0.6, 96, 128, sw=sw_in, sweeps=1.25,
+                                         channels_last=color)
+        torch.cuda.synchronize()
+        got.append((sw.cpu(), marked.cpu(), s_orig.cpu(), est.cpu(),
+                    [f.launches - n for f, n in zip(fns, n0)]))
+    (sw_c, m_c, s_c, e_c, n_c), (sw_g, m_g, s_g, e_g, n_g) = got
+    assert n_c == [0, 0, 0]
+    assert n_g == ([0, 0, 0] if scheme == "full" else [1, 1, 1])
+    assert m_g.dtype == torch.uint8 and m_g.shape == m_c.shape
+    if scheme == "full":
+        assert _close_u8(m_g, m_c)
+    else:
+        d = (m_g.to(torch.int16) - m_c.to(torch.int16)).abs()
+        assert float((d > 0).float().mean()) <= 0.01
+        assert float((d > 1).float().mean()) <= 0.001
+    assert float((sw_g - sw_c).abs().max()) <= 1e-5 * float(sw_c.max())
+    err = (s_g - s_c).abs() / float(s_c.abs().max())
+    if scheme == "full":
+        assert float(err.max()) <= 1e-5
+        assert float((e_g - e_c).abs().max()) <= 1e-3 * float(
+            e_c.abs().max())
+    else:
+        assert float(err.max()) <= 1e-3
+        assert float((err <= 1e-4).float().mean()) >= 0.99
+        diff = (e_g.clamp(0, 255).to(torch.int16)
+                - e_c.clamp(0, 255).to(torch.int16)).abs()
+        assert int(diff.max()) <= 2
+
+
+def test_blocked_video_embed_extract_on_gpu(dev, tmp_path):
+    """A blocked color video through models/video's entry points on the
+    card: K4 once and K2 once a chunk on embed, K1 once a chunk on
+    extract; the extraction correlates with the watermark (NC > 0.4)."""
+    import cv2
+    from dctsvd_tpu_torch.io import video_io
+    from dctsvd_tpu_torch.models import video as tv
+    clip, wm_png = str(tmp_path / "clip.mp4"), str(tmp_path / "wm.png")
+    frames = _video_chunk(k=24)
+    with video_io.VideoWriter(clip, 24.0, 128, 96) as w:
+        for f in frames:
+            w.write(f)
+    wm = np.zeros((48, 48), np.uint8)
+    cv2.circle(wm, (24, 24), 16, 255, -1)
+    cv2.imwrite(wm_png, wm)
+    fns = (svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
+           wm_cuda.spectrum_blocks)
+    n0 = [f.launches for f in fns]
+    out, meta = tv.embed_watermark_video_color(
+        clip, wm_png, str(tmp_path / "m.mp4"), str(tmp_path / "m.npz"),
+        alpha=0.08, frame_interval=5, scheme="blocked", device=dev)
+    torch.cuda.synchronize()
+    n1 = [f.launches for f in fns]
+    tv.extract_watermark_video(out, meta, str(tmp_path / "wm_out.png"),
+                               device=dev)
+    torch.cuda.synchronize()
+    n2 = [f.launches for f in fns]
+    assert [b - a for a, b in zip(n0, n1)] == [1, 2, 0]
+    assert [b - a for a, b in zip(n1, n2)] == [0, 0, 2]
+    got = cv2.imread(str(tmp_path / "wm_out.png"), cv2.IMREAD_GRAYSCALE)
+    a = got.astype(np.float64).ravel() - got.mean()
+    b = _circle().astype(np.float64).ravel() - _circle().mean()
+    assert a @ b / np.sqrt((a @ a) * (b @ b)) > 0.4
