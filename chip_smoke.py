@@ -9,6 +9,10 @@
                                             # their ptxas and SASS mix
     python3 chip_smoke.py --svd-drivers     # only the three cuSOLVER
                                             # drivers of the parity SVD
+    python3 chip_smoke.py --tail-times      # only the extract steps' times
+                                            # at 1080p, batch 32 (and 1, 4)
+    python3 chip_smoke.py --recon-forms     # only the extract tail's
+                                            # k-term product, in each form
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
 an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
@@ -38,7 +42,16 @@ with each stage's time, and against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
 stego, with K1's launches on each search and K1 held to its twin on one
-chunk of 64 rolled frames and one of 64 rolled luma planes. Then video
+chunk of 64 rolled frames and one of 64 rolled luma planes. Then
+``parallel/``: the batch entry points on the 1080p batch of 32 through a
+one-card mesh, four shards of the card (``[cuda:0] * 4``) and one frame
+a shard, each held to the unsharded call (stego, sc and the recovered
+watermark byte-equal, scores within 1e-5), with K1-K4's launches and
+frames/s, and no host sync; the parity batch detect against the
+per-image detect; an 8K frame (4320x7680) in one and in four bands,
+equal to the whole-frame embed; the GUI's handlers on a 1080p PNG
+(blocked and parity); and the graft entry points (``entry()``,
+``dryrun_multichip(4)``). Then video
 (``models/video``) on a seeded 48-frame 1080p clip: the blocked and the
 full scheme, gray and color, each embed and extract timed with K1's, K2's
 and K4's launches in windows of their own, the decode / device / encode
@@ -137,7 +150,14 @@ def require(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the
+    script started (the run must end within its time limit)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -1123,9 +1143,15 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
     video subcommands on the 1080p clip: video-info; video-embed --scheme
     blocked --color (under --profile DIR, which must leave a non-empty
     trace file) -> video-extract (NC > 0.4) -> video-detect; video-embed
-    --text (full) -> video-extract, the text recovered."""
+    --text (full) -> video-extract, the text recovered. The video
+    subcommands run in a thread of their own beside the image ones (each
+    call is a child process, most of it the process's start)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dctsvd_tpu_torch.io import image_io
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td, \
+            ThreadPoolExecutor(1) as pool:
+        video_run = pool.submit(cli_video, dev, td, clip, wm_png)
         cp, wp = os.path.join(td, "cover.png"), os.path.join(td, "wm.png")
         sp = os.path.join(td, "smooth.png")
         image_io.write_png(cp, covers[0].cpu().numpy())
@@ -1200,7 +1226,7 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
                 "recovered" if expect else "not recovered, as by the API")
 
         t1 = time.perf_counter()
-        video_cli = cli_video(dev, td, clip, wm_png)
+        video_cli = video_run.result()
         emit({"phase": "cli_files", "psnr": emb["psnr"], "ssim": emb["ssim"],
               "detect": det, "wrong_password": "refused",
               "parity_color": {"psnr": emb_f["psnr"], "ssim": emb_f["ssim"],
@@ -1810,11 +1836,12 @@ def video_wrappers():
             "jacobi_svd8": svd_cuda.jacobi_svd8}
 
 
-def counted_run(fn):
-    """(fn(), seconds, launches of K1, K2, K4): the counters set to 0 just
-    before and read just after, the card synchronised on both sides."""
+def counted_run(fn, wrappers=None):
+    """(fn(), seconds, launches of K1, K2, K4 or of ``wrappers``): the
+    counters set to 0 just before and read just after, the card
+    synchronised on both sides."""
     import torch
-    wrappers = video_wrappers()
+    wrappers = wrappers or video_wrappers()
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -2244,6 +2271,516 @@ def phase_video_reference(dev, td: str):
           **rows, "card": smi_line()})
 
 
+# ---------------------------------------------------------------------------
+# parallel/ (frame batches over a mesh, 8K frames in bands), the GUI
+# handlers and the graft entry points
+# ---------------------------------------------------------------------------
+
+PLANE_H, PLANE_W = 4320, 7680   # one 8K frame: 518,400 blocks
+
+
+def parallel_wrappers():
+    from dctsvd_tpu_torch.ops import wm_cuda
+    return dict(video_wrappers(),
+                roundtrip_frames_blocks=wm_cuda.roundtrip_frames_blocks)
+
+
+def _signature(value):
+    """A call argument's shape, dtype and layout, or the value itself."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        return (tuple(value.shape), str(value.dtype), value.stride())
+    return value
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Records the first call of K1..K4's wrappers at each signature
+    (shapes, dtypes, strides and the other arguments) made inside the
+    block: {(name, signature): (args, kwargs)}. The wrappers stay the
+    ones that launch and count: a recorder only notes the inputs, then
+    calls the wrapper (whose count, kept on the module's name, is the
+    recorder's while it stands in for it)."""
+    from dctsvd_tpu_torch.ops import svd, svd_cuda, wm_cuda
+    calls = {}
+    patched = []
+    for name, orig in parallel_wrappers().items():
+        def recorder(*args, _orig=orig, _name=name, **kw):
+            key = (_name, tuple(_signature(a) for a in args),
+                   tuple(sorted((k, _signature(v)) for k, v in kw.items())))
+            calls.setdefault(key, (args, kw))
+            return _orig(*args, **kw)
+        recorder.launches = orig.launches
+        for mod in (wm_cuda, svd_cuda, svd):
+            if getattr(mod, name, None) is orig:
+                patched.append((mod, name, orig))
+                setattr(mod, name, recorder)
+    try:
+        yield calls
+    finally:
+        for mod, name, orig in patched:
+            setattr(mod, name, orig)
+
+
+def recorded_vs_twin(calls: dict) -> list:
+    """Each recorded call of K1..K4 again, through its kernel and through
+    its plain twin on the same inputs on the card: bit-equal, or the run
+    fails. One row a call: its input shapes, max |kernel - twin|, and the
+    kernel's and the twin's ms (CUDA events, 3 and 1 calls)."""
+    import torch
+    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+    twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
+             "embed_blocks": wm_cuda.embed_blocks_plain,
+             "roundtrip_frames_blocks":
+                 wm_cuda.roundtrip_frames_blocks_plain,
+             "jacobi_svd8": svd_cuda.jacobi_svd8_plain}
+    kernels_ = parallel_wrappers()
+    rows = []
+    for (name, _, _), (args, kw) in calls.items():
+        plain_kw = {k: v for k, v in kw.items()
+                    if k not in ("method", "variant")}
+        require(kw.get("method", "onesided") == "onesided"
+                and kw.get("variant", "delta") == "delta",
+                f"{name}: a variant call on the path {kw}")
+
+        def kern():
+            return kernels_[name](*args, **kw)
+
+        def plain():
+            return twins[name](*args, **plain_kw)
+        got, ref = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(float((a.to(torch.float32) - b.to(torch.float32))
+                        .abs().max()) for a, b in zip(got, ref))
+        shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{name} on the path's inputs {shapes}: not bit-equal to "
+                f"its twin ({err})")
+        rows.append(dict(name=name, inputs=shapes,
+                         dtype=str(args[0].dtype), equals_twin=True,
+                         max_abs_err=err, ms=cuda_time(kern, 3),
+                         plain_ms=cuda_time(plain, 1)))
+    return rows
+
+
+def differ(a, b) -> dict:
+    """How two tensors of one call differ: equal, and for u8 the share of
+    differing bytes and the largest difference, else the largest
+    absolute difference."""
+    import torch
+    d = (a.to(torch.float64) - b.to(torch.float64)).abs()
+    out = dict(equal=bool(torch.equal(a, b)), max=float(d.max()))
+    if a.dtype == torch.uint8:
+        out.update(share=float((d > 0).to(torch.float64).mean()),
+                   bytes=int((d > 0).sum()))
+    return out
+
+
+def tail_times(covers, wm_u8, blk, intra) -> dict:
+    """ms of the steps that run the extract tail on the 1080p batch of 32,
+    CUDA events, two readings of 10 calls after a warm-up: the slice's
+    embed+extract step, color and gray extract alone, serve+verify. Only
+    entry points every tree of the port has, so that this function, copied
+    into an older tree, times that tree."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color
+    pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
+    pwg = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
+    st, sc, _, _ = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                                with_metrics=False)
+    stg, scg, _, _ = blocked.embed_gray_prepared(covers, pwg.sw, ALPHA,
+                                                 with_metrics=False)
+
+    def step():
+        s, c = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                            with_metrics=False)[:2]
+        return blocked.extract_color_prepared(s, c, pwc.ebasis, pwc.inv_blk,
+                                              ALPHA, sw=pwc.sw)
+    steps = dict(
+        embed_extract=step,
+        extract_color=lambda: blocked.extract_color_prepared(
+            st, sc, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw),
+        extract_gray=lambda: blocked.extract_gray_prepared(
+            stg, scg, pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw),
+        serve_verify=lambda: blocked.serve_verify_color_prepared(
+            covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk))
+    # the same extracts on one frame and on four (a shard of 4)
+    for n in (1, 4):
+        steps[f"extract_color_{n}"] = (
+            lambda n=n: blocked.extract_color_prepared(
+                st[:n], sc[:n], pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw))
+        steps[f"extract_gray_{n}"] = (
+            lambda n=n: blocked.extract_gray_prepared(
+                stg[:n], scg[:n], pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw))
+    return {name: [cuda_time(fn, 10) for _ in range(2)]
+            for name, fn in steps.items()}
+
+
+def recon_forms(dev) -> dict:
+    """The extract tail's k-term product Σ_j x[f, m, j]·e[m, j, :] (k = 4,
+    64 pixels) at the 1080p color (3 × 32,400 blocks) and gray (32,400)
+    shapes, in each candidate form, on 1, 4, 8 and 32 frames: ms (CUDA
+    events, two readings of 10 calls after a warm-up), and whether a
+    frame's bytes are the same alone, in a shard of 4 or 8 and in the
+    batch of 32 (``invariant``). ``port`` is models/blocked._recon."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+
+    def einsum(x, e):
+        return torch.einsum("fmj,mjp->fmp", x, e)
+
+    def chunked(c, frames_as_n=False):
+        def form(x, e):
+            f, m, k = x.shape
+            pad = (-f) % c
+            if pad:
+                x = torch.cat([x, x.new_zeros(pad, m, k)])
+            if frames_as_n:      # [m, 64, k] @ [m, k, c]
+                xt, et = x.permute(1, 2, 0), e.transpose(1, 2)
+                out = torch.empty(m, e.shape[-1], f + pad, device=x.device)
+                for i in range(0, f + pad, c):
+                    out[:, :, i:i + c] = torch.bmm(et, xt[:, :, i:i + c])
+                return out.permute(2, 0, 1)[:f]
+            xt = x.permute(1, 0, 2)
+            out = torch.empty(m, f + pad, e.shape[-1], device=x.device)
+            for i in range(0, f + pad, c):
+                torch.bmm(xt[:, i:i + c], e, out=out[:, i:i + c])
+            return out.permute(1, 0, 2)[:f]
+        return form
+
+    def per_frame(x, e):
+        return torch.stack([torch.bmm(xi[:, None, :], e)[:, 0] for xi in x])
+
+    def addcmul(x, e):
+        out = x[..., 0:1] * e[:, 0]
+        for j in range(1, x.shape[-1]):
+            out.addcmul_(x[..., j:j + 1], e[:, j])
+        return out
+
+    forms = dict(einsum=einsum, bmm_8=chunked(8), bmm_32=chunked(32),
+                 bmm_8_frames_as_n=chunked(8, True), per_frame=per_frame,
+                 addcmul=addcmul, port=blocked._recon)
+    gen = torch.Generator(device=dev).manual_seed(20261032)
+    rows = {}
+    for shape, m in (("color", 3 * H * W // 64), ("gray", H * W // 64)):
+        x = torch.randn(BATCH, m, K + 1, generator=gen,
+                        device=dev)[..., :K]         # a strided slice, as
+        e = torch.randn(m, K, 64, generator=gen, device=dev)   # the tail's
+        for name, form in forms.items():
+            whole = form(x, e)
+            parts = [(0, 1), (BATCH - 1, BATCH), (4, 8), (8, 16)]
+            invariant = all(torch.equal(form(x[a:b], e), whole[a:b])
+                            for a, b in parts)
+            rows.setdefault(shape, {})[name] = dict(
+                invariant=invariant,
+                max_abs_vs_einsum=float((whole - einsum(x, e)).abs().max()),
+                ms={str(f): [cuda_time(lambda f=f: form(x[:f], e), 10)
+                             for _ in range(2)] for f in (1, 4, 8, BATCH)})
+    return rows
+
+
+def parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded):
+    """phase_parallel's loop: each entry point through the unsharded call
+    and each mesh, held to the unsharded outputs, its launches counted
+    and its time taken (into ``rows`` and ``launches``)."""
+    import warnings
+
+    import torch
+    # outputs compared within 1e-5 (scores and metrics); the rest exactly
+    scored = {"serve": {"3"}, "detect_blocked": {"0"},
+              "embed_blocked": {"psnr", "ssim"}}
+    for mname, mesh in [("unsharded", None)] + list(meshes.items()):
+        fns = calls if mesh is None else sharded(mesh, st, sc)
+        shards = 1 if mesh is None else len(mesh.devices)
+        # each shard launches its kernels once, K4 once a device
+        expect = {"serve": {"roundtrip_frames_blocks": shards},
+                  "embed_prepared": {"embed_blocks": shards},
+                  "extract_prepared": {"spectrum_blocks": shards},
+                  "detect_blocked": {"spectrum_blocks": shards},
+                  "embed_blocked": {"embed_blocks": shards,
+                                    "jacobi_svd8": 1}}
+        for name, fn in fns.items():
+            row = {}
+            if mesh is not None:
+                torch.cuda.set_sync_debug_mode("warn")
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out, _, n = counted_run(fn, parallel_wrappers())
+                torch.cuda.set_sync_debug_mode("default")
+                row["host_syncs"] = len(caught)
+                require(not caught, f"{mname} {name} synchronised with "
+                        f"the host: {[str(w.message) for w in caught]}")
+                row["launches"] = n
+                for k, v in n.items():
+                    launches[k] += v
+                for k, v in expect[name].items():
+                    require(n[k] == v, f"{mname} {name}: {k} launched "
+                            f"{n[k]} times, expected {v}")
+                r = ref[name]
+                if isinstance(out, dict):
+                    cmp = {k: differ(out[k], r[k]) for k in out}
+                else:
+                    out = out if isinstance(out, tuple) else (out,)
+                    r = r if isinstance(r, tuple) else (r,)
+                    cmp = {str(i): differ(o, q) for i, (o, q) in
+                           enumerate(zip(out, r))}
+                row["vs_unsharded"] = cmp
+                for key, d in cmp.items():
+                    if key in scored.get(name, ()):
+                        require(d["max"] <= 1e-5, f"{mname} {name} {key}: "
+                                f"{d['max']} from the unsharded call")
+                    else:
+                        require(d["equal"], f"{mname} {name} {key} differs "
+                                f"from the unsharded call: {d}")
+            ms = cuda_time(fn, 3)
+            row.update(ms=ms, frames_per_s=BATCH / ms * 1e3)
+            rows.setdefault(name, {})[mname] = row
+
+
+def phase_parallel(dev, covers, wm_u8, blk, intra):
+    """parallel/batch on the 1080p batch of 32 through four meshes: the
+    unsharded single-device calls, a one-card mesh, four shards on this
+    card ([cuda:0] * 4, one after another) and one frame a shard. Each
+    entry point's outputs are held to the unsharded call's (stego, sc
+    and the recovered watermark byte-equal, scores and metrics within
+    1e-5), its launches of K1..K4 counted in a window of its own, its
+    frames/s timed with CUDA events after a warm-up; no sharded call may
+    synchronise with the host (CUDA sync debug mode, after the unsharded
+    calls have put the constants on the card). Every call of K1..K4 on
+    these paths, at each shape it took (the batch of 32, a shard of 8,
+    one frame), is then made again through its kernel and its plain twin
+    on the same inputs: bit-equal.
+    Then batch_detect_full on four σ3-blurred frames, against the
+    per-image parity detect, with the batched SVD's difference beside
+    it. Returns the launches on the meshes."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked, image
+    from dctsvd_tpu_torch.ops import color, dct, svd
+    from dctsvd_tpu_torch.parallel import batch as pbatch
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+
+    pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
+    wm_gray = color.bgr_to_gray(wm_u8)
+    pwg = blocked.prepare_wm_gray(wm_gray, blk, intra)
+
+    def unsharded():
+        st, sc, _, _ = blocked.embed_gray_prepared(covers, pwg.sw, ALPHA,
+                                                   with_metrics=False)
+        emb = blocked.embed_gray(covers, wm_gray, blk, intra, ALPHA)
+        return dict(
+            serve=lambda: blocked.serve_verify_detect_color_prepared(
+                covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk),
+            embed_prepared=lambda: blocked.embed_gray_prepared(
+                covers, pwg.sw, ALPHA, with_metrics=False)[:2],
+            extract_prepared=lambda: blocked.extract_gray_prepared(
+                st, sc, pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw),
+            detect_blocked=lambda: blocked.detect_gray(st, sc, pwg.sw,
+                                                       ALPHA),
+            embed_blocked=lambda: blocked.embed_gray(
+                covers, wm_gray, blk, intra, ALPHA)), (st, sc, emb)
+
+    def sharded(mesh, st, sc):
+        return dict(
+            serve=lambda: pbatch.batch_serve_verify_detect(
+                covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk, mesh=mesh),
+            embed_prepared=lambda: pbatch.batch_embed_prepared(
+                covers, pwg.sw, ALPHA, mesh=mesh),
+            extract_prepared=lambda: pbatch.batch_extract_prepared(
+                st, sc, pwg.ebasis, pwg.inv_blk, pwg.sw, ALPHA, mesh=mesh),
+            detect_blocked=lambda: pbatch.batch_detect_blocked(
+                st, sc, pwg.sw, ALPHA, mesh=mesh, per_frame_sc=True),
+            embed_blocked=lambda: pbatch.batch_embed_blocked(
+                covers, wm_gray, blk, intra, ALPHA, mesh=mesh))
+
+    calls, (st, sc, emb) = unsharded()
+    ref = {name: fn() for name, fn in calls.items()}
+    ref["embed_blocked"] = dict(stego=emb.stego_bgr, sc=emb.sc, uw=emb.uw,
+                                vwt=emb.vwt, sw=emb.sw, psnr=emb.psnr,
+                                ssim=emb.ssim)
+    meshes = {"one_card": pmesh.make_mesh(1),
+              "four_shards": pmesh.make_mesh(devices=[dev] * 4),
+              "frame_shards": pmesh.make_mesh(devices=[dev] * BATCH)}
+    require(meshes["one_card"].devices == (dev,), "one-card mesh")
+    rows, launches = {}, {n: 0 for n in parallel_wrappers()}
+    with recorded_calls() as path_calls:
+        parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded)
+    twin_rows = recorded_vs_twin(path_calls)
+    own = ref["serve"][3]
+    require(float(own.min()) > 0.8, f"own serve score {float(own.min())}")
+    own = ref["detect_blocked"]
+    require(float(own.min()) > 0.8, f"own gray score {float(own.min())}")
+
+    # the parity detect of a batch against one meta, per image
+    covers_np = [smooth_frame(20261030 + i) for i in range(3)]
+    idx = torch.arange(H * W, device=dev)
+    c0 = torch.as_tensor(covers_np[0], device=dev)
+    res = image.embed_gray(c0, wm_gray, idx, ALPHA)
+    batch4 = torch.stack([res.stego_bgr, c0] + [
+        torch.as_tensor(c, device=dev) for c in covers_np[1:]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = pbatch.batch_detect_full(batch4, res.sc, res.sw, ALPHA,
+                                    mesh=meshes["four_shards"])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    single = torch.stack([image.detect_gray(im, res.sc, res.sw, ALPHA)
+                          for im in batch4])
+    batched = image.detect_gray(batch4, res.sc, res.sw, ALPHA)
+    y = color.luma_f32(batch4)
+    s_b = svd.svd_full(dct.dct2(y), compute_uv=False)
+    s_1 = torch.stack([svd.svd_full(dct.dct2(p), compute_uv=False)
+                       for p in y])
+    require(torch.equal(full, single),
+            f"batch_detect_full {full.tolist()} != per image "
+            f"{single.tolist()}")
+    require(float(full[0]) > 0.6 and float(full[1]) == 0.0,
+            f"batch_detect_full scores {full.tolist()}")
+    emit({"phase": "parallel_1080p", "batch": BATCH, "calls": rows,
+          "launches": launches, "kernels_vs_twin": twin_rows,
+          "detect_full": dict(
+              scores=full.tolist(), seconds=full_s,
+              batched_call_scores=batched.tolist(),
+              batched_s_equal=bool(torch.equal(s_b, s_1)),
+              batched_s_max_rel=float(((s_b - s_1).abs()
+                                       / s_1.abs().amax(-1, keepdim=True))
+                                      .max())),
+          "card": smi_line()})
+    return launches
+
+
+def phase_plane(dev):
+    """parallel/plane on one seeded 4320x7680 cover: one band (a one-card
+    mesh) and four bands ([cuda:0] * 4). The stego and sc equal
+    embed_gray_prepared on the whole frame; the own stego scores > 0.8,
+    the cover < 0.3; embed and detect timed with CUDA events. K2 and K1,
+    at each shape the bands gave them (the whole 8K luma plane, a
+    1080-row band), are made again through the kernel and the plain twin
+    on the same inputs: bit-equal. Returns the launches on the meshes."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+    from dctsvd_tpu_torch.parallel import plane as pplane
+    from dctsvd_tpu_torch.utils import crypto
+
+    gen = torch.Generator(device=dev).manual_seed(20261031)
+    cover = torch.randint(0, 256, (PLANE_H, PLANE_W, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    wm = torch.randint(0, 256, (PLANE_H, PLANE_W), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    key = crypto.derive_key(PASSWORD, bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(
+                      key, blocked.n_blocks_of(PLANE_H, PLANE_W)))
+    pw = blocked.prepare_wm_gray(wm, blk, intra, extract_basis=False)
+    ref_st, ref_sc, _, _ = blocked.embed_gray_prepared(cover, pw.sw, ALPHA,
+                                                       with_metrics=False)
+    rows, launches = {}, {n: 0 for n in parallel_wrappers()}
+    meshes = (("one_band", pmesh.make_mesh(1)),
+              ("four_bands", pmesh.make_mesh(devices=[dev] * 4)))
+    with recorded_calls() as path_calls:
+        for mname, mesh in meshes:
+            n_bands = len(mesh.devices)
+            (st, sc), _, n_emb = counted_run(
+                lambda: pplane.plane_embed_gray(cover, pw.sw, ALPHA,
+                                                mesh=mesh),
+                parallel_wrappers())
+            score, _, n_det = counted_run(
+                lambda: pplane.plane_detect_gray(st, sc, pw.sw, ALPHA,
+                                                 mesh=mesh),
+                parallel_wrappers())
+            clean = pplane.plane_detect_gray(cover, sc, pw.sw, ALPHA,
+                                             mesh=mesh)
+            require(n_emb["embed_blocks"] == n_bands
+                    and n_det["spectrum_blocks"] == n_bands,
+                    f"{mname}: launches {n_emb} {n_det}")
+            for k in launches:
+                launches[k] += n_emb[k] + n_det[k]
+            require(torch.equal(st, ref_st) and torch.equal(sc, ref_sc),
+                    f"{mname}: stego {differ(st, ref_st)}, sc "
+                    f"{differ(sc, ref_sc)} against the whole-frame embed")
+            require(float(score) > 0.8 and abs(float(clean)) < 0.3,
+                    f"{mname}: score {float(score)}, clean {float(clean)}")
+            rows[mname] = dict(
+                score=float(score), clean=float(clean),
+                embed_ms=cuda_time(lambda: pplane.plane_embed_gray(
+                    cover, pw.sw, ALPHA, mesh=mesh), 3),
+                detect_ms=cuda_time(lambda: pplane.plane_detect_gray(
+                    st, sc, pw.sw, ALPHA, mesh=mesh), 3),
+                launches=dict(embed=n_emb, detect=n_det))
+    twin_rows = recorded_vs_twin(path_calls)
+    rows["whole_frame"] = dict(
+        embed_ms=cuda_time(lambda: blocked.embed_gray_prepared(
+            cover, pw.sw, ALPHA, with_metrics=False), 3),
+        detect_ms=cuda_time(lambda: blocked.detect_gray(
+            ref_st, ref_sc, pw.sw, ALPHA), 3))
+    emit({"phase": "plane_8k", "shape": [PLANE_H, PLANE_W, 3],
+          "blocks": blocked.n_blocks_of(PLANE_H, PLANE_W), "rows": rows,
+          "launches": launches, "kernels_vs_twin": twin_rows,
+          "card": smi_line()})
+    return launches
+
+
+def phase_gui(dev, td: str, cover_np, wm_np):
+    """The GUI's handlers on a 1080p PNG on the card, blocked and parity:
+    embed, detect (scored above the meta's threshold) and extract."""
+    import cv2
+    from dctsvd_tpu_torch import gui
+    from dctsvd_tpu_torch.utils.config import (DETECT_THRESH_BLOCKED,
+                                               DETECT_THRESH_DEFAULT)
+    cp, wp = os.path.join(td, "gui_host.png"), os.path.join(td, "gui_wm.png")
+    cv2.imwrite(cp, cover_np)
+    cv2.imwrite(wp, wm_np)
+    rows = {}
+    for method, blocked_ in (("blocked", True), ("parity", False)):
+        out = os.path.join(td, f"gui_{method}.png")
+        meta = os.path.join(td, f"gui_{method}_meta.npz")
+        t0 = time.perf_counter()
+        e = gui.handle_embed(cp, wp, out, PASSWORD, ALPHA, False, blocked_,
+                             device=dev)
+        t1 = time.perf_counter()
+        d = gui.handle_detect(out, meta, device=dev)
+        t2 = time.perf_counter()
+        x = gui.handle_extract(out, meta, os.path.join(td, f"gui_{method}_"
+                                                       "wm.png"),
+                               PASSWORD, device=dev)
+        t3 = time.perf_counter()
+        for what, r in (("embed", e), ("detect", d), ("extract", x)):
+            require(r.ok, f"gui {method} {what}: {r.message}")
+        score = float(d.message.split()[1])
+        thresh = DETECT_THRESH_BLOCKED if blocked_ else DETECT_THRESH_DEFAULT
+        require(score > thresh and "Watermarked" in d.message,
+                f"gui {method} detect: {d.message}")
+        require(cv2.imread(x.preview_path) is not None,
+                f"gui {method}: no extracted watermark")
+        rows[method] = dict(score=score, embed_s=t1 - t0, detect_s=t2 - t1,
+                            extract_s=t3 - t2,
+                            embed_message=e.message.splitlines()[-1])
+    emit({"phase": "gui_handlers", "shape": list(cover_np.shape), **rows,
+          "card": smi_line()})
+
+
+def phase_graft(dev):
+    """graft_entry: entry()'s step once on the card, then
+    dryrun_multichip(4) on four shards of this card."""
+    import torch
+    from dctsvd_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    (stego, sc, sw), entry_s, n_entry = counted_run(lambda: fn(*args),
+                                                    parallel_wrappers())
+    require(stego.shape == (2, 128, 128, 3) and stego.is_cuda
+            and sc.shape == (2, 256, 8) and sw.shape == (256, 8),
+            f"entry shapes {stego.shape} {sc.shape} {sw.shape}")
+    _, dry_s, n_dry = counted_run(lambda: graft_entry.dryrun_multichip(4),
+                                  parallel_wrappers())
+    require(n_dry["roundtrip_frames_blocks"] == 4,
+            f"dryrun launches {n_dry}")
+    emit({"phase": "graft_dryrun", "entry_s": entry_s,
+          "entry_launches": n_entry, "dryrun_s": dry_s,
+          "dryrun_launches": n_dry, "device": str(torch.device(dev)),
+          "card": smi_line()})
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2307,6 +2844,15 @@ def main(argv) -> int:
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
               "times_8_frames": paint_k_times(dev, covers), "card": card})
         return 0
+    if argv == ["--tail-times"]:
+        emit({"phase": "tail_times", "times": tail_times(covers, wm_u8, blk,
+                                                          intra),
+              "card": card})
+        return 0
+    if argv == ["--recon-forms"]:
+        emit({"phase": "recon_forms", "forms": recon_forms(dev),
+              "card": card})
+        return 0
     if argv == ["--copy-times"]:
         emit({"phase": "copy_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
@@ -2338,6 +2884,11 @@ def main(argv) -> int:
     # angles score within the statistic's noise of the true one
     resync_launches = phase_resync(dev, covers[0].cpu().numpy(), wm_u8, blk,
                                    intra)
+    par_launches = phase_parallel(dev, covers, wm_u8, blk, intra)
+    plane_launches = phase_plane(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as gtd:
+        phase_gui(dev, gtd, smooth, wm_np)
+    phase_graft(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vtd:
         clip, wm_png = (os.path.join(vtd, f) for f in ("clip.mp4", "wm.png"))
         write_clip(clip, H, W, VIDEO_FRAMES)
@@ -2385,13 +2936,18 @@ def main(argv) -> int:
                            "tools/profile_view.py:44"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
-    # the blocked payloads', the video runs', and (K1) each resync search's
+    # the blocked payloads', the video runs', (K1) each resync search's;
+    # K3's on the serve steps; and K1-K4's through parallel/ (batch and
+    # plane, on the one-card and the four-shard meshes)
     paths = {name: {"slice": launches[name],
                     "payload": payload_launches[name],
                     "video": video_launches[name]}
              for name in payload_launches}
     paths["spectrum_blocks"].update(resync_launches)
+    paths["roundtrip_frames_blocks"] = {
+        "serve": launches["roundtrip_frames_blocks"]}
     for name, by_path in paths.items():
+        by_path["parallel"] = par_launches[name] + plane_launches[name]
         launches[name] = sum(by_path.values())
     table = []
     for name, (src, repl) in sources.items():

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dctsvd_tpu_torch.models.blocked import _alpha
 from dctsvd_tpu_torch.ops import color, dct, metrics, permute
 from dctsvd_tpu_torch.ops.svd import svd_full
 from dctsvd_tpu_torch.utils.config import K_FRAC_DEFAULT
@@ -68,10 +69,6 @@ def state_from_meta(meta, device) -> ParityState:
     uw, vwt, sw = meta.wm_basis_stacked()
     return ParityState(f32(meta.s_cover_stacked()), f32(uw), f32(vwt),
                        f32(sw))
-
-
-def _alpha(alpha, device) -> torch.Tensor:
-    return torch.as_tensor(alpha, dtype=torch.float32, device=device)
 
 
 def _spread(s_cover: torch.Tensor, s_wm: torch.Tensor, alpha,

@@ -31,8 +31,22 @@ def _dct_matrix_np(n: int) -> np.ndarray:
     return d
 
 
+@functools.lru_cache(maxsize=64)
+def _constant(build, args: tuple, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(build(*args), dtype=dtype, device=device)
+
+
+def host_constant(build, *args, device, dtype=torch.float32) -> torch.Tensor:
+    """``build(*args)`` (a host array) as a tensor on ``device``, copied
+    once per (array, device, dtype): a copy from the host blocks until the
+    card's queue drains, so per-call copies would serialise the shards of
+    a batch. The tensor is shared: callers must not write to it."""
+    return _constant(build, args, torch.device(device), dtype)
+
+
 def dct_matrix(n: int, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(_dct_matrix_np(n), dtype=dtype, device=device)
+    return host_constant(_dct_matrix_np, n, device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=16)
@@ -73,7 +87,7 @@ def dct2_plane_blocks(x: torch.Tensor, b: int = 8) -> torch.Tensor:
     b (callers pad first)."""
     *lead, h, w = x.shape
     v = x.reshape(*lead, h // b, b, w // b, b)
-    f = torch.as_tensor(_dct_kron_np(b), dtype=x.dtype, device=x.device)
+    f = host_constant(_dct_kron_np, b, device=x.device, dtype=x.dtype)
     out = torch.einsum("...hiwj,klij->...hwkl", v, f)
     return out.reshape(*lead, (h // b) * (w // b), b, b)
 
@@ -90,7 +104,7 @@ def idct_pixel_tensor(b: int = 8, row_perm: torch.Tensor | None = None,
     block = plain-IDCT pixel ``row_perm[p]``)."""
     if row_perm is not None:
         device = row_perm.device
-    t = torch.as_tensor(_idct_t_np(b), dtype=dtype, device=device)
+    t = host_constant(_idct_t_np, b, device=device, dtype=dtype)
     if row_perm is not None:
         t = t.index_select(0, row_perm)
     return t.reshape(b, b, b, b)

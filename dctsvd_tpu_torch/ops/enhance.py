@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from dctsvd_tpu_torch.ops import color as c_ops
+from dctsvd_tpu_torch.ops.dct import host_constant
 
 
 def reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
@@ -64,8 +65,7 @@ def gaussian_blur(x: torch.Tensor, sigma: float = 1.0,
     auto kernel size (cvRound(sigma*6 + 1) | 1) and reflect-101 borders."""
     if ksize is None:
         ksize = int(round(sigma * 6 + 1)) | 1
-    k = torch.as_tensor(_gauss1d(ksize, sigma), dtype=torch.float32,
-                        device=x.device)
+    k = host_constant(_gauss1d, ksize, sigma, device=x.device)
     pad = ksize // 2
     h, w = x.shape[-2], x.shape[-1]
     xp = _pad_reflect(x.to(torch.float32), pad, pad, pad, pad)

@@ -738,3 +738,168 @@ def test_blocked_video_embed_extract_on_gpu(dev, tmp_path):
     a = got.astype(np.float64).ravel() - got.mean()
     b = _circle().astype(np.float64).ravel() - _circle().mean()
     assert a @ b / np.sqrt((a @ a) * (b @ b)) > 0.4
+
+
+def _close_on_devices(got, ref, name):
+    """A card output against the same call's on the CPU: u8 within 1
+    quantum on at most 1 % of the bytes, floats within 1e-4 of their
+    largest value (scores 1e-3); a watermark recovered from the same
+    inputs on both devices within 2 quanta (``recovered``); one that each
+    device recovers from its own stego and sc correlates with the CPU's
+    above 0.95 per frame (``fused``)."""
+    got = got.cpu()
+    if name == "fused":
+        a = got.reshape(got.shape[0], -1).to(torch.float64)
+        b = ref.reshape(ref.shape[0], -1).to(torch.float64)
+        a, b = a - a.mean(1, keepdim=True), b - b.mean(1, keepdim=True)
+        nc = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+        assert float(nc.min()) > 0.95, (name, nc.tolist())
+    elif name == "recovered":
+        d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+        assert int(d.max()) <= 2, (name, int(d.max()))
+    elif ref.dtype == torch.uint8:
+        d = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+        assert int(d.max()) <= 1, name
+        assert float((d > 0).float().mean()) <= 0.01, name
+    else:
+        tol = 1e-3 if name in ("scores", "psnr", "ssim") else \
+            1e-4 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol, name
+
+
+def test_make_mesh_takes_the_cards(dev):
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+    m = pmesh.make_mesh()
+    n = torch.cuda.device_count()
+    assert m.shape == {"batch": n} and m.devices[0] == dev
+    assert pmesh.make_mesh(1).devices == (dev,)
+    assert pmesh.make_mesh(devices=["cuda"] * 2).devices == (dev, dev)
+    with pytest.raises(ValueError):
+        pmesh.make_mesh(n + 1)
+
+
+def test_parallel_batch_on_gpu_matches_cpu(dev):
+    """Each parallel/batch entry point on four shards of the card against
+    the same call on four shards of the CPU, with K1-K4 launched once a
+    shard (K4 once a device)."""
+    from dctsvd_tpu_torch.parallel import batch as pb
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+    h, w = 64, 80
+    frames = _frames((8, h, w, 3), SEED + 20)
+    wm = _frames((h, w, 3), SEED + 21)
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    out = {}
+    for d in ("cpu", dev):
+        mesh = pmesh.make_mesh(devices=[d] * 4)
+        t = {n: torch.as_tensor(a, device=d) for n, a in
+             (("frames", frames), ("wm", wm), ("blk", blk),
+              ("intra", intra))}
+        pwc = tb.prepare_wm_color(t["wm"], t["blk"], t["intra"])
+        pwg = tb.prepare_wm_gray(t["wm"][..., 0], t["blk"], t["intra"])
+        counters = (wm_cuda.spectrum_blocks, wm_cuda.embed_blocks,
+                    wm_cuda.roundtrip_frames_blocks, svd_cuda.jacobi_svd8)
+        n0 = [f.launches for f in counters]
+        r = {}
+        r["stego"], r["sc"], r["recovered"], r["scores"] = \
+            pb.batch_serve_verify_detect(t["frames"], pwc.sw, ALPHA,
+                                         pwc.ebasis, pwc.inv_blk, mesh=mesh)
+        st, sc = pb.batch_embed_prepared(t["frames"], pwg.sw, ALPHA,
+                                         mesh=mesh)
+        r["gray_stego"], r["gray_sc"] = st, sc
+        # both devices extract from the CPU's stego and sc: the card's
+        # own differ by a quantum or an ulp, which 1/alpha amplifies
+        if d != "cpu":
+            st, sc = (x.to(d) for x in (out["cpu"]["gray_stego"],
+                                        out["cpu"]["gray_sc"]))
+        r["gray_recovered"] = pb.batch_extract_prepared(
+            st, sc, pwg.ebasis, pwg.inv_blk, pwg.sw, ALPHA, mesh=mesh)
+        r["gray_scores"] = pb.batch_detect_blocked(st, sc, pwg.sw, ALPHA,
+                                                   mesh=mesh,
+                                                   per_frame_sc=True)
+        emb = pb.batch_embed_blocked(t["frames"], t["wm"][..., 0], t["blk"],
+                                     t["intra"], ALPHA, mesh=mesh)
+        # U and Vt are held by K4's own tests; the factors' signs may
+        # differ between devices where two singular values nearly tie
+        r.update({f"blocked_{k}": v for k, v in emb.items()
+                  if k not in ("uw", "vwt")})
+        if d == dev:
+            torch.cuda.synchronize()
+            assert [f.launches - b for f, b in zip(counters, n0)] == \
+                [8, 8, 4, 1]
+            # the shards equal the unsharded calls on the card
+            one = pmesh.make_mesh(devices=[d])
+            ref = pb.batch_serve_verify_detect(t["frames"], pwc.sw, ALPHA,
+                                               pwc.ebasis, pwc.inv_blk,
+                                               mesh=one)
+            for a, b in zip((r["stego"], r["sc"], r["recovered"]), ref[:3]):
+                assert torch.equal(a, b)
+            assert float((r["scores"] - ref[3]).abs().max()) <= 1e-5
+            assert torch.equal(r["gray_recovered"], pb.batch_extract_prepared(
+                st, sc, pwg.ebasis, pwg.inv_blk, pwg.sw, ALPHA, mesh=one))
+            # the serve step's fused recovery reads the card's own stego
+            # and sc; the same tail from the CPU's stego and sc is within
+            # 2 quanta of the CPU's recovery, so what the NC bound below
+            # allows comes from those inputs, not from the tail
+            r["serve_tail"] = tb.extract_color_prepared(
+                out["cpu"]["stego"].to(d), out["cpu"]["sc"].to(d),
+                pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw)
+        out[str(d)] = r
+    cpu, gpu = out["cpu"], out[str(dev)]
+    cpu["serve_tail"] = cpu["recovered"]
+    for name, ref in cpu.items():
+        kind = {"recovered": "fused", "serve_tail": "recovered"}.get(
+            name, name.split("_")[-1] if name.startswith(("gray", "blocked"))
+            else name)
+        _close_on_devices(gpu[name], ref, kind)
+    assert float(gpu["scores"].min()) >= 0.30
+    assert float(gpu["gray_scores"].min()) >= 0.30
+
+
+def test_parallel_plane_on_gpu_matches_cpu(dev):
+    """parallel/plane in four bands of the card: the stego equals the
+    whole-frame embed on the card, and the card's bands match the CPU's."""
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+    from dctsvd_tpu_torch.parallel import plane as pp
+    h, w = 256, 128
+    cover = _frames((h, w, 3), SEED + 22)
+    wm = _frames((h, w), SEED + 23)
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    out = {}
+    for d in ("cpu", dev):
+        mesh = pmesh.make_mesh(devices=[d] * 4)
+        c = torch.as_tensor(cover, device=d)
+        pw = tb.prepare_wm_gray(torch.as_tensor(wm, device=d),
+                                torch.as_tensor(blk, device=d),
+                                torch.as_tensor(intra, device=d),
+                                extract_basis=False)
+        st, sc = pp.plane_embed_gray(c, pw.sw, ALPHA, mesh=mesh)
+        whole = tb.embed_gray_prepared(c, pw.sw, ALPHA, with_metrics=False)
+        assert torch.equal(st, whole[0]) and torch.equal(sc, whole[1])
+        score = pp.plane_detect_gray(st, sc, pw.sw, ALPHA, mesh=mesh)
+        clean = pp.plane_detect_gray(c, sc, pw.sw, ALPHA, mesh=mesh)
+        out[str(d)] = dict(stego=st, sc=sc, scores=torch.stack([score,
+                                                                clean]))
+    for name, ref in out["cpu"].items():
+        _close_on_devices(out[str(dev)][name], ref, name)
+    s = out[str(dev)]["scores"]
+    assert float(s[0]) > 0.8 and abs(float(s[1])) < 0.3
+
+
+def test_parallel_detect_full_on_gpu(dev):
+    """The parity batch detect on the card equals the per-image detect
+    bit for bit (each image's own SVD), and the unmarked cover cancels."""
+    from dctsvd_tpu_torch.parallel import batch as pb
+    from dctsvd_tpu_torch.parallel import mesh as pmesh
+    frames = torch.as_tensor(_frames((3, 64, 80, 3), SEED + 24), device=dev)
+    wm = torch.as_tensor(_frames((64, 80), SEED + 25), device=dev)
+    res = timg.embed_gray(frames[0], wm, torch.arange(64 * 80, device=dev),
+                          ALPHA)
+    batch = torch.cat([res.stego_bgr[None], frames])
+    got = pb.batch_detect_full(batch, res.sc, res.sw, ALPHA,
+                               mesh=pmesh.make_mesh(devices=[dev] * 2))
+    single = torch.stack([timg.detect_gray(im, res.sc, res.sw, ALPHA)
+                          for im in batch])
+    assert torch.equal(got, single)
+    assert float(got[0]) > 0.9 and float(got[1]) == 0.0

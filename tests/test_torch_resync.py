@@ -7,7 +7,12 @@ Stegos come from the port's blocked embed, whose metas record the fused
 s1.25 schedule; the JAX package's detect replays that schedule exactly on
 the CPU. Tolerances: the candidate lists identical; _derotate within 1 u8
 quantum (1e-3 on f32 planes) and exact at 0°; per-chunk scores within
-1e-3; recovered shift and angle equal."""
+1e-3; recovered shift and angle equal.
+
+Every embed takes a nonce of a seeded sequence (``NONCES``), never one
+from os.urandom: the translation search's score at 64×80 depends on the
+embed key, in the JAX package as in the port, so the shared stegos use
+the first nonce and the translation test runs each of the eight."""
 
 import cv2
 import jax.numpy as jnp
@@ -21,6 +26,7 @@ from dctsvd_tpu_torch import api as tapi
 from dctsvd_tpu_torch import cli as tcli
 from dctsvd_tpu_torch.io import meta as tmeta
 from dctsvd_tpu_torch.models import blocked as tb
+from dctsvd_tpu_torch.utils import crypto as tcrypto
 
 torch.set_num_threads(2)
 
@@ -56,26 +62,37 @@ def test_derotate_matches_jax(layout, angle):
         assert np.array_equal(got, x)
 
 
-@pytest.fixture(scope="module")
-def stegos(tmp_path_factory):
-    """Port-embedded blocked stegos (gray and color) with their metas."""
-    d = tmp_path_factory.mktemp("torch_resync")
-    rng = np.random.default_rng(SEED + 1)
-    cover = cv2.GaussianBlur(rng.integers(0, 256, (H, W, 3), np.uint8),
-                             (0, 0), 1.0)
-    wm = rng.integers(0, 256, (H, W, 3), np.uint8)
+NONCE_SEED = 20261018     # chip_smoke.py's seeded nonce sequence
+_NONCE_RNG = np.random.default_rng(NONCE_SEED)
+NONCES = [_NONCE_RNG.bytes(tcrypto.NONCE_BYTES) for _ in range(8)]
+
+
+def _embed_with_nonce(d, nonce: bytes, color: bool, name: str):
+    """The port's blocked embed of the seeded cover and watermark under
+    ``nonce``: (stego path, meta path)."""
     cp, wp = str(d / "cover.png"), str(d / "wm.png")
-    cv2.imwrite(cp, cover)
-    cv2.imwrite(wp, wm)
-    out = {}
-    for color in (False, True):
-        tag = "color" if color else "gray"
-        s, m, _, _ = tapi.embed(cp, wp, str(d / f"{tag}.png"),
-                                str(d / f"{tag}_m.npz"), alpha=0.14,
+    if not (d / "cover.png").exists():
+        rng = np.random.default_rng(SEED + 1)
+        cover = cv2.GaussianBlur(rng.integers(0, 256, (H, W, 3), np.uint8),
+                                 (0, 0), 1.0)
+        cv2.imwrite(cp, cover)
+        cv2.imwrite(wp, rng.integers(0, 256, (H, W, 3), np.uint8))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcrypto, "make_nonce", lambda: nonce)
+        s, m, _, _ = tapi.embed(cp, wp, str(d / f"{name}.png"),
+                                str(d / f"{name}_m.npz"), alpha=0.14,
                                 color=color, password=PW, method="blocked",
                                 device="cpu")
-        out[tag] = (s, m)
-    return d, out
+    return s, m
+
+
+@pytest.fixture(scope="module")
+def stegos(tmp_path_factory):
+    """Port-embedded blocked stegos (gray and color) with their metas,
+    under the first seeded nonce."""
+    d = tmp_path_factory.mktemp("torch_resync")
+    return d, {tag: _embed_with_nonce(d, NONCES[0], tag == "color", tag)
+               for tag in ("gray", "color")}
 
 
 def _state(path, meta_path):
@@ -112,9 +129,17 @@ def test_shift_chunk_scores_match_jax(stegos, tag):
 
 
 @pytest.mark.parametrize("tag", ["gray", "color"])
-def test_translation_resync_matches_jax(stegos, tag):
-    d, out = stegos
-    stego, m, sc, sw = _state(*out[tag])
+@pytest.mark.parametrize("i", range(len(NONCES)))
+def test_translation_resync_matches_jax(stegos, tag, i):
+    """For each seeded nonce the port's translation search recovers the
+    JAX package's shift and angle (the true ones), its score is within
+    1e-3 of JAX's and on the same side of 0.8. Whether a key's score
+    clears 0.8 at 64×80 is a property of the scheme, the same in both
+    packages, so it is held to the JAX package's outcome and not
+    asserted on its own."""
+    d, _ = stegos
+    stego, m, sc, sw = _state(*_embed_with_nonce(
+        d, NONCES[i], tag == "color", f"{tag}_n{i}"))
     shifted = cv2.warpAffine(stego, np.float32([[1, 0, -3], [0, 1, 2]]),
                              (W, H), borderMode=cv2.BORDER_REPLICATE)
     jfn = jb.detect_color_resync if tag == "color" else jb.detect_gray_resync
@@ -124,7 +149,8 @@ def test_translation_resync_matches_jax(stegos, tag):
     rt = tfn(torch.as_tensor(shifted), torch.as_tensor(sc),
              torch.as_tensor(sw), m.alpha, kfrac=m.kfrac, sweeps=m.sched())
     assert rt[1:] == rj[1:] == ((2, -3), 0.0)
-    assert abs(rt[0] - rj[0]) <= 1e-3 and rt[0] > 0.8
+    assert abs(rt[0] - rj[0]) <= 1e-3
+    assert (rt[0] > 0.8) == (rj[0] > 0.8), (rt[0], rj[0])
 
 
 def test_rotation_resync_matches_jax(stegos):
