@@ -5,8 +5,9 @@
     python3 chip_smoke.py --paint-k-times   # only K2's and K3's time per k
     python3 chip_smoke.py --copy-times      # only copy_f32's and the four
                                             # cols_view instances' times
-    python3 chip_smoke.py --jacobi-times    # only K1's and K4's times, with
-                                            # their ptxas and SASS mix
+    python3 chip_smoke.py --jacobi-times    # only K1's, K4's, K2r's and
+                                            # K1g's times, with their
+                                            # ptxas and SASS mix
     python3 chip_smoke.py --svd-drivers     # only the three cuSOLVER
                                             # drivers of the parity SVD
     python3 chip_smoke.py --tail-times      # only the extract steps' times
@@ -21,7 +22,7 @@ spectrum_probe; K2 and K3 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the six
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
-path gives it (K2 and K3 bit for bit), with the time of one PyTorch
+path gives it (all six bit for bit), with the time of one PyTorch
 library call that computes the same function where there is one; holds K2
 and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
@@ -33,12 +34,12 @@ runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
 tools``) at 1080p batch 32, with their launch counters, then holds each
 probe kernel against its twin (``cols_view`` in all four instances, each
 timed beside its ``copy_`` yardstick); prints the f32 operation rate of
-K1, K2, K3 and K4 beside the issue rate T3 measured. Then the rest of
-the image API at 1080p: the
-parity path gray and color (its gates, ``svd_full``'s bit stability, the
-exact cancellation of Sc, CUDA-event times) and, on a small frame,
-against the CPU; the enhancement chains (any degradation fails the run)
-with each stage's time, and against the CPU on a small plane; text and
+K1, K2, K3, K4, K2r and K1g beside the issue rate T3 measured. Then the
+rest of the image API at 1080p: the parity path gray and color (its
+gates, ``svd_full``'s bit stability, the exact cancellation of Sc,
+CUDA-event times) and, on a small frame, against the CPU; the
+enhancement chains (any degradation fails the run) with each stage's
+time, and against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
 stego, with K1's launches on each search and K1 held to its twin on one
@@ -65,8 +66,8 @@ JSON line per phase.
 Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
-the bytes it must move and the f32 operations it does). K1, K2, K3 and
-K4 are held to their twins run on the card bit for bit.
+the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
+K2r and K1g are held to their twins run on the card bit for bit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -117,6 +118,17 @@ GRAM_PAIR = ROT + 6 * 2 * 3 + 4   # 6 other rows x 2 entries, diagonal
 def jacobi_ops(pairs: int, with_v: bool = False) -> int:
     """jacobi8(): first norms, the rotations, fresh final norms."""
     return 8 * DOT + pairs * (PAIR_V if with_v else PAIR) + 8 * (DOT + 1)
+
+
+def recon_ops(pairs: int) -> int:
+    """K2r: jacobi8() with V, 64 divisions (u = g / s), S' = s + sws (8),
+    S'_j V[k][j] (64), and 64 pixels of 8 products and 7 sums."""
+    return jacobi_ops(pairs, with_v=True) + 64 + 8 + 64 + 64 * DOT
+
+
+def gram_ops(pairs: int) -> int:
+    """K1g: the Gram matrix's 36 dots, the rotations, 8 square roots."""
+    return 36 * DOT + pairs * GRAM_PAIR + 8
 
 
 def paint_ops(k: int) -> int:
@@ -367,16 +379,15 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     ymax = float(pyr.abs().max())
     yr_err = float((yr - pyr).abs().max())
     scr_err = float((scr - pscr).abs().max())
-    require(yr_err <= 1e-4 * ymax, f"K2r vs twin: {yr_err} > 1e-4*{ymax}")
-    require(scr_err <= 1e-4 * float(pscr.max()),
-            f"K2r sc vs twin: {scr_err}")
+    require(torch.equal(yr, pyr) and torch.equal(scr, pscr),
+            f"K2r vs twin: not bit-equal (y {yr_err}, sc {scr_err})")
     results["embed_blocks_recon"] = dict(
         shape=list(planes_f32.shape), max_abs_err=yr_err, y_max=ymax,
-        sc_max_abs_err=scr_err,
+        sc_max_abs_err=scr_err, equals_twin=True,
         ms=cuda_time(k2r, 10), plain_ms=cuda_time(k2r_plain, 3),
         library_ms=None,
-        **bound(n_blocks, jacobi_ops(pairs, with_v=True) + 64 + 8
-                + 64 * (8 * 3 - 1), nbytes(planes_f32, sws, yr, scr)))
+        **bound(n_blocks, recon_ops(pairs),
+                nbytes(planes_f32, sws, yr, scr)))
     emit({"phase": "kernel_vs_plain", "kernel": "K2r embed_blocks_recon",
           **results["embed_blocks_recon"]})
     del planes_f32, yr, yr2, pyr
@@ -393,14 +404,14 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     psg = k1g_plain()
     smax = float(psg.max())
     g_err = float((sg - psg).abs().max())
-    require(g_err <= 1e-4 * smax, f"K1g vs twin: {g_err} > 1e-4*{smax}")
+    require(torch.equal(sg, psg), f"K1g vs twin: not bit-equal ({g_err})")
     results["spectrum_blocks_gram"] = dict(
         shape=list(planes_u8.shape), max_abs_err=g_err, s_max=smax,
+        equals_twin=True,
         vs_onesided_max_abs_err=float((sg - sp).abs().max()),
         ms=cuda_time(k1g, 10), plain_ms=cuda_time(k1g_plain, 3),
         library_ms=svdvals_ms,
-        **bound(n_blocks, 36 * DOT + pairs * GRAM_PAIR + 8,
-                nbytes(planes_u8, sg)))
+        **bound(n_blocks, gram_ops(pairs), nbytes(planes_u8, sg)))
     emit({"phase": "kernel_vs_plain", "kernel": "K1g spectrum_blocks_gram",
           **results["spectrum_blocks_gram"]})
 
@@ -435,49 +446,75 @@ def wm_coefs(wm_u8, blk, intra):
 
 def jacobi_times(covers, coefs, mix: dict, t3: float) -> dict:
     """K1 (u8 channels-last frames, 8 and 32 of them; the 8 frames' 24
-    planes in u8 and in f32; s1.25) and K4 (U/S/Vt and S only on the
-    watermark's [3, N, 8, 8], 5 sweeps): each first checked against its
-    twin run on the card, then two readings of 20 launches (CUDA events,
-    after a warm-up); the f32 operations a second (the bound's count)
-    and, from the SASS mix of the instance the row runs (``mix``, K1's
-    by channels and type), the instructions a second, each against T3's
-    unfused rate ``t3`` (one instruction per operation)."""
+    planes in u8 and in f32; s1.25), K4 (U/S/Vt and S only on the
+    watermark's [3, N, 8, 8], 5 sweeps), K2r (the 24 planes in f32, the 8
+    u8 frames; s1.25) and K1g (the 24 u8 and f32 planes, the 8 u8 frames;
+    s1.25): each first checked against its twin run on the card, then two
+    readings of 20 launches (CUDA events, after a warm-up); the f32
+    operations a second (the bound's count) and, from the SASS mix of the
+    instance the row runs (``mix``, by kernel, type and channels), the
+    instructions a second, each against T3's unfused rate ``t3`` (one
+    instruction per operation)."""
     import torch
     from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
 
     x = covers[:KERNEL_FRAMES].contiguous()
     planes_u8 = torch.movedim(x, -1, -3).reshape(-1, H, W).contiguous()
+    planes_f32 = planes_u8.to(torch.float32)
+    gen = torch.Generator(device=x.device).manual_seed(20261027)
+    mask = (torch.arange(8, device=x.device) < K).to(torch.float32)
+    sws = torch.rand((3, (H // 8) * (W // 8), 8), generator=gen,
+                     device=x.device) * 5 * mask
     k1 = (wm_cuda.spectrum_blocks, wm_cuda.spectrum_blocks_plain)
     k4 = (svd_cuda.jacobi_svd8, svd_cuda.jacobi_svd8_plain)
+    k2r = (wm_cuda.embed_blocks_recon, wm_cuda.embed_blocks_recon_plain)
+    k1g = (wm_cuda.spectrum_blocks_gram, wm_cuda.spectrum_blocks_gram_plain)
     full, extra = wm_cuda.sched_split(SWEEPS)
-    k1_ops = jacobi_ops(full * len(wm_cuda.PAIRS) + extra)
+    pairs = full * len(wm_cuda.PAIRS) + extra
+    k1_ops = jacobi_ops(pairs)
     k4_ops = jacobi_ops(5 * len(wm_cuda.PAIRS), with_v=True) + 64
     frames = dict(sweeps=SWEEPS, channels_last=True)
     planes = dict(sweeps=SWEEPS)
-    # name: kernel, twin, input, keywords, f32 operations a block, the
-    # instance's mangled name (K1: type and channels; older trees named
-    # K1's instances by type alone, "kernelIhE")
+    # name: kernel, twin, inputs, keywords, f32 operations a block, the
+    # kernel and the instance's mangled name (type and channels; older
+    # trees named the instances of K1, K2r and K1g by type alone,
+    # "kernelIhE")
     cases = {
-        "K1 frames u8 8": (*k1, x, frames, k1_ops, "kernelIhLi3E"),
-        "K1 frames u8 32": (*k1, covers, frames, k1_ops, "kernelIhLi3E"),
-        "K1 planes u8 24": (*k1, planes_u8, planes, k1_ops, "kernelIhLi1E"),
-        "K1 planes f32 24": (*k1, planes_u8.to(torch.float32), planes,
-                             k1_ops, "kernelIfLi1E"),
-        "K4 U/S/Vt": (*k4, coefs, {}, k4_ops, "kernelILb1E"),
-        "K4 S": (*k4, coefs, dict(compute_uv=False),
-                 jacobi_ops(5 * len(wm_cuda.PAIRS)), "kernelILb0E"),
+        "K1 frames u8 8": (*k1, (x,), frames, k1_ops, "spectrum_kernel",
+                           "kernelIhLi3E"),
+        "K1 frames u8 32": (*k1, (covers,), frames, k1_ops,
+                            "spectrum_kernel", "kernelIhLi3E"),
+        "K1 planes u8 24": (*k1, (planes_u8,), planes, k1_ops,
+                            "spectrum_kernel", "kernelIhLi1E"),
+        "K1 planes f32 24": (*k1, (planes_f32,), planes, k1_ops,
+                             "spectrum_kernel", "kernelIfLi1E"),
+        "K4 U/S/Vt": (*k4, (coefs,), {}, k4_ops, "svd8_kernel",
+                      "kernelILb1E"),
+        "K4 S": (*k4, (coefs,), dict(compute_uv=False),
+                 jacobi_ops(5 * len(wm_cuda.PAIRS)), "svd8_kernel",
+                 "kernelILb0E"),
+        "K2r planes f32 24": (*k2r, (planes_f32, sws), planes,
+                              recon_ops(pairs), "embed_recon_kernel",
+                              "kernelIfLi1E"),
+        "K2r frames u8 8": (*k2r, (x, sws), frames, recon_ops(pairs),
+                            "embed_recon_kernel", "kernelIhLi3E"),
+        "K1g planes u8 24": (*k1g, (planes_u8,), planes, gram_ops(pairs),
+                             "spectrum_gram_kernel", "kernelIhLi1E"),
+        "K1g frames u8 8": (*k1g, (x,), frames, gram_ops(pairs),
+                            "spectrum_gram_kernel", "kernelIhLi3E"),
+        "K1g planes f32 24": (*k1g, (planes_f32,), planes, gram_ops(pairs),
+                              "spectrum_gram_kernel", "kernelIfLi1E"),
     }
     rows = {}
-    for name, (fn, plain, arg, kw, ops, inst) in cases.items():
-        got, ref = fn(arg, **kw), plain(arg, **kw)
+    for name, (fn, plain, args, kw, ops, kind, inst) in cases.items():
+        got, ref = fn(*args, **kw), plain(*args, **kw)
         got, ref = ((t,) if torch.is_tensor(t) else t for t in (got, ref))
-        blocks = arg.numel() // 64
-        ms = [cuda_time(lambda: fn(arg, **kw), 20) for _ in range(2)]
-        kind = "svd8_kernel" if name.startswith("K4") else "spectrum_kernel"
+        blocks = args[0].numel() // 64
+        ms = [cuda_time(lambda: fn(*args, **kw), 20) for _ in range(2)]
         found = [n for n in mix if kind in n and (inst in n or inst[:8]
                                                   + "E" in n)]
         r = rows[name] = dict(
-            shape=list(arg.shape),
+            shape=list(args[0].shape),
             equals_twin=all(torch.equal(a, b) for a, b in zip(got, ref)),
             max_abs_err=max(float((a - b).abs().max())
                             for a, b in zip(got, ref)),
@@ -2817,12 +2854,15 @@ def main(argv) -> int:
     if argv == ["--jacobi-times"]:
         # the instances' registers and spills (when this run built the
         # library) and their SASS by class, at each kernel's schedule
+        kinds = ((SWEEPS, "spectrum_kernel"), (5, "svd8_kernel"),
+                 (SWEEPS, "embed_recon_kernel"),
+                 (SWEEPS, "spectrum_gram_kernel"))
+
         def ours(name):
-            return "spectrum_kernel" in name or "svd8_kernel" in name
+            return any(kind in name for _, kind in kinds)
 
         sass = kernels.sass_dump(kernels.BUILD_INFO["path"])
-        mix = {n: m for sw, kind in ((SWEEPS, "spectrum_kernel"),
-                                     (5, "svd8_kernel"))
+        mix = {n: m for sw, kind in kinds
                for n, m in kernels.sass_mix(sass, sw).items() if kind in n}
         t3 = t3_rate(dev)
         rows = jacobi_times(covers, wm_coefs(wm_u8, blk, intra), mix, t3)
@@ -2906,7 +2946,7 @@ def main(argv) -> int:
     # issue rate T3 measured in this run
     rates = {}
     for name in ("spectrum_blocks", "embed_blocks", "roundtrip_frames_blocks",
-                 "jacobi_svd8"):
+                 "jacobi_svd8", "embed_blocks_recon", "spectrum_blocks_gram"):
         rate = results[name]["ops"] / (results[name]["ms"] * 1e-3)
         rates[name] = dict(op_per_s=rate, share_of_t3=rate / t3)
     emit({"phase": "rates", "t3_unfused_op_per_s": t3, **rates,

@@ -1,17 +1,21 @@
-// Block addressing and stores shared by the blocked watermark kernels
-// (wm_kernels.cu: K1, K2, K3; wm_variants.cu: K2r, K1g) and the spectrum
-// probe (probes.cu).
+// Block addressing, row loads and stores shared by the blocked watermark
+// kernels (wm_kernels.cu: K1, K2, K3; wm_variants.cu: K2r, K1g), the
+// spectrum probe (probes.cu), and the cp.async helpers of the kernels that
+// stage blocks in shared memory (svd8.cu: K4; wm_variants.cu: K2r).
 //
-// One thread per 8x8 block. The kernels read u8 or f32 planes [P, H, W],
-// or u8/f32 channels-last frames [L, H, W, C] (plane p = l*C + c), straight
-// from device memory by stride; the row-major block index of plane p is
-// n = by*Wb + bx, and neighbouring threads take neighbouring blocks of a
-// block row.
+// The kernels read u8 or f32 planes [P, H, W], or u8/f32 channels-last
+// frames [L, H, W, C] (plane p = l*C + c), straight from device memory by
+// stride; the row-major block index of plane p is n = by*Wb + bx, and
+// neighbouring threads take neighbouring blocks of a block row. K2 and K3
+// address a block from its global index (block_addr, 64-bit); K1, K1g and
+// K2r from (blocks of a frame, frames) with 32-bit offsets in a frame
+// (load_row).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "jacobi8.cuh"
@@ -81,8 +85,92 @@ __device__ __forceinline__ uint8_t store_val<uint8_t>(float y) {
   return static_cast<uint8_t>(static_cast<int>(fminf(fmaxf(y, 0.0f), 255.0f)));
 }
 
+// A load that kStream marks as read once (ld.global.cs: evict first), or
+// a plain one.
+template <bool kStream, typename T>
+__device__ __forceinline__ T load_once(const T* __restrict__ p) {
+  if constexpr (kStream)
+    return __ldcs(p);
+  else
+    return *p;
+}
+
+// Row r of channel ch of an 8x8 pixel block, its 8 pixels as floats; row
+// points at channel 0 of the row's first pixel. f32 planes (kC = 1, rows
+// 16-byte aligned) read two 16-byte words; every other layout reads each
+// pixel by itself at stride kC (c when kC = 0), u8 converted by I2F.
+// kStream reads them as streamed once (load_once).
+template <int kC, bool kStream = false, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int c,
+                                         int ch, float (&px)[kB]) {
+  if constexpr (kC == 1 && sizeof(T) == 4) {
+    const float4* p = reinterpret_cast<const float4*>(row);
+    const float4 a = load_once<kStream>(p), b = load_once<kStream>(p + 1);
+    px[0] = a.x; px[1] = a.y; px[2] = a.z; px[3] = a.w;
+    px[4] = b.x; px[5] = b.y; px[6] = b.z; px[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kB; ++k)
+      px[k] = static_cast<float>(
+          load_once<kStream>(row + (kC > 0 ? kC : c) * k + ch));
+  }
+}
+
+// A 16-byte copy from device to shared memory that bypasses the
+// registers (cp.async), and the wait for all of a thread's copies.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// The same copy with an L2 evict-first hint, for bytes read once.
+__device__ __forceinline__ void cp_async16_once(void* dst, const void* src) {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(policy));
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(src), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
+                   : "memory");
+}
+
 inline unsigned grid_for(int64_t total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+}
+
+// gridDim.y's limit: frames a launch of a (blocks of a frame, frames) grid.
+constexpr int kMaxGridY = 65535;
+
+// A kernel of the (units / kThreads, frames) grid, K1 and K1g: (x, out,
+// units, chans, w, full, extra); frame blockIdx.y holds units = n_blk *
+// chans threads, and out is f32 [frames * chans, n_blk, 8].
+template <typename T>
+using FrameGridKernel = void (*)(const T*, float*, int, int, int, int, int);
+
+template <typename T>
+inline void launch_frame_grid(FrameGridKernel<T> kernel, const void* x,
+                              float* out, int frames, int chans, int h,
+                              int w, int full, int extra, cudaStream_t st) {
+  const int units = (h / kB) * (w / kB) * chans;
+  const int64_t frame_elems = static_cast<int64_t>(units) * kB * kB;
+  const int64_t frame_out = static_cast<int64_t>(units) * kB;
+  const unsigned gx = static_cast<unsigned>((units + kThreads - 1) /
+                                            kThreads);
+  for (int f0 = 0; f0 < frames; f0 += kMaxGridY) {
+    const unsigned gy = static_cast<unsigned>(std::min(frames - f0,
+                                                       kMaxGridY));
+    kernel<<<dim3(gx, gy), kThreads, 0, st>>>(
+        static_cast<const T*>(x) + f0 * frame_elems, out + f0 * frame_out,
+        units, chans, w, full, extra);
+  }
 }
 
 }  // namespace dctsvd

@@ -37,6 +37,7 @@
 
 #include <cstdint>
 
+#include "blocks.cuh"
 #include "jacobi8.cuh"
 
 namespace dctsvd {
@@ -51,18 +52,6 @@ constexpr int kSvdWarps = kSvdThreads / 32;
 // groups. The copies in and out touch 8 pieces of one block.
 __device__ __forceinline__ int stage_slot(int j, int q) {
   return j * 16 + (q ^ (j & 7));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
-                   : "memory");
 }
 
 // The warp's stage out to dst, its first nw blocks: piece lane + 32 m of

@@ -38,7 +38,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -51,25 +50,6 @@ namespace dctsvd {
 // The least CTAs of kThreads threads per SM that K1's __launch_bounds__
 // asks for (96 registers).
 constexpr int kSpectrumMinBlocks = 5;
-
-// Row r of channel ch of an 8x8 pixel block, its 8 pixels as floats; row
-// points at channel 0 of the row's first pixel. f32 planes (kC = 1, rows
-// 16-byte aligned) read two 16-byte words; every other layout reads each
-// pixel by itself at stride kC (c when kC = 0), u8 converted by I2F.
-template <int kC, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int c,
-                                         int ch, float (&px)[kB]) {
-  if constexpr (kC == 1 && sizeof(T) == 4) {
-    const float4* p = reinterpret_cast<const float4*>(row);
-    const float4 a = p[0], b = p[1];
-    px[0] = a.x; px[1] = a.y; px[2] = a.z; px[3] = a.w;
-    px[4] = b.x; px[5] = b.y; px[6] = b.z; px[7] = b.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kB; ++k)
-      px[k] = static_cast<float>(row[(kC > 0 ? kC : c) * k + ch]);
-  }
-}
 
 // Grid (units / kThreads, frames): frame blockIdx.y holds `units` = n_blk
 // * c (block, channel) pairs, c interleaved channels a pixel (c = 1 for
@@ -106,24 +86,6 @@ __global__ void __launch_bounds__(kThreads, kSpectrumMinBlocks)
   o[1] = make_float4(s[4], s[5], s[6], s[7]);
 }
 
-template <typename T, int kC>
-static void launch_spectrum(const void* x, float* out, int frames, int chans,
-                            int h, int w, int full, int extra,
-                            cudaStream_t st) {
-  const int units = (h / kB) * (w / kB) * chans;
-  const int64_t frame_elems = static_cast<int64_t>(units) * kB * kB;
-  const int64_t frame_out = static_cast<int64_t>(units) * kB;
-  const unsigned gx = static_cast<unsigned>((units + kThreads - 1) /
-                                            kThreads);
-  for (int f0 = 0; f0 < frames; f0 += 65535) {  // gridDim.y's limit
-    const unsigned gy =
-        static_cast<unsigned>(std::min(frames - f0, 65535));
-    spectrum_kernel<T, kC><<<dim3(gx, gy), kThreads, 0, st>>>(
-        static_cast<const T*>(x) + f0 * frame_elems, out + f0 * frame_out,
-        units, chans, w, full, extra);
-  }
-}
-
 // Calls f(std::integral_constant<int, k>) for k in 1..8; false for any
 // other k.
 template <typename F>
@@ -143,7 +105,8 @@ static bool with_k(int k, F&& f) {
 
 }  // namespace dctsvd
 
-using dctsvd::launch_spectrum;
+using dctsvd::launch_frame_grid;
+using dctsvd::spectrum_kernel;
 using dctsvd::PaintLaunch;
 using dctsvd::with_k;
 
@@ -161,15 +124,20 @@ extern "C" int dctsvd_spectrum_blocks(const void* x, int x_is_u8, void* out,
   const int f = planes / chans;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (x_is_u8 && chans == 1)
-    launch_spectrum<uint8_t, 1>(x, o, f, chans, h, w, full, extra, st);
+    launch_frame_grid<uint8_t>(spectrum_kernel<uint8_t, 1>, x, o, f,
+                               chans, h, w, full, extra, st);
   else if (x_is_u8 && chans == 3)
-    launch_spectrum<uint8_t, 3>(x, o, f, chans, h, w, full, extra, st);
+    launch_frame_grid<uint8_t>(spectrum_kernel<uint8_t, 3>, x, o, f,
+                               chans, h, w, full, extra, st);
   else if (x_is_u8)
-    launch_spectrum<uint8_t, 0>(x, o, f, chans, h, w, full, extra, st);
+    launch_frame_grid<uint8_t>(spectrum_kernel<uint8_t, 0>, x, o, f,
+                               chans, h, w, full, extra, st);
   else if (chans == 1 && aligned)
-    launch_spectrum<float, 1>(x, o, f, chans, h, w, full, extra, st);
+    launch_frame_grid<float>(spectrum_kernel<float, 1>, x, o, f,
+                             chans, h, w, full, extra, st);
   else
-    launch_spectrum<float, 0>(x, o, f, chans, h, w, full, extra, st);
+    launch_frame_grid<float>(spectrum_kernel<float, 0>, x, o, f,
+                             chans, h, w, full, extra, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -66,6 +66,8 @@ __all__ = ["PAIRS", "sched_split", "sched_join", "spectrum_blocks",
 
 _SWEEPS_DEFAULT = 4
 EMBED_VARIANTS = ("delta", "recon")
+# K2r gives each warp 32 // C whole pixel blocks (csrc/wm_variants.cu).
+RECON_MAX_CHANNELS = 32
 SPECTRUM_METHODS = ("onesided", "gram")
 
 
@@ -378,7 +380,13 @@ def embed_blocks_recon(x: torch.Tensor, sws: torch.Tensor,
     _check(x, channels_last)
     full, extra = _schedule_checked(sweeps)
     x, p, c, h, w, lead, n, sc = _launch_layout(x, channels_last)
+    if c > RECON_MAX_CHANNELS:
+        raise ValueError(f"embed_blocks_recon takes at most "
+                         f"{RECON_MAX_CHANNELS} channels a pixel on the "
+                         f"GPU, got {c}")
     sws = sws.to(torch.float32).contiguous()
+    if sws.data_ptr() % 16:              # the kernel reads float4 rows
+        sws = sws.clone()
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if p:
         kernels.launch("dctsvd_embed_recon_blocks", x.device, x,

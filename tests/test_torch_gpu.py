@@ -1,6 +1,6 @@
 """The port's CUDA kernels on a GPU: each against its plain twin (K1, K2,
-K3 and K4 bit for bit, against the twin run on the card, K2 and K3 at
-every k, and near the twin run on the CPU), the launch
+K3, K4, K2r and K1g bit for bit, against the twin run on the card, K2 and
+K3 at every k, and near the twin run on the CPU), the launch
 counters, the slice on the card against the slice on the CPU, the
 serve steps on the card against the split calls, the probe kernels
 (copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
@@ -238,40 +238,72 @@ def test_paint_kernels_near_the_cpu_twin(dev, k, kernel):
         assert float((s.cpu() - ps).abs().max()) <= 1e-4 * smax
 
 
-@pytest.mark.parametrize("layout", ["frames_u8", "planes_f32"])
-def test_recon_kernel_matches_twin(dev, layout):
-    x, sws = torch.from_numpy(_frames()), _sws()
-    cl = layout == "frames_u8"
+# name: (frames, channels a pixel, dtype, channels-last); every shape holds
+# two frames, and neither Wb (10 at 64x80, 240 at 1080p) is a multiple of
+# the 32 blocks of a warp (K2r). "frames" and "frames_u8" are one layout:
+# each test keeps the case names it had.
+VARIANT_LAYOUTS = {
+    "frames_u8": ((2, 64, 80), 3, np.uint8, True),
+    "frames": ((2, 64, 80), 3, np.uint8, True),
+    "planes_u8": ((2, 64, 80), 3, np.uint8, False),
+    "planes_f32": ((2, 64, 80), 3, np.float32, False),
+    "frames_f32": ((2, 64, 80), 3, np.float32, True),
+    "frames_c1": ((2, 64, 80), 1, np.uint8, True),
+    "frames_c2": ((2, 64, 80), 2, np.uint8, True),
+    "frames_u8_1080p": ((2, 1080, 1920), 3, np.uint8, True),
+    "planes_f32_1080p": ((2, 1080, 1920), 3, np.float32, False),
+}
+
+
+def _variant_input(layout):
+    """(x on the CPU, channels_last, sws [C, N, 8]) of a layout: seeded u8
+    pixels (f32 ones carry a fraction), planes as [2, C, H, W]."""
+    (f, h, w), c, dtype, cl = VARIANT_LAYOUTS[layout]
+    x = _frames((f, h, w, c))
+    if dtype == np.float32:
+        x = x.astype(np.float32) + np.random.default_rng(SEED + 6).random(
+            x.shape, np.float32)
     if not cl:
-        x, sws = x[..., 1].to(torch.float32), sws[:1]
+        x = np.ascontiguousarray(np.moveaxis(x, -1, -3))
+    sws = _sws(n=(h // 8) * (w // 8))[np.arange(c) % 3]
+    return torch.from_numpy(x), cl, sws
+
+
+@pytest.mark.parametrize("layout", ["frames_u8", "planes_f32", "planes_u8",
+                                    "frames_f32", "frames_c1", "frames_c2",
+                                    "frames_u8_1080p", "planes_f32_1080p"])
+def test_recon_kernel_matches_twin(dev, layout):
+    """K2r equals its twin run on the card bit for bit, output and sc, and
+    its sc equals K2's on the same input."""
+    x, cl, sws = _variant_input(layout)
+    x, sws = x.to(dev), sws.to(dev)
     n0 = wm_cuda.embed_blocks_recon.launches
-    y, sc = wm_cuda.embed_blocks(x.to(dev), sws.to(dev), sweeps=1.25,
-                                 variant="recon", channels_last=cl)
+    y, sc = wm_cuda.embed_blocks(x, sws, sweeps=1.25, variant="recon",
+                                 channels_last=cl)
     torch.cuda.synchronize()
     assert wm_cuda.embed_blocks_recon.launches == n0 + 1
     py, psc = wm_cuda.embed_blocks_recon_plain(x, sws, sweeps=1.25,
                                                channels_last=cl)
-    assert float((y.cpu() - py).abs().max()) <= 1e-4 * float(py.abs().max())
-    assert float((sc.cpu() - psc).abs().max()) <= 1e-4 * float(psc.max())
+    assert torch.equal(y, py), float((y - py).abs().max())
+    assert torch.equal(sc, psc), float((sc - psc).abs().max())
+    _, sc_k2 = wm_cuda.embed_blocks(x, sws, sweeps=1.25, channels_last=cl)
+    assert torch.equal(sc, sc_k2)
 
 
-@pytest.mark.parametrize("layout", ["frames", "planes_u8", "planes_f32"])
+@pytest.mark.parametrize("layout", ["frames", "planes_u8", "planes_f32",
+                                    "frames_f32", "frames_c1", "frames_c2",
+                                    "frames_u8_1080p", "planes_f32_1080p"])
 def test_gram_kernel_matches_twin(dev, layout):
-    x = _frames()
-    cl = layout == "frames"
-    if not cl:
-        x = np.ascontiguousarray(np.moveaxis(x, -1, -3))
-        if layout == "planes_f32":
-            x = x.astype(np.float32)
-    xt = torch.from_numpy(x)
+    """K1g equals its twin run on the card bit for bit."""
+    x, cl, _ = _variant_input(layout)
+    x = x.to(dev)
     n0 = wm_cuda.spectrum_blocks_gram.launches
-    got = wm_cuda.spectrum_blocks(xt.to(dev), sweeps=1.5, channels_last=cl,
+    got = wm_cuda.spectrum_blocks(x, sweeps=1.5, channels_last=cl,
                                   method="gram")
     torch.cuda.synchronize()
     assert wm_cuda.spectrum_blocks_gram.launches == n0 + 1
-    ref = wm_cuda.spectrum_blocks_gram_plain(xt, sweeps=1.5,
-                                             channels_last=cl)
-    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * float(ref.max())
+    ref = wm_cuda.spectrum_blocks_gram_plain(x, sweeps=1.5, channels_last=cl)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 def test_serve_steps_take_the_fused_kernel(dev):
