@@ -5,6 +5,11 @@
     python3 chip_smoke.py --paint-k-times   # only K2's and K3's time per k
     python3 chip_smoke.py --copy-times      # only copy_f32's and the four
                                             # cols_view instances' times
+    python3 chip_smoke.py --probe-times [OLDER_TREE]
+                                            # only the spectrum probe's and
+                                            # fma_chain's instances' times,
+                                            # SASS and ptxas, beside an
+                                            # older checkout's, if given
     python3 chip_smoke.py --jacobi-times    # only K1's, K4's, K2r's and
                                             # K1g's times, with their
                                             # ptxas and SASS mix
@@ -847,6 +852,63 @@ CHAIN_FUSED_TOL = 1e-6   # fused chain vs its float64 twin, x max |twin|:
                          # which moves about one update in 2^29 by an ulp
 
 
+SM_F32_LANES = 128       # f32 lanes an SM of the H100 (4 x 32 a quadrant)
+
+
+def smi_clocks() -> dict:
+    """The SM clock (MHz) and power draw (W) as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    sm, power = (float(v) for v in out.split(","))
+    return dict(sm_mhz=sm, power_w=power)
+
+
+def clocked_ms(fn, reps: int) -> tuple:
+    """(mean ms of fn over reps calls between two CUDA events after a
+    warm-up, nvidia-smi's SM clock and power draw read while those calls
+    run). The calls are queued before nvidia-smi starts, so with a window
+    of a few hundred ms the sample falls inside it; ``in_window`` says
+    whether it did (the window had not ended when the sample returned)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    clocks = smi_clocks()
+    clocks["in_window"] = not stop.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, clocks
+
+
+def insn_bound_ms(instructions: float, sm_mhz: float) -> float:
+    """The instruction bound: the least time the card's f32 lanes take to
+    run ``instructions`` f32 instructions at one a lane a clock (an FMA
+    counts once): what binds a kernel built -fmad=false, which spends an
+    instruction on each multiply and each add, at the SM clock read in
+    the run."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return instructions / (sms * SM_F32_LANES * sm_mhz * 1e6) * 1e3
+
+
+def chain_instructions(mode: str, n_ops: int, fused: bool = False) -> int:
+    """f32 instructions an element of fma_chain: ilp8's 8 initial products,
+    one FMUL and one FADD (fused: one FFMA) an update, and the 7 adds that
+    sum the chains; serial's updates."""
+    from dctsvd_tpu_torch.ops import probe_cuda
+    steps, _ = probe_cuda.chain_steps(mode, n_ops)
+    per_update = 1 if fused else 2
+    if mode == "ilp8":
+        return 8 + 8 * steps * per_update + 7
+    return steps * per_update
+
+
 def permuted(planes):
     """The cols view of natural planes [P, H, W] as a strided view."""
     p = planes.shape[0]
@@ -893,6 +955,242 @@ def copy_times(dev, covers) -> dict:
                             nbytes(src, v))
         del v, out
     return times
+
+
+def load_parent_kernels(root: str):
+    """utils/kernels.py of another checkout of the repository at ``root``
+    (an older tree unpacked under build/), loaded as a module of its own
+    and built from that tree's csrc/ into that tree's build/: its
+    ``launch`` calls the older tree's C entry points."""
+    import importlib.util
+    path = os.path.join(root, "dctsvd_tpu_torch", "utils", "kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.load()
+    return mod
+
+
+def probe_instance(mix: dict, stem: str, prefer: tuple):
+    """The mangled name in ``mix`` of a probe kernel's instance: the one
+    holding ``stem``, and among several the first holding ``stem + p``
+    for p in ``prefer``."""
+    found = [n for n in mix if stem in n]
+    for p in prefer:
+        best = [n for n in found if stem + p in n]
+        if best:
+            return best[0]
+    return found[0] if len(found) == 1 else None
+
+
+def probe_sass(kern, stems) -> dict:
+    """{mangled name: {"main", "sweep"}} of the spectrum probe's and
+    fma_chain's instances in the library ``kern`` built."""
+    mix = kern.sass_mix(kern.sass_dump(kern.BUILD_INFO["path"]), 2)
+    return {n: {k: m[k] for k in ("main", "sweep")} for n, m in mix.items()
+            if any(st in n for st in stems)}
+
+
+def per_lane(mix_row: dict, loops) -> dict:
+    """What one lane executes when the kernel's one loop runs ``loops``
+    times: the body once in "main", then ``loops`` - 1 more; "main" alone
+    for a kernel without a loop; None where the loop's count is not known
+    (``loops`` None: fma_chain's run-time loop, unrolled by 4 or 8)."""
+    if not mix_row["sweep"]:
+        return mix_row["main"]
+    if loops is None:
+        return None
+    return {k: v + mix_row["sweep"].get(k, 0) * (loops - 1)
+            for k, v in mix_row["main"].items()}
+
+
+def sass_functions(sass: str) -> dict:
+    """{mangled name: its SASS text} of cuobjdump -sass output, runs of
+    blanks made one (cuobjdump pads its columns to the widest line of the
+    whole object)."""
+    import re
+    return {part.split(None, 1)[0]: re.sub(r"[ \t]+", " ",
+                                           part.split("\n", 1)[1])
+            for part in sass.split("Function : ")[1:]}
+
+
+def probe_times(dev, covers, parent: str = None) -> dict:
+    """Every spectrum_probe instance at the probes' shapes (T1 strided and
+    smem on the 96 f32 planes at s3; T6a on their f32 cols view at s4; T4
+    on the covers' 96 u8 planes as u8, bf16 and f32 views at s0 and s2;
+    T5 cached at s2 with its relayout and alone) and fma_chain (ilp8 and
+    serial, unfused and fused, at the tool's lengths 256 and 1024 and at
+    96, a length that runs the loop), each checked against its twin run on
+    the card (bit-equal; fused within CHAIN_FUSED_TOL), then timed with
+    CUDA events, 20 launches a reading: with ``parent`` (the root of an
+    older checkout) in turns parent, this tree, this tree, parent, each
+    tree through its own C entry point and library. Beside each time: the
+    bound (ops / 67e12 or bytes / 3.35e12) and the instruction bound (the f32
+    operations, or fma_chain's f32 instructions, at one a lane a clock at
+    the SM clock read beside T3's window), each instance's registers and
+    spills (when the run built the library) and its SASS mix for one
+    lane."""
+    import torch
+    from dctsvd_tpu_torch.ops import dct, probe_cuda, wm_cuda
+    from dctsvd_tpu_torch.utils import kernels
+
+    trees = {"change": kernels}
+    if parent:
+        trees["parent"] = load_parent_kernels(parent)
+    stems = ("spectrum_probe_kernel", "fma_chain_kernel")
+    info = {}
+    for name, kern in trees.items():
+        info[name] = dict(
+            ptxas={k: v for k, v in kern.ptxas_report(
+                kern.BUILD_INFO["ptxas"]).items()
+                if any(st in k for st in stems)},
+            sass=probe_sass(kern, stems))
+    if parent:
+        # every other kernel compiles to the same SASS in both trees
+        fa, fb = (sass_functions(k.sass_dump(k.BUILD_INFO["path"]))
+                  for k in (kernels, trees["parent"]))
+        others = sorted(n for n in set(fa) | set(fb)
+                        if not any(st in n for st in stems))
+        info["other_kernels_same_sass"] = [n for n in others
+                                           if fa.get(n) == fb.get(n)]
+        info["other_kernels_sass_differs"] = [n for n in others
+                                              if fa.get(n) != fb.get(n)]
+
+    gen = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    planes = torch.randn((3 * BATCH, H, W), generator=gen, device=dev) * 40 \
+        + 128                                  # the probes phase's planes
+    planes_u8 = torch.movedim(covers, -1, -3).reshape(-1, H, W).contiguous()
+    view = probe_cuda.cols_view(planes)
+    views_u8 = {d: probe_cuda.cols_view(planes_u8, d)
+                for d in (torch.uint8, torch.bfloat16, torch.float32)}
+    x = torch.randn((3 * BATCH, H // 8, 8, W // 8), generator=gen,
+                    device=dev)
+    blocks = planes.numel() // 64
+    tcode = {torch.uint8: "h", torch.bfloat16: "13__nv_bfloat16",
+             torch.float32: "f"}
+
+    def spectrum_call(kern, xin, sweeps, layout, cached):
+        p, h, w = probe_cuda._probe_shape(xin, layout)
+        out = torch.empty(p, (h // 8) * (w // 8), 8, device=dev)
+
+        def call():
+            kern.launch("dctsvd_spectrum_probe", dev, xin,
+                        probe_cuda._KIND[xin.dtype],
+                        probe_cuda.LAYOUTS.index(layout), int(cached), out,
+                        p, h, w, sweeps)
+            return out
+        return call
+
+    def chain_call(kern, n_ops, mode, fused):
+        y = torch.empty_like(x)
+        steps, _ = probe_cuda.chain_steps(mode, n_ops)
+
+        def call():
+            kern.launch("dctsvd_fma_chain", dev, x, y, x.numel(), steps,
+                        int(mode == "ilp8"), int(fused))
+            return y
+        return call
+
+    # name: (call(kern), twin(), tolerance x max|twin| or None for equal,
+    # bound, f32 operations (the instruction bound's count), SASS stem and the
+    # preferred instance, loops of the instance's one loop)
+    cases = {}
+    spectra = [("T1 strided f32 s3", planes, 3, "strided", False),
+               ("T1 smem f32 s3", planes, 3, "smem", False),
+               ("T6a cols f32 s4", view, 4, "cols", False)]
+    for d, v in views_u8.items():
+        for sw in (0, 2):
+            spectra.append((f"T4 cols {str(d).split('.')[-1]} s{sw}", v, sw,
+                            "cols", False))
+    spectra.append(("T5 cached s2, spectrum alone", view, 2, "cols", True))
+    for name, xin, sw, layout, cached in spectra:
+        pairs = sw * len(wm_cuda.PAIRS)
+        # cached: 8 square roots of the cached norms for the 8 final dots
+        ops = (8 * DOT + pairs * PAIR + 8 if cached else jacobi_ops(pairs))
+        cases[name] = (
+            lambda kern, a=(xin, sw, layout, cached): spectrum_call(kern, *a),
+            lambda a=(xin, sw, layout, cached): probe_cuda.spectrum_probe_plain(
+                *a), None,
+            bound(blocks, ops, nbytes(xin) + blocks * 32), blocks * ops,
+            (f"spectrum_probe_kernelILi{probe_cuda.LAYOUTS.index(layout)}E"
+             f"{tcode[xin.dtype]}Lb{int(cached)}E", ("Li1E",)), sw)
+
+    def t5_call(kern):
+        def call():
+            v = probe_cuda.cols_view(planes)
+            return spectrum_call(kern, v, 2, "cols", True)()
+        return call
+    relayout = bound(0, 0, 2 * nbytes(planes))
+    spectrum5 = cases["T5 cached s2, spectrum alone"][3]
+    cases["T5 cached s2 with its relayout"] = (
+        t5_call, lambda: probe_cuda.spectrum_probe_plain(view, 2, "cols",
+                                                         True), None,
+        dict(bound_ms=relayout["bound_ms"] + spectrum5["bound_ms"],
+             bound_by="bytes (relayout) + " + spectrum5["bound_by"]
+             + " (spectrum)"),
+        cases["T5 cached s2, spectrum alone"][4],
+        cases["T5 cached s2, spectrum alone"][5], 2)
+    for mode in probe_cuda.CHAIN_MODES:
+        for n_ops in (256, 1024, 96):
+            for fused in (False, True):
+                steps, ops = probe_cuda.chain_steps(mode, n_ops)
+                cases[f"T3 {mode} {n_ops} {'fused' if fused else 'unfused'}"
+                      ] = (
+                    lambda kern, a=(n_ops, mode, fused): chain_call(kern, *a),
+                    lambda a=(n_ops, mode, fused): probe_cuda.fma_chain_plain(
+                        x, *a), CHAIN_FUSED_TOL if fused else None,
+                    bound(x.numel(), ops, 2 * nbytes(x)),
+                    x.numel() * chain_instructions(mode, n_ops, fused),
+                    (f"fma_chain_kernelILb{int(mode == 'ilp8')}E"
+                     f"Lb{int(fused)}E", (f"Li{steps}E", "Li0E")), None)
+
+    # the clock beside T3's window (ilp8, 1024, unfused: the table's row)
+    t3 = cases["T3 ilp8 1024 unfused"][0](kernels)
+    t3_ms, clocks = clocked_ms(t3, 500)
+    rows, bad = {}, []
+    for name, (make, twin, tol, bnd, ops, (stem, prefer), loops) in \
+            cases.items():
+        calls = {tree: make(kern) for tree, kern in trees.items()}
+        ref = twin()
+        row = {}
+        for tree, call in calls.items():
+            got = call().clone()
+            err = float((got - ref).abs().max())
+            ok = (err <= tol * float(ref.abs().max()) if tol is not None
+                  else torch.equal(got, ref))
+            row[f"{tree}_equals_twin" if tol is None
+                else f"{tree}_within_tol"] = ok
+            row[f"{tree}_max_abs_err"] = err
+            if tree == "change" and not ok:
+                bad.append(name)
+        del ref, got
+        order = (["parent", "change", "change", "parent"] if parent
+                 else ["change", "change"])
+        ms = {tree: [] for tree in calls}
+        for tree in order:
+            ms[tree].append(cuda_time(calls[tree], 20))
+        for tree in calls:
+            row[f"{tree}_ms"] = ms[tree]
+            inst = probe_instance(info[tree]["sass"], stem, prefer)
+            row[f"{tree}_instance"] = inst
+            if inst:
+                row[f"{tree}_per_lane"] = per_lane(info[tree]["sass"][inst],
+                                                   loops)
+                row[f"{tree}_ptxas"] = info[tree]["ptxas"].get(inst)
+        ib = insn_bound_ms(ops, clocks["sm_mhz"])
+        row.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                   insn_bound_ms=ib,
+                   share_of_bound=bnd["bound_ms"] / min(ms["change"]),
+                   share_of_insn_bound=ib / min(ms["change"]))
+        rows[name] = row
+    out = dict(t3_clocked_ms=t3_ms, clocks=clocks, times=rows,
+               sass={tree: info[tree]["sass"] for tree in trees},
+               ptxas={tree: info[tree]["ptxas"] for tree in trees})
+    if parent:
+        out.update(
+            other_kernels_same_sass=info["other_kernels_same_sass"],
+            other_kernels_sass_differs=info["other_kernels_sass_differs"])
+    return out, bad
 
 
 def phase_probes(dev, covers):
@@ -998,10 +1296,14 @@ def phase_probes(dev, covers):
                            ] = e
     n_ops = exp_vpu_roofline.N_OPS[-1]
     _, ops = probe_cuda.chain_steps("ilp8", n_ops)
+    # the SM clock read beside the timed window gives the instruction bound
+    ms, clocks = clocked_ms(lambda: probe_cuda.fma_chain(x, n_ops), 500)
+    insns = x.numel() * chain_instructions("ilp8", n_ops)
     results["fma_chain"] = dict(
         shape=list(x.shape), mode="ilp8", n_ops=n_ops, fused=False,
         max_abs_err=chain_errs[f"ilp8_{n_ops}_unfused"], errs=chain_errs,
-        ms=cuda_time(lambda: probe_cuda.fma_chain(x, n_ops), 10),
+        ms=ms, clocks=clocks, f32_instructions=insns,
+        insn_bound_ms=insn_bound_ms(insns, clocks["sm_mhz"]),
         plain_ms=cuda_time(lambda: probe_cuda.fma_chain_plain(x, n_ops), 3),
         library_ms=None, **bound(x.numel(), ops, 2 * nbytes(x)))
     del x, yk, yp
@@ -1058,11 +1360,13 @@ def phase_probes(dev, covers):
             lambda: probe_cuda.spectrum_probe_plain(view, sweeps), 2),
         library_ms=cuda_time(lambda: torch.linalg.svdvals(blocks), 1),
         **bound(blocks.shape[0], jacobi_ops(pairs), nbytes(view, view_sp)))
+    results["spectrum_probe"]["insn_bound_ms"] = insn_bound_ms(
+        results["spectrum_probe"]["ops"], clocks["sm_mhz"])
     del blocks
     for name, r in results.items():
         emit({"phase": "probe_kernel_vs_plain", "kernel": name, **r,
               "card": smi_line()})
-    return launches, results, t3
+    return launches, results, t3, clocks
 
 
 def phase_reference(dev):
@@ -2875,6 +3179,15 @@ def main(argv) -> int:
         bad = [name for name, r in rows.items() if not r["equals_twin"]]
         require(not bad, f"not equal to the twin on the card: {bad}")
         return 0
+    if argv[:1] == ["--probe-times"] and len(argv) <= 2:
+        # the spectrum probe's and fma_chain's instances, timed beside an
+        # older tree's (argv[1]: its root) in one process
+        out, bad = probe_times(dev, covers, argv[1] if argv[1:] else None)
+        emit({"phase": "probe_times",
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"], **out,
+              "card": card})
+        require(not bad, f"not equal to the twin on the card: {bad}")
+        return 0
     if argv == ["--svd-drivers"]:
         svd_drivers(dev, smooth_frame(20261017),
                     wm_u8[::8, ::8].cpu().numpy())
@@ -2939,18 +3252,22 @@ def main(argv) -> int:
         phase_video_reference(dev, vtd)
         phase_files(dev, covers, wm_u8, smooth, parity_text_recovered, clip,
                     wm_png)
-    probe_launches, probe_results, t3 = phase_probes(dev, covers)
+    probe_launches, probe_results, t3, clocks = phase_probes(dev, covers)
     launches.update(probe_launches)
     results.update(probe_results)
     # the operation-bound watermark kernels' f32 rates against the unfused
     # issue rate T3 measured in this run
+    # (and their instruction bounds at the SM clock read beside T3's window)
     rates = {}
     for name in ("spectrum_blocks", "embed_blocks", "roundtrip_frames_blocks",
                  "jacobi_svd8", "embed_blocks_recon", "spectrum_blocks_gram"):
         rate = results[name]["ops"] / (results[name]["ms"] * 1e-3)
-        rates[name] = dict(op_per_s=rate, share_of_t3=rate / t3)
-    emit({"phase": "rates", "t3_unfused_op_per_s": t3, **rates,
-          "card": smi_line()})
+        ib = insn_bound_ms(results[name]["ops"], clocks["sm_mhz"])
+        rates[name] = dict(op_per_s=rate, share_of_t3=rate / t3,
+                           insn_bound_ms=ib,
+                           insn_share=ib / results[name]["ms"])
+    emit({"phase": "rates", "t3_unfused_op_per_s": t3, "clocks": clocks,
+          **rates, "card": smi_line()})
 
     # name: (source, TPU kernel it replaces)
     sources = {

@@ -1,18 +1,18 @@
 // Block addressing, row loads and stores shared by the blocked watermark
 // kernels (wm_kernels.cu: K1, K2, K3; wm_variants.cu: K2r, K1g), the
-// spectrum probe (probes.cu), and the cp.async helpers of the kernels that
-// stage blocks in shared memory (svd8.cu: K4; wm_variants.cu: K2r).
+// spectrum probe (probes.cu), and the cp.async helpers and stage layout of
+// the kernels that stage blocks in shared memory (svd8.cu: K4;
+// wm_variants.cu: K2r; probes.cu: the spectrum probe's staged read).
 //
 // The kernels read u8 or f32 planes [P, H, W], or u8/f32 channels-last
 // frames [L, H, W, C] (plane p = l*C + c), straight from device memory by
 // stride; the row-major block index of plane p is n = by*Wb + bx, and
 // neighbouring threads take neighbouring blocks of a block row. K2 and K3
-// address a block from its global index (block_addr, 64-bit); K1, K1g and
-// K2r from (blocks of a frame, frames) with 32-bit offsets in a frame
-// (load_row).
+// address a block from its global index (block_addr, 64-bit); K1, K1g, K2r
+// and the spectrum probe from (blocks of a frame, frames) with 32-bit
+// offsets in a frame (load_row).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -42,25 +42,6 @@ __device__ __forceinline__ BlockAddr block_addr(int64_t tid, int64_t n_blk,
   a.base = (p / chans) * static_cast<int64_t>(h) * a.rs + (p % chans) +
            by * kB * a.rs + bx * kB * chans;
   return a;
-}
-
-template <typename T>
-__device__ __forceinline__ void load_col(const T* __restrict__ x,
-                                         const BlockAddr& a, int c,
-                                         float (&col)[kB]) {
-#pragma unroll
-  for (int r = 0; r < kB; ++r)
-    col[r] = static_cast<float>(x[a.base + r * a.rs + c * a.cs]);
-}
-
-// bf16 holds 0..255 exactly, so a bf16 view of u8 pixels loads the same
-// floats as the u8 one.
-__device__ __forceinline__ void load_col(const __nv_bfloat16* __restrict__ x,
-                                         const BlockAddr& a, int c,
-                                         float (&col)[kB]) {
-#pragma unroll
-  for (int r = 0; r < kB; ++r)
-    col[r] = __bfloat162float(x[a.base + r * a.rs + c * a.cs]);
 }
 
 // The watermark row of block tid: sws[(p % csws), n, :].
@@ -137,13 +118,22 @@ __device__ __forceinline__ void cp_async16_once(void* dst, const void* src) {
       : "memory");
 }
 
+// The float4 slot of 16-byte piece q of block j in a warp's stage of
+// blocks with c channels a pixel (K2r, the spectrum probe's staged read):
+// a block is 16 c pieces, pixel row r its pieces 2 c r .. 2 c r + 2 c - 1,
+// in the input's interleaved order. The XOR by a permutation of j % 8
+// keeps q in its aligned group of 8 pieces and sends a quarter-warp's 8
+// accesses to 8 distinct bank groups, both where 8 threads each touch
+// piece q of their own neighbouring blocks and where they touch the two
+// pieces of one row of 4 neighbouring blocks (the copies in and out of
+// f32 planes).
+__device__ __forceinline__ int warp_slot(int j, int q, int c) {
+  return j * 16 * c + (q ^ (((j & 3) << 1) | ((j >> 2) & 1)));
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
                    : "memory");
-}
-
-inline unsigned grid_for(int64_t total) {
-  return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
 // gridDim.y's limit: frames a launch of a (blocks of a frame, frames) grid.

@@ -43,26 +43,51 @@
 // fma_chain replaces tools/exp_vpu_roofline.py::_make_kernel (the
 // pallas_call at :57, T3): per element, acc <- acc * 1.0000001 + x, as 8
 // independent chains (ilp8, the throughput ceiling) or one dependent chain
-// (serial, the latency floor). Bound by operations. The unfused instance
-// uses __fmul_rn/__fadd_rn and the fused one __fmaf_rn, both immune to
+// (serial, the latency floor). The unfused instance uses
+// __fmul_rn/__fadd_rn and the fused one __fmaf_rn, both immune to
 // -fmad=false, so one build gives both the rate of the separate multiplies
 // and adds that every kernel here executes and the FMA rate behind the
-// published 67 TFLOP/s.
+// published 67 TFLOP/s. What bounds it: the rate of its f32
+// instructions. The unfused chain spends an FMUL and an FADD an update, so
+// its ceiling is half the published rate: 132 SMs x 128 lanes x the SM
+// clock, in instructions. The first form ran the steps as a run-time loop
+// unrolled by 4 (3 branch and counter instructions every 64 f32 ones) on
+// 64-bit indices. Now the step counts of the tool's two lengths (ilp8 16
+// and 64 rounds, serial 128 and 512 updates) are template constants, so
+// their chains unroll fully into nothing but FMUL/FADD or FFMA between
+// the load and the store; any other length runs the loop in an instance
+// of its own. Indices are 32-bit (the host refuses 2^31 elements or more).
 //
 // spectrum_probe replaces the probe spectra: tools/exp_relayout.py
 // _make_kernel (pallas_call :59, T1: natural-layout planes, relaid inside
 // the kernel), exp_widen.py (:40, T4: u8/bf16/f32 cols view),
 // exp_cachednorms.py::_make_spectrum_cached (:59, T5: final values from
-// the cached norms) and profile_view.py (:44, T6a: f32 cols view, s4). It
-// is K1's design (one thread per block, jacobi8 + sort8, an integer
-// schedule) with three ways to load the block: kNatStrided reads it by
-// stride as K1 does (each thread 8 rows of 32 bytes, 32 bytes apart from
-// its neighbour); kNatSmem has the CTA read its 8 pixel rows coalesced into
-// shared memory (cols_view's tile) and each thread take its block from
-// there; kColsView reads the cols view, where a warp's 32 blocks are 32
-// neighbouring elements. Bound by operations (registers cap occupancy, as
-// for K1). On the same integer-valued planes every fresh instance computes
-// K1's floats in K1's order, so it equals K1 bit for bit.
+// the cached norms) and profile_view.py (:44, T6a: f32 cols view, s4).
+// It is K1's design, one thread a block with jacobi8 + sort8 at an
+// integer schedule, with three ways to read the block. What bounds it on
+// the H100: the rate of its f32 instructions, as for K1 (s2 and more; the
+// twin's order fixes them under -fmad=false), and the bytes at s0. The
+// first form was K1's before K1's redesign: a 1-D grid with 64-bit block
+// indices, the rsqrt of c^2 with rsqrtf's subnormal fix-up, scalar loads,
+// and a CTA-wide band in shared memory behind a __syncthreads. Now every
+// instance runs on K1's grid, (blocks of a plane, planes) through
+// launch_frame_grid, with 32-bit offsets in a plane (the host refuses a
+// plane of 2^31 elements or more), K1's rotation (jacobi8's kNormalIc:
+// the same bits, three instructions fewer a pair) and K1's two float4
+// stores. kNatStrided reads its block by stride as K1 does: two 16-byte
+// loads a pixel row where the plane is 16-byte aligned, a float a load
+// where it is not (its own instance). kNatSmem stages: each warp copies
+// its 32 blocks' pixel rows (8 KiB) into a slice of shared memory of its
+// own with 16-byte cp.async, in K2r's swizzled layout (blocks.cuh
+// warp_slot), and waits on its own copies and a __syncwarp, so no warp
+// waits for another; a block keeps its own address, so a warp's blocks may
+// straddle block rows, and blocks past the plane's end stage nothing. 4
+// warps x 8 KiB a CTA with the carveout all shared memory leave 5 CTAs an
+// SM, K1's occupancy; it needs a 16-byte aligned plane. kColsView reads
+// the cols view, where a warp's 32 blocks are 32 neighbouring elements of
+// each of its 64 rows, a coalesced load per pixel. On the same
+// integer-valued planes every fresh instance computes K1's floats in K1's
+// order, so it equals K1 bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,9 +101,9 @@
 namespace dctsvd {
 
 constexpr int kWideThreads = 256;  // copy_f32, cols_view (scalar), fma_chain
-constexpr int kTileBlocks = kThreads;        // blocks of a block row per CTA
-constexpr int kTileCols = kTileBlocks * kB;  // 1024 pixel columns
-constexpr int kPadCols = kTileCols + kTileBlocks;
+// The least CTAs of kThreads threads an SM of the spectrum probe: K1's
+// (kSpectrumMinBlocks), so that the layouts compare at equal occupancy.
+constexpr int kProbeMinBlocks = 5;
 
 enum DType { kU8 = 0, kBF16 = 1, kF32 = 2 };
 enum ProbeLayout { kNatStrided = 0, kNatSmem = 1, kColsView = 2 };
@@ -106,23 +131,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 convert<uint8_t, __nv_bfloat16>(
     uint8_t v) {
   return __float2bfloat16(static_cast<float>(v));
-}
-
-// The 8 pixel rows of tile blockIdx.y of band blockIdx.x (= p * Hb + by)
-// into band[r][j + j / 8], coalesced. Every thread of the CTA calls it.
-template <int kNT, typename T>
-__device__ __forceinline__ void load_band(const T* __restrict__ x, int w,
-                                          T (&band)[kB][kPadCols]) {
-  const int wb = w / kB;
-  const int ncols = min(kTileBlocks, wb - static_cast<int>(blockIdx.y) *
-                                             kTileBlocks) * kB;
-  const T* src = x + static_cast<int64_t>(blockIdx.x) * kB * w +
-                 static_cast<int64_t>(blockIdx.y) * kTileCols;
-  for (int i = threadIdx.x; i < kB * kTileCols; i += kNT) {
-    const int r = i / kTileCols, j = i % kTileCols;
-    if (j < ncols) band[r][j + j / kB] = src[static_cast<int64_t>(r) * w + j];
-  }
-  __syncthreads();
 }
 
 constexpr int kViewWarps = 4;                 // cols_view: warps a CTA,
@@ -320,21 +328,23 @@ __device__ __forceinline__ float chain_step(float acc, float x) {
   }
 }
 
-// steps: rounds of 8 updates (ilp8) or updates of the one chain (serial).
-template <bool kIlp8, bool kFused>
+// steps: rounds of 8 updates (ilp8) or updates of the one chain (serial);
+// kSteps > 0 fixes it at compile time (the loop unrolls fully), 0 reads
+// `steps`.
+template <bool kIlp8, bool kFused, int kSteps>
 __global__ void __launch_bounds__(kWideThreads)
     fma_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
-                     int64_t n, int steps) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWideThreads +
-                    threadIdx.x;
+                     int n, int steps) {
+  const int i = blockIdx.x * kWideThreads + threadIdx.x;
   if (i >= n) return;
+  if constexpr (kSteps > 0) steps = kSteps;
   const float xv = x[i];
   float out;
   if constexpr (kIlp8) {
     float acc[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[k] = __fmul_rn(xv, 1.0f + 0.0625f * k);
-#pragma unroll 4
+#pragma unroll(kSteps > 0 ? kSteps : 4)
     for (int s = 0; s < steps; ++s) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc[k] = chain_step<kFused>(acc[k], xv);
@@ -344,80 +354,143 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int k = 1; k < 8; ++k) out = __fadd_rn(out, acc[k]);
   } else {
     out = xv;
-#pragma unroll 8
+#pragma unroll(kSteps > 0 ? kSteps : 8)
     for (int s = 0; s < steps; ++s) out = chain_step<kFused>(out, xv);
   }
   y[i] = out;
 }
 
-// Element (r, c) of block (p, by, bx) of the cols view [P, Hb, 8, 8, Wb]
-// sits at ((p * Hb + by) * 64 + r * 8 + c) * Wb + bx; tid = (p * Hb + by)
-// * Wb + bx is the row-major block index.
-__device__ __forceinline__ BlockAddr cols_addr(int64_t tid, int wb) {
-  const int64_t band = tid / wb;
-  BlockAddr a;
-  a.base = band * kB * kB * wb + (tid - band * wb);
-  a.rs = static_cast<int64_t>(kB) * wb;
-  a.cs = wb;
-  return a;
+template <bool kIlp8, bool kFused>
+static void launch_chain(const float* x, float* y, int n, int steps,
+                         cudaStream_t st) {
+  // the tool's lengths (tools/exp_vpu_roofline.py N_OPS = 256, 1024)
+  constexpr int kShort = kIlp8 ? 16 : 128, kLong = kIlp8 ? 64 : 512;
+  const unsigned grid =
+      static_cast<unsigned>((n + kWideThreads - 1) / kWideThreads);
+  if (steps == kShort)
+    fma_chain_kernel<kIlp8, kFused, kShort>
+        <<<grid, kWideThreads, 0, st>>>(x, y, n, steps);
+  else if (steps == kLong)
+    fma_chain_kernel<kIlp8, kFused, kLong>
+        <<<grid, kWideThreads, 0, st>>>(x, y, n, steps);
+  else
+    fma_chain_kernel<kIlp8, kFused, 0>
+        <<<grid, kWideThreads, 0, st>>>(x, y, n, steps);
 }
 
-// At least K1's 5 blocks of 128 threads per SM (96 registers, as ptxas
-// gives K1), so that the layouts compare with K1 at equal occupancy.
-template <int kLayout, typename T, bool kCached>
-__global__ void __launch_bounds__(kThreads, 5)
+// cp.async of a 16-byte piece to shared address dst when pred holds, as
+// one predicated instruction (no branch around it).
+__device__ __forceinline__ void cp_async16_if(uint32_t dst, const void* src,
+                                              bool pred) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(dst),
+      "l"(src), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return static_cast<float>(v);
+}
+// bf16 holds 0..255 exactly, so a bf16 view of u8 pixels loads the same
+// floats as the u8 one.
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Grid (units / kThreads, planes), units = Hb * Wb blocks a plane (the
+// FrameGridKernel signature: chans is 1 and extra 0, the schedule is
+// `full` whole sweeps). Block n = by * Wb + bx of plane blockIdx.y:
+// kNatStrided and kNatSmem read f32 planes [P, H, W] (kRow: load_row's
+// kC, 1 for 16-byte rows, 0 for a float a load), kColsView the cols view
+// [P, Hb, 8, 8, Wb], element (r, c) of the block at ((by * 64 + r * 8 + c)
+// * Wb + bx) in its plane. out: f32 [P, units, 8], sorted descending.
+template <int kLayout, typename T, bool kCached, int kRow>
+__global__ void __launch_bounds__(kThreads, kProbeMinBlocks)
     spectrum_probe_kernel(const T* __restrict__ x, float* __restrict__ out,
-                          int64_t total, int h, int w, int full) {
+                          int units, int, int w, int full, int) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
   const int wb = w / kB;
+  const int64_t plane = blockIdx.y;
+  x += plane * units * (kB * kB);
+  const int by = t / wb, bx = t - by * wb;
   float g[kB][kB], unused[kB][kB], s[kB];
-  int64_t tid;
   if constexpr (kLayout == kNatSmem) {
-    __shared__ T band[kB][kPadCols];
-    load_band<kThreads>(x, w, band);
-    const int b = threadIdx.x;
-    const int bx = blockIdx.y * kTileBlocks + b;
-    if (bx >= wb) return;
+    static_assert(sizeof(T) == 4, "the staged read takes f32 planes");
+    __shared__ __align__(16) float4 stage[kThreads / 32][32 * 16];
+    const int lane = threadIdx.x % 32;
+    const int n0 = t - lane;
+    if (n0 >= units) return;  // the whole warp
+    const int nw = min(32, units - n0);  // the warp's blocks in the plane
+    float4* st = stage[threadIdx.x / 32];
+    // the lane copies half lane % 2 of each pixel row r of blocks lane / 2
+    // and lane / 2 + 16, so 16 lanes read 512 bytes of one pixel row where
+    // their blocks share a block row. Piece 2 r + half of block j sits at
+    // warp_slot(j, 2 r + half, 1) = 16 j + (2 r ^ q), q = half ^ (the
+    // slot's XOR for j), which is the same for j and j + 16: one XOR and
+    // one add a copy, predicated, no branch
+    const int base = by * kB * w + bx * kB;
+    const int jl = lane / 2, half = lane % 2;
+    const float* src_lo = x + __shfl_sync(~0u, base, jl) + 4 * half;
+    const float* src_hi = x + __shfl_sync(~0u, base, jl + 16) + 4 * half;
+    const int q = warp_slot(jl, half, 1) - 16 * jl;
+    const uint32_t s_lo = smem_addr(st + 16 * jl);
+    const uint32_t s_hi = s_lo + 16 * 16 * sizeof(float4);
 #pragma unroll
-    for (int c = 0; c < kB; ++c) {
-#pragma unroll
-      for (int r = 0; r < kB; ++r)
-        g[c][r] = static_cast<float>(band[r][b * kB + c + b]);
+    for (int r = 0; r < kB; ++r) {
+      const uint32_t piece = ((2 * r) ^ q) * sizeof(float4);
+      cp_async16_if(s_lo + piece, src_lo + r * w, jl < nw);
+      cp_async16_if(s_hi + piece, src_hi + r * w, jl + 16 < nw);
     }
-    tid = static_cast<int64_t>(blockIdx.x) * wb + bx;
+    cp_async_wait_all();
+    __syncwarp();
+    if (lane >= nw) return;
+#pragma unroll
+    for (int r = 0; r < kB; ++r) {
+      const float4 lo = st[warp_slot(lane, 2 * r, 1)];
+      const float4 hi = st[warp_slot(lane, 2 * r + 1, 1)];
+      g[0][r] = lo.x; g[1][r] = lo.y; g[2][r] = lo.z; g[3][r] = lo.w;
+      g[4][r] = hi.x; g[5][r] = hi.y; g[6][r] = hi.z; g[7][r] = hi.w;
+    }
+  } else if constexpr (kLayout == kNatStrided) {
+    if (t >= units) return;
+    const T* xb = x + by * kB * w + bx * kB;
+#pragma unroll
+    for (int r = 0; r < kB; ++r) {
+      float px[kB];
+      load_row<kRow>(xb + r * w, 1, 0, px);
+#pragma unroll
+      for (int k = 0; k < kB; ++k) g[k][r] = px[k];
+    }
   } else {
-    tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    if (tid >= total) return;
-    const BlockAddr a =
-        kLayout == kNatStrided
-            ? block_addr(tid, static_cast<int64_t>(h / kB) * wb, 1, h, w)
-            : cols_addr(tid, wb);
+    if (t >= units) return;
+    const T* xb = x + by * kB * kB * wb + bx;
 #pragma unroll
-    for (int c = 0; c < kB; ++c) load_col(x, a, c, g[c]);
+    for (int r = 0; r < kB; ++r) {
+#pragma unroll
+      for (int c = 0; c < kB; ++c) g[c][r] = to_f32(xb[(r * kB + c) * wb]);
+    }
   }
-  jacobi8<false, kCached>(g, unused, full, 0, s);
+  jacobi8<false, kCached, 1, true>(g, unused, full, 0, s);
   sort8<0>(s, unused, unused);
-  float* o = out + tid * kB;
-#pragma unroll
-  for (int j = 0; j < kB; ++j) o[j] = s[j];
+  float4* o = reinterpret_cast<float4*>(out + (plane * units + t) * kB);
+  o[0] = make_float4(s[0], s[1], s[2], s[3]);
+  o[1] = make_float4(s[4], s[5], s[6], s[7]);
 }
 
-template <int kLayout, typename T, bool kCached>
+template <int kLayout, typename T, bool kCached, int kRow = 1>
 static void launch_probe(const void* x, float* out, int planes, int h, int w,
                          int full, cudaStream_t st) {
-  const int64_t bands = static_cast<int64_t>(planes) * (h / kB);
-  const int wb = w / kB;
-  const int64_t total = bands * wb;
-  const T* xt = static_cast<const T*>(x);
   if constexpr (kLayout == kNatSmem) {
-    const dim3 grid(static_cast<unsigned>(bands),
-                    static_cast<unsigned>((wb + kTileBlocks - 1) /
-                                          kTileBlocks));
-    spectrum_probe_kernel<kLayout, T, kCached><<<grid, kThreads, 0, st>>>(
-        xt, out, total, h, w, full);
-  } else {
-    spectrum_probe_kernel<kLayout, T, kCached>
-        <<<grid_for(total), kThreads, 0, st>>>(xt, out, total, h, w, full);
+    // all of the SM's unified L1 that can be shared memory: 5 CTAs' stages
+    // (160 KiB) exceed the smaller carveouts
+    cudaFuncSetAttribute(spectrum_probe_kernel<kLayout, T, kCached, kRow>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
   }
+  launch_frame_grid<T>(spectrum_probe_kernel<kLayout, T, kCached, kRow>, x,
+                       out, planes, 1, h, w, full, 0, st);
 }
 
 }  // namespace dctsvd
@@ -476,44 +549,52 @@ extern "C" int dctsvd_cols_view(const void* x, int in_kind, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: f32 of n elements; steps as for fma_chain_kernel. Returns the
-// cudaError_t of the launch.
+// x, y: f32 of n elements, n < 2^31; steps as for fma_chain_kernel.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue, and no
+// launch, for n out of range).
 extern "C" int dctsvd_fma_chain(const void* x, void* y, long long n,
                                 int steps, int ilp8, int fused,
                                 void* stream) {
+  if (n < 0 || n >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid =
-      static_cast<unsigned>((n + kWideThreads - 1) / kWideThreads);
   const float* xf = static_cast<const float*>(x);
   float* yf = static_cast<float*>(y);
+  const int ni = static_cast<int>(n);
   if (ilp8 && fused)
-    fma_chain_kernel<true, true><<<grid, kWideThreads, 0, st>>>(xf, yf, n,
-                                                                steps);
+    launch_chain<true, true>(xf, yf, ni, steps, st);
   else if (ilp8)
-    fma_chain_kernel<true, false><<<grid, kWideThreads, 0, st>>>(xf, yf, n,
-                                                                 steps);
+    launch_chain<true, false>(xf, yf, ni, steps, st);
   else if (fused)
-    fma_chain_kernel<false, true><<<grid, kWideThreads, 0, st>>>(xf, yf, n,
-                                                                 steps);
+    launch_chain<false, true>(xf, yf, ni, steps, st);
   else
-    fma_chain_kernel<false, false><<<grid, kWideThreads, 0, st>>>(xf, yf, n,
-                                                                  steps);
+    launch_chain<false, false>(xf, yf, ni, steps, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x: natural f32 planes [P, H, W] (layout kNatStrided / kNatSmem) or a
 // cols view [P, H/8, 8, 8, W/8] (kColsView; kind u8, bf16 or f32); out:
-// f32 [P, N, 8]; `full` sweeps, 0 allowed (sorted column norms). cached
-// (f32 cols view only) takes the final values from the cached norms.
-// Returns the cudaError_t of the launch.
+// f32 [P, N, 8], 16-byte aligned; `full` sweeps, 0 allowed (sorted column
+// norms). cached (f32 cols view only) takes the final values from the
+// cached norms. kNatStrided reads a plane that is not 16-byte aligned a
+// float a load; kNatSmem refuses it. A plane of 2^31 elements or more, a
+// misaligned out, or a kind, layout and cached that no instance takes
+// return cudaErrorInvalidValue and launch nothing. Returns the
+// cudaError_t of the launch.
 extern "C" int dctsvd_spectrum_probe(const void* x, int kind, int layout,
                                      int cached, void* out, int planes,
                                      int h, int w, int full, void* stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (static_cast<int64_t>(h) * w >= (int64_t{1} << 31) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (layout == kNatStrided && kind == kF32 && !cached)
+  if (layout == kNatStrided && kind == kF32 && !cached && aligned)
     launch_probe<kNatStrided, float, false>(x, o, planes, h, w, full, st);
-  else if (layout == kNatSmem && kind == kF32 && !cached)
+  else if (layout == kNatStrided && kind == kF32 && !cached)
+    launch_probe<kNatStrided, float, false, 0>(x, o, planes, h, w, full, st);
+  else if (layout == kNatSmem && kind == kF32 && !cached && aligned)
     launch_probe<kNatSmem, float, false>(x, o, planes, h, w, full, st);
   else if (layout == kColsView && kind == kU8 && !cached)
     launch_probe<kColsView, uint8_t, false>(x, o, planes, h, w, full, st);

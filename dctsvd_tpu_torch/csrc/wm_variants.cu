@@ -76,18 +76,6 @@ constexpr int kReconMinBlocks = 6;
 // K1g: the least CTAs of kThreads threads an SM (80 registers).
 constexpr int kGramMinBlocks = 6;
 
-// The float4 slot of 16-byte piece q of block j in a warp's stage of
-// blocks with c channels a pixel: a block is 16 c pieces, pixel row r its
-// pieces 2 c r .. 2 c r + 2 c - 1, in the input's interleaved order. The
-// XOR by a permutation of j % 8 keeps q in its aligned group of 8 pieces
-// and sends a quarter-warp's 8 accesses to 8 distinct bank groups, both
-// where 8 threads each touch piece q of their own neighbouring blocks and
-// where they touch the two pieces of one row of 4 neighbouring blocks (the
-// copies in and out of f32 planes).
-__device__ __forceinline__ int recon_slot(int j, int q, int c) {
-  return j * 16 * c + (q ^ (((j & 3) << 1) | ((j >> 2) & 1)));
-}
-
 // Grid (warps of a frame / kReconWarps, frames); frame frame0 + blockIdx.y
 // is [H, W, c] (c = 1: a plane) and holds n_blk pixel blocks, plane
 // frame * c + ch takes sws[plane % csws].
@@ -125,7 +113,7 @@ __global__ void __launch_bounds__(kReconThreads, kReconMinBlocks)
 #pragma unroll
     for (int m = 0; m < 16; ++m) {
       const int jj = jl + 16 * (m % 2), r = m / 2;
-      float4* dst = st + recon_slot(jj, 2 * r + half, 1);
+      float4* dst = st + warp_slot(jj, 2 * r + half, 1);
       if (jj < nw)
         cp_async16_once(dst, x + (m % 2 ? b_hi : b_lo) + r * w + 4 * half);
       else
@@ -135,8 +123,8 @@ __global__ void __launch_bounds__(kReconThreads, kReconMinBlocks)
     __syncwarp();
 #pragma unroll
     for (int r = 0; r < kB; ++r) {
-      const float4 lo = st[recon_slot(lane, 2 * r, 1)];
-      const float4 hi = st[recon_slot(lane, 2 * r + 1, 1)];
+      const float4 lo = st[warp_slot(lane, 2 * r, 1)];
+      const float4 hi = st[warp_slot(lane, 2 * r + 1, 1)];
       g[0][r] = lo.x; g[1][r] = lo.y; g[2][r] = lo.z; g[3][r] = lo.w;
       g[4][r] = hi.x; g[5][r] = hi.y; g[6][r] = hi.z; g[7][r] = hi.w;
     }
@@ -195,15 +183,15 @@ __global__ void __launch_bounds__(kReconThreads, kReconMinBlocks)
     }
     if (!live) continue;
     if constexpr (kC == 1) {
-      st[recon_slot(lane, 2 * r, 1)] =
+      st[warp_slot(lane, 2 * r, 1)] =
           make_float4(yr[0], yr[1], yr[2], yr[3]);
-      st[recon_slot(lane, 2 * r + 1, 1)] =
+      st[warp_slot(lane, 2 * r + 1, 1)] =
           make_float4(yr[4], yr[5], yr[6], yr[7]);
     } else {
 #pragma unroll
       for (int k = 0; k < kB; ++k) {
         const int e = (r * kB + k) * c + ch;  // float e of block j
-        stf[4 * recon_slot(j, e / 4, c) + e % 4] = yr[k];
+        stf[4 * warp_slot(j, e / 4, c) + e % 4] = yr[k];
       }
     }
   }
@@ -218,7 +206,7 @@ __global__ void __launch_bounds__(kReconThreads, kReconMinBlocks)
     const int bj = __shfl_sync(~0u, base, jj * c);
     if (r < kB && jj < nw)
       __stcs(reinterpret_cast<float4*>(y + bj + r * rs) + p,
-             st[recon_slot(jj, r * 2 * c + p, c)]);
+             st[warp_slot(jj, r * 2 * c + p, c)]);
   }
 }
 

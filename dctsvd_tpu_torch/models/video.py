@@ -249,6 +249,7 @@ def _embed_video_impl(host_path: str, out_path: str, meta_path: str,
     """
     import collections
     from concurrent.futures import ThreadPoolExecutor
+    import threading
 
     from dctsvd_tpu_torch.utils.profiling import Throughput, logger
 
@@ -321,18 +322,28 @@ def _embed_video_impl(host_path: str, out_path: str, meta_path: str,
         [K, H, W, 3] decode-layout u8 (blocked color). One device round
         trip for the whole chunk; the marked frames and s_orig come back
         to the host. Only OSError and TimeoutError retry; a device error
-        or a programming error surfaces at once."""
+        or a programming error surfaces at once. Once a chunk has failed,
+        every later chunk raises here without launching anything: a device
+        that just ran out of memory gets no further work."""
+        if failed.is_set():
+            raise RuntimeError("an earlier chunk's dispatch failed")
         transient = (OSError, TimeoutError)
         last_err = None
-        for _ in range(retries + 1):
-            try:
-                marked, s_orig = _embed_fn(torch.from_numpy(planes).to(dev))
-                return (np.ascontiguousarray(marked.cpu().numpy()),
-                        s_orig.cpu().numpy())
-            except transient as e:
-                last_err = e
-                logger.warning("chunk dispatch failed (%s), retrying", e)
-        raise last_err
+        try:
+            for _ in range(retries + 1):
+                try:
+                    marked, s_orig = _embed_fn(
+                        torch.from_numpy(planes).to(dev))
+                    return (np.ascontiguousarray(marked.cpu().numpy()),
+                            s_orig.cpu().numpy())
+                except transient as e:
+                    last_err = e
+                    logger.warning("chunk dispatch failed (%s), retrying",
+                                   e)
+            raise last_err
+        except BaseException:
+            failed.set()
+            raise
 
     # ordered buffer: ('pass', frame) | ('marked', slot); slots fill at drain
     buf = []
@@ -345,6 +356,7 @@ def _embed_video_impl(host_path: str, out_path: str, meta_path: str,
     # main thread's encode and the reader thread's decode; one worker
     # keeps dispatch order = submission order, so results resolve FIFO.
     pool = ThreadPoolExecutor(max_workers=1)
+    failed = threading.Event()            # set by the first failed dispatch
     inflight = collections.deque()        # (future, [(slot, frame_idx)])
 
     def _submit():
@@ -492,7 +504,7 @@ def _embed_video_impl(host_path: str, out_path: str, meta_path: str,
                 if resume:
                     writer.finalize()
     finally:
-        pool.shutdown(wait=True)
+        pool.shutdown(wait=True, cancel_futures=True)
 
     meta = _checkpoint()
     return write_path, meta_path, meta

@@ -258,7 +258,10 @@ def spectrum_probe(x: torch.Tensor, sweeps: int = 4, layout: str = "cols",
     """Per-block singular values [P, N, 8] of f32 natural planes
     [..., H, W] (``layout`` 'strided' or 'smem') or of a u8/bf16/f32 cols
     view (``'cols'``) at ``sweeps`` full sweeps (an int, 0 allowed). The
-    kernel on a CUDA tensor, its twin on a CPU tensor."""
+    kernel on a CUDA tensor, its twin on a CPU tensor. On the card,
+    'strided' reads a plane that is not 16-byte aligned a float a load (an
+    instance of its own); 'smem' stages 16-byte pieces and raises
+    ValueError for such a plane."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; expected one of "
                          f"{LAYOUTS}")
@@ -270,6 +273,9 @@ def spectrum_probe(x: torch.Tensor, sweeps: int = 4, layout: str = "cols",
     if _device_ok("spectrum_probe", x):
         return spectrum_probe_plain(x, full, layout, cached)
     x = x.contiguous()
+    if layout == "smem" and x.data_ptr() % 16:
+        raise ValueError("spectrum_probe: the 'smem' layout stages 16-byte "
+                         "pieces and needs a 16-byte aligned plane")
     out = torch.empty(p, (h // B) * (w // B), B, dtype=torch.float32,
                       device=x.device)
     if out.numel():

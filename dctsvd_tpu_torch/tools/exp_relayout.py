@@ -8,8 +8,9 @@ block from each 8th element; ``transpose`` relays the window as a whole
 (``swapaxes(x.reshape(R, 8, Wb, 8), -1, -2)``) before the Jacobi. On the
 GPU that is two forms of the spectrum probe: ``'strided'`` stands for
 slice2d and laxslice (each thread reads its block by stride, as K1 does),
-``'smem'`` for transpose (the CTA reads its 8 pixel rows coalesced into
-shared memory, and each thread takes its block from there).
+``'smem'`` for transpose (each warp copies its 32 blocks' pixel rows
+coalesced into shared memory of its own, and each thread takes its block
+from there).
 
     python -m dctsvd_tpu_torch.tools.exp_relayout
 

@@ -422,16 +422,22 @@ def test_cols_view_kernel_matches_twin(dev, kinds, shape):
     assert torch.equal(v.cpu(), probe_cuda.cols_view_plain(x, dst))
 
 
+def _off_16_bytes(x):
+    """x's copy on the card one element past a 16-byte boundary."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xv = base[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16
+    return xv
+
+
 @pytest.mark.parametrize("kinds", VIEW_KINDS)
 def test_cols_view_kernel_at_an_unaligned_pointer(dev, kinds):
     """A contiguous view one element past a 16-byte boundary takes the
     scalar path and still equals the twin."""
     src, dst = kinds
     x = _view_input((2, 16, 1920), src)
-    base = torch.empty(x.numel() + 1, dtype=src, device=dev)
-    xv = base[1:].view(x.shape)
-    xv.copy_(x.to(dev))
-    assert xv.is_contiguous() and xv.data_ptr() % 16
+    xv = _off_16_bytes(x.to(dev))
     n0 = probe_cuda.cols_view.launches
     v = probe_cuda.cols_view(xv, dst)
     torch.cuda.synchronize()
@@ -457,8 +463,69 @@ def test_fma_chain_kernel_matches_twin(dev, mode, fused, shape):
         assert torch.equal(y.cpu(), ref)
 
 
+# the lengths whose step counts are template constants of fma_chain_kernel
+# (tools/exp_vpu_roofline.py N_OPS), and one that runs the run-time loop
+CHAIN_LENGTHS = [256, 1024, 96]
+
+
+@pytest.mark.parametrize("n_ops", CHAIN_LENGTHS)
+@pytest.mark.parametrize("mode", probe_cuda.CHAIN_MODES)
+@pytest.mark.parametrize("fused", [False, True])
+def test_fma_chain_kernel_at_each_length(dev, mode, fused, n_ops):
+    """Each instance of the chain (unrolled at the tool's two lengths, the
+    loop at any other) against its twin run on the card: bit-equal
+    unfused, within CHAIN_FUSED_TOL fused (the twin rounds twice where the
+    FMA rounds once)."""
+    x = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (3, 135, 8, 240)).astype(np.float32)).to(dev)
+    n0 = probe_cuda.fma_chain.launches
+    y = probe_cuda.fma_chain(x, n_ops, mode, fused)
+    torch.cuda.synchronize()
+    assert probe_cuda.fma_chain.launches == n0 + 1
+    ref = probe_cuda.fma_chain_plain(x, n_ops, mode, fused)
+    if fused:
+        assert float((y - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    else:
+        assert torch.equal(y, ref)
+
+
+# the spectrum probe's own shapes: the probes' two, then a warp's blocks
+# straddling block rows with the plane ending mid-warp (Wb = 25, 225
+# blocks a plane), and one block row of Wb = 257 (the last CTA holds one
+# block)
+SPECTRUM_SHAPES = PROBE_SHAPES + [(2, 72, 200), (1, 8, 2056)]
+
+
+@pytest.mark.parametrize("sweeps", [0, 2])
 @pytest.mark.parametrize("case", PROBE_SPECTRA)
-@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("shape", SPECTRUM_SHAPES)
+def test_spectrum_probe_kernel_equals_twin_on_the_card(dev, case, shape,
+                                                      sweeps):
+    """Every instance computes its twin's floats in the twin's order: on
+    the card the two are bit-equal, the cached instance too."""
+    layout, dtype, cached = case
+    x = _probe_input(_int_planes(shape), layout, dtype).to(dev)
+    got = probe_cuda.spectrum_probe(x, sweeps, layout, cached)
+    ref = probe_cuda.spectrum_probe_plain(x, sweeps, layout, cached)
+    assert torch.equal(got, ref), (layout, dtype, cached)
+
+
+@pytest.mark.parametrize("shape", [(2, 72, 200), (1, 8, 2056)])
+def test_spectrum_probe_off_16_bytes(dev, shape):
+    """A plane that is not 16-byte aligned: 'strided' reads it a float a
+    load and still equals K1; 'smem' refuses it and launches nothing."""
+    planes = _int_planes(shape)
+    x = _off_16_bytes(planes.to(torch.float32).to(dev))
+    k1 = wm_cuda.spectrum_blocks(planes.to(dev), sweeps=3)
+    assert torch.equal(probe_cuda.spectrum_probe(x, 3, "strided"), k1)
+    n0 = probe_cuda.spectrum_probe.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        probe_cuda.spectrum_probe(x, 3, "smem")
+    assert probe_cuda.spectrum_probe.launches == n0
+
+
+@pytest.mark.parametrize("case", PROBE_SPECTRA)
+@pytest.mark.parametrize("shape", SPECTRUM_SHAPES)
 def test_spectrum_probe_kernel_matches_twin(dev, case, shape):
     layout, dtype, cached = case
     x = _probe_input(_int_planes(shape), layout, dtype)
@@ -475,7 +542,7 @@ def test_spectrum_probe_kernel_matches_twin(dev, case, shape):
 
 
 @pytest.mark.parametrize("sweeps", [2, 3, 4])
-@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("shape", SPECTRUM_SHAPES)
 def test_spectrum_probe_equals_k1(dev, sweeps, shape):
     """Every fresh instance computes K1's floats in K1's order: bit-equal
     to K1 on the same integer-valued planes at the same schedule."""

@@ -14,6 +14,7 @@ import ast
 import functools
 import importlib.util
 import pathlib
+import re
 import types
 
 import numpy as np
@@ -147,6 +148,21 @@ def test_t3_chain_matches_jax(jax_tools, mode, n_ops):
         out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32))(jnp.asarray(x))
     got = exp_vpu_roofline.run(torch.from_numpy(x), mode, n_ops)
     assert _rel_err(got, ref) <= CHAIN_TOL
+
+
+@pytest.mark.parametrize("mode", probe_cuda.CHAIN_MODES)
+def test_t3_lengths_take_the_unrolled_chain(mode):
+    """The tool's two lengths give the step counts that fma_chain_kernel
+    compiles as constants (csrc/probes.cu launch_chain: kShort, kLong), so
+    T3 times the fully unrolled instances."""
+    src = (REPO / "dctsvd_tpu_torch" / "csrc" / "probes.cu").read_text()
+    consts = {name: (int(ilp8), int(serial)) for name, ilp8, serial in
+              re.findall(
+                  r"(kShort|kLong) = kIlp8 \? (\d+) : (\d+)", src)}
+    col = probe_cuda.CHAIN_MODES.index(mode)
+    steps = [probe_cuda.chain_steps(mode, n)[0]
+             for n in exp_vpu_roofline.N_OPS]
+    assert steps == [consts["kShort"][col], consts["kLong"][col]]
 
 
 @pytest.mark.parametrize("sweeps", exp_widen.SWEEPS)

@@ -22,6 +22,7 @@ Tolerances, each restated in the test that holds it:
 
 import json
 import os
+import threading
 import warnings
 
 import cv2
@@ -611,6 +612,52 @@ def test_device_error_is_not_retried(files, monkeypatch):
                                  str(d / "err.npz"), _wm_plane(), ALPHA, 5,
                                  color=False, retries=2, device="cpu")
         assert calls["n"] == calls_expected, (exc, calls)
+
+
+@pytest.mark.parametrize("exc,calls_expected",
+                         [(torch.OutOfMemoryError, 1), (OSError, 3)])
+def test_queued_chunk_not_launched_after_failure(files, monkeypatch, exc,
+                                                 calls_expected):
+    """The ordering that raced: the 24-frame clip at interval 5 makes a
+    full chunk of 4 marked frames and a partial one of 1, and the first
+    chunk fails only after the loop has queued the second behind it. The
+    failure is held back until the second chunk is submitted, so the
+    ordering is fixed. The first chunk's calls are the only calls, and
+    the queued chunk is cancelled or refused without a launch."""
+    import concurrent.futures as cf
+
+    d, clip, _ = files
+    submitted = []
+    second_queued = threading.Event()
+
+    class GatedPool(cf.ThreadPoolExecutor):
+        def submit(self, fn, *args, **kwargs):
+            fut = super().submit(fn, *args, **kwargs)
+            submitted.append(fut)
+            if len(submitted) == 2:
+                second_queued.set()
+            return fut
+
+    calls = []
+
+    def fail(planes, sw, alpha):
+        assert second_queued.wait(30), "the second chunk was never queued"
+        calls.append(planes.clone())
+        raise exc("injected")
+
+    monkeypatch.setattr(cf, "ThreadPoolExecutor", GatedPool)
+    monkeypatch.setattr(tv, "_embed_frame_gray", fail)
+    with pytest.raises(exc, match="injected"):
+        tv._embed_video_impl(clip, str(d / "race.mp4"),
+                             str(d / "race.npz"), _wm_plane(), ALPHA, 5,
+                             color=False, retries=2, device="cpu")
+    assert len(submitted) == 2
+    assert len(calls) == calls_expected, (exc, len(calls))
+    for planes in calls[1:]:                # retries of the first chunk only
+        assert torch.equal(planes, calls[0])
+    later = submitted[1]
+    assert later.done()
+    assert later.cancelled() or isinstance(later.exception(), RuntimeError)
 
 
 @pytest.mark.parametrize("raw,expected,warns", [
