@@ -57,7 +57,12 @@ frames/s, and no host sync; the parity batch detect against the
 per-image detect; an 8K frame (4320x7680) in one and in four bands,
 equal to the whole-frame embed; the GUI's handlers on a 1080p PNG
 (blocked and parity); and the graft entry points (``entry()``,
-``dryrun_multichip(4)``). Then video
+``dryrun_multichip(4)``), and ``dctsvd_tpu_torch/bench.py``'s thirteen
+configs in this process at cut sizes (``BENCH_RUNS``), each giving
+``bench.py``'s JSON line with its keys and finite values, with K1-K4's
+and cols_view's launches, every call of those kernels at each new
+signature made again through the kernel and its twin: bit-equal. Then
+video
 (``models/video``) on a seeded 48-frame 1080p clip: the blocked and the
 full scheme, gray and color, each embed and extract timed with K1's, K2's
 and K4's launches in windows of their own, the decode / device / encode
@@ -86,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2634,25 +2640,32 @@ def _signature(value):
     return value
 
 
+def twinned_wrappers():
+    """K1..K4's wrappers and cols_view's (T2b, the bench budget's view
+    row): {name: wrapper}, the calls :func:`recorded_calls` notes."""
+    from dctsvd_tpu_torch.ops import probe_cuda
+    return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view)
+
+
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's wrappers at each signature
-    (shapes, dtypes, strides and the other arguments) made inside the
-    block: {(name, signature): (args, kwargs)}. The wrappers stay the
-    ones that launch and count: a recorder only notes the inputs, then
-    calls the wrapper (whose count, kept on the module's name, is the
-    recorder's while it stands in for it)."""
-    from dctsvd_tpu_torch.ops import svd, svd_cuda, wm_cuda
+    """Records the first call of K1..K4's and cols_view's wrappers at each
+    signature (shapes, dtypes, strides and the other arguments) made
+    inside the block: {(name, signature): (args, kwargs)}. The wrappers
+    stay the ones that launch and count: a recorder only notes the
+    inputs, then calls the wrapper (whose count, kept on the module's
+    name, is the recorder's while it stands in for it)."""
+    from dctsvd_tpu_torch.ops import probe_cuda, svd, svd_cuda, wm_cuda
     calls = {}
     patched = []
-    for name, orig in parallel_wrappers().items():
+    for name, orig in twinned_wrappers().items():
         def recorder(*args, _orig=orig, _name=name, **kw):
             key = (_name, tuple(_signature(a) for a in args),
                    tuple(sorted((k, _signature(v)) for k, v in kw.items())))
             calls.setdefault(key, (args, kw))
             return _orig(*args, **kw)
         recorder.launches = orig.launches
-        for mod in (wm_cuda, svd_cuda, svd):
+        for mod in (wm_cuda, svd_cuda, svd, probe_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -2664,18 +2677,20 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4 again, through its kernel and through
-    its plain twin on the same inputs on the card: bit-equal, or the run
-    fails. One row a call: its input shapes, max |kernel - twin|, and the
-    kernel's and the twin's ms (CUDA events, 3 and 1 calls)."""
+    """Each recorded call of K1..K4 and cols_view again, through its
+    kernel and through its plain twin on the same inputs on the card:
+    bit-equal, or the run fails. One row a call: its input shapes, max
+    |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
+    and 1 calls)."""
     import torch
-    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import probe_cuda, svd_cuda, wm_cuda
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
                  wm_cuda.roundtrip_frames_blocks_plain,
-             "jacobi_svd8": svd_cuda.jacobi_svd8_plain}
-    kernels_ = parallel_wrappers()
+             "jacobi_svd8": svd_cuda.jacobi_svd8_plain,
+             "cols_view": probe_cuda.cols_view_plain}
+    kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
         plain_kw = {k: v for k, v in kw.items()
@@ -3122,6 +3137,94 @@ def phase_graft(dev):
           "card": smi_line()})
 
 
+#: dctsvd_tpu_torch/bench.py's configs at the sizes the bench phase runs
+#: them, cut from bench.py's defaults (which ``python -m
+#: dctsvd_tpu_torch.bench`` runs): config -> (function, keyword arguments).
+BENCH_RUNS = {
+    "1080p": ("bench_embed_extract", dict(h=1080, w=1920, batch=32, iters=2,
+                                          color=True)),
+    "1080pgray": ("bench_embed_extract", dict(h=1080, w=1920, batch=32,
+                                              iters=2, color=False)),
+    "512gray": ("bench_embed_extract", dict(h=512, w=512, batch=128, iters=2,
+                                            color=False)),
+    "4k": ("bench_embed_extract", dict(h=2160, w=3840, batch=2, iters=2,
+                                       color=True)),
+    "detect": ("bench_detect", dict(batch=32, iters=2)),
+    "budget": ("bench_budget", dict(batch=32, iters=2)),
+    "1080p-full": ("bench_full_path", dict(batch=1, iters=1)),
+    "8k-plane": ("bench_8k_plane", dict(iters=1)),
+    "mesh": ("bench_mesh_scaling", dict(n_devices=4)),
+    "video": ("bench_video", dict(frames=24)),
+    "robustness": ("bench_robustness", dict(h=1080, w=1920, alphas=(0.13,))),
+    "geometric": ("bench_geometric", dict(h=1080, w=1920, alphas=(0.13,))),
+    "detect-roc": ("bench_detect_roc", dict(h=256, w=256, n_hosts=12,
+                                            n_natural=12, alphas=(0.14,))),
+}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_EXTRA_KEYS = {"video": {"codec_only_fps", "device_step_marked_fps"},
+                    "budget": {"budget"}, "mesh": {"overhead_curve"}}
+
+
+def finite_numbers(obj) -> bool:
+    """Every number in a JSON value is finite (and none is missing)."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return all(finite_numbers(v) for v in obj)
+    if isinstance(obj, (bool, str)):
+        return True
+    return isinstance(obj, (int, float)) and math.isfinite(obj)
+
+
+def phase_bench(dev):
+    """dctsvd_tpu_torch/bench.py's thirteen configs in this process, at
+    the cut sizes of BENCH_RUNS, through the bench's own functions: each
+    gives bench.py's JSON line (``bench.result_line``) with its keys and
+    finite values, and passes bench.py's own checks (the 8K score and the
+    mesh's lowest score above 0.5, inside the functions). K1-K4's and
+    cols_view's (the budget's T2b row) launches are counted for each
+    config, set to 0 just before it runs and read just after, and summed
+    over the phase. Every call of those kernels in a config, at each
+    signature the config gave it and not checked in an earlier config,
+    is then made again through its kernel and its plain twin on the same
+    inputs (``recorded_vs_twin``, after the counts were read): bit-equal.
+    Returns the phase's launches."""
+    import torch
+    from dctsvd_tpu_torch import bench
+    rows, checked = {}, set()
+    launches = dict.fromkeys(twinned_wrappers(), 0)
+    for config, (fn, kw) in BENCH_RUNS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_calls() as calls:
+            # the recorders stand in for the wrappers and keep the counts
+            result, seconds, n = counted_run(
+                lambda: getattr(bench, fn)(device=dev, **kw),
+                twinned_wrappers())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, v in n.items():
+            launches[name] += v
+        line = bench.result_line(config, result,
+                                 mesh_devices=kw.get("n_devices", 8),
+                                 n_cards=torch.cuda.device_count())
+        keys = BENCH_KEYS | BENCH_EXTRA_KEYS.get(config, set())
+        require(set(line) == keys, f"bench {config}: keys {sorted(line)}")
+        require(finite_numbers(line), f"bench {config}: {line}")
+        twin_rows = recorded_vs_twin({k: v for k, v in calls.items()
+                                      if k not in checked})
+        checked.update(calls)
+        del calls
+        rows[config] = dict(line=line, seconds=seconds, peak_gib=peak,
+                            launches={k: v for k, v in n.items() if v},
+                            kernels_vs_twin=twin_rows)
+    require(all(launches.values()), f"bench launches {launches}")
+    emit({"phase": "bench", "configs": rows, "launches": launches,
+          "calls_vs_twin": sum(len(r["kernels_vs_twin"])
+                               for r in rows.values()),
+          "card": smi_line()})
+    return launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3242,6 +3345,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as gtd:
         phase_gui(dev, gtd, smooth, wm_np)
     phase_graft(dev)
+    bench_launches = phase_bench(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vtd:
         clip, wm_png = (os.path.join(vtd, f) for f in ("clip.mp4", "wm.png"))
         write_clip(clip, H, W, VIDEO_FRAMES)
@@ -3294,8 +3398,9 @@ def main(argv) -> int:
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
-    # K3's on the serve steps; and K1-K4's through parallel/ (batch and
-    # plane, on the one-card and the four-shard meshes)
+    # K3's on the serve steps; K1-K4's through parallel/ (batch and
+    # plane, on the one-card and the four-shard meshes) and through the
+    # bench's thirteen configs
     paths = {name: {"slice": launches[name],
                     "payload": payload_launches[name],
                     "video": video_launches[name]}
@@ -3305,7 +3410,12 @@ def main(argv) -> int:
         "serve": launches["roundtrip_frames_blocks"]}
     for name, by_path in paths.items():
         by_path["parallel"] = par_launches[name] + plane_launches[name]
+        by_path["bench"] = bench_launches[name]
         launches[name] = sum(by_path.values())
+    # cols_view: the probes' launches and the bench budget's T2b row
+    paths["cols_view"] = {"probes": launches["cols_view"],
+                          "bench": bench_launches["cols_view"]}
+    launches["cols_view"] = sum(paths["cols_view"].values())
     table = []
     for name, (src, repl) in sources.items():
         r = results[name]

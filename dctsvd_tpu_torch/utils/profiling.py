@@ -49,16 +49,17 @@ def setup_logging(level: int = logging.INFO,
 def trace(log_dir: Optional[str]):
     """``torch.profiler`` trace of the CPU, and of CUDA when a GPU is
     present, written as a Chrome trace JSON into ``log_dir``; a no-op for
-    None."""
+    None. Yields the profiler (None for None), whose ``key_averages()``
+    are read after the block."""
     if not log_dir:
-        yield
+        yield None
         return
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield
+        yield prof
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{os.getpid()}_"
                                  f"{time.time_ns()}.json")

@@ -336,5 +336,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             else:
                 continue
             bad += [f"{f.relative_to(REPO)}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "dctsvd_tpu")]
+                    if n.split(".")[0] in ("jax", "jaxlib", "dctsvd_tpu",
+                                           "bench")]
     assert not bad, bad
