@@ -16,23 +16,29 @@
     python3 chip_smoke.py --svd-drivers     # only the three cuSOLVER
                                             # drivers of the parity SVD
     python3 chip_smoke.py --tail-times      # only the extract steps' times
-                                            # at 1080p, batch 32 (and 1, 4)
+                                            # at 1080p, batch 32 (and 1, 4,
+                                            # 128), in both tail forms
     python3 chip_smoke.py --recon-forms     # only the extract tail's
                                             # k-term product, in each form
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the ten hand-written kernels (K1, K2, K3,
-K4, K2r, K1g, and the probes' copy_f32, cols_view, fma_chain and
-spectrum_probe; K2 and K3 in one instance per k) from
+an H100, ``sm_90a``). It builds the eleven hand-written kernels (K1, K2,
+K3, K4, K2r, K1g, K5, and the probes' copy_f32, cols_view, fma_chain and
+spectrum_probe; K2, K3 and K5 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
-prints each instance's registers and spills; holds each of the six
+prints each instance's registers and spills; holds each of the seven
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
-path gives it (all six bit for bit), with the time of one PyTorch
-library call that computes the same function where there is one; holds K2
+path gives it (all seven bit for bit), with the time of one PyTorch
+library call that computes the same function where there is one (and K5,
+in color frames and in gray planes, on the stego and on it with three
+quadrants zeroed, whose flagged blocks it repaints, beside the eager tail it can
+replace); holds K2
 and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
 a batch of 32 1080p frames (with the set-up time of prepare and the
-detect rate), and the recon-embed and Gram-spectrum entries
+detect rate), the recompute extract tail (color and gray
+``extract_*_prepared(recompute=True)``, K5) on the same batch, and the
+recon-embed and Gram-spectrum entries
 on 8 frames, each with its launch
 counters set to 0 just before and read just after; checks the scores;
 runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
@@ -77,7 +83,7 @@ Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
-K2r and K1g are held to their twins run on the card bit for bit.
+K2r, K1g and K5 are held to their twins run on the card bit for bit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -185,7 +191,7 @@ def emit(obj) -> None:
 
 
 def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
-    """The six kernels against their plain twins at the 1080p shapes, each
+    """The seven kernels against their plain twins at the 1080p shapes, each
     with its bound and, where one PyTorch call computes the same function,
     that call's time."""
     import torch
@@ -425,6 +431,15 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
         **bound(n_blocks, gram_ops(pairs), nbytes(planes_u8, sg)))
     emit({"phase": "kernel_vs_plain", "kernel": "K1g spectrum_blocks_gram",
           **results["spectrum_blocks_gram"]})
+
+    # K5 on the 1080p batch of 32: the recompute extract tail's two passes,
+    # color frames and gray planes
+    for name, gray in (("recon_normalize", False),
+                       ("recon_normalize_gray", True)):
+        results[name] = tail_kernel_row(dev, frames_u8, wm_u8, blk, intra,
+                                        gray)
+        emit({"phase": "kernel_vs_plain", "kernel": f"K5 {name}",
+              **results[name]})
 
     # K2 on smoothed (natural-like) frames: no bound, reported only. Near-
     # degenerate blocks are far from converged at s1.25, so ulp-level
@@ -850,6 +865,183 @@ def phase_variants(dev, covers):
               (diff.amax(-1) > 1e-3 * float(s_one.max())).float().mean()),
           "s_max": float(s_one.max())})
     return launches
+
+
+def tail_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
+    """K5's inputs on the main path, as extract_color_prepared or
+    extract_gray_prepared(recompute=True) hands them over for the 1080p
+    batch of 32: the natural-order estimates with the erasure flag (color
+    [32, 3, 32400, 5] f32, gray [32, 32400, 5]) of the stego and of the
+    same stego with all but its top-left quadrant zeroed (the presence
+    test fails and the zeroed blocks, three in four, are flagged, so the
+    repaint runs; one zeroed quadrant leaves the mark present and flags
+    none), and the k = 4 rows of the prepared basis (color
+    [3, 32400, 4, 64], gray [32400, 4, 64], a strided view)."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color
+    if gray:
+        pw = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
+        st, sc = blocked.embed_gray_prepared(covers, pw.sw, ALPHA,
+                                             with_metrics=False)[:2]
+    else:
+        pw = blocked.prepare_wm_color(wm_u8, blk, intra)
+        st, sc = blocked.embed_color_prepared(covers, pw.sw, ALPHA,
+                                              with_metrics=False)[:2]
+    zeroed = st.clone()
+    zeroed[:, H // 2:] = 0
+    zeroed[:, :, W // 2:] = 0
+    xs = []
+    for stego in (st, zeroed):
+        s_cw = (blocked._plane_spectrum(color.luma_f32(stego), SWEEPS)
+                if gray else blocked._frames_spectrum(stego, SWEEPS))
+        xs.append(blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, K,
+                                      pw.sw))
+    eb = pw.ebasis[..., :K, :, :]
+    return xs[0], xs[1], eb.reshape(*eb.shape[:-2], 64)
+
+
+def tail_kernel_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
+    """K5 against its plain twin run on the card (torch.equal) at the
+    1080p batch of 32 in one layout (color channels-last frames, or gray
+    planes), on the stego and on the stego with three quadrants zeroed
+    (flagged blocks, the repaint), with the eager tail's time on the same input
+    (the port's other form: product, normaliser, cast, unblockify).
+    bound_ms counts each input once; two_pass_bound_ms the bytes of K5's
+    design (the estimates and the basis read once a pass)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import dct, tail_cuda
+
+    x, xz, eb64 = tail_inputs(dev, covers, wm_u8, blk, intra, gray)
+    frames = not gray
+
+    def k5(xi=x):
+        return tail_cuda.recon_normalize(xi, eb64, H, W, to_frames=frames)
+
+    def k5_plain(xi=x):
+        return tail_cuda.recon_normalize_plain(xi, eb64, H, W,
+                                               to_frames=frames)
+
+    def eager(xi=x):
+        blocks = blocked._recon(xi[..., :K], eb64)
+        blocks = blocked._normalize_blocks(blocks, xi[..., K] > 0.5, True)
+        blocks = blocks.clamp(0, 255).to(torch.uint8)
+        blocks = blocks.reshape(*blocks.shape[:-1], 8, 8)
+        if frames:
+            return blocked._unblockify_to_frames(blocks, H, W)
+        return dct.unblockify(blocks, H, W)
+
+    name = "gray" if gray else "color"
+    checks = {}
+    for case, xi in (("stego", x), ("three_quadrants_zeroed", xz)):
+        y = k5(xi)
+        require(torch.equal(y, k5(xi)), f"K5 {name} {case}: two runs differ")
+        py = k5_plain(xi)
+        d = (y.to(torch.int16) - py.to(torch.int16)).abs()
+        require(torch.equal(y, py),
+                f"K5 {name} {case} vs twin: |d| max {int(d.max())} on "
+                f"{float((d > 0).float().mean())} of bytes")
+        de = (y.to(torch.int16) - eager(xi).to(torch.int16)).abs()
+        require(int(de.max()) <= 2, f"K5 {name} {case} vs the eager tail: "
+                f"{int(de.max())} quanta")
+        checks[case] = dict(
+            max_abs_err=float(d.max()), equals_twin=True,
+            vs_eager_max_quanta=int(de.max()),
+            vs_eager_share=float((de > 0).float().mean()),
+            flagged_share=float((xi[..., K] > 0.5).float().mean()))
+    require(0 < checks["three_quadrants_zeroed"]["flagged_share"] < 1,
+            f"K5 {name}: the zeroed quadrants flagged no block or all")
+    y = k5()
+    # each output byte once, the estimates and the basis once
+    basis_bytes = eb64.numel() * 4
+    once = nbytes(x, y) + basis_bytes
+    pixels = y.numel()
+    out = dict(
+        layout="frames" if frames else "planes",
+        shape=list(x.shape), basis_shape=list(eb64.shape),
+        out_shape=list(y.shape), checks=checks,
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        equals_twin=True,
+        ms=cuda_time(k5, 20), plain_ms=cuda_time(k5_plain, 3),
+        eager_ms=cuda_time(eager, 10), library_ms=None,
+        two_pass_bytes=nbytes(y) + 2 * (nbytes(x) + basis_bytes),
+        **bound(pixels, 2 * K - 1 + 2, once))
+    out["two_pass_bound_ms"] = out["two_pass_bytes"] / PEAK_BYTES * 1e3
+    return out
+
+
+def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
+    """extract_color_prepared and extract_gray_prepared with recompute=True
+    on the 1080p batch of 32, K5's counter set to 0 just before and read
+    just after: NC > 0.4 against the watermark, within 2 quanta of
+    recompute=False on the whole batch, and a frame's bytes the same alone,
+    in a shard of 4 and in the batch."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, metrics, tail_cuda
+
+    wm_gray = color.bgr_to_gray(wm_u8)
+    pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
+    pwg = blocked.prepare_wm_gray(wm_gray, blk, intra)
+    st, sc = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                          with_metrics=False)[:2]
+    stg, scg = blocked.embed_gray_prepared(covers, pwg.sw, ALPHA,
+                                           with_metrics=False)[:2]
+
+    def color_x(stego, sc_, **kw):
+        return blocked.extract_color_prepared(stego, sc_, pwc.ebasis,
+                                              pwc.inv_blk, ALPHA, sw=pwc.sw,
+                                              **kw)
+
+    def gray_x(stego, sc_, **kw):
+        return blocked.extract_gray_prepared(stego, sc_, pwg.ebasis,
+                                             pwg.inv_blk, ALPHA, sw=pwg.sw,
+                                             **kw)
+
+    def run(fn, stego, sc_):
+        torch.cuda.synchronize()
+        tail_cuda.recon_normalize.launches = 0
+        t0 = time.perf_counter()
+        out = fn(stego, sc_, recompute=True)
+        torch.cuda.synchronize()
+        return out, tail_cuda.recon_normalize.launches, \
+            time.perf_counter() - t0
+
+    # K5's color frames, then its gray planes, each counted alone
+    rec, launches, seconds = run(color_x, st, sc)
+    recg, launches_g, seconds_g = run(gray_x, stg, scg)
+    require(launches >= 1 and launches_g >= 1,
+            f"K5 launched {launches} times by the color and {launches_g} "
+            "by the gray recompute extract")
+    require(rec.shape == covers.shape and rec.dtype == torch.uint8
+            and recg.shape == covers.shape[:-1], "recompute extract shapes")
+    row = dict(phase="tail_recompute_1080p", batch=BATCH,
+               launches={"recon_normalize": launches,
+                         "recon_normalize_gray": launches_g},
+               first_run_s={"color": seconds, "gray": seconds_g})
+    for name, got, eager, wm in (
+            ("color", rec, color_x(st, sc), wm_u8),
+            ("gray", recg, gray_x(stg, scg), wm_gray)):
+        d = (got.to(torch.int16) - eager.to(torch.int16)).abs()
+        nc = metrics.nc(got.reshape(BATCH, -1).to(torch.float32),
+                        wm.reshape(-1).to(torch.float32))
+        require(int(d.max()) <= 2, f"{name} recompute vs materialising: "
+                f"{int(d.max())} quanta")
+        require(float(nc.min()) > 0.4, f"{name} recompute NC "
+                f"{float(nc.min())}")
+        row[name] = dict(vs_eager_max_quanta=int(d.max()),
+                         vs_eager_share=float((d > 0).float().mean()),
+                         nc_min=float(nc.min()))
+    for name, fn, stego, sc_, whole in (("color", color_x, st, sc, rec),
+                                        ("gray", gray_x, stg, scg, recg)):
+        parts = [(0, 1), (BATCH - 1, BATCH), (4, 8)]
+        require(all(torch.equal(fn(stego[a:b], sc_[a:b], recompute=True),
+                                whole[a:b]) for a, b in parts),
+                f"{name} recompute: a frame's bytes differ alone, in a "
+                "shard of 4 or in the batch")
+        row[name]["batch_invariant"] = True
+    emit(dict(row, card=smi_line()))
+    return row["launches"]
 
 
 PROBE_SEED = 20261023
@@ -2736,9 +2928,17 @@ def differ(a, b) -> dict:
 def tail_times(covers, wm_u8, blk, intra) -> dict:
     """ms of the steps that run the extract tail on the 1080p batch of 32,
     CUDA events, two readings of 10 calls after a warm-up: the slice's
-    embed+extract step, color and gray extract alone, serve+verify. Only
-    entry points every tree of the port has, so that this function, copied
+    embed+extract step, color and gray extract alone, serve+verify, the
+    extracts on 1 and 4 frames, and the tail's estimator and gather alone
+    (``front``, color and gray). Where extract_color_prepared takes
+    ``recompute``, each extract row has a ``_recompute`` twin (K5), and
+    color extract at batch 128 (the bench's headline batch) runs in both
+    forms, K5's output there held to its twin first. Only entry points
+    every tree of the port has otherwise, so that this function, copied
     into an older tree, times that tree."""
+    import inspect
+
+    import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import color
     pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
@@ -2747,30 +2947,78 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
                                                 with_metrics=False)
     stg, scg, _, _ = blocked.embed_gray_prepared(covers, pwg.sw, ALPHA,
                                                  with_metrics=False)
+    forms = {"": {}}
+    if "recompute" in inspect.signature(
+            blocked.extract_color_prepared).parameters:
+        forms["_recompute"] = {"recompute": True}
+    steps = {}
+    for suffix, kw in forms.items():
+        def step(kw=kw):
+            s, c = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                                with_metrics=False)[:2]
+            return blocked.extract_color_prepared(
+                s, c, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw, **kw)
+        steps["embed_extract" + suffix] = step
+        steps["extract_color" + suffix] = (
+            lambda kw=kw: blocked.extract_color_prepared(
+                st, sc, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw, **kw))
+        steps["extract_gray" + suffix] = (
+            lambda kw=kw: blocked.extract_gray_prepared(
+                stg, scg, pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw, **kw))
+        if not suffix:
+            steps["serve_verify"] = (
+                lambda: blocked.serve_verify_color_prepared(
+                    covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk))
+        # the same extracts on one frame and on four (a shard of 4)
+        for n in (1, 4):
+            steps[f"extract_color_{n}{suffix}"] = (
+                lambda n=n, kw=kw: blocked.extract_color_prepared(
+                    st[:n], sc[:n], pwc.ebasis, pwc.inv_blk, ALPHA,
+                    sw=pwc.sw, **kw))
+            steps[f"extract_gray_{n}{suffix}"] = (
+                lambda n=n, kw=kw: blocked.extract_gray_prepared(
+                    stg[:n], scg[:n], pwg.ebasis, pwg.inv_blk, ALPHA,
+                    sw=pwg.sw, **kw))
+    # what stays eager in both forms: the estimate and the slot gather on
+    # the stego spectrum (K1's output), written out from the parts every
+    # tree has (models/blocked.py::_tail_front in this one)
+    k = blocked.k_of_block(0.6)
+    s_cw = blocked._frames_spectrum(st, SWEEPS)
+    s_cwg = blocked._plane_spectrum(color.luma_f32(stg), SWEEPS)
 
-    def step():
-        s, c = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
-                                            with_metrics=False)[:2]
-        return blocked.extract_color_prepared(s, c, pwc.ebasis, pwc.inv_blk,
-                                              ALPHA, sw=pwc.sw)
-    steps = dict(
-        embed_extract=step,
-        extract_color=lambda: blocked.extract_color_prepared(
-            st, sc, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw),
-        extract_gray=lambda: blocked.extract_gray_prepared(
-            stg, scg, pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw),
-        serve_verify=lambda: blocked.serve_verify_color_prepared(
-            covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk))
-    # the same extracts on one frame and on four (a shard of 4)
-    for n in (1, 4):
-        steps[f"extract_color_{n}"] = (
-            lambda n=n: blocked.extract_color_prepared(
-                st[:n], sc[:n], pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw))
-        steps[f"extract_gray_{n}"] = (
-            lambda n=n: blocked.extract_gray_prepared(
-                stg[:n], scg[:n], pwg.ebasis, pwg.inv_blk, ALPHA, sw=pwg.sw))
-    return {name: [cuda_time(fn, 10) for _ in range(2)]
-            for name, fn in steps.items()}
+    def front(s_cw, sc_, pw):
+        raw = blocked._raw_estimate(s_cw, sc_, ALPHA)
+        est, bad = blocked._shrink_sw_hat(raw, pw.sw, k)
+        combo = torch.cat([est[..., :k], bad.to(torch.float32)[..., None]],
+                          dim=-1)
+        return blocked._permute_slots(combo, pw.inv_blk)
+    steps["front_color"] = lambda: front(s_cw, sc, pwc)
+    steps["front_gray"] = lambda: front(s_cwg, scg, pwg)
+    out = {name: [cuda_time(fn, 10) for _ in range(2)]
+           for name, fn in steps.items()}
+    # the bench's batch of 128: the 32 frames four times
+    st128, sc128 = st.repeat(4, 1, 1, 1), sc.repeat(4, 1, 1, 1)
+    if "_recompute" in forms:
+        # K5 folds 32 frames at a time: hold the four chunks' output to the
+        # twin, and the entry point's to K5 on its inputs, before timing
+        from dctsvd_tpu_torch.ops import tail_cuda
+        x128 = blocked._tail_front(blocked._frames_spectrum(st128, SWEEPS),
+                                   sc128, pwc.inv_blk, ALPHA, k, pwc.sw)
+        eb = pwc.ebasis[..., :k, :, :]
+        eb64 = eb.reshape(*eb.shape[:-2], 64)
+        y = tail_cuda.recon_normalize(x128, eb64, H, W, to_frames=True)
+        require(torch.equal(y, tail_cuda.recon_normalize_plain(
+            x128, eb64, H, W, to_frames=True)), "K5 at batch 128 vs twin")
+        require(torch.equal(y, blocked.extract_color_prepared(
+            st128, sc128, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw,
+            recompute=True)), "extract at batch 128 vs K5")
+        del x128, y
+    for suffix, kw in forms.items():
+        out["extract_color_128" + suffix] = [
+            cuda_time(lambda kw=kw: blocked.extract_color_prepared(
+                st128, sc128, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw,
+                **kw), 5) for _ in range(2)]
+    return out
 
 
 def recon_forms(dev) -> dict:
@@ -3301,9 +3549,18 @@ def main(argv) -> int:
               "times_8_frames": paint_k_times(dev, covers), "card": card})
         return 0
     if argv == ["--tail-times"]:
+        # K5's k = 4 instances (the main path's): registers and spills
+        # (when this run built the library), and their SASS by class, the
+        # kernel's body once ("main") and its frame loop's body ("sweep")
+        sass = kernels.sass_dump(kernels.BUILD_INFO["path"])
+        k5 = {n: {c: m[c] for c in ("main", "sweep")}
+              for n, m in kernels.sass_mix(sass, 2).items()
+              if "tail_" in n and "ILi4E" in n}
         emit({"phase": "tail_times", "times": tail_times(covers, wm_u8, blk,
                                                           intra),
-              "card": card})
+              "k5_ptxas": {n: v for n, v in kernels.ptxas_report(
+                  kernels.BUILD_INFO["ptxas"]).items() if n in k5},
+              "k5_sass": k5, "card": card})
         return 0
     if argv == ["--recon-forms"]:
         emit({"phase": "recon_forms", "forms": recon_forms(dev),
@@ -3329,6 +3586,7 @@ def main(argv) -> int:
     launches = phase_slice(dev, covers, wm_u8, blk, intra)
     launches.update(phase_serve(dev, covers, wm_u8, blk, intra))
     launches.update(phase_variants(dev, covers))
+    launches.update(phase_tail_recompute(dev, covers, wm_u8, blk, intra))
     phase_reference(dev)
     smooth = smooth_frame(20261017)
     wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
@@ -3387,6 +3645,10 @@ def main(argv) -> int:
                                "dctsvd_tpu/ops/wm_pallas.py:271"),
         "spectrum_blocks_gram": ("dctsvd_tpu_torch/csrc/wm_variants.cu",
                                  "dctsvd_tpu/ops/wm_pallas.py:491"),
+        "recon_normalize": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                            "dctsvd_tpu/models/blocked.py:898"),
+        "recon_normalize_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                                 "dctsvd_tpu/models/blocked.py:898"),
         "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
                      "tools/profile_transpose.py:45"),
         "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
@@ -3412,6 +3674,10 @@ def main(argv) -> int:
         by_path["parallel"] = par_launches[name] + plane_launches[name]
         by_path["bench"] = bench_launches[name]
         launches[name] = sum(by_path.values())
+    # K5 (color frames, gray planes): the recompute extracts (the default
+    # tail is the eager form)
+    for name in ("recon_normalize", "recon_normalize_gray"):
+        paths[name] = {"tail_recompute": launches[name]}
     # cols_view: the probes' launches and the bench budget's T2b row
     paths["cols_view"] = {"probes": launches["cols_view"],
                           "bench": bench_launches["cols_view"]}
@@ -3420,6 +3686,8 @@ def main(argv) -> int:
     for name, (src, repl) in sources.items():
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
+        if "eager_ms" in r:
+            extra["eager_ms"] = r["eager_ms"]
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=repl, launches=launches[name], **extra,
                           max_abs_err=r["max_abs_err"], ms=r["ms"],

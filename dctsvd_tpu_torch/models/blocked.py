@@ -37,7 +37,7 @@ import torch
 
 from dctsvd_tpu_torch.io import image_io, meta as metaio
 from dctsvd_tpu_torch.ops import (color, dct, enhance, metrics, permute, svd,
-                                  wm_cuda)
+                                  tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.utils import crypto
 from dctsvd_tpu_torch.utils.config import BLOCK, K_FRAC_DEFAULT
 
@@ -498,38 +498,20 @@ def _normalize_blocks(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor],
     """Block-level form of :func:`_masked_normalize` for block-aligned
     planes (min/max over good pixels == min/max of good blocks' extrema).
     ``blocks`` [..., N, 64]; ``bad_nat`` [..., N] or None."""
-    if bad_nat is None:
-        if not normalize:
-            return blocks
-        lo = blocks.amin(dim=(-2, -1), keepdim=True)
-        hi = blocks.amax(dim=(-2, -1), keepdim=True)
-        return (blocks - lo) * (255.0 / torch.clamp(hi - lo, min=1e-12))
-    bad = bad_nat[..., None]
     if not normalize:
-        return torch.where(bad, 0.0, blocks)
-    inf = _scalar(float("inf"), blocks.device)
-    bmin = blocks.amin(dim=-1)                           # [..., N]
-    bmax = blocks.amax(dim=-1)
-    lo = torch.where(bad_nat, inf, bmin).amin(dim=-1, keepdim=True)
-    hi = torch.where(bad_nat, -inf, bmax).amax(dim=-1, keepdim=True)
-    ok = torch.isfinite(lo) & torch.isfinite(hi)
-    lo = torch.where(ok, lo, bmin.amin(dim=-1, keepdim=True))
-    hi = torch.where(ok, hi, bmax.amax(dim=-1, keepdim=True))
-    lo, hi = lo[..., None], hi[..., None]                # [..., 1, 1]
-    blocks = torch.where(bad, (lo + hi) * 0.5, blocks)
+        if bad_nat is None:
+            return blocks
+        return torch.where(bad_nat[..., None], 0.0, blocks)
+    lo, hi = tail_cuda.block_window(blocks, bad_nat)
+    if bad_nat is not None:
+        blocks = torch.where(bad_nat[..., None], (lo + hi) * 0.5, blocks)
     return (blocks - lo) * (255.0 / torch.clamp(hi - lo, min=1e-12))
 
 
-def _unblockify_to_frames(blocks: torch.Tensor, hp: int,
-                          wp: int) -> torch.Tensor:
-    """[..., C, N, 8, 8] pixel blocks -> [..., H, W, C] frames in one
-    permute (unblockify with the channel move folded in)."""
-    *lead, c, _, b, _ = blocks.shape
-    hb, wb = hp // b, wp // b
-    x = blocks.reshape(*lead, c, hb, wb, b, b)
-    nd = x.ndim
-    perm = (*range(nd - 5), nd - 4, nd - 2, nd - 3, nd - 1, nd - 5)
-    return x.permute(perm).reshape(*lead, hp, wp, c)
+# the JAX package's names for the recompute normaliser (K5's arithmetic,
+# kept beside its kernel) and the channels-last unblockify
+_normalize_blocks_recompute = tail_cuda.normalize_blocks_recompute
+_unblockify_to_frames = dct.unblockify_to_frames
 
 
 def _raw_estimate(s_cw, sc, alpha):
@@ -595,31 +577,49 @@ def _recon(sw_nat: torch.Tensor, eb64: torch.Tensor) -> torch.Tensor:
     return out.permute(1, 0, 2)[:f].reshape(*lead, *frame[:-1], p)
 
 
-def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
-                           ebasis: torch.Tensor, inv_blk: torch.Tensor,
-                           alpha, kfrac: float, normalize: bool, h: int,
-                           w: int, sw: Optional[torch.Tensor] = None,
-                           to_frames: bool = False,
-                           out_u8: bool = False) -> torch.Tensor:
-    """Extract tail against the prepared pixel basis: estimate -> slot
-    gather -> k-term recon einsum -> normalize, materializing the
-    [..., N, 64] reconstruction once. ``to_frames`` returns channels-last
-    [..., H, W, C] from [..., C, N, 8] input; ``out_u8`` clips and casts."""
-    k = k_of_block(kfrac)
-    hp, wp = h + (-h) % BLOCK, w + (-w) % BLOCK
+def _tail_front(s_cw: torch.Tensor, sc: torch.Tensor, inv_blk: torch.Tensor,
+                alpha, k: int,
+                sw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The extract tail's estimator and slot gather: the natural-order
+    estimates [..., N, k], or [..., N, k + 1] with the erasure flag (1.0)
+    as column k when ``sw`` is given (one gather for both)."""
     raw = _raw_estimate(s_cw, sc, alpha)
     est, bad = _shrink_sw_hat(raw, sw, k)
     sw_hat = est[..., :k]
     if bad is None:
-        sw_nat = _permute_slots(sw_hat, inv_blk)
-        bad_nat = None
-    else:
-        # one gather for both: the bad mask rides as a (k+1)-th column
-        combo = torch.cat([sw_hat, bad.to(torch.float32)[..., None]], dim=-1)
-        combo = _permute_slots(combo, inv_blk)
-        sw_nat, bad_nat = combo[..., :k], combo[..., k] > 0.5
+        return _permute_slots(sw_hat, inv_blk)
+    combo = torch.cat([sw_hat, bad.to(torch.float32)[..., None]], dim=-1)
+    return _permute_slots(combo, inv_blk)
+
+
+def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
+                           ebasis: torch.Tensor, inv_blk: torch.Tensor,
+                           alpha, kfrac: float, normalize: bool, h: int,
+                           w: int, sw: Optional[torch.Tensor] = None,
+                           to_frames: bool = False, out_u8: bool = False,
+                           recompute: bool = False) -> torch.Tensor:
+    """Extract tail against the prepared pixel basis: estimate -> slot
+    gather -> k-term reconstruction -> normalize. ``to_frames`` returns
+    channels-last [..., H, W, C] from [..., C, N, 8] input; ``out_u8``
+    clips and casts.
+
+    ``recompute`` picks the formulation for block-aligned sizes, as the
+    JAX package's does. False (default) materializes the [..., N, 64]
+    reconstruction once (_recon) and normalizes it in eager ops; True
+    rebuilds it in each of K5's two passes (ops/tail_cuda.py:
+    recon_normalize), which sums the k terms in one fixed order where the
+    batched product need not. The two agree within a couple of u8 quanta.
+    An unaligned size takes the materializing form either way."""
+    k = k_of_block(kfrac)
+    hp, wp = h + (-h) % BLOCK, w + (-w) % BLOCK
+    x = _tail_front(s_cw, sc, inv_blk, alpha, k, sw)
     eb = ebasis[..., :k, :, :]
     eb64 = eb.reshape(*eb.shape[:-2], BLOCK * BLOCK)
+    if recompute and (hp, wp) == (h, w):
+        return tail_cuda.recon_normalize(x, eb64, h, w, normalize=normalize,
+                                         out_u8=out_u8, to_frames=to_frames)
+    sw_nat = x[..., :k]
+    bad_nat = x[..., k] > 0.5 if x.shape[-1] > k else None
     blocks = _recon(sw_nat, eb64)
     if (hp, wp) == (h, w):
         # block-aligned: normalize on the [..., N, 64] block tensor
@@ -638,17 +638,34 @@ def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
     return torch.movedim(wy, -3, -1) if to_frames else wy
 
 
+def _extract_planes_prepared(planes: torch.Tensor, sc: torch.Tensor,
+                             ebasis: torch.Tensor, inv_blk: torch.Tensor,
+                             alpha, kfrac: float, normalize: bool, h: int,
+                             w: int, sw: Optional[torch.Tensor] = None,
+                             sweeps=None,
+                             recompute: bool = False) -> torch.Tensor:
+    """Serving-path extract of f32 planes [..., H, W]: K1's spectrum, then
+    the tail against the pixel basis (u8 planes)."""
+    s_cw = _plane_spectrum(planes, sweeps)
+    return _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
+                                  normalize, h, w, sw=sw, out_u8=True,
+                                  recompute=recompute)
+
+
 def extract_gray_prepared(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                           ebasis: torch.Tensor, inv_blk: torch.Tensor,
                           alpha, kfrac: float = K_FRAC_DEFAULT,
                           normalize: bool = True,
                           sw: Optional[torch.Tensor] = None,
-                          sweeps=None) -> torch.Tensor:
-    """Gray extract against a PreparedWatermark's pixel basis."""
+                          sweeps=None,
+                          recompute: bool = False) -> torch.Tensor:
+    """Gray extract against a PreparedWatermark's pixel basis.
+    ``recompute`` selects the tail's form (_extract_tail_prepared)."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
-    s_cw = _plane_spectrum(color.luma_f32(stego_bgr_u8), sweeps)
-    return _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
-                                  normalize, h, w, sw=sw, out_u8=True)
+    return _extract_planes_prepared(color.luma_f32(stego_bgr_u8), sc, ebasis,
+                                    inv_blk, alpha, kfrac, normalize, h, w,
+                                    sw=sw, sweeps=sweeps,
+                                    recompute=recompute)
 
 
 def extract_color_prepared(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
@@ -656,14 +673,16 @@ def extract_color_prepared(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                            alpha, kfrac: float = K_FRAC_DEFAULT,
                            normalize: bool = True,
                            sw: Optional[torch.Tensor] = None,
-                           sweeps=None) -> torch.Tensor:
+                           sweeps=None,
+                           recompute: bool = False) -> torch.Tensor:
     """Color extract against a PreparedWatermark's pixel basis; K1 reads
-    the channels-last stego directly."""
+    the channels-last stego directly. ``recompute`` selects the tail's
+    form (_extract_tail_prepared)."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
     s_cw = _frames_spectrum(stego_bgr_u8, sweeps)
     return _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
                                   normalize, h, w, sw=sw, to_frames=True,
-                                  out_u8=True)
+                                  out_u8=True, recompute=recompute)
 
 
 def extract_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,

@@ -74,6 +74,18 @@ def unblockify(blocks: torch.Tensor, h: int, w: int,
     return x.reshape(*lead, h, w)
 
 
+def unblockify_to_frames(blocks: torch.Tensor, hp: int,
+                         wp: int) -> torch.Tensor:
+    """[..., C, N, 8, 8] pixel blocks -> [..., H, W, C] frames in one
+    permute (unblockify with the channel move folded in)."""
+    *lead, c, _, b, _ = blocks.shape
+    hb, wb = hp // b, wp // b
+    x = blocks.reshape(*lead, c, hb, wb, b, b)
+    nd = x.ndim
+    perm = (*range(nd - 5), nd - 4, nd - 2, nd - 3, nd - 1, nd - 5)
+    return x.permute(perm).reshape(*lead, hp, wp, c)
+
+
 def dct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """Batched b×b DCT over a [..., N, b, b] block tensor: D·X·Dᵀ."""
     d = dct_matrix(blocks.shape[-1], blocks.device, blocks.dtype)

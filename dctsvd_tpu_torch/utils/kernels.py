@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels: K1 and the C entry points
 of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 (``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
-K1g (``wm_variants.cu``), K4 (``svd8.cu``) and the tools probes copy_f32,
-cols_view, fma_chain and spectrum_probe (``probes.cu``).
+K1g (``wm_variants.cu``), K4 (``svd8.cu``), K5, the recompute extract tail
+(``extract_tail.cu``), and the tools probes copy_f32, cols_view, fma_chain
+and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
 into one shared library with a plain C interface and loads it with
@@ -68,6 +69,8 @@ _SIGNATURES = {
     "dctsvd_cols_view": [_P, _I, _P, _I, _LL, _I, _I, _I, _P],
     "dctsvd_fma_chain": [_P, _P, _LL, _I, _I, _I, _P],
     "dctsvd_spectrum_probe": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
+    "dctsvd_extract_tail": [_P, _I, _P, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
 }
 
 

@@ -4,8 +4,9 @@ K3 at every k, and near the twin run on the CPU), the launch
 counters, the slice on the card against the slice on the CPU, the
 serve steps on the card against the split calls, the probe kernels
 (copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
-against K1, and the parity path, the enhancement stages and detect resync
-on the card against the CPU.
+against K1, K5 (the recompute extract tail) against its twin run on the
+card in every layout and at k = 1, 4, 8, and the parity path, the
+enhancement stages and detect resync on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -20,7 +21,8 @@ import torch
 from dctsvd_tpu_torch.models import blocked as tb
 from dctsvd_tpu_torch.models import enhance as tenh
 from dctsvd_tpu_torch.models import image as timg
-from dctsvd_tpu_torch.ops import dct, probe_cuda, svd, svd_cuda, wm_cuda
+from dctsvd_tpu_torch.ops import (dct, probe_cuda, svd, svd_cuda, tail_cuda,
+                                  wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.utils import crypto
 
@@ -1002,3 +1004,152 @@ def test_parallel_detect_full_on_gpu(dev):
                           for im in batch])
     assert torch.equal(got, single)
     assert float(got[0]) > 0.9 and float(got[1]) == 0.0
+
+
+def _tail_inputs(layout, k, flags, frames=2, h=64, w=8 * 35, seed=SEED + 30):
+    """K5's inputs: seeded estimates [frames, (3,) N, k (+1 flag column,
+    a fifth of the blocks flagged)] and a basis sliced from [(3,) N, 8, 8,
+    8] as the prepared one is (block stride 512 floats). 35 blocks a row
+    leave a partial last warp group in both layouts."""
+    rng = np.random.default_rng(seed)
+    n = (h // 8) * (w // 8)
+    cd = (3,) if layout != "planes" else ()
+    x = (rng.standard_normal((frames, *cd, n, k)) * 3).astype(np.float32)
+    if flags:
+        f = (rng.random((frames, *cd, n, 1)) < 0.2).astype(np.float32)
+        x = np.concatenate([x, f], axis=-1)
+    basis = torch.from_numpy(
+        rng.standard_normal((*cd, n, 8, 8, 8)).astype(np.float32))
+    return (torch.from_numpy(x), basis[..., :k, :, :].reshape(*cd, n, k, 64),
+            h, w)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("normalize", [True, False],
+                         ids=["normalize", "raw"])
+@pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
+@pytest.mark.parametrize("layout", ["frames", "planes", "color_planes"])
+def test_tail_kernel_matches_twin(dev, layout, flags, normalize, out_u8, k):
+    """K5 equals its twin run on the card (torch.equal) in each layout:
+    color channels-last frames, gray planes and color planes."""
+    x, eb64, h, w = _tail_inputs(layout, k, flags)
+    x, eb64 = x.to(dev), eb64.to(dev)
+    cl = layout == "frames"
+    n0 = tail_cuda.recon_normalize.launches
+    got = tail_cuda.recon_normalize(x, eb64, h, w, normalize=normalize,
+                                    out_u8=out_u8, to_frames=cl)
+    torch.cuda.synchronize()
+    assert tail_cuda.recon_normalize.launches == n0 + 1
+    ref = tail_cuda.recon_normalize_plain(x, eb64, h, w, normalize=normalize,
+                                          out_u8=out_u8, to_frames=cl)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.equal(got, ref), float(
+        (got.to(torch.float64) - ref.to(torch.float64)).abs().max())
+
+
+@pytest.mark.parametrize("frames", [8, 70])
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_tail_kernel_is_batch_invariant(dev, layout, frames):
+    """A frame's bytes are the same alone, in a shard of 4 and in the
+    batch. K5's window pass folds 32 frames at a time, so the batch of 70
+    runs three chunks (the last a partial one): there the whole batch is
+    also held to the twin, and the shards cross the chunk boundaries."""
+    x, eb64, h, w = _tail_inputs(layout, 4, True, frames=frames)
+    x, eb64 = x.to(dev), eb64.to(dev)
+    cl = layout == "frames"
+    whole = tail_cuda.recon_normalize(x, eb64, h, w, to_frames=cl)
+    if frames > 32:
+        assert torch.equal(whole, tail_cuda.recon_normalize_plain(
+            x, eb64, h, w, to_frames=cl))
+    for i in (0, 5, frames - 1):
+        assert torch.equal(
+            tail_cuda.recon_normalize(x[i], eb64, h, w, to_frames=cl),
+            whole[i])
+    for a in sorted({4, min(30, frames - 4), frames - 6}):
+        assert torch.equal(
+            tail_cuda.recon_normalize(x[a:a + 4], eb64, h, w, to_frames=cl),
+            whole[a:a + 4])
+
+
+def test_tail_kernel_all_flagged_and_nan(dev):
+    """Every block of a plane flagged flattens it (as the twin does); a
+    NaN in an unflagged block of another plane propagates through its
+    window as torch.amin lets it (f32 out, compared with NaN equal)."""
+    x, eb64, h, w = _tail_inputs("frames", 4, True)
+    x[0, 1, :, 4] = 1.0
+    x[1, 2, 7, 0] = float("nan")
+    x[1, 2, 7, 4] = 0.0
+    x, eb64 = x.to(dev), eb64.to(dev)
+    for out_u8 in (True, False):
+        got = tail_cuda.recon_normalize(x, eb64, h, w, out_u8=out_u8,
+                                        to_frames=True)
+        ref = tail_cuda.recon_normalize_plain(x, eb64, h, w, out_u8=out_u8,
+                                              to_frames=True)
+        plane = got[0, ..., 1]
+        assert torch.equal(plane, plane[:1, :1].expand_as(plane))
+        if out_u8:
+            assert torch.equal(got[0], ref[0])
+        else:
+            assert bool(torch.isnan(got[1, ..., 2]).all())
+            torch.testing.assert_close(got, ref, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+def test_tail_wrapper_never_runs_the_twin_on_the_card(dev, monkeypatch):
+    """A CUDA tensor launches K5 (the twin is not reached) and a basis
+    the kernel cannot read raises instead of falling back."""
+    x, eb64, h, w = _tail_inputs("frames", 4, True)
+    x, eb64 = x.to(dev), eb64.to(dev)
+    ref = tail_cuda.recon_normalize(x, eb64, h, w, to_frames=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tail_cuda, "recon_normalize_plain", refuse)
+    n0 = tail_cuda.recon_normalize.launches
+    assert torch.equal(tail_cuda.recon_normalize(x, eb64, h, w,
+                                                 to_frames=True), ref)
+    assert tail_cuda.recon_normalize.launches == n0 + 1
+    buf = torch.empty(eb64.numel() + 1, device=dev)
+    off = buf[1:].view(eb64.shape).copy_(eb64)        # 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_cuda.recon_normalize(x, off, h, w, to_frames=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tail_cuda.recon_normalize(x.transpose(0, 1).contiguous().transpose(
+            0, 1), eb64, h, w, to_frames=True)
+
+
+@pytest.mark.parametrize("path", ["color", "gray"])
+def test_recompute_entry_points_on_the_card(dev, path):
+    """extract_*_prepared(recompute=True) on the card launches K5 and
+    stays within 2 quanta of recompute=False and of the CPU run."""
+    h, w = 64, 80
+    cover = torch.from_numpy(_frames((2, h, w, 3), SEED + 31))
+    wm = torch.from_numpy(_frames((h, w, 3), SEED + 32))
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    out = {}
+    for d in ("cpu", dev):
+        b, i = torch.as_tensor(blk, device=d), torch.as_tensor(intra,
+                                                               device=d)
+        if path == "color":
+            pw = tb.prepare_wm_color(wm.to(d), b, i)
+            st, sc, _, _ = tb.embed_color_prepared(cover.to(d), pw.sw,
+                                                   ALPHA)
+            fn = tb.extract_color_prepared
+        else:
+            pw = tb.prepare_wm_gray(wm[..., 0].to(d), b, i)
+            st, sc, _, _ = tb.embed_gray_prepared(cover.to(d), pw.sw, ALPHA)
+            fn = tb.extract_gray_prepared
+        n0 = tail_cuda.recon_normalize.launches
+        rec = fn(st, sc, pw.ebasis, pw.inv_blk, ALPHA, sw=pw.sw,
+                 recompute=True)
+        eager = fn(st, sc, pw.ebasis, pw.inv_blk, ALPHA, sw=pw.sw)
+        torch.cuda.synchronize()
+        assert tail_cuda.recon_normalize.launches == n0 + (d != "cpu")
+        d_e = (rec.to(torch.int16) - eager.to(torch.int16)).abs()
+        assert int(d_e.max()) <= 2
+        out[str(d)] = rec.cpu()
+    assert int((out["cpu"].to(torch.int16)
+                - out[str(dev)].to(torch.int16)).abs().max()) <= 2
