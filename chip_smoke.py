@@ -191,7 +191,7 @@ def emit(obj) -> None:
 
 
 def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
-    """The seven kernels against their plain twins at the 1080p shapes, each
+    """The eight kernels against their plain twins at the 1080p shapes, each
     with its bound and, where one PyTorch call computes the same function,
     that call's time."""
     import torch
@@ -432,6 +432,14 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     emit({"phase": "kernel_vs_plain", "kernel": "K1g spectrum_blocks_gram",
           **results["spectrum_blocks_gram"]})
 
+    # K5f on the 1080p batch of 32: the extract tail's front stage (both
+    # tail forms), color and gray spectra
+    for name, gray in (("tail_front", False), ("tail_front_gray", True)):
+        results[name] = tail_front_row(dev, frames_u8, wm_u8, blk, intra,
+                                       gray)
+        emit({"phase": "kernel_vs_plain", "kernel": f"K5f {name}",
+              **results[name]})
+
     # K5 on the 1080p batch of 32: the recompute extract tail's two passes,
     # color frames and gray planes
     for name, gray in (("recon_normalize", False),
@@ -650,10 +658,10 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     """The 1080p color slice, batch 32, with the launch counters."""
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import metrics, svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import metrics, svd_cuda, tail_cuda, wm_cuda
 
     wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks]
+                wm_cuda.spectrum_blocks, tail_cuda.tail_front]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -736,10 +744,11 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
 
 def phase_serve(dev, covers, wm_u8, blk, intra):
     """The three serve steps on the 1080p batch of 32: each equal to the
-    split calls on the card, taking K3 and neither K2 nor K1."""
+    split calls on the card, taking K3 (and K5f for the verify steps) and
+    neither K2 nor K1."""
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import wm_cuda
+    from dctsvd_tpu_torch.ops import tail_cuda, wm_cuda
 
     pw = blocked.prepare_wm_color(wm_u8, blk, intra)
     st, sc, _, _ = blocked.embed_color_prepared(covers, pw.sw, ALPHA,
@@ -750,7 +759,7 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     clean = blocked.detect_color(covers, sc, pw.sw, ALPHA)
 
     wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks]
+                wm_cuda.spectrum_blocks, tail_cuda.tail_front]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -763,8 +772,9 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
-    require(launches["roundtrip_frames_blocks"] >= 1,
-            "roundtrip_frames_blocks was not launched by the serve steps")
+    require(launches["roundtrip_frames_blocks"] >= 1
+            and launches["tail_front"] >= 2,
+            f"K3 or K5f not launched by the serve steps: {launches}")
     require(launches["embed_blocks"] == 0 and launches["spectrum_blocks"] == 0,
             f"the serve steps launched K2 or K1: {launches}")
 
@@ -815,7 +825,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
             covers, pw.sw, ALPHA)),
         card=smi_line())
     emit(out)
-    return {"roundtrip_frames_blocks": launches["roundtrip_frames_blocks"]}
+    return {"roundtrip_frames_blocks": launches["roundtrip_frames_blocks"],
+            "tail_front": launches["tail_front"]}
 
 
 def phase_variants(dev, covers):
@@ -867,16 +878,14 @@ def phase_variants(dev, covers):
     return launches
 
 
-def tail_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
-    """K5's inputs on the main path, as extract_color_prepared or
-    extract_gray_prepared(recompute=True) hands them over for the 1080p
-    batch of 32: the natural-order estimates with the erasure flag (color
-    [32, 3, 32400, 5] f32, gray [32, 32400, 5]) of the stego and of the
+def tail_spectra(dev, covers, wm_u8, blk, intra, gray: bool):
+    """The extract tail's inputs on the main path for the 1080p batch of
+    32: the prepared watermark, the embed's sc and K1's stego spectra
+    (color [32, 3, 32400, 8], gray [32, 32400, 8]) of the stego and of the
     same stego with all but its top-left quadrant zeroed (the presence
     test fails and the zeroed blocks, three in four, are flagged, so the
     repaint runs; one zeroed quadrant leaves the mark present and flags
-    none), and the k = 4 rows of the prepared basis (color
-    [3, 32400, 4, 64], gray [32400, 4, 64], a strided view)."""
+    none)."""
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import color
     if gray:
@@ -890,14 +899,109 @@ def tail_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
     zeroed = st.clone()
     zeroed[:, H // 2:] = 0
     zeroed[:, :, W // 2:] = 0
-    xs = []
-    for stego in (st, zeroed):
-        s_cw = (blocked._plane_spectrum(color.luma_f32(stego), SWEEPS)
-                if gray else blocked._frames_spectrum(stego, SWEEPS))
-        xs.append(blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, K,
-                                      pw.sw))
+    spectra = [blocked._plane_spectrum(color.luma_f32(stego), SWEEPS)
+               if gray else blocked._frames_spectrum(stego, SWEEPS)
+               for stego in (st, zeroed)]
+    return pw, sc, spectra
+
+
+def tail_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
+    """K5's inputs on the main path, as extract_color_prepared or
+    extract_gray_prepared(recompute=True) hands them over for the 1080p
+    batch of 32 (tail_spectra's two cases): K5f's natural-order estimates
+    with the erasure flag (color [32, 3, 32400, 5] f32, gray [32, 32400,
+    5], views of rows of 8 floats), and the k = 4 rows of the prepared
+    basis (color [3, 32400, 4, 64], gray [32400, 4, 64], a strided
+    view)."""
+    from dctsvd_tpu_torch.models import blocked
+    pw, sc, spectra = tail_spectra(dev, covers, wm_u8, blk, intra, gray)
+    xs = [blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, K, pw.sw)
+          for s_cw in spectra]
     eb = pw.ebasis[..., :K, :, :]
     return xs[0], xs[1], eb.reshape(*eb.shape[:-2], 64)
+
+
+# f32 operations of K5f a block and plane, at k components: the raw
+# estimate (a difference and a division), the deviation, its scale and
+# square, 1 + q², the reciprocal, the blend (a difference, a product, a
+# sum) and the clamp's two bounds; twice the scale once (compares, selects
+# and the absolute value count none)
+def front_ops(k: int) -> int:
+    return 12 * k + 1
+
+
+def eager_front(s_cw, sc, pw):
+    """The estimator and the slot gather as the eager tail ran them before
+    K5f, written out from the parts every tree of the port has: the raw
+    estimate, _shrink_sw_hat, the flag column, _permute_slots."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    raw = blocked._raw_estimate(s_cw, sc, ALPHA)
+    est, bad = blocked._shrink_sw_hat(raw, pw.sw, K)
+    combo = torch.cat([est[..., :K], bad.to(torch.float32)[..., None]],
+                      dim=-1)
+    return blocked._permute_slots(combo, pw.inv_blk)
+
+
+def tail_front_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
+    """K5f against its plain twin run on the card (torch.equal) at the
+    1080p batch of 32 in one layout, on the stego and on the zeroed stego
+    (tail_spectra), given the presence decision of the eager estimator;
+    and models/blocked._tail_front (the presence statistic in plain ops,
+    then K5f) equal to the eager front (:func:`eager_front`) on the same
+    input. ms: K5f alone; plain_ms: its twin; front_ms: _tail_front;
+    eager_ms: the eager front. bound_ms counts the spectra, sw and
+    inv_blk read once and the k + 1 output columns written once
+    (``written_bytes``: the rows of 8 floats K5f writes)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+
+    pw, sc, spectra = tail_spectra(dev, covers, wm_u8, blk, intra, gray)
+    alpha = blocked._alpha(ALPHA, dev)
+    scale = blocked._sw_scale(pw.sw)
+    name = "gray" if gray else "color"
+    checks, calls = {}, {}
+    for case, s_cw in zip(("stego", "three_quadrants_zeroed"), spectra):
+        engage = blocked._engaged(blocked._raw_estimate(s_cw, sc, ALPHA),
+                                  pw.sw)
+        args = (s_cw, sc, pw.inv_blk, alpha, K, pw.sw, scale, engage)
+        y = tail_cuda.tail_front(*args)
+        py = tail_cuda.tail_front_plain(*args)
+        d = (y - py).abs()
+        require(torch.equal(y, py), f"K5f {name} {case} vs twin: |d| max "
+                f"{float(d.max())}")
+        require(torch.equal(blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA,
+                                                K, pw.sw),
+                            eager_front(s_cw, sc, pw)),
+                f"K5f {name} {case}: _tail_front differs from the eager "
+                "front")
+        checks[case] = dict(
+            max_abs_err=float(d.max()), equals_twin=True, equals_eager=True,
+            engaged_share=float(engage.float().mean()),
+            flagged_share=float((y[..., K] > 0.5).float().mean()))
+        calls[case] = args
+    require(checks["stego"]["engaged_share"] == 1.0
+            and 0 < checks["three_quadrants_zeroed"]["flagged_share"] < 1,
+            f"K5f {name}: the cases miss their paths {checks}")
+    args = calls["stego"]
+    s_cw = spectra[0]
+    y = tail_cuda.tail_front(*args)
+    planes_blocks = s_cw[..., 0].numel()
+    out = dict(
+        layout=name, shape=list(s_cw.shape), out_shape=list(y.shape),
+        checks=checks, max_abs_err=max(c["max_abs_err"]
+                                       for c in checks.values()),
+        equals_twin=True,
+        ms=cuda_time(lambda: tail_cuda.tail_front(*args), 20),
+        plain_ms=cuda_time(lambda: tail_cuda.tail_front_plain(*args), 3),
+        front_ms=cuda_time(lambda: blocked._tail_front(
+            s_cw, sc, pw.inv_blk, ALPHA, K, pw.sw), 10),
+        eager_ms=cuda_time(lambda: eager_front(s_cw, sc, pw), 10),
+        library_ms=None, written_bytes=y.untyped_storage().nbytes(),
+        **bound(planes_blocks, front_ops(K),
+                nbytes(s_cw, sc, pw.sw, pw.inv_blk, y)))
+    return out
 
 
 def tail_kernel_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
@@ -972,10 +1076,12 @@ def tail_kernel_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
 
 def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     """extract_color_prepared and extract_gray_prepared with recompute=True
-    on the 1080p batch of 32, K5's counter set to 0 just before and read
-    just after: NC > 0.4 against the watermark, within 2 quanta of
-    recompute=False on the whole batch, and a frame's bytes the same alone,
-    in a shard of 4 and in the batch."""
+    on the 1080p batch of 32, K5's and K5f's counters set to 0 just before
+    and read just after: NC > 0.4 against the watermark, within 2 quanta
+    of recompute=False on the whole batch, and a frame's bytes the same
+    alone, in a shard of 4 and in the batch. Then the default form
+    (recompute=False) and serve_verify_color_prepared with K5f's twin in
+    its place: byte-equal to their outputs with K5f."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import color, metrics, tail_cuda
@@ -1001,23 +1107,26 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     def run(fn, stego, sc_):
         torch.cuda.synchronize()
         tail_cuda.recon_normalize.launches = 0
+        tail_cuda.tail_front.launches = 0
         t0 = time.perf_counter()
         out = fn(stego, sc_, recompute=True)
         torch.cuda.synchronize()
-        return out, tail_cuda.recon_normalize.launches, \
+        return out, (tail_cuda.recon_normalize.launches,
+                     tail_cuda.tail_front.launches), \
             time.perf_counter() - t0
 
     # K5's color frames, then its gray planes, each counted alone
-    rec, launches, seconds = run(color_x, st, sc)
-    recg, launches_g, seconds_g = run(gray_x, stg, scg)
-    require(launches >= 1 and launches_g >= 1,
+    rec, (launches, front), seconds = run(color_x, st, sc)
+    recg, (launches_g, front_g), seconds_g = run(gray_x, stg, scg)
+    require(min(launches, launches_g, front, front_g) >= 1,
             f"K5 launched {launches} times by the color and {launches_g} "
-            "by the gray recompute extract")
+            f"by the gray recompute extract, K5f {front} and {front_g}")
     require(rec.shape == covers.shape and rec.dtype == torch.uint8
             and recg.shape == covers.shape[:-1], "recompute extract shapes")
     row = dict(phase="tail_recompute_1080p", batch=BATCH,
                launches={"recon_normalize": launches,
-                         "recon_normalize_gray": launches_g},
+                         "recon_normalize_gray": launches_g,
+                         "tail_front": front, "tail_front_gray": front_g},
                first_run_s={"color": seconds, "gray": seconds_g})
     for name, got, eager, wm in (
             ("color", rec, color_x(st, sc), wm_u8),
@@ -1040,6 +1149,25 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
                 f"{name} recompute: a frame's bytes differ alone, in a "
                 "shard of 4 or in the batch")
         row[name]["batch_invariant"] = True
+
+    # the default form's bytes with K5f and with its twin in its place
+    def default_outputs():
+        return dict(
+            color=color_x(st, sc), gray=gray_x(stg, scg),
+            serve_verify=blocked.serve_verify_color_prepared(
+                covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk)[2])
+
+    with_kernel = default_outputs()
+    front_kernel = tail_cuda.tail_front
+    tail_cuda.tail_front = tail_cuda.tail_front_plain
+    try:
+        with_twin = default_outputs()
+    finally:
+        tail_cuda.tail_front = front_kernel
+    for name, out in with_kernel.items():
+        require(torch.equal(out, with_twin[name]), f"{name}: the default "
+                "tail's bytes differ with K5f's twin as its front")
+    row["default_bytes_equal_with_twin_front"] = sorted(with_kernel)
     emit(dict(row, card=smi_line()))
     return row["launches"]
 
@@ -2369,14 +2497,15 @@ def video_probe() -> dict:
 
 
 def video_wrappers():
-    from dctsvd_tpu_torch.ops import svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import svd_cuda, tail_cuda, wm_cuda
     return {"spectrum_blocks": wm_cuda.spectrum_blocks,
             "embed_blocks": wm_cuda.embed_blocks,
-            "jacobi_svd8": svd_cuda.jacobi_svd8}
+            "jacobi_svd8": svd_cuda.jacobi_svd8,
+            "tail_front": tail_cuda.tail_front}
 
 
 def counted_run(fn, wrappers=None):
-    """(fn(), seconds, launches of K1, K2, K4 or of ``wrappers``): the
+    """(fn(), seconds, launches of K1, K2, K4, K5f or of ``wrappers``): the
     counters set to 0 just before and read just after, the card
     synchronised on both sides."""
     import torch
@@ -2576,9 +2705,10 @@ def phase_video(dev, td: str, clip: str, wm_png: str):
             nc = nc_np(cv2.imread(wm_out, cv2.IMREAD_GRAYSCALE), ref)
             if scheme == "blocked":
                 want_e = {"jacobi_svd8": 1, "embed_blocks": dispatches,
-                          "spectrum_blocks": 0}
+                          "spectrum_blocks": 0, "tail_front": 0}
                 want_x = {"jacobi_svd8": 0, "embed_blocks": 0,
-                          "spectrum_blocks": dispatches}
+                          "spectrum_blocks": dispatches,
+                          "tail_front": dispatches}
             else:
                 want_e = want_x = {n: 0 for n in total}
             require(n_embed == want_e and n_extract == want_x,
@@ -2833,21 +2963,22 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's wrappers and cols_view's (T2b, the bench budget's view
-    row): {name: wrapper}, the calls :func:`recorded_calls` notes."""
+    """K1..K4's and K5f's wrappers and cols_view's (T2b, the bench budget's
+    view row): {name: wrapper}, the calls :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
     return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view)
 
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's and cols_view's wrappers at each
-    signature (shapes, dtypes, strides and the other arguments) made
-    inside the block: {(name, signature): (args, kwargs)}. The wrappers
+    """Records the first call of K1..K4's, K5f's and cols_view's wrappers
+    at each signature (shapes, dtypes, strides and the other arguments)
+    made inside the block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
     inputs, then calls the wrapper (whose count, kept on the module's
     name, is the recorder's while it stands in for it)."""
-    from dctsvd_tpu_torch.ops import probe_cuda, svd, svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import (probe_cuda, svd, svd_cuda, tail_cuda,
+                                      wm_cuda)
     calls = {}
     patched = []
     for name, orig in twinned_wrappers().items():
@@ -2857,7 +2988,7 @@ def recorded_calls():
             calls.setdefault(key, (args, kw))
             return _orig(*args, **kw)
         recorder.launches = orig.launches
-        for mod in (wm_cuda, svd_cuda, svd, probe_cuda):
+        for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -2869,19 +3000,20 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4 and cols_view again, through its
+    """Each recorded call of K1..K4, K5f and cols_view again, through its
     kernel and through its plain twin on the same inputs on the card:
     bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
     and 1 calls)."""
     import torch
-    from dctsvd_tpu_torch.ops import probe_cuda, svd_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import probe_cuda, svd_cuda, tail_cuda, wm_cuda
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
                  wm_cuda.roundtrip_frames_blocks_plain,
              "jacobi_svd8": svd_cuda.jacobi_svd8_plain,
-             "cols_view": probe_cuda.cols_view_plain}
+             "cols_view": probe_cuda.cols_view_plain,
+             "tail_front": tail_cuda.tail_front_plain}
     kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
@@ -2930,10 +3062,14 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     CUDA events, two readings of 10 calls after a warm-up: the slice's
     embed+extract step, color and gray extract alone, serve+verify, the
     extracts on 1 and 4 frames, and the tail's estimator and gather alone
-    (``front``, color and gray). Where extract_color_prepared takes
-    ``recompute``, each extract row has a ``_recompute`` twin (K5), and
-    color extract at batch 128 (the bench's headline batch) runs in both
-    forms, K5's output there held to its twin first. Only entry points
+    (``front_*``: models/blocked._tail_front where the tree has it, K5f
+    since it does; ``front_*_eager``: :func:`eager_front`, the parts every
+    tree has). Where extract_color_prepared takes
+    ``recompute``, each extract row has a ``_recompute`` twin (K5), color
+    extract at batch 128 (the bench's headline batch) runs in both forms,
+    K5's output there held to its twin first, and the kernels run alone on
+    the front's output: ``k5_*`` (K5), ``k5_paint_*`` (its paint pass, no
+    normalize) and, where the tree has it, ``k5f_*`` (K5f). Only entry points
     every tree of the port has otherwise, so that this function, copied
     into an older tree, times that tree."""
     import inspect
@@ -2979,29 +3115,48 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
                 lambda n=n, kw=kw: blocked.extract_gray_prepared(
                     stg[:n], scg[:n], pwg.ebasis, pwg.inv_blk, ALPHA,
                     sw=pwg.sw, **kw))
-    # what stays eager in both forms: the estimate and the slot gather on
-    # the stego spectrum (K1's output), written out from the parts every
-    # tree has (models/blocked.py::_tail_front in this one)
+    # the front both forms read: the estimate and the slot gather on the
+    # stego spectrum (K1's output), through the tree's _tail_front and
+    # eager (written out from the parts every tree has)
     k = blocked.k_of_block(0.6)
     s_cw = blocked._frames_spectrum(st, SWEEPS)
     s_cwg = blocked._plane_spectrum(color.luma_f32(stg), SWEEPS)
-
-    def front(s_cw, sc_, pw):
-        raw = blocked._raw_estimate(s_cw, sc_, ALPHA)
-        est, bad = blocked._shrink_sw_hat(raw, pw.sw, k)
-        combo = torch.cat([est[..., :k], bad.to(torch.float32)[..., None]],
-                          dim=-1)
-        return blocked._permute_slots(combo, pw.inv_blk)
-    steps["front_color"] = lambda: front(s_cw, sc, pwc)
-    steps["front_gray"] = lambda: front(s_cwg, scg, pwg)
+    if hasattr(blocked, "_tail_front"):
+        steps["front_color"] = lambda: blocked._tail_front(
+            s_cw, sc, pwc.inv_blk, ALPHA, k, pwc.sw)
+        steps["front_gray"] = lambda: blocked._tail_front(
+            s_cwg, scg, pwg.inv_blk, ALPHA, k, pwg.sw)
+    steps["front_color_eager"] = lambda: eager_front(s_cw, sc, pwc)
+    steps["front_gray_eager"] = lambda: eager_front(s_cwg, scg, pwg)
+    # the kernels alone on the front's output: K5 (and its paint pass
+    # alone, without normalize) where the tree has it, and K5f
+    if "_recompute" in forms:
+        from dctsvd_tpu_torch.ops import tail_cuda
+        for name, s_, sc_, pw, frames in (("color", s_cw, sc, pwc, True),
+                                          ("gray", s_cwg, scg, pwg, False)):
+            x = blocked._tail_front(s_, sc_, pw.inv_blk, ALPHA, k, pw.sw)
+            eb = pw.ebasis[..., :k, :, :]
+            eb64 = eb.reshape(*eb.shape[:-2], 64)
+            steps[f"k5_{name}"] = (
+                lambda x=x, e=eb64, fr=frames: tail_cuda.recon_normalize(
+                    x, e, H, W, to_frames=fr))
+            steps[f"k5_paint_{name}"] = (
+                lambda x=x, e=eb64, fr=frames: tail_cuda.recon_normalize(
+                    x, e, H, W, normalize=False, to_frames=fr))
+            if hasattr(tail_cuda, "tail_front"):
+                raw = blocked._raw_estimate(s_, sc_, ALPHA)
+                args = (s_, sc_, pw.inv_blk, blocked._alpha(ALPHA, s_.device),
+                        k, pw.sw, blocked._sw_scale(pw.sw),
+                        blocked._engaged(raw, pw.sw))
+                steps[f"k5f_{name}"] = (
+                    lambda a=args: tail_cuda.tail_front(*a))
     out = {name: [cuda_time(fn, 10) for _ in range(2)]
            for name, fn in steps.items()}
     # the bench's batch of 128: the 32 frames four times
     st128, sc128 = st.repeat(4, 1, 1, 1), sc.repeat(4, 1, 1, 1)
     if "_recompute" in forms:
-        # K5 folds 32 frames at a time: hold the four chunks' output to the
-        # twin, and the entry point's to K5 on its inputs, before timing
-        from dctsvd_tpu_torch.ops import tail_cuda
+        # hold K5's output at the bench's batch to the twin, and the entry
+        # point's to K5 on its inputs, before timing
         x128 = blocked._tail_front(blocked._frames_spectrum(st128, SWEEPS),
                                    sc128, pwc.inv_blk, ALPHA, k, pwc.sw)
         eb = pwc.ebasis[..., :k, :, :]
@@ -3018,6 +3173,34 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
             cuda_time(lambda kw=kw: blocked.extract_color_prepared(
                 st128, sc128, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw,
                 **kw), 5) for _ in range(2)]
+    return out
+
+
+def k5_times(dev, covers, wm_u8, blk, intra) -> dict:
+    """ms of K5 (normalize, and its paint pass alone without) and K5f on
+    the main path's inputs at the 1080p batch of 32, color frames and gray
+    planes, CUDA events, two readings of 20 launches. Checks nothing: it
+    times patched copies of the tree under build/ (the smoke and
+    --tail-times hold the kernels to their twins)."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    out = {}
+    for name, gray in (("color", False), ("gray", True)):
+        pw, sc, spectra = tail_spectra(dev, covers, wm_u8, blk, intra, gray)
+        s_cw = spectra[0]
+        x = blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, K, pw.sw)
+        eb = pw.ebasis[..., :K, :, :]
+        eb64 = eb.reshape(*eb.shape[:-2], 64)
+        raw = blocked._raw_estimate(s_cw, sc, ALPHA)
+        args = (s_cw, sc, pw.inv_blk, blocked._alpha(ALPHA, dev), K, pw.sw,
+                blocked._sw_scale(pw.sw), blocked._engaged(raw, pw.sw))
+        for row, fn in (
+                ("k5", lambda: tail_cuda.recon_normalize(
+                    x, eb64, H, W, to_frames=not gray)),
+                ("k5_paint", lambda: tail_cuda.recon_normalize(
+                    x, eb64, H, W, normalize=False, to_frames=not gray)),
+                ("k5f", lambda: tail_cuda.tail_front(*args))):
+            out[f"{row}_{name}"] = [cuda_time(fn, 20) for _ in range(2)]
     return out
 
 
@@ -3098,9 +3281,11 @@ def parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded):
         fns = calls if mesh is None else sharded(mesh, st, sc)
         shards = 1 if mesh is None else len(mesh.devices)
         # each shard launches its kernels once, K4 once a device
-        expect = {"serve": {"roundtrip_frames_blocks": shards},
+        expect = {"serve": {"roundtrip_frames_blocks": shards,
+                            "tail_front": shards},
                   "embed_prepared": {"embed_blocks": shards},
-                  "extract_prepared": {"spectrum_blocks": shards},
+                  "extract_prepared": {"spectrum_blocks": shards,
+                                       "tail_front": shards},
                   "detect_blocked": {"spectrum_blocks": shards},
                   "embed_blocked": {"embed_blocks": shards,
                                     "jacobi_svd8": 1}}
@@ -3148,13 +3333,13 @@ def phase_parallel(dev, covers, wm_u8, blk, intra):
     card ([cuda:0] * 4, one after another) and one frame a shard. Each
     entry point's outputs are held to the unsharded call's (stego, sc
     and the recovered watermark byte-equal, scores and metrics within
-    1e-5), its launches of K1..K4 counted in a window of its own, its
-    frames/s timed with CUDA events after a warm-up; no sharded call may
-    synchronise with the host (CUDA sync debug mode, after the unsharded
-    calls have put the constants on the card). Every call of K1..K4 on
-    these paths, at each shape it took (the batch of 32, a shard of 8,
-    one frame), is then made again through its kernel and its plain twin
-    on the same inputs: bit-equal.
+    1e-5), its launches of K1..K4 and K5f counted in a window of its own,
+    its frames/s timed with CUDA events after a warm-up; no sharded call
+    may synchronise with the host (CUDA sync debug mode, after the
+    unsharded calls have put the constants on the card). Every call of
+    K1..K4 and K5f on these paths, at each shape it took (the batch of
+    32, a shard of 8, one frame), is then made again through its kernel
+    and its plain twin on the same inputs: bit-equal.
     Then batch_detect_full on four σ3-blurred frames, against the
     per-image parity detect, with the batched SVD's difference beside
     it. Returns the launches on the meshes."""
@@ -3549,11 +3734,13 @@ def main(argv) -> int:
               "times_8_frames": paint_k_times(dev, covers), "card": card})
         return 0
     if argv == ["--tail-times"]:
-        # K5's k = 4 instances (the main path's): registers and spills
-        # (when this run built the library), and their SASS by class, the
-        # kernel's body once ("main") and its frame loop's body ("sweep")
+        # K5f's and K5's k = 4 instances (the main path's): registers and
+        # spills (when this run built the library), and their SASS by
+        # class, the kernel's body once ("main"), its outermost loop's body
+        # ("sweep") and every loop's ("loops", inner first: K5's frame
+        # loops, K5f's plane loop)
         sass = kernels.sass_dump(kernels.BUILD_INFO["path"])
-        k5 = {n: {c: m[c] for c in ("main", "sweep")}
+        k5 = {n: {c: m.get(c) for c in ("main", "sweep", "loops")}
               for n, m in kernels.sass_mix(sass, 2).items()
               if "tail_" in n and "ILi4E" in n}
         emit({"phase": "tail_times", "times": tail_times(covers, wm_u8, blk,
@@ -3561,6 +3748,15 @@ def main(argv) -> int:
               "k5_ptxas": {n: v for n, v in kernels.ptxas_report(
                   kernels.BUILD_INFO["ptxas"]).items() if n in k5},
               "k5_sass": k5, "card": card})
+        return 0
+    if argv == ["--k5-times"]:
+        emit({"phase": "k5_times",
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"],
+              "ptxas": {n: v for n, v in kernels.ptxas_report(
+                  kernels.BUILD_INFO["ptxas"]).items()
+                  if "tail_" in n and "ILi4E" in n},
+              "times": k5_times(dev, covers, wm_u8, blk, intra),
+              "card": card})
         return 0
     if argv == ["--recon-forms"]:
         emit({"phase": "recon_forms", "forms": recon_forms(dev),
@@ -3584,9 +3780,17 @@ def main(argv) -> int:
     results = phase_kernels(dev, covers, wm_u8, blk, intra)
     phase_paint_k_sweep(dev, covers)
     launches = phase_slice(dev, covers, wm_u8, blk, intra)
-    launches.update(phase_serve(dev, covers, wm_u8, blk, intra))
+    # K5f's launches on each path (one counter for both layouts; the gray
+    # row's are the gray recompute extract's)
+    front_paths = {"slice": launches.pop("tail_front")}
+    serve = phase_serve(dev, covers, wm_u8, blk, intra)
+    front_paths["serve"] = serve.pop("tail_front")
+    launches.update(serve)
     launches.update(phase_variants(dev, covers))
-    launches.update(phase_tail_recompute(dev, covers, wm_u8, blk, intra))
+    tail = phase_tail_recompute(dev, covers, wm_u8, blk, intra)
+    front_paths["tail_recompute"] = tail.pop("tail_front")
+    front_gray = {"tail_recompute": tail.pop("tail_front_gray")}
+    launches.update(tail)
     phase_reference(dev)
     smooth = smooth_frame(20261017)
     wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
@@ -3649,6 +3853,10 @@ def main(argv) -> int:
                             "dctsvd_tpu/models/blocked.py:898"),
         "recon_normalize_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
                                  "dctsvd_tpu/models/blocked.py:898"),
+        "tail_front": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                       "dctsvd_tpu/models/blocked.py:1003"),
+        "tail_front_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                            "dctsvd_tpu/models/blocked.py:1003"),
         "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
                      "tools/profile_transpose.py:45"),
         "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
@@ -3678,6 +3886,14 @@ def main(argv) -> int:
     # tail is the eager form)
     for name in ("recon_normalize", "recon_normalize_gray"):
         paths[name] = {"tail_recompute": launches[name]}
+    # K5f: both tail forms, the serve steps, video, parallel/ and the bench
+    front_paths.update(video=video_launches["tail_front"],
+                       parallel=par_launches["tail_front"]
+                       + plane_launches["tail_front"],
+                       bench=bench_launches["tail_front"])
+    paths["tail_front"], paths["tail_front_gray"] = front_paths, front_gray
+    for name in ("tail_front", "tail_front_gray"):
+        launches[name] = sum(paths[name].values())
     # cols_view: the probes' launches and the bench budget's T2b row
     paths["cols_view"] = {"probes": launches["cols_view"],
                           "bench": bench_launches["cols_view"]}
@@ -3686,8 +3902,9 @@ def main(argv) -> int:
     for name, (src, repl) in sources.items():
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
-        if "eager_ms" in r:
-            extra["eager_ms"] = r["eager_ms"]
+        for key in ("eager_ms", "front_ms"):
+            if key in r:
+                extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,
                           replaces=repl, launches=launches[name], **extra,
                           max_abs_err=r["max_abs_err"], ms=r["ms"],

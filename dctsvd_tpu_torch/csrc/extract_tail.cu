@@ -1,53 +1,102 @@
-// K5 extract_tail: the recompute form of the blocked extract tail, reached
-// through extract_color_prepared / extract_gray_prepared(recompute=True).
+// The blocked extract tail on the card: K5f, its front stage (the estimator
+// and the slot gather, which both tail forms read), and K5, the recompute
+// form's two passes (extract_color_prepared / extract_gray_prepared with
+// recompute=True).
 //
-// Replaces the XLA fusion of dctsvd_tpu/models/blocked.py::
-// _normalize_blocks_recompute (reached through _extract_tail_prepared(
-// recompute=True)); the JAX package has no pl.pallas_call for it.
-// Plain twin: dctsvd_tpu_torch/ops/tail_cuda.py::recon_normalize_plain.
+// ---------------------------------------------------------------------------
+// K5f tail_front. Replaces the front of the XLA fusion of dctsvd_tpu/models/
+// blocked.py::_extract_tail_prepared (:1003-1016: the raw estimate,
+// _shrink_sw_hat's elementwise part, the flag column and _permute_slots);
+// the JAX package has no pl.pallas_call for it. Plain twin:
+// dctsvd_tpu_torch/ops/tail_cuda.py::tail_front_plain.
+//
+// What it computes. Plane p = (frame, channel c), natural block n, slot
+// j = inv_blk[n]; for i < k:
+//   raw_i = (s_cw[p, j, i] - sc[p, j, i]) / max(alpha[p], 1e-8);
+//   without sw: x[p, n, i] = raw_i;
+//   with sw: ref_i = sw[c, j, i], devk_i = |raw_i - ref_i|, dev = their max,
+//     w_i = 1 / (1 + (devk_i / scale[c])^2), 0 where raw_i < 0,
+//     x[p, n, i] = engage[p] ? max(ref_i + w_i (raw_i - ref_i), 0)
+//                            : min(max(raw_i, -0.5 ref_i), 1.5 ref_i),
+//     x[p, n, k] = 1 if dev > 2 scale[c] and not engage[p], else 0.
+// Each step rounds once, as the twin's one PyTorch op a step does on the
+// card; min and max let a NaN through as torch's clamp, maximum, minimum
+// and amax do. engage and scale (the presence statistic and the mean of
+// sw[..., 0], reductions whose order on the card depends on their shapes)
+// come from the caller; nothing here reduces across blocks, so a frame's
+// row is the same alone, in a shard or in any batch.
+// Output rows are round_up(k + 1, 4) floats (zero past the flag column),
+// the layout K5 reads with 16-byte loads.
+//
+// What bounds it on the H100: bytes. Each thread gathers one 32-byte slot
+// row of s_cw and one of sc (one sector each) and writes one output row;
+// at 1080p color, batch 32: 2 x 99.5 MB in, 99.5 MB out (sw, 3.1 MB, stays
+// in L2), 0.3 GB or 0.09 ms at 3.35 TB/s. What the design does about it:
+// a thread a natural block (consecutive threads write consecutive rows),
+// each slot row read as two float4 through inv_blk, the planes of a frame
+// on the grid's y (32-bit offsets within a plane).
+//
+// ---------------------------------------------------------------------------
+// K5 recon_normalize. Replaces the XLA fusion of dctsvd_tpu/models/
+// blocked.py::_normalize_blocks_recompute (reached through
+// _extract_tail_prepared(recompute=True)); no pl.pallas_call. Plain twin:
+// dctsvd_tpu_torch/ops/tail_cuda.py::recon_normalize_plain.
 //
 // What it computes. Plane p = (frame f, channel c), block n, its natural-
-// order estimates x[p, n, 0..k-1] and, when the input has k + 1 columns,
-// the erasure flag x[p, n, k] > 0.5; the pixel basis e[c, n, j, 0..63]:
+// order estimates x[p, n, 0..k-1] and, when flagged, the erasure flag
+// x[p, n, k] > 0.5; the pixel basis e[c, n, j, 0..63]:
 //   y = x0 e0, then y = y + xj ej for j = 1..k-1, each product and sum
 //       rounded (the twin's order);
 //   pass 1 (window): the plane's min and max over all its pixels, and over
 //       the pixels of unflagged blocks (NaN propagates, as torch.amin);
-//   pass 2 (paint): lo, hi = the unflagged window, or the whole one where
-//       that is not finite (every block flagged); scale = 255 / max(hi -
-//       lo, 1e-12) as one IEEE division; flagged blocks repainted at
-//       (lo + hi) * 0.5 (at 0 without normalize); (y - lo) * scale; u8 out
-//       clamps to [0, 255] and truncates. Output: channels-last frames
-//       [F, H, W, C] or planes [F, C, H, W].
+//   between the passes, a plane's (lo, scale, fill): lo, hi = the
+//       unflagged window, or the whole one where that is not finite (every
+//       block flagged); scale = 255 / max(hi - lo, 1e-12) as one IEEE
+//       division; fill = (lo + hi) * 0.5 (without normalize: 0, 1, 0);
+//   pass 2 (paint): flagged blocks at fill, (y - lo) * scale; u8 out
+//       truncates and saturates to [0, 255] (NaN to 0). Output: channels-
+//       last frames [F, H, W, C] or planes [F, C, H, W].
 // Without normalize only pass 2 runs.
 //
-// What bounds it on the H100: bytes. At 1080p color, k = 4, 32 frames:
-// the u8 frames (199 MB), the estimates read once a pass (62 MB each) and
-// the basis read once a pass (99.5 MB each), 0.52 GB or 0.156 ms at
-// 3.35 TB/s; its f32 work, about 16 operations an output byte, is 0.05 ms
-// at 67e12 (0.095 ms at one instruction a lane a clock).
-// What the design does about it:
+// What bounds it on the H100: neither its bytes nor its instructions
+// alone. Its bytes at 1080p color, k = 4, batch 32 (the u8 frames 199 MB,
+// the estimates and the basis read once a pass) take 0.16 ms at 3.35 TB/s;
+// the twin's f32 work is about 20 operations a pixel over both passes.
+// Halving an earlier form's instructions moved its time by 4 % (PERF.md
+// §6): each warp waited on its frame's estimates (one load in flight a
+// CTA, the 8 warps of a CTA on the same rows), and every CTA's window
+// atomics for a frame landed on one cache line, which one L2 slice
+// serialised. What the design does about it:
 //   - A warp takes one pixel row r of 32 / C' neighbouring blocks (C' = C
 //     for frames, the channels of a block on neighbouring lanes; 1 for
-//     planes, a channel a warp), a CTA the 8 rows of those blocks, and
-//     each lane keeps the k x 8 basis floats of its row in registers and
-//     walks every frame: the basis is read once a pass, whatever the
-//     batch (the JAX form re-read it once a frame a pass on the TPU).
-//     The 8 warps of a CTA read the same estimates, mostly from L1.
-//   - The plane window is exact in any order (min and max), so it folds
-//     through atomics on an order-preserving u32 key of the float: a warp
-//     reduces its lanes of one channel by shuffles, the CTA folds 32
-//     frames at a time in shared memory, then one global atomic a slot.
-//     No product depends on the batch's shape, so a frame extracts to the
-//     same bytes alone, in a shard or in any batch.
-//   - Frames: each lane writes its 8 pixels of one channel into a warp
-//     stage in shared memory, interleaved, and the warp stores whole pixel
-//     rows of its blocks as 8 bytes a lane (240 contiguous bytes a row at
-//     C = 3); planes store 8 bytes (u8) or 32 (f32) a lane directly.
+//     planes), a CTA the 8 rows of those blocks; each lane keeps the k x 8
+//     basis floats of its row in registers and walks its frames: the basis
+//     is read once a pass for each CTA.
+//   - The estimates come through shared memory, 8 frames at a time, by
+//     cp.async, the next chunk in flight while this one is computed (warp
+//     w copies its lane's row of frame w: 8 KB a chunk at k = 4).
+//   - The window: each lane folds its 8 pixels in registers and stores
+//     one float4 (lo, hi, unflagged lo, unflagged hi) a frame in shared
+//     memory; every 8 frames warp w folds frame w over the 8 rows, then
+//     over its lanes by shuffles, and its channel lanes take one global
+//     atomic a slot (order-preserving u32 keys: exact in any order), each
+//     slot a cache line of its own.
+//   - A tiny kernel turns each plane's window into (lo, scale, fill) once,
+//     so the paint reads a float4 a frame instead of decoding and
+//     dividing in every lane.
+//   - Rows of round_up(k + 1, 4) floats (K5f's layout) read as float4; u8
+//     is cvt.rzi.sat (truncate and saturate in one instruction), packed by
+//     byte permutes; channels-last rows go through a warp stage written
+//     byte-wise and read as 8 bytes a lane; the output, written once, by
+//     streaming stores.
+//   - A CTA walks a share of the frames (the grid's second factor), so that
+//     the grid fills the card in about six waves whatever the batch; the
+//     CTAs of one tile are neighbours, so its basis comes from L2.
 //   - Offsets within a frame are 32-bit (the host refuses a frame of 2^31
 //     elements or more); -fmad=false and the _rn intrinsics keep every
 //     rounding the twin's.
-// chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`).
+// chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and,
+// with --tail-times, its SASS by class.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +110,10 @@ namespace {
 
 constexpr int kTailWarps = kB;               // a warp a pixel row
 constexpr int kTailThreads = kTailWarps * 32;
-constexpr int kTailChunk = 32;               // frames folded in smem at once
+constexpr int kTailChunk = kTailWarps;       // frames staged and folded
+constexpr int kWinStride = 32;               // u32 between window slots
+constexpr int kFrontThreads = 256;
+constexpr int kWaves = 6;                    // CTAs a launch aims at
 
 // Order-preserving u32 key of a float: key(a) < key(b) iff a < b, with
 // -0.0 below +0.0. A NaN takes the lowest key in a min slot and the
@@ -88,7 +140,7 @@ constexpr uint32_t kLoInit = 0xff800000u;    // key_of(+inf)
 constexpr uint32_t kHiInit = 0x007fffffu;    // key_of(-inf)
 
 // min and max that return NaN when either input is NaN (torch's amin,
-// amax and clamp), where fminf / fmaxf would drop it.
+// amax, clamp, maximum and minimum), where fminf / fmaxf would drop it.
 __device__ __forceinline__ float min_nan(float a, float b) {
   float d;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
@@ -100,6 +152,102 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
   return d;
 }
+
+// Floats a row of estimates: the k estimates, the flag, zero padding to
+// 16 bytes.
+__host__ __device__ constexpr int est_row(int k) { return (k + 4) / 4 * 4; }
+
+// ---------------------------------------------------------------------------
+// K5f
+// ---------------------------------------------------------------------------
+
+template <int K, bool kShrink>
+__global__ void __launch_bounds__(kFrontThreads)
+    tail_front_kernel(const float* __restrict__ s_cw,
+                      const float* __restrict__ sc,
+                      const int64_t* __restrict__ inv_blk,
+                      const float* __restrict__ alpha, int alpha_step,
+                      const float* __restrict__ sw,
+                      const float* __restrict__ scale,
+                      const uint8_t* __restrict__ engage,
+                      float* __restrict__ out, int planes, int chans,
+                      int n) {
+  constexpr int kRow = est_row(K);
+  constexpr int kIn = (K + 3) / 4;             // float4 of a slot row read
+  const int blk = blockIdx.x * kFrontThreads + threadIdx.x;
+  if (blk >= n) return;
+  const int64_t j64 = inv_blk[blk];
+  const bool ok = j64 >= 0 && j64 < n;
+  const int j = ok ? static_cast<int>(j64) : 0;
+  for (int p = blockIdx.y; p < planes; p += gridDim.y) {
+    const int c = p % chans;
+    const int64_t row = static_cast<int64_t>(p) * n;
+    const float4* s4 = reinterpret_cast<const float4*>(s_cw + (row + j) * kB);
+    const float4* c4 = reinterpret_cast<const float4*>(sc + (row + j) * kB);
+    float s[4 * kIn], cc[4 * kIn];
+#pragma unroll
+    for (int q = 0; q < kIn; ++q) {
+      const float4 a = s4[q], b = c4[q];
+      s[4 * q] = a.x; s[4 * q + 1] = a.y; s[4 * q + 2] = a.z;
+      s[4 * q + 3] = a.w;
+      cc[4 * q] = b.x; cc[4 * q + 1] = b.y; cc[4 * q + 2] = b.z;
+      cc[4 * q + 3] = b.w;
+    }
+    const float a = max_nan(alpha[static_cast<int64_t>(p) * alpha_step],
+                            1e-8f);
+    float o[kRow];
+#pragma unroll
+    for (int i = 0; i < kRow; ++i) o[i] = 0.0f;
+    float raw[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) raw[i] = __fdiv_rn(__fsub_rn(s[i], cc[i]), a);
+    if constexpr (!kShrink) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) o[i] = raw[i];
+    } else {
+      const float4* r4 = reinterpret_cast<const float4*>(
+          sw + (static_cast<int64_t>(c) * n + j) * kB);
+      float ref[4 * kIn];
+#pragma unroll
+      for (int q = 0; q < kIn; ++q) {
+        const float4 v = r4[q];
+        ref[4 * q] = v.x; ref[4 * q + 1] = v.y; ref[4 * q + 2] = v.z;
+        ref[4 * q + 3] = v.w;
+      }
+      const float sc_c = scale[c];
+      const bool eng = engage[p] != 0;
+      float dev = 0.0f;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const float d = fabsf(__fsub_rn(raw[i], ref[i]));
+        dev = i == 0 ? d : max_nan(dev, d);
+        const float q = __fdiv_rn(d, sc_c);
+        float w = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(q, q)));
+        if (raw[i] < 0.0f) w = 0.0f;
+        const float shrunk = max_nan(
+            __fadd_rn(ref[i], __fmul_rn(w, __fsub_rn(raw[i], ref[i]))),
+            0.0f);
+        const float clamped =
+            min_nan(max_nan(raw[i], __fmul_rn(-0.5f, ref[i])),
+                    __fmul_rn(1.5f, ref[i]));
+        o[i] = eng ? shrunk : clamped;
+      }
+      o[K] = (dev > __fmul_rn(2.0f, sc_c) && !eng) ? 1.0f : 0.0f;
+    }
+    if (!ok) {                 // not a slot of this plane: a visible row
+#pragma unroll
+      for (int i = 0; i < kRow; ++i) o[i] = __int_as_float(0x7fffffff);
+    }
+    float4* d4 = reinterpret_cast<float4*>(out + (row + blk) * kRow);
+#pragma unroll
+    for (int q = 0; q < kRow / 4; ++q)
+      d4[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
 
 // The largest power of two p with kC * p < 32: the first shuffle offset
 // of a fold over the lanes of one channel (lane = block * kC + channel).
@@ -123,19 +271,22 @@ __device__ __forceinline__ float warp_fold(float v) {
 }
 
 // Where a thread sits: the CTA takes blocks g * kG .. g * kG + kG - 1 of
-// block row `by` of channel group `cg`, warp r their pixel row r, and lane
-// (block bxl, channel ci).
+// block row `by` of channel group `cg` and frames fbeg .. fend - 1, warp r
+// their pixel row r, and lane (block bxl, channel ci).
 template <int kC>
 struct TailLane {
   static constexpr int kG = 32 / kC;   // blocks a warp
-  int lane, r, g, by, cg, bxl, ci, bx, n, c;
+  int lane, r, g, by, cg, bxl, ci, bx, n, c, fbeg, fend;
   bool active;
 
-  __device__ TailLane(int hb, int wb, int groups) {
+  __device__ TailLane(int hb, int wb, int groups, int splits, int fper,
+                      int frames) {
     lane = threadIdx.x & 31;
     r = threadIdx.x >> 5;
-    g = blockIdx.x % groups;
-    const int rest = blockIdx.x / groups;
+    const int split = blockIdx.x % splits;
+    const int tile = blockIdx.x / splits;
+    g = tile % groups;
+    const int rest = tile / groups;
     by = rest % hb;
     cg = rest / hb;
     bxl = lane / kC;
@@ -144,6 +295,8 @@ struct TailLane {
     active = bxl < kG && bx < wb;
     n = by * wb + bx;
     c = cg * kC + ci;
+    fbeg = split * fper;
+    fend = min(frames, fbeg + fper);
   }
 };
 
@@ -163,193 +316,320 @@ __device__ __forceinline__ void load_basis(const float* __restrict__ eb,
   }
 }
 
+// A block's row of estimates (the k estimates and the flag) as float4.
+template <int K>
+struct EstRow {
+  static constexpr int kVec = est_row(K) / 4;
+  float v[4 * kVec];
+
+  // from a chunk stage: piece q of this lane's row at p[q * 32]
+  __device__ __forceinline__ void load(const float4* p) {
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) {
+      const float4 a = p[q * 32];
+      v[4 * q] = a.x; v[4 * q + 1] = a.y; v[4 * q + 2] = a.z;
+      v[4 * q + 3] = a.w;
+    }
+  }
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// The estimates of a CTA's 32 lane rows for kTailChunk frames, two chunks
+// in flight: float4 piece q of lane l's row of frame fi of buffer b at
+// [((b * kTailChunk + fi) * kVec + q) * 32 + l] (a warp's reads of one
+// piece are 512 contiguous bytes).
+template <int K>
+__host__ __device__ constexpr int stage_pieces() {
+  return 2 * kTailChunk * EstRow<K>::kVec * 32;
+}
+
+template <int K>
+__device__ __forceinline__ const float4* staged(const float4* xs, int b,
+                                                int fi, int lane) {
+  return xs + (b * kTailChunk + fi) * EstRow<K>::kVec * 32 + lane;
+}
+
+// Warp w copies its lane's row of frame f + w into buffer b by cp.async
+// (nothing past fend), then every thread commits its group.
+template <int K>
+__device__ __forceinline__ void stage_chunk(float4* xs, int b,
+                                            const float* __restrict__ xr,
+                                            int64_t xstep, int f, int fend,
+                                            int w, int lane, bool active) {
+  const int fr = f + w;
+  if (active && fr < fend) {
+    const float* src = xr + fr * xstep;
+    float4* dst = const_cast<float4*>(staged<K>(xs, b, w, lane));
+#pragma unroll
+    for (int q = 0; q < EstRow<K>::kVec; ++q)
+      cp_async16(dst + q * 32, src + 4 * q);
+  }
+  cp_async_commit();
+}
+
 // The 8 pixels of the row: y = x0 e0, then y + xj ej in order of j.
 template <int K>
-__device__ __forceinline__ void produce(const float* __restrict__ xr,
+__device__ __forceinline__ void produce(const EstRow<K>& x,
                                         const float (&e)[K][kB],
                                         float (&y)[kB]) {
-  float xs[K];
 #pragma unroll
-  for (int j = 0; j < K; ++j) xs[j] = xr[j];
-#pragma unroll
-  for (int i = 0; i < kB; ++i) y[i] = __fmul_rn(xs[0], e[0][i]);
+  for (int i = 0; i < kB; ++i) y[i] = __fmul_rn(x.v[0], e[0][i]);
 #pragma unroll
   for (int j = 1; j < K; ++j)
 #pragma unroll
     for (int i = 0; i < kB; ++i)
-      y[i] = __fadd_rn(y[i], __fmul_rn(xs[j], e[j][i]));
+      y[i] = __fadd_rn(y[i], __fmul_rn(x.v[j], e[j][i]));
 }
 
-__global__ void tail_init_kernel(uint32_t* __restrict__ win, int slots) {
+// The window's slot s of plane p: a cache line of its own, so that the
+// CTAs' atomics on one frame spread over the L2's slices.
+__device__ __forceinline__ uint32_t* win_slot(uint32_t* slots, int64_t p,
+                                              int s) {
+  return slots + (p * 4 + s) * kWinStride;
+}
+
+__global__ void tail_init_kernel(uint32_t* __restrict__ slots, int n) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < slots) win[t] = (t & 1) ? kHiInit : kLoInit;
+  if (t < n) *win_slot(slots, t >> 2, t & 3) = (t & 1) ? kHiInit : kLoInit;
 }
 
-// Pass 1. win[p] = keys of (unflagged lo, unflagged hi, lo, hi) of plane
-// p = f * chans + c, filled with the keys of (+inf, -inf, +inf, -inf)
-// before the launch.
+// Pass 1. Slots 0..3 of plane p = f * chans + c: keys of (unflagged lo,
+// unflagged hi, lo, hi), filled with the keys of (+inf, -inf, +inf, -inf)
+// before the launch. Shared memory: the fold's part, then the stage.
+constexpr int kPartPieces = kTailChunk * kTailWarps * 32;
+
+template <int K>
+__host__ __device__ constexpr int window_smem() {
+  return (kPartPieces + stage_pieces<K>()) * 16;
+}
+
 template <int K, int kC>
-__global__ void __launch_bounds__(kTailThreads)
-    tail_window_kernel(const float* __restrict__ x, int kx,
+__global__ void __launch_bounds__(kTailThreads, 4)
+    tail_window_kernel(const float* __restrict__ x,
                        const float* __restrict__ eb, int64_t bstride,
-                       uint32_t* __restrict__ win, int frames, int chans,
-                       int hb, int wb, int groups, int flagged) {
-  __shared__ uint32_t fold[kTailChunk][kC][4];
-  const TailLane<kC> t(hb, wb, groups);
+                       uint32_t* __restrict__ slots, int frames, int chans,
+                       int hb, int wb, int groups, int splits, int fper,
+                       int flagged) {
+  extern __shared__ float4 tail_smem[];
+  // (lo, hi, unflagged lo, unflagged hi) of each lane, frame of the chunk
+  // and row
+  auto part = reinterpret_cast<float4 (*)[kTailWarps][32]>(tail_smem);
+  float4* xs = tail_smem + kPartPieces;
+  const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const int n_blk = hb * wb;
   float e[K][kB];
   if (t.active)
     load_basis<K>(eb, bstride, static_cast<int64_t>(t.c) * n_blk + t.n, t.r,
                   e);
-  const int64_t xstep = static_cast<int64_t>(chans) * n_blk * kx;
-  const float* xp = x + (static_cast<int64_t>(t.c) * n_blk + t.n) * kx;
+  constexpr int kRow = est_row(K);
+  const int64_t xstep = static_cast<int64_t>(chans) * n_blk * kRow;
+  const float* xr = x + (static_cast<int64_t>(t.c) * n_blk + t.n) * kRow;
   const float inf = __int_as_float(0x7f800000);
-  for (int f0 = 0; f0 < frames; f0 += kTailChunk) {
-    const int nf = min(kTailChunk, frames - f0);
-    for (int i = threadIdx.x; i < kTailChunk * kC * 4; i += kTailThreads)
-      (&fold[0][0][0])[i] = (i & 1) ? kHiInit : kLoInit;
+  stage_chunk<K>(xs, 0, xr, xstep, t.fbeg, t.fend, t.r, t.lane, t.active);
+  for (int f0 = t.fbeg, b = 0; f0 < t.fend; f0 += kTailChunk, b ^= 1) {
+    const int nf = min(kTailChunk, t.fend - f0);
+    stage_chunk<K>(xs, b ^ 1, xr, xstep, f0 + kTailChunk, t.fend, t.r,
+                   t.lane, t.active);
+    cp_async_wait_one();
     __syncthreads();
     for (int fi = 0; fi < nf; ++fi) {
-      float lo = inf, hi = -inf, glo = inf, ghi = -inf;
+      float4 v = make_float4(inf, -inf, inf, -inf);
       if (t.active) {
-        const float* xr = xp + (f0 + fi) * xstep;
+        EstRow<K> xv;
+        xv.load(staged<K>(xs, b, fi, t.lane));
         float y[kB];
-        produce<K>(xr, e, y);
-        lo = y[0];
-        hi = y[0];
+        produce<K>(xv, e, y);
+        float lo = y[0], hi = y[0];
 #pragma unroll
         for (int i = 1; i < kB; ++i) {
           lo = min_nan(lo, y[i]);
           hi = max_nan(hi, y[i]);
         }
-        if (!(flagged && xr[K] > 0.5f)) {
-          glo = lo;
-          ghi = hi;
-        }
+        const bool bad = flagged && xv.v[K] > 0.5f;
+        v = make_float4(lo, hi, bad ? inf : lo, bad ? -inf : hi);
       }
-      lo = warp_fold<kC, false>(lo);
-      hi = warp_fold<kC, true>(hi);
+      part[fi][t.r][t.lane] = v;
+    }
+    __syncthreads();
+    // warp r folds frame f0 + r: over the 8 rows, then over its lanes (the
+    // next chunk's stage and barrier keep part until every warp is done)
+    if (t.r < nf) {
+      float4 v = part[t.r][0][t.lane];
+#pragma unroll
+      for (int q = 1; q < kTailWarps; ++q) {
+        const float4 u = part[t.r][q][t.lane];
+        v.x = min_nan(v.x, u.x);
+        v.y = max_nan(v.y, u.y);
+        v.z = min_nan(v.z, u.z);
+        v.w = max_nan(v.w, u.w);
+      }
+      v.x = warp_fold<kC, false>(v.x);
+      v.y = warp_fold<kC, true>(v.y);
       if (flagged) {
-        glo = warp_fold<kC, false>(glo);
-        ghi = warp_fold<kC, true>(ghi);
+        v.z = warp_fold<kC, false>(v.z);
+        v.w = warp_fold<kC, true>(v.w);
       }
       if (t.lane < kC) {
-        uint32_t* s = fold[fi][t.lane];
+        const int64_t p = static_cast<int64_t>(f0 + t.r) * chans +
+                          t.cg * kC + t.lane;
         if (flagged) {
-          atomicMin(s, key_lo(glo));
-          atomicMax(s + 1, key_hi(ghi));
+          atomicMin(win_slot(slots, p, 0), key_lo(v.z));
+          atomicMax(win_slot(slots, p, 1), key_hi(v.w));
         }
-        atomicMin(s + 2, key_lo(lo));
-        atomicMax(s + 3, key_hi(hi));
+        atomicMin(win_slot(slots, p, 2), key_lo(v.x));
+        atomicMax(win_slot(slots, p, 3), key_hi(v.y));
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nf * kC * 4; i += kTailThreads) {
-      const int s = i & 3, q = i >> 2, fi = q / kC, ci = q - fi * kC;
-      const uint32_t v = fold[fi][ci][s];
-      if (v == ((s & 1) ? kHiInit : kLoInit)) continue;
-      uint32_t* dst = win + (static_cast<int64_t>(f0 + fi) * chans +
-                             t.cg * kC + ci) * 4 + s;
-      if (s & 1)
-        atomicMax(dst, v);
-      else
-        atomicMin(dst, v);
-    }
-    __syncthreads();
   }
 }
 
-__device__ __forceinline__ void store8(uint8_t* p, const uint8_t (&v)[kB]) {
-  uint2 w;
-  w.x = v[0] | (v[1] << 8) | (v[2] << 16) |
-        (static_cast<uint32_t>(v[3]) << 24);
-  w.y = v[4] | (v[5] << 8) | (v[6] << 16) |
-        (static_cast<uint32_t>(v[7]) << 24);
-  *reinterpret_cast<uint2*>(p) = w;
+// Between the passes: each plane's window keys -> prm[p] = (lo, scale,
+// fill, 0).
+__global__ void tail_params_kernel(uint32_t* __restrict__ slots,
+                                   float4* __restrict__ prm, int planes,
+                                   int flagged) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= planes) return;
+  float lo = float_of(*win_slot(slots, p, 2));
+  float hi = float_of(*win_slot(slots, p, 3));
+  if (flagged) {
+    const float glo = float_of(*win_slot(slots, p, 0));
+    const float ghi = float_of(*win_slot(slots, p, 1));
+    if (isfinite(glo) && isfinite(ghi)) {
+      lo = glo;
+      hi = ghi;
+    }
+  }
+  const float scale = __fdiv_rn(255.0f, max_nan(__fsub_rn(hi, lo), 1e-12f));
+  const float fill = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+  prm[p] = make_float4(lo, scale, fill, 0.0f);
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[kB]) {
-  float4* q = reinterpret_cast<float4*>(p);
-  q[0] = make_float4(v[0], v[1], v[2], v[3]);
-  q[1] = make_float4(v[4], v[5], v[6], v[7]);
+// u8: truncate toward zero and saturate to [0, 255], NaN to 0 (the twin's
+// clamp(0, 255) and cast, and store_val's) in one conversion.
+__device__ __forceinline__ uint32_t sat_u8(float v) {
+  uint32_t d;
+  asm("cvt.rzi.sat.u8.f32 %0, %1;" : "=r"(d) : "f"(v));
+  return d;
 }
 
-// Pass 2: normalise (with the window of pass 1), clamp, cast and store.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// Pass 2: (y or fill - lo) * scale with each plane's (lo, scale, fill)
+// (prm; null without normalize: (0, 1, 0)), cast and store.
 template <int K, int kC, typename Out>
 __global__ void __launch_bounds__(kTailThreads)
-    tail_paint_kernel(const float* __restrict__ x, int kx,
+    tail_paint_kernel(const float* __restrict__ x,
                       const float* __restrict__ eb, int64_t bstride,
-                      const uint32_t* __restrict__ win,
-                      Out* __restrict__ out, int frames, int chans, int hb,
-                      int wb, int groups, int flagged, int normalize) {
+                      const float4* __restrict__ prm, Out* __restrict__ out,
+                      int frames, int chans, int hb, int wb, int groups,
+                      int splits, int fper, int flagged) {
   constexpr int kG = TailLane<kC>::kG;
   constexpr int kStage = kC > 1 ? kG * kC * kB : 1;
   __shared__ __align__(16) Out stage[kTailWarps][kStage];
-  const TailLane<kC> t(hb, wb, groups);
+  __shared__ float4 xs[stage_pieces<K>()];
+  const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const int n_blk = hb * wb;
   const int w = wb * kB;
   float e[K][kB];
   if (t.active)
     load_basis<K>(eb, bstride, static_cast<int64_t>(t.c) * n_blk + t.n, t.r,
                   e);
-  const int64_t xstep = static_cast<int64_t>(chans) * n_blk * kx;
-  const float* xp = x + (static_cast<int64_t>(t.c) * n_blk + t.n) * kx;
+  constexpr int kRow = est_row(K);
+  const int64_t xstep = static_cast<int64_t>(chans) * n_blk * kRow;
+  const float* xr = x + (static_cast<int64_t>(t.c) * n_blk + t.n) * kRow;
   const int64_t frame_out = static_cast<int64_t>(n_blk) * kB * kB * chans;
   // this warp's run of pixel row by * 8 + r: cg * H * W + (y * W + the
   // first block's column) * kC, 8 elements a lane
   const int seg = t.cg * (n_blk * kB * kB) +
                   ((t.by * kB + t.r) * w + t.g * kG * kB) * kC + t.lane * kB;
+  Out* o = out + t.fbeg * frame_out + seg;
+  const float4* pp = prm ? prm + static_cast<int64_t>(t.fbeg) * chans + t.c
+                         : nullptr;
   const int live = min(kG, wb - t.g * kG) * kC;   // lanes that store
-  for (int f = 0; f < frames; ++f) {
-    float lo = 0.0f, scale = 1.0f, mid = 0.0f;
-    if (normalize) {
-      const uint32_t* wf = win + (static_cast<int64_t>(f) * chans + t.c) * 4;
-      const float alo = float_of(wf[2]), ahi = float_of(wf[3]);
-      float hi = ahi;
-      lo = alo;
-      if (flagged) {
-        const float glo = float_of(wf[0]), ghi = float_of(wf[1]);
-        if (isfinite(glo) && isfinite(ghi)) {
-          lo = glo;
-          hi = ghi;
-        }
-      }
-      scale = __fdiv_rn(255.0f, max_nan(__fsub_rn(hi, lo), 1e-12f));
-      mid = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-    }
-    Out v[kB];
-    if (t.active) {
-      const float* xr = xp + f * xstep;
-      float y[kB];
-      produce<K>(xr, e, y);
-      const bool bad = flagged && xr[K] > 0.5f;
-#pragma unroll
-      for (int i = 0; i < kB; ++i) {
-        float u = y[i];
-        if (bad) u = normalize ? mid : 0.0f;
-        if (normalize) u = __fmul_rn(__fsub_rn(u, lo), scale);
-        v[i] = store_val<Out>(u);
-      }
-    }
-    Out* o = out + f * frame_out + seg;
-    if constexpr (kC == 1) {
-      if (t.active) store8(o, v);
-    } else {
-      Out* st = stage[t.r];
+  stage_chunk<K>(xs, 0, xr, xstep, t.fbeg, t.fend, t.r, t.lane, t.active);
+  for (int f0 = t.fbeg, b = 0; f0 < t.fend; f0 += kTailChunk, b ^= 1) {
+    const int nf = min(kTailChunk, t.fend - f0);
+    stage_chunk<K>(xs, b ^ 1, xr, xstep, f0 + kTailChunk, t.fend, t.r,
+                   t.lane, t.active);
+    cp_async_wait_one();
+    __syncthreads();
+    for (int fi = 0; fi < nf; ++fi, o += frame_out) {
+      const float4 pr = pp ? *pp : make_float4(0.0f, 1.0f, 0.0f, 0.0f);
+      if (pp) pp += chans;
+      float v[kB];
       if (t.active) {
+        EstRow<K> xv;
+        xv.load(staged<K>(xs, b, fi, t.lane));
+        float y[kB];
+        produce<K>(xv, e, y);
+        const bool bad = flagged && xv.v[K] > 0.5f;
 #pragma unroll
         for (int i = 0; i < kB; ++i)
-          st[t.bxl * kC * kB + i * kC + t.ci] = v[i];
+          v[i] = __fmul_rn(__fsub_rn(bad ? pr.z : y[i], pr.x), pr.y);
       }
-      __syncwarp();
-      if (t.lane < live) {
-        Out u[kB];
+      if constexpr (std::is_same<Out, uint8_t>::value) {
+        if constexpr (kC == 1) {
+          if (t.active) {
+            uint2 wd;
+            wd.x = pack4(sat_u8(v[0]), sat_u8(v[1]), sat_u8(v[2]),
+                         sat_u8(v[3]));
+            wd.y = pack4(sat_u8(v[4]), sat_u8(v[5]), sat_u8(v[6]),
+                         sat_u8(v[7]));
+            __stcs(reinterpret_cast<uint2*>(o), wd);
+          }
+        } else {
+          uint8_t* st = stage[t.r];
+          if (t.active) {
 #pragma unroll
-        for (int i = 0; i < kB; ++i) u[i] = st[t.lane * kB + i];
-        store8(o, u);
+            for (int i = 0; i < kB; ++i)
+              st[t.bxl * kC * kB + i * kC + t.ci] =
+                  static_cast<uint8_t>(sat_u8(v[i]));
+          }
+          __syncwarp();
+          if (t.lane < live)
+            __stcs(reinterpret_cast<uint2*>(o),
+                   *reinterpret_cast<const uint2*>(st + t.lane * kB));
+          __syncwarp();
+        }
+      } else {
+        if constexpr (kC == 1) {
+          if (t.active) {
+            float4* q = reinterpret_cast<float4*>(o);
+            __stcs(q, make_float4(v[0], v[1], v[2], v[3]));
+            __stcs(q + 1, make_float4(v[4], v[5], v[6], v[7]));
+          }
+        } else {
+          float* st = stage[t.r];
+          if (t.active) {
+#pragma unroll
+            for (int i = 0; i < kB; ++i)
+              st[t.bxl * kC * kB + i * kC + t.ci] = v[i];
+          }
+          __syncwarp();
+          if (t.lane < live) {
+            const float4* sp =
+                reinterpret_cast<const float4*>(st + t.lane * kB);
+            float4* q = reinterpret_cast<float4*>(o);
+            __stcs(q, sp[0]);
+            __stcs(q + 1, sp[1]);
+          }
+          __syncwarp();
+        }
       }
-      __syncwarp();
     }
+    __syncthreads();   // buffer b is staged again by the next chunk
   }
 }
 
@@ -371,52 +651,151 @@ bool tail_with_k(int k, F&& f) {
 
 struct TailArgs {
   const float* x;
-  int kx;
   const float* eb;
   int64_t bstride;
   void* out;
   bool out_u8;
   uint32_t* win;
   int frames, chans, hb, wb, groups, flagged, normalize;
-  unsigned grid;
+  unsigned tiles;
   cudaStream_t st;
 };
 
+// CTAs of one kernel an SM holds (queried once an instance).
+template <typename Kern>
+int ctas_per_sm(Kern kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTailThreads,
+                                                    0) != cudaSuccess ||
+      n < 1)
+    n = 1;
+  return n;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n < 1)
+      n = 1;
+  }
+  return n;
+}
+
+// Frames a CTA walks: the fewest that give the grid kWaves waves of `per_sm`
+// CTAs an SM (all of them where the tiles alone fill that many).
+inline int frames_per_cta(const TailArgs& a, int per_sm) {
+  const int64_t want = static_cast<int64_t>(kWaves) * sm_count() * per_sm;
+  int64_t splits = (want + a.tiles - 1) / a.tiles;
+  if (splits > a.frames) splits = a.frames;
+  if (splits < 1) splits = 1;
+  return static_cast<int>((a.frames + splits - 1) / splits);
+}
+
 template <int K, int kC>
 cudaError_t launch_tail(const TailArgs& a) {
+  static const int per_sm = ctas_per_sm(tail_paint_kernel<K, kC, uint8_t>);
+  const int fper = frames_per_cta(a, per_sm);
+  const int splits = (a.frames + fper - 1) / fper;
+  const unsigned grid = a.tiles * static_cast<unsigned>(splits);
+  const float4* prm = nullptr;
   if (a.normalize) {
-    const int slots = a.frames * a.chans * 4;
-    tail_init_kernel<<<(slots + 255) / 256, 256, 0, a.st>>>(a.win, slots);
+    // win: the planes' (lo, scale, fill, 0), then their window slots
+    const int planes = a.frames * a.chans;
+    float4* params = reinterpret_cast<float4*>(a.win);
+    uint32_t* slots = a.win + static_cast<int64_t>(planes) * 4;
+    tail_init_kernel<<<(planes * 4 + 255) / 256, 256, 0, a.st>>>(slots,
+                                                                 planes * 4);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    tail_window_kernel<K, kC><<<a.grid, kTailThreads, 0, a.st>>>(
-        a.x, a.kx, a.eb, a.bstride, a.win, a.frames, a.chans, a.hb, a.wb,
-        a.groups, a.flagged);
+    constexpr int smem = window_smem<K>();
+    err = cudaFuncSetAttribute(tail_window_kernel<K, kC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    tail_window_kernel<K, kC><<<grid, kTailThreads, smem, a.st>>>(
+        a.x, a.eb, a.bstride, slots, a.frames, a.chans, a.hb, a.wb,
+        a.groups, splits, fper, a.flagged);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    tail_params_kernel<<<(planes + 255) / 256, 256, 0, a.st>>>(
+        slots, params, planes, a.flagged);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    prm = params;
   }
   if (a.out_u8)
-    tail_paint_kernel<K, kC, uint8_t><<<a.grid, kTailThreads, 0, a.st>>>(
-        a.x, a.kx, a.eb, a.bstride, a.win, static_cast<uint8_t*>(a.out),
-        a.frames, a.chans, a.hb, a.wb, a.groups, a.flagged, a.normalize);
+    tail_paint_kernel<K, kC, uint8_t><<<grid, kTailThreads, 0, a.st>>>(
+        a.x, a.eb, a.bstride, prm, static_cast<uint8_t*>(a.out), a.frames,
+        a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
   else
-    tail_paint_kernel<K, kC, float><<<a.grid, kTailThreads, 0, a.st>>>(
-        a.x, a.kx, a.eb, a.bstride, a.win, static_cast<float*>(a.out),
-        a.frames, a.chans, a.hb, a.wb, a.groups, a.flagged, a.normalize);
+    tail_paint_kernel<K, kC, float><<<grid, kTailThreads, 0, a.st>>>(
+        a.x, a.eb, a.bstride, prm, static_cast<float*>(a.out), a.frames,
+        a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace dctsvd
 
-// x: f32 [frames, chans, N, kx] contiguous, kx = k (no erasure flags) or
-// k + 1 (the flag in column k); eb: f32 basis rows, block (c, n) at
+// s_cw, sc: f32 [planes, n, 8] contiguous, 16-byte aligned (slot order);
+// inv_blk: int64 [n]; alpha: f32, plane p's at alpha[p * alpha_step]
+// (alpha_step 0 or 1); with shrink: sw f32 [chans, n, 8] (16-byte
+// aligned), scale f32 [chans], engage u8 [planes] (plane p's channel is
+// p % chans); out: f32 [planes, n, round_up(k + 1, 4)], 16-byte aligned.
+// Launches K5f on `stream`; returns its launch error, or
+// cudaErrorInvalidValue, launching nothing, for an input outside these
+// bounds.
+extern "C" int dctsvd_tail_front(const void* s_cw, const void* sc,
+                                 const void* inv_blk, const void* alpha,
+                                 int alpha_step, const void* sw,
+                                 const void* scale, const void* engage,
+                                 void* out, int planes, int chans, int n,
+                                 int k, int shrink, void* stream) {
+  using namespace dctsvd;
+  auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (planes < 0 || n < 0 || chans < 1 || (alpha_step != 0 &&
+                                           alpha_step != 1) ||
+      misaligned(s_cw) || misaligned(sc) || misaligned(out) ||
+      (shrink && (misaligned(sw) || planes % chans != 0)) ||
+      static_cast<int64_t>(n) * kB >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (planes == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((n + kFrontThreads - 1) / kFrontThreads,
+                  planes < kMaxGridY ? planes : kMaxGridY);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  const bool ok = tail_with_k(k, [&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    auto kernel = shrink ? tail_front_kernel<K, true>
+                         : tail_front_kernel<K, false>;
+    kernel<<<grid, kFrontThreads, 0, st>>>(
+        static_cast<const float*>(s_cw), static_cast<const float*>(sc),
+        static_cast<const int64_t*>(inv_blk),
+        static_cast<const float*>(alpha), alpha_step,
+        static_cast<const float*>(sw), static_cast<const float*>(scale),
+        static_cast<const uint8_t*>(engage), static_cast<float*>(out),
+        planes, chans, n);
+    err = cudaGetLastError();
+  });
+  return static_cast<int>(ok ? err : cudaErrorInvalidValue);
+}
+
+// x: f32 [frames, chans, N, round_up(k + 1, 4)] contiguous, 16-byte
+// aligned: the k estimates, and in column k the erasure flag when
+// kx == k + 1 (kx == k: no flags); eb: f32 basis rows, block (c, n) at
 // eb + (c * N + n) * bstride, its k rows of 64 pixels 64 floats apart
 // (16-byte aligned, bstride a multiple of 4); out: u8 or f32, channels-last
 // frames [frames, h, w, chans] (frames_layout, chans 1 or 3) or planes
-// [frames, chans, h, w]; win: u32 [frames * chans, 4] scratch, used only
-// with normalize. Launches the init and window kernels (with normalize)
-// and the paint kernel on `stream`; returns the first launch's error, or
+// [frames, chans, h, w]; win: u32 scratch of frames * chans * (4 + 4 *
+// kWinStride) words, 16-byte aligned, used only with normalize. Launches
+// the init, window and params kernels (with normalize) and the paint
+// kernel on `stream`; returns the first launch's error, or
 // cudaErrorInvalidValue, launching nothing, for an input outside these
 // bounds or a frame of 2^31 elements or more.
 extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
@@ -430,20 +809,23 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
   if (h % kB || w % kB || h <= 0 || w <= 0 || frames < 0 || chans < 1 ||
       (kc != 1 && kc != 3) || (kx != k && kx != k + 1) || bstride % 4 ||
       reinterpret_cast<uintptr_t>(eb) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
       static_cast<int64_t>(h) * w * chans >= (int64_t{1} << 31) ||
-      static_cast<int64_t>(frames) * chans * 4 >= (int64_t{1} << 31))
+      reinterpret_cast<uintptr_t>(win) % 16 ||
+      static_cast<int64_t>(frames) * chans * 4 * kWinStride >=
+          (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hb = h / kB, wb = w / kB;
   const int kg = 32 / kc;
   const int groups = (wb + kg - 1) / kg;
-  const int64_t grid = static_cast<int64_t>(chans / kc) * hb * groups;
-  if (grid >= (int64_t{1} << 31))
+  const int64_t tiles = static_cast<int64_t>(chans / kc) * hb * groups;
+  if (tiles * frames >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0) return static_cast<int>(cudaSuccess);
-  TailArgs a{static_cast<const float*>(x), kx, static_cast<const float*>(eb),
+  TailArgs a{static_cast<const float*>(x), static_cast<const float*>(eb),
              bstride, out, out_is_u8 != 0, static_cast<uint32_t*>(win),
              frames, chans, hb, wb, groups, kx == k + 1, normalize != 0,
-             static_cast<unsigned>(grid), static_cast<cudaStream_t>(stream)};
+             static_cast<unsigned>(tiles), static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaErrorInvalidValue;
   const bool ok = tail_with_k(k, [&](auto kk) {
     constexpr int K = decltype(kk)::value;

@@ -415,6 +415,31 @@ def embed_color(cover_bgr_u8: torch.Tensor, wm_bgr_u8: torch.Tensor,
 # Extraction
 # ---------------------------------------------------------------------------
 
+def _sw_scale(sw: torch.Tensor) -> torch.Tensor:
+    """The shrinkage scale [(C,) 1, 1]: the mean of Sw[..., 0]. From the
+    shared sw, not the estimate's expanded ref: a reduction's order on the
+    card depends on how many outputs it has, so the batch must not be one
+    of them (a frame's extract is the same alone or in any batch)."""
+    return sw[..., 0].mean(dim=-1, keepdim=True)[..., None] + 1e-6
+
+
+def _engaged(raw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """The presence decision [...] of each plane of the raw estimate
+    [..., N, 8] (column 0 is all it reads): the ⌈ng/4⌉-th largest Pearson
+    over 16 contiguous block groups of (Sw[:, 0], raw[:, 0]), engaged above
+    0.20 + 1.8/√gsz."""
+    ref = sw.expand(raw.shape)
+    n = raw.shape[-2]
+    gsz = max(1, n // 16)
+    ng = n // gsz
+    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
+    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
+    m = -(-ng // 4)                   # quarter of the groups, >= 1
+    rho0 = torch.sort(metrics.nc(a0, b0), dim=-1).values[..., ng - m]
+    knee = 0.20 + 1.8 / torch.sqrt(_scalar(gsz, raw.device))
+    return rho0 >= knee
+
+
 def _shrink_sw_hat(raw: torch.Tensor, sw: Optional[torch.Tensor],
                    k: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Per-block shrinkage of the raw recovered estimate toward the stored
@@ -423,39 +448,16 @@ def _shrink_sw_hat(raw: torch.Tensor, sw: Optional[torch.Tensor],
     behind each step). Returns (estimate, erasure flags [..., N] or None).
 
     - per-component Cauchy confidence w = 1/(1 + (dev/scale)²), scale the
-      global mean of Sw[:, 0]; negative measurements go fully to the prior;
-    - presence = the ⌈ng/4⌉-th largest Pearson over 16 contiguous block
-      groups of (Sw[:, 0], raw[:, 0]), engaged above 0.20 + 1.8/√gsz;
+      global mean of Sw[:, 0] (:func:`_sw_scale`); negative measurements
+      go fully to the prior;
+    - presence (:func:`_engaged`) from column 0 of the estimate;
     - present: ref + w·(raw − ref), floored at 0; absent: raw clamped to
-      [−0.5·ref, 1.5·ref] with blocks deviating > 2·scale flagged."""
+      [−0.5·ref, 1.5·ref] with blocks deviating > 2·scale flagged
+      (ops/tail_cuda.py::shrink_estimate, K5f's arithmetic)."""
     if sw is None:
         return raw, None
-    ref = sw.expand(raw.shape)
-    # from the shared sw, not the expanded ref: a reduction's order on the
-    # card depends on how many outputs it has, so the batch must not be
-    # one of them (a frame's extract is the same alone or in any batch)
-    scale = sw[..., 0].mean(dim=-1, keepdim=True)[..., None] + 1e-6
-    comp = torch.arange(BLOCK, device=raw.device) < k
-    zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
-    devk = torch.where(comp, torch.abs(raw - ref), zero)
-    dev = devk.amax(dim=-1, keepdim=True)
-    wgt = torch.where(comp, 1.0 / (1.0 + (devk / scale) ** 2), zero)
-    wgt = torch.where(raw < 0.0, zero, wgt)
-    n = raw.shape[-2]
-    gsz = max(1, n // 16)
-    ng = n // gsz
-    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
-    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
-    m = -(-ng // 4)                   # quarter of the groups, >= 1
-    rho0 = torch.sort(metrics.nc(a0, b0), dim=-1).values[..., ng - m]
-    knee = 0.20 + 1.8 / torch.sqrt(
-        _scalar(gsz, raw.device))
-    engage = rho0 >= knee
-    shrunk = torch.clamp(ref + wgt * (raw - ref), min=0.0)
-    clamped = torch.minimum(torch.maximum(raw, -0.5 * ref), 1.5 * ref)
-    est = torch.where(engage[..., None, None], shrunk, clamped)
-    bad = (dev[..., 0] > 2.0 * scale[..., 0]) & ~engage[..., None]
-    return est, bad
+    return tail_cuda.shrink_estimate(raw, sw, _sw_scale(sw),
+                                     _engaged(raw, sw), k)
 
 
 def _masked_normalize(wy: torch.Tensor, bad_nat: Optional[torch.Tensor],
@@ -582,14 +584,22 @@ def _tail_front(s_cw: torch.Tensor, sc: torch.Tensor, inv_blk: torch.Tensor,
                 sw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The extract tail's estimator and slot gather: the natural-order
     estimates [..., N, k], or [..., N, k + 1] with the erasure flag (1.0)
-    as column k when ``sw`` is given (one gather for both)."""
-    raw = _raw_estimate(s_cw, sc, alpha)
-    est, bad = _shrink_sw_hat(raw, sw, k)
-    sw_hat = est[..., :k]
-    if bad is None:
-        return _permute_slots(sw_hat, inv_blk)
-    combo = torch.cat([sw_hat, bad.to(torch.float32)[..., None]], dim=-1)
-    return _permute_slots(combo, inv_blk)
+    as column k when ``sw`` is given (one gather for both). The presence
+    decision reduces here; the rest is K5f (ops/tail_cuda.py::tail_front)
+    on the card, its twin on the CPU."""
+    alpha = _alpha(alpha, s_cw.device)
+    s_cw, sc = (t.contiguous() for t in torch.broadcast_tensors(s_cw, sc))
+    if sw is None:
+        return tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, k)
+    # column 0 of the raw estimate, written into a tensor shaped as the
+    # whole estimate: the group Pearsons then reduce a view with the
+    # strides the eager estimator gives them (a reduction's order on the
+    # card depends on its input's strides)
+    raw = torch.empty_like(s_cw)
+    torch.div(s_cw[..., :1] - sc[..., :1], torch.clamp(alpha, min=1e-8),
+              out=raw[..., :1])
+    return tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, k, sw,
+                                _sw_scale(sw), _engaged(raw, sw))
 
 
 def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,

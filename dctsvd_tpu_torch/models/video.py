@@ -137,18 +137,19 @@ def _recover_wm_blocked(planes: torch.Tensor, s_orig: torch.Tensor,
                         sweeps=None, channels_last: bool = False):
     """Blocked analog of _recover_wm: per-block ŝw = (S − S_orig)/α (S from
     K1 at the replayed schedule ``sweeps``), shrunk toward the stored Sw
-    (m_blocked._shrink_sw_hat), masked to the k embedded components,
-    rank-restored through the watermark's block bases and inverse
-    block-DCT'd. ``channels_last``: planes is [..., H, W, C] decode layout;
-    the estimate still lands channel-first [..., C, H, W]."""
+    (the extract tail's front, m_blocked._tail_front: K5f on the card),
+    the k embedded components zero-padded to 8, rank-restored through the
+    watermark's block bases and inverse block-DCT'd. ``channels_last``:
+    planes is [..., H, W, C] decode layout; the estimate still lands
+    channel-first [..., C, H, W]."""
     s_now = (m_blocked._frames_spectrum(planes, sweeps) if channels_last
              else m_blocked._plane_spectrum(planes, sweeps))
     k = m_blocked.k_of_block(kfrac)
-    mask = torch.arange(s_now.shape[-1], device=s_now.device) < k
-    # the erasure flags are unused: video consumes the raw estimate
-    sw_hat, _ = m_blocked._shrink_sw_hat(
-        (s_now - s_orig) / _alpha(alpha, s_now.device), sw, k)
-    sw_hat = torch.where(mask, sw_hat, 0.0)
+    # natural block order (no permutation in the video path); the erasure
+    # flags are unused: video consumes the estimate
+    ident = torch.arange(s_now.shape[-2], device=s_now.device)
+    x = m_blocked._tail_front(s_now, s_orig, ident, alpha, k, sw)
+    sw_hat = torch.nn.functional.pad(x[..., :k], (0, s_now.shape[-1] - k))
     blocks = _compose(uw, sw_hat, vwt)
     hp, wp = h + (-h) % 8, w + (-w) % 8
     return dct.idct2_blocks_to_plane(blocks, hp, wp)[..., :h, :w]

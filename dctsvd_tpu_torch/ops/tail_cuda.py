@@ -1,6 +1,22 @@
-"""The recompute form of the blocked extract tail and its plain twin: K5
-(``csrc/extract_tail.cu``), reached through ``extract_color_prepared`` and
-``extract_gray_prepared`` with ``recompute=True``.
+"""The blocked extract tail's kernels and their plain twins: K5f, the
+front stage that both tail forms read, and K5, the recompute form's two
+passes (``csrc/extract_tail.cu``).
+
+K5f ``tail_front`` replaces the front of the XLA fusion of
+``dctsvd_tpu/models/blocked.py::_extract_tail_prepared`` (:1003-1016; no
+``pl.pallas_call``): from the stego and cover spectra ``s_cw``, ``sc``
+[..., (C,) N, 8] (slot order) it writes the natural-order estimates
+[..., (C,) N, k], or [..., (C,) N, k + 1] with the erasure flag (1.0 / 0.0)
+in column k when ``sw`` is given:
+
+    raw = (s_cw - sc) / max(α, 1e-8), then _shrink_sw_hat's elementwise
+    step with the caller's ``engage`` [..., (C,)] and ``scale`` [(C,)],
+    then the slot -> natural gather through ``inv_blk``.
+
+The presence statistic and the scale (reductions, whose order on the card
+depends on their shapes) stay in models/blocked.py. On the card the rows
+are round_up(k + 1, 4) floats (the returned tensor is a view of their
+first columns), the layout K5 reads with 16-byte loads.
 
 K5 ``recon_normalize`` replaces the XLA fusion of
 ``dctsvd_tpu/models/blocked.py::_normalize_blocks_recompute`` (reached
@@ -23,8 +39,8 @@ which rounds twice, so the twin writes ``torch.div`` and the kernel
 ``__fdiv_rn``. H and W are multiples of 8; an unaligned frame keeps the
 materialising tail (models/blocked.py).
 
-The wrapper runs the twin only for CPU tensors; for CUDA tensors it launches
-K5 or raises. It counts its launches in ``.launches``.
+Each wrapper runs its twin only for CPU tensors; for CUDA tensors it
+launches its kernel or raises. Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -37,12 +53,151 @@ from dctsvd_tpu_torch.ops import dct, wm_cuda
 from dctsvd_tpu_torch.utils import kernels
 from dctsvd_tpu_torch.utils.config import BLOCK
 
-__all__ = ["recon_normalize", "recon_normalize_plain", "block_window",
+__all__ = ["tail_front", "tail_front_plain", "shrink_estimate",
+           "recon_normalize", "recon_normalize_plain", "block_window",
            "normalize_blocks_recompute"]
 
-K_MAX = BLOCK            # K5 is compiled for k = 1..8
+K_MAX = BLOCK            # K5f and K5 are compiled for k = 1..8
 FRAME_CHANNELS = (1, 3)  # channels of a channels-last frame on the card
+WIN_STRIDE = 32          # u32 between K5's window slots (kWinStride)
 _PIXELS = BLOCK * BLOCK
+
+
+def est_row(k: int) -> int:
+    """Floats a row of estimates on the card: the k estimates, the flag,
+    zero padding to 16 bytes (csrc/extract_tail.cu::est_row)."""
+    return (k + 4) // 4 * 4
+
+
+# ---------------------------------------------------------------------------
+# K5f: the estimator and the slot gather
+# ---------------------------------------------------------------------------
+
+def shrink_estimate(raw: torch.Tensor, sw: torch.Tensor, scale: torch.Tensor,
+                    engage: torch.Tensor, k: int):
+    """The elementwise part of models/blocked.py::_shrink_sw_hat, given the
+    presence decision ``engage`` [..., (C,)] and the scale [(C,) 1, 1]:
+    per-component Cauchy confidence w = 1/(1 + (dev/scale)²) (0 for a
+    negative measurement); present: ref + w·(raw − ref), floored at 0;
+    absent: raw clamped to [−0.5·ref, 1.5·ref], blocks deviating more
+    than 2·scale flagged. Returns (estimate [..., N, 8], flags [..., N])."""
+    ref = sw.expand(raw.shape)
+    comp = torch.arange(BLOCK, device=raw.device) < k
+    zero = torch.zeros((), dtype=raw.dtype, device=raw.device)
+    devk = torch.where(comp, torch.abs(raw - ref), zero)
+    dev = devk.amax(dim=-1, keepdim=True)
+    wgt = torch.where(comp, 1.0 / (1.0 + (devk / scale) ** 2), zero)
+    wgt = torch.where(raw < 0.0, zero, wgt)
+    shrunk = torch.clamp(ref + wgt * (raw - ref), min=0.0)
+    clamped = torch.minimum(torch.maximum(raw, -0.5 * ref), 1.5 * ref)
+    est = torch.where(engage[..., None, None], shrunk, clamped)
+    bad = (dev[..., 0] > 2.0 * scale[..., 0]) & ~engage[..., None]
+    return est, bad
+
+
+def tail_front_plain(s_cw: torch.Tensor, sc: torch.Tensor,
+                     inv_blk: torch.Tensor, alpha: torch.Tensor, k: int,
+                     sw: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None,
+                     engage: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of K5f, one PyTorch op a step: the raw estimate, the
+    shrinkage (with ``sw``), the flag column and one gather for both."""
+    raw = (s_cw - sc) / torch.clamp(alpha, min=1e-8)
+    if sw is None:
+        return raw[..., :k].index_select(-2, inv_blk)
+    est, bad = shrink_estimate(raw, sw, scale, engage, k)
+    combo = torch.cat([est[..., :k], bad.to(torch.float32)[..., None]],
+                      dim=-1)
+    return combo.index_select(-2, inv_blk)
+
+
+def _front_check(s_cw, sc, inv_blk, alpha, k, sw, scale, engage):
+    """Check K5f's inputs (dtypes, shapes, contiguity); the channels of sw
+    (1 for a shared [N, 8]) and the tensors besides the spectra."""
+    for name, t in (("s_cw", s_cw), ("sc", sc), ("alpha", alpha),
+                    ("sw", sw), ("scale", scale)):
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"tail_front takes float32 {name}, got "
+                             f"{t.dtype}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k must be in 1..{K_MAX}, got {k}")
+    if s_cw.shape != sc.shape or s_cw.ndim < 2 or s_cw.shape[-1] != BLOCK:
+        raise ValueError(f"s_cw and sc must be one shape [..., N, {BLOCK}], "
+                         f"got {tuple(s_cw.shape)} and {tuple(sc.shape)}")
+    n = s_cw.shape[-2]
+    if (inv_blk.ndim != 1 or inv_blk.shape[0] != n
+            or inv_blk.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"inv_blk must be an integer [{n}], got "
+                         f"{inv_blk.dtype} {tuple(inv_blk.shape)}")
+    if not (s_cw.is_contiguous() and sc.is_contiguous()):
+        raise ValueError("tail_front needs contiguous spectra")
+    if sw is None:
+        return 1, []
+    if scale is None or engage is None:
+        raise ValueError("tail_front with sw needs scale and engage")
+    chans = sw.shape[0] if sw.ndim == 3 else 1
+    if (sw.ndim not in (2, 3) or tuple(sw.shape[-2:]) != (n, BLOCK)
+            or (chans > 1 and (s_cw.ndim < 3 or s_cw.shape[-3] != chans))):
+        raise ValueError(f"sw must be [(C,) {n}, {BLOCK}] with the channels "
+                         f"of s_cw, got {tuple(sw.shape)}")
+    if scale.numel() != chans:
+        raise ValueError(f"scale must hold {chans} values, got "
+                         f"{tuple(scale.shape)}")
+    if engage.dtype != torch.bool or engage.shape != s_cw.shape[:-2]:
+        raise ValueError(f"engage must be bool {tuple(s_cw.shape[:-2])}, "
+                         f"got {engage.dtype} {tuple(engage.shape)}")
+    if not all(t.is_contiguous() for t in (sw, scale, engage)):
+        raise ValueError("tail_front needs contiguous sw, scale and engage")
+    return chans, [sw, scale, engage]
+
+
+def tail_front(s_cw: torch.Tensor, sc: torch.Tensor, inv_blk: torch.Tensor,
+               alpha: torch.Tensor, k: int,
+               sw: Optional[torch.Tensor] = None,
+               scale: Optional[torch.Tensor] = None,
+               engage: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The extract tail's estimator and slot gather (see the module
+    docstring): K5f on CUDA tensors, its plain twin on CPU tensors.
+    ``s_cw``, ``sc`` f32 [..., (C,) N, 8] (slot order), ``inv_blk`` [N],
+    ``alpha`` f32 (one value, or one a plane), with ``sw`` [(C,) N, 8] also
+    ``scale`` [(C,) 1, 1] and ``engage`` bool [..., (C,)]; returns f32
+    [..., (C,) N, k (+ 1)]."""
+    chans, extra = _front_check(s_cw, sc, inv_blk, alpha, k, sw, scale,
+                                engage)
+    if wm_cuda._device_ok("tail_front", s_cw, sc, inv_blk, alpha, *extra):
+        return tail_front_plain(s_cw, sc, inv_blk, alpha, k, sw, scale,
+                                engage)
+    if any(t.data_ptr() % 16 for t in (s_cw, sc, *extra[:1])):
+        raise ValueError("tail_front needs 16-byte aligned spectra and sw "
+                         "on the GPU")
+    planes = s_cw[..., 0, 0].numel()
+    if alpha.numel() == 1:
+        a, step = alpha.reshape(1), 0
+    else:
+        try:
+            a = torch.broadcast_to(alpha, (*s_cw.shape[:-2], 1, 1))
+        except RuntimeError as err:
+            raise ValueError(f"tail_front takes one alpha or one a plane, "
+                             f"got {tuple(alpha.shape)}") from err
+        a, step = a.reshape(-1).contiguous(), 1
+    kx = k + (sw is not None)
+    out = torch.empty((*s_cw.shape[:-1], est_row(k)), dtype=torch.float32,
+                      device=s_cw.device)
+    if out.numel():
+        kernels.launch("dctsvd_tail_front", s_cw.device, s_cw, sc,
+                       inv_blk.to(torch.int64).contiguous(), a, step, sw,
+                       scale, engage, out, planes, chans, s_cw.shape[-2], k,
+                       int(sw is not None))
+        tail_front.launches += 1
+    return out[..., :kx]
+
+
+tail_front.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the recompute form's two passes
+# ---------------------------------------------------------------------------
 
 
 def _layout(x: torch.Tensor, eb64: torch.Tensor, h: int, w: int,
@@ -148,6 +303,20 @@ def recon_normalize_plain(x: torch.Tensor, eb64: torch.Tensor, h: int,
     return dct.unblockify(blocks, h, w)
 
 
+def _row_stride(x: torch.Tensor) -> Optional[int]:
+    """Floats between consecutive rows of estimates when ``x`` is the
+    leading columns of a contiguous [..., N, r] tensor (r), else None."""
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        return None
+    rows = x.stride(-2)
+    step = rows
+    for d in range(x.ndim - 2, -1, -1):
+        if x.shape[d] > 1 and x.stride(d) != step:
+            return None
+        step *= x.shape[d]
+    return rows if rows >= x.shape[-1] else None
+
+
 def _basis_stride(eb64: torch.Tensor) -> int:
     """Floats between consecutive blocks of ``eb64``, whose rows of 64
     pixels are contiguous and 64 floats apart (a slice of the prepared
@@ -177,9 +346,15 @@ def recon_normalize(x: torch.Tensor, eb64: torch.Tensor, h: int, w: int,
     if wm_cuda._device_ok("recon_normalize", x, eb64):
         return recon_normalize_plain(x, eb64, h, w, normalize, out_u8,
                                      to_frames)
-    if not x.is_contiguous():
+    rows = _row_stride(x)
+    if rows is None:
         raise ValueError("recon_normalize needs contiguous estimates on "
                          "the GPU")
+    if rows != est_row(k) or x.data_ptr() % 16:
+        # K5 reads rows of est_row(k) floats (K5f's layout): pad a copy
+        padded = x.new_zeros((*x.shape[:-1], est_row(k)))
+        padded[..., :x.shape[-1]] = x
+        x = padded[..., :x.shape[-1]]
     bstride = _basis_stride(eb64)
     c = cdims[0] if cdims else 1
     if to_frames and c not in FRAME_CHANNELS:
@@ -191,10 +366,11 @@ def recon_normalize(x: torch.Tensor, eb64: torch.Tensor, h: int, w: int,
     shape = (*lead, h, w, c) if to_frames else (*lead, *cdims, h, w)
     out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
-    # the plane window of pass 1 as order-preserving u32 keys, set to the
-    # keys of (+inf, -inf) by the C entry point before pass 1
-    win = torch.empty((frames * c if normalize else 0, 4), dtype=torch.int32,
-                      device=x.device)
+    # each plane's (lo, scale, fill, 0), then its window of pass 1 as
+    # order-preserving u32 keys, a slot a cache line (the C entry point
+    # sets them to the keys of (+inf, -inf) before pass 1)
+    win = torch.empty((frames * c if normalize else 0, 4 + 4 * WIN_STRIDE),
+                      dtype=torch.int32, device=x.device)
     if frames:
         kernels.launch("dctsvd_extract_tail", x.device, x, x.shape[-1], eb64,
                        bstride, out, int(out_u8), win, frames, c,

@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels: K1 and the C entry points
 of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 (``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
-K1g (``wm_variants.cu``), K4 (``svd8.cu``), K5, the recompute extract tail
-(``extract_tail.cu``), and the tools probes copy_f32, cols_view, fma_chain
-and spectrum_probe (``probes.cu``).
+K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
+K5f and its recompute form K5 (``extract_tail.cu``), and the tools probes
+copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
 into one shared library with a plain C interface and loads it with
@@ -71,6 +71,8 @@ _SIGNATURES = {
     "dctsvd_spectrum_probe": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P],
     "dctsvd_extract_tail": [_P, _I, _P, _LL, _P, _I, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P],
+    "dctsvd_tail_front": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 
@@ -129,7 +131,7 @@ _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 
 
 def sass_mix(sass: str, sweeps: float) -> dict:
-    """``{mangled kernel name: {"main", "sweep", "per_lane"}}``: the
+    """``{mangled kernel name: {"main", "sweep", "per_lane", "loops"}}``: the
     instructions of each kernel of ``cuobjdump -sass`` output by class
     (``_SASS_CLASSES``; "other" for the rest, NOPs left out). "main" counts
     the kernel's body once, up to the branch-to-self that ends it (the
@@ -140,7 +142,9 @@ def sass_mix(sass: str, sweeps: float) -> dict:
     a fraction of one), counting the loop body once per sweep, on the
     assumption that the unrolled pair prefix after the loop compiles to
     the same instructions as the loop body and runs the same fraction
-    of them: main + sweep * (sweeps - 2)."""
+    of them: main + sweep * (sweeps - 2). "loops" counts the body of every
+    loop (each backward branch), in the order they end, inner loops
+    before the loops around them."""
     out = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
@@ -155,7 +159,7 @@ def sass_mix(sass: str, sweeps: float) -> dict:
             if m:
                 labels[int(m[1], 16)] = len(insns)
                 insns.append((m[2].split(".")[0], m[3]))
-        end, loop = len(insns), None
+        end, loop, loops = len(insns), None, []
         for i, (op, rest) in enumerate(insns):
             t = re.search(r"\(\s*(\.L_\w+)\s*\)|\b0x([0-9a-f]+)\b", rest)
             target = t and (t[1] or int(t[2], 16))
@@ -164,6 +168,8 @@ def sass_mix(sass: str, sweeps: float) -> dict:
                 if j == i:               # the branch-to-self after EXIT
                     end = i
                     break
+                if j < i:
+                    loops.append((j, i + 1))
                 if j < i and (loop is None or i - j > loop[1] - loop[0]):
                     loop = (j, i + 1)
 
@@ -179,7 +185,8 @@ def sass_mix(sass: str, sweeps: float) -> dict:
         sweep = count(*loop) if loop else {}
         per_lane = {k: main.get(k, 0) + sweep.get(k, 0) * (sweeps - 2)
                     for k in main}
-        out[name] = dict(main=main, sweep=sweep, per_lane=per_lane)
+        out[name] = dict(main=main, sweep=sweep, per_lane=per_lane,
+                         loops=[count(*lp) for lp in loops])
     return out
 
 

@@ -5,8 +5,11 @@ counters, the slice on the card against the slice on the CPU, the
 serve steps on the card against the split calls, the probe kernels
 (copy_f32, cols_view, fma_chain, spectrum_probe) against their twins and
 against K1, K5 (the recompute extract tail) against its twin run on the
-card in every layout and at k = 1, 4, 8, and the parity path, the
-enhancement stages and detect resync on the card against the CPU.
+card in every layout and at k = 1, 4, 8, K5f (the extract tail's front
+stage) against its twin run on the card at 1080p on 1 to 128 frames and
+at every k, the default tail's bytes with either front, and the parity
+path, the enhancement stages and detect resync on the card against the
+CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -21,8 +24,8 @@ import torch
 from dctsvd_tpu_torch.models import blocked as tb
 from dctsvd_tpu_torch.models import enhance as tenh
 from dctsvd_tpu_torch.models import image as timg
-from dctsvd_tpu_torch.ops import (dct, probe_cuda, svd, svd_cuda, tail_cuda,
-                                  wm_cuda)
+from dctsvd_tpu_torch.ops import (color, dct, probe_cuda, svd, svd_cuda,
+                                  tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.utils import crypto
 
@@ -1052,9 +1055,10 @@ def test_tail_kernel_matches_twin(dev, layout, flags, normalize, out_u8, k):
 @pytest.mark.parametrize("layout", ["frames", "planes"])
 def test_tail_kernel_is_batch_invariant(dev, layout, frames):
     """A frame's bytes are the same alone, in a shard of 4 and in the
-    batch. K5's window pass folds 32 frames at a time, so the batch of 70
-    runs three chunks (the last a partial one): there the whole batch is
-    also held to the twin, and the shards cross the chunk boundaries."""
+    batch. K5's window pass folds 8 frames at a time and a CTA walks a
+    share of the frames, so the batch of 70 runs partial chunks and frame
+    splits: there the whole batch is also held to the twin, and the
+    shards cross the chunk boundaries."""
     x, eb64, h, w = _tail_inputs(layout, 4, True, frames=frames)
     x, eb64 = x.to(dev), eb64.to(dev)
     cl = layout == "frames"
@@ -1153,3 +1157,204 @@ def test_recompute_entry_points_on_the_card(dev, path):
         out[str(d)] = rec.cpu()
     assert int((out["cpu"].to(torch.int16)
                 - out[str(dev)].to(torch.int16)).abs().max()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# K5f, the extract tail's front stage (the estimator and the slot gather)
+# ---------------------------------------------------------------------------
+
+def _equal_nan(a, b):
+    """torch.equal with NaN equal to NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0)))
+
+
+@pytest.mark.parametrize("k", list(range(1, 9)))
+@pytest.mark.parametrize("layout", ["color", "gray", "shared_sw",
+                                    "alpha_per_frame"])
+def test_tail_front_kernel_matches_twin(dev, layout, k):
+    """K5f equals its twin run on the card (NaN equal to NaN) at every k,
+    with and without sw, on seeded spectra with exact ties (raw 0), zero
+    and negative estimates, zero sw entries, a NaN, and both presence
+    decisions; sw shared by the channels and one alpha a frame too."""
+    rng = np.random.default_rng(SEED + 41 + k)
+    f, n = 3, 300
+    cd = (3,) if layout != "gray" else ()
+    sc = rng.uniform(0, 50, (f, *cd, n, 8)).astype(np.float32)
+    s_cw = sc + rng.normal(0, 2, sc.shape).astype(np.float32)
+    s_cw[..., ::7, :] = sc[..., ::7, :]               # raw exactly 0
+    s_cw[0, ..., 5, 1] = np.nan
+    sw = rng.uniform(0, 30, ((3,) if layout in ("color", "alpha_per_frame")
+                             else ()) + (n, 8)).astype(np.float32)
+    sw[..., ::11, :] = 0.0
+    sw[..., ::13, 2:] = 0.0
+    t = {name: torch.from_numpy(a).to(dev)
+         for name, a in (("s_cw", s_cw), ("sc", sc), ("sw", sw))}
+    inv_blk = torch.from_numpy(rng.permutation(n)).to(dev)
+    alpha = (torch.tensor([0.1, 0.15, 0.05], device=dev).reshape(3, 1, 1, 1)
+             if layout == "alpha_per_frame" else
+             torch.tensor(0.12, device=dev))
+    engage = torch.from_numpy(rng.random((f, *cd)) < 0.5).to(dev)
+    scale = tb._sw_scale(t["sw"])
+    for with_sw in (True, False):
+        args = ((t["sw"], scale, engage) if with_sw else ())
+        n0 = tail_cuda.tail_front.launches
+        got = tail_cuda.tail_front(t["s_cw"], t["sc"], inv_blk, alpha, k,
+                                   *args)
+        torch.cuda.synchronize()
+        assert tail_cuda.tail_front.launches == n0 + 1
+        ref = tail_cuda.tail_front_plain(t["s_cw"], t["sc"], inv_blk, alpha,
+                                         k, *args)
+        assert _equal_nan(got, ref), float(
+            (got - ref).abs().nan_to_num(0).max())
+        if with_sw:
+            flags = got[..., k]
+            assert bool(((flags == 0) | (flags == 1)).all())
+
+
+FRONT_FRAMES = (1, 4, 32, 70, 128)
+FRONT_SHAPES = {"color": (1080, 1920), "gray": (1080, 1920),
+                "unaligned": (1083, 1917)}
+_FRONT_STATES = {}
+
+
+def _front_state(dev, name):
+    """The 1080p inputs of K5f for one path: a prepared watermark, 128
+    stego frames (8 seeded noise covers, 16 times) with their sc, and the
+    stego spectrum of each case: the stego, the stego with all but its
+    top-left quadrant zeroed (absent, three blocks in four flagged), an
+    all-zero mark-free frame (every block flagged), and the stego with
+    one NaN."""
+    if name in _FRONT_STATES:
+        return _FRONT_STATES[name]
+    h, w = FRONT_SHAPES[name]
+    rng = np.random.default_rng(SEED + 40)
+    covers = torch.from_numpy(rng.integers(0, 256, (8, h, w, 3), np.uint8))
+    covers = covers.to(dev).repeat(16, 1, 1, 1)
+    wm = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(dev)
+    key = crypto.derive_key("gpu-front", bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(key,
+                                                   tb.n_blocks_of(h, w)))
+    if name == "gray":
+        pw = tb.prepare_wm_gray(wm[..., 0], blk, intra)
+        st, sc = tb.embed_gray_prepared(covers, pw.sw, ALPHA,
+                                        with_metrics=False)[:2]
+
+        def spectrum(x):
+            return tb._plane_spectrum(color.luma_f32(x))
+    else:
+        pw = tb.prepare_wm_color(wm, blk, intra)
+        st, sc = tb.embed_color_prepared(covers, pw.sw, ALPHA,
+                                         with_metrics=False)[:2]
+        spectrum = tb._frames_spectrum
+    zeroed = st.clone()
+    zeroed[:, h // 2:] = 0
+    zeroed[:, :, w // 2:] = 0
+    s_cw = {"stego": spectrum(st), "zeroed": spectrum(zeroed),
+            "black": spectrum(torch.zeros_like(st))}
+    s_cw["no_sw"] = s_cw["stego"]
+    s_cw["nan"] = s_cw["stego"].clone()
+    s_cw["nan"][1, ..., 3, 2] = float("nan")
+    _FRONT_STATES[name] = out = dict(pw=pw, st=st, sc=sc, s_cw=s_cw)
+    return out
+
+
+@pytest.mark.parametrize("case", ["stego", "zeroed", "black", "no_sw", "nan"])
+@pytest.mark.parametrize("path", list(FRONT_SHAPES))
+def test_tail_front_at_1080p_matches_twin(dev, path, case):
+    """models/blocked._tail_front (K5f after the presence statistic) equals
+    the twin run on the card with the eager presence decision on 1, 4, 32,
+    70 and 128 frames (NaN equal to NaN), and a frame's rows are the same
+    alone, in a shard of 4 and in the batch of 128."""
+    st = _front_state(dev, path)
+    pw, sc, s_cw = st["pw"], st["sc"], st["s_cw"][case]
+    sw = None if case == "no_sw" else pw.sw
+    alpha = torch.tensor(ALPHA, device=dev)
+    whole = tb._tail_front(s_cw, sc, pw.inv_blk, ALPHA, 4, sw)
+    for n in FRONT_FRAMES:
+        n0 = tail_cuda.tail_front.launches
+        got = tb._tail_front(s_cw[:n], sc[:n], pw.inv_blk, ALPHA, 4, sw)
+        torch.cuda.synchronize()
+        assert tail_cuda.tail_front.launches == n0 + 1
+        extra = ()
+        if sw is not None:
+            raw = tb._raw_estimate(s_cw[:n], sc[:n], ALPHA)
+            extra = (sw, tb._sw_scale(sw), tb._engaged(raw, sw))
+        ref = tail_cuda.tail_front_plain(s_cw[:n], sc[:n], pw.inv_blk,
+                                         alpha, 4, *extra)
+        assert _equal_nan(got, ref), n
+        assert _equal_nan(got, whole[:n]), n
+    for i in (0, 5, 127):
+        assert _equal_nan(tb._tail_front(s_cw[i], sc[i], pw.inv_blk, ALPHA,
+                                         4, sw), whole[i])
+    for a in (4, 62, 122):
+        assert _equal_nan(tb._tail_front(s_cw[a:a + 4], sc[a:a + 4],
+                                         pw.inv_blk, ALPHA, 4, sw),
+                          whole[a:a + 4])
+    if sw is None:
+        return
+    flagged = whole[..., 4] > 0.5
+    if case in ("stego", "nan"):
+        assert not bool(flagged.any())
+    elif case == "zeroed":
+        assert 0 < float(flagged.float().mean()) < 1
+    else:
+        assert bool(flagged.all())
+
+
+@pytest.mark.parametrize("path", ["color", "gray"])
+def test_default_tail_bytes_are_the_same_with_either_front(dev, path,
+                                                           monkeypatch):
+    """The default extract (recompute=False), the recompute extract and,
+    for color, serve_verify_color_prepared give the same bytes with K5f as
+    with its twin run on the card in its place (4 frames at 1080p)."""
+    st = _front_state(dev, path)
+    pw, stego, sc = st["pw"], st["st"][:4], st["sc"][:4]
+    fn = (tb.extract_color_prepared if path == "color"
+          else tb.extract_gray_prepared)
+
+    def outputs():
+        out = [fn(stego, sc, pw.ebasis, pw.inv_blk, ALPHA, sw=pw.sw),
+               fn(stego, sc, pw.ebasis, pw.inv_blk, ALPHA, sw=pw.sw,
+                  recompute=True)]
+        if path == "color":
+            out.append(tb.serve_verify_color_prepared(
+                stego, pw.sw, ALPHA, pw.ebasis, pw.inv_blk)[2])
+        return out
+
+    n0 = tail_cuda.tail_front.launches
+    kernel = outputs()
+    assert tail_cuda.tail_front.launches == n0 + len(kernel)
+    monkeypatch.setattr(tail_cuda, "tail_front", tail_cuda.tail_front_plain)
+    eager = outputs()
+    for a, b in zip(kernel, eager):
+        assert torch.equal(a, b)
+
+
+def test_tail_front_wrapper_never_runs_the_twin_on_the_card(dev,
+                                                            monkeypatch):
+    """A CUDA tensor launches K5f (the twin is not reached), and spectra
+    the kernel cannot read raise instead of falling back."""
+    rng = np.random.default_rng(SEED + 42)
+    sc = torch.from_numpy(rng.uniform(0, 9, (2, 3, 40, 8)).astype(
+        np.float32)).to(dev)
+    s_cw = sc + 0.5
+    inv_blk = torch.arange(40, device=dev).flip(0)
+    alpha = torch.tensor(ALPHA, device=dev)
+    ref = tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, 4)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tail_cuda, "tail_front_plain", refuse)
+    assert torch.equal(tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, 4),
+                       ref)
+    buf = torch.empty(s_cw.numel() + 1, device=dev)
+    off = buf[1:].view(s_cw.shape).copy_(s_cw)        # 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_cuda.tail_front(off, sc, inv_blk, alpha, 4)
+    with pytest.raises(ValueError, match="one alpha or one a plane"):
+        tail_cuda.tail_front(s_cw, sc, inv_blk,
+                             torch.full((8,), ALPHA, device=dev), 4)

@@ -299,3 +299,18 @@ def test_sass_mix_counts_the_sweep_loop(sweeps, sass):
     assert mix["sweep"] == dict(f32=2, mufu=1, integer=1, other=1)
     assert mix["per_lane"]["f32"] == 2 + 2 * (sweeps - 2)
     assert mix["per_lane"]["store"] == 1
+    assert mix["loops"] == [mix["sweep"]]
+
+
+def test_sass_mix_counts_every_loop():
+    """A loop inside another: "sweep" is the outer body, "loops" holds the
+    inner body first, then the outer one."""
+    isetp = "ISETP.NE.AND P0, PT, R6, RZ, PT ;"
+    fadd = "FADD R3, R4, R3 ;"
+    nested = SASS.replace(
+        isetp, isetp + "\n        /*0068*/    @P0 BRA `(.L_x_2) ;").replace(
+        fadd, fadd + "\n.L_x_2:")
+    mix = kernels.sass_mix(nested, 2)["_ZN6dctsvd4kernEv"]
+    assert mix["loops"] == [dict(mufu=1, integer=1, other=1),
+                            dict(f32=2, mufu=1, integer=1, other=2)]
+    assert mix["sweep"] == mix["loops"][1]

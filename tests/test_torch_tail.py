@@ -33,6 +33,7 @@ from dctsvd_tpu.ops import color as jcolor
 from dctsvd_tpu.ops import dct as jdct
 from dctsvd_tpu.utils import crypto as jcrypto
 from dctsvd_tpu_torch.models import blocked as tb
+from dctsvd_tpu_torch.ops import color as tcolor
 from dctsvd_tpu_torch.ops import tail_cuda
 
 torch.set_num_threads(2)
@@ -66,8 +67,12 @@ def _t(a):
 def states():
     """Per (path, shape): the JAX prepared watermark, the port's state
     from it, and the port's stego and sc of 2 noise covers."""
+    return _states(SHAPES)
+
+
+def _states(shapes):
     out = {}
-    for i, (h, w) in enumerate(SHAPES):
+    for i, (h, w) in enumerate(shapes):
         rng = np.random.default_rng(SEED + i)
         covers = rng.integers(0, 256, (2, h, w, 3), np.uint8)
         wm = rng.integers(0, 256, (h, w, 3), np.uint8)
@@ -271,3 +276,159 @@ def test_wrapper_refuses_bad_input(bad):
         match = "unsupported device"
     with pytest.raises(ValueError, match=match):
         tail_cuda.recon_normalize(x, eb64, h, w, to_frames=cl)
+
+
+# ---------------------------------------------------------------------------
+# K5f, the front stage both tail forms read: the estimator and the slot
+# gather (ops/tail_cuda.py::tail_front, through models/blocked._tail_front)
+# against the JAX package's front (dctsvd_tpu/models/blocked.py:1003-1016:
+# the raw estimate, _shrink_sw_hat, the flag column, _permute_slots).
+#
+# Flags and the presence decision must be equal. Estimates agree within
+# FRONT_RTOL of the largest |sw| (NaN where the JAX package has NaN): the
+# shrinkage scale (a mean) and the group Pearsons reduce in another order
+# in XLA than in torch, so w, and the blend through it, may move by a few
+# ulp; everything else is the same elementwise IEEE arithmetic.
+# ---------------------------------------------------------------------------
+
+FRONT_RTOL = 1e-6
+FRONT_CASES = ["stego", "zeroed", "black", "no_sw", "nan"]
+# 480 and 527 blocks: groups of 30 and 32, whose knee (0.53, 0.52) a
+# stego clears (at 64x80, groups of 5, the knee is 1.0: never engaged)
+FRONT_SHAPES = [(128, 240), (129, 243)]
+FRONT_STATES = [("color", FRONT_SHAPES[0]), ("gray", FRONT_SHAPES[0]),
+                ("color", FRONT_SHAPES[1])]
+
+
+@pytest.fixture(scope="module")
+def front_states():
+    return _states(FRONT_SHAPES)
+
+
+def _front_inputs(s, path, case):
+    """(s_cw, sc, inv_blk, sw) numpy arrays of a case: the stego spectrum
+    (K1's twin at s1.25) against the embed's sc. ``zeroed``: all but the
+    top-left quadrant of the stego zeroed (the presence test fails and the
+    zeroed blocks are flagged); ``black``: an all-zero, mark-free frame
+    (every block flagged); ``nan``: one NaN in s_cw."""
+    stego = s["stego"]
+    if case == "zeroed":
+        stego = stego.clone()
+        h, w = stego.shape[1:3]
+        stego[:, h // 2:] = 0
+        stego[:, :, w // 2:] = 0
+    elif case == "black":
+        stego = torch.zeros_like(stego)
+    if path == "color":
+        s_cw = tb._frames_spectrum(stego, SWEEPS)
+    else:
+        s_cw = tb._plane_spectrum(tcolor.luma_f32(stego), SWEEPS)
+    s_cw = s_cw.numpy().copy()
+    if case == "nan":
+        s_cw[1, ..., 3, 2] = np.nan
+    sw = None if case == "no_sw" else s["st"].sw.numpy()
+    return s_cw, s["sc"].numpy(), s["st"].inv_blk.numpy(), sw
+
+
+def _jax_front(s_cw, sc, inv_blk, sw):
+    """The JAX package's front, and its presence decision (the statistic
+    of its _shrink_sw_hat, which does not return it, from its own
+    metrics.nc on the same groups)."""
+    from dctsvd_tpu.ops import metrics as jmetrics
+    raw = (jnp.asarray(s_cw) - jnp.asarray(sc)) / jnp.maximum(
+        jnp.float32(ALPHA), 1e-8)
+    est, bad = jb._shrink_sw_hat(raw, None if sw is None else
+                                 jnp.asarray(sw), K)
+    if bad is None:
+        return np.asarray(jb._permute_slots(est[..., :K],
+                                            jnp.asarray(inv_blk))), None
+    combo = jnp.concatenate([est[..., :K], bad.astype(jnp.float32)[..., None]],
+                            axis=-1)
+    ref = jnp.broadcast_to(jnp.asarray(sw), raw.shape)
+    n = raw.shape[-2]
+    gsz = max(1, n // 16)
+    ng = n // gsz
+    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
+    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
+    rho0 = jnp.sort(jmetrics.nc(a0, b0), axis=-1)[..., ng - -(-ng // 4)]
+    engage = rho0 >= 0.20 + 1.8 / jnp.sqrt(jnp.float32(gsz))
+    return (np.asarray(jb._permute_slots(combo, jnp.asarray(inv_blk))),
+            np.asarray(engage))
+
+
+@pytest.mark.parametrize("case", FRONT_CASES)
+@pytest.mark.parametrize("state", FRONT_STATES,
+                         ids=["color128x240", "gray128x240", "color129x243"])
+def test_front_matches_jax_front(front_states, state, case):
+    s = front_states[state]
+    s_cw, sc, inv_blk, sw = _front_inputs(s, state[0], case)
+    ref, engage_j = _jax_front(s_cw, sc, inv_blk, sw)
+    got = tb._tail_front(_t(s_cw), _t(sc), _t(inv_blk), ALPHA, K,
+                         None if sw is None else _t(sw)).numpy()
+    assert got.shape == ref.shape == (*s_cw.shape[:-1], K + (sw is not None))
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(got), nan)
+    tol = FRONT_RTOL * float(np.abs(sc).max() if sw is None
+                             else np.abs(sw).max())
+    assert np.abs(np.where(nan, 0, got) - np.where(nan, 0, ref)).max() <= tol
+    if sw is None:
+        return
+    assert np.array_equal(got[..., K], ref[..., K])        # the flags
+    raw = (_t(s_cw) - _t(sc)) / ALPHA
+    engage = tb._engaged(raw, _t(sw)).numpy()
+    assert np.array_equal(engage, engage_j)
+    flagged = got[..., K] > 0.5
+    if case in ("stego", "nan"):
+        assert engage.all() and not flagged.any()
+    elif case == "zeroed":
+        assert not engage.all() and 0 < flagged.mean() < 1
+    elif case == "black":
+        assert not engage.any() and flagged.all()
+    if case == "nan":
+        assert np.isnan(got).any()
+
+
+def test_front_wrapper_takes_the_twin_for_cpu_tensors(states):
+    s = states["color", SHAPES[0]]
+    s_cw, sc, inv_blk, sw = (_t(a) for a in
+                             _front_inputs(s, "color", "stego"))
+    a = torch.tensor(ALPHA)
+    scale, engage = tb._sw_scale(sw), tb._engaged((s_cw - sc) / a, sw)
+    before = tail_cuda.tail_front.launches
+    got = tail_cuda.tail_front(s_cw, sc, inv_blk, a, K, sw, scale, engage)
+    assert torch.equal(got, tail_cuda.tail_front_plain(
+        s_cw, sc, inv_blk, a, K, sw, scale, engage))
+    assert torch.equal(got, tb._tail_front(s_cw, sc, inv_blk, ALPHA, K, sw))
+    assert tail_cuda.tail_front.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "non_contiguous", "inv_blk_length",
+                                 "inv_blk_dtype", "k9", "sw_channels",
+                                 "engage_shape", "device"])
+def test_front_wrapper_refuses_bad_input(states, bad):
+    s = states["color", SHAPES[0]]
+    s_cw, sc, inv_blk, sw = (_t(a) for a in
+                             _front_inputs(s, "color", "stego"))
+    a, k = torch.tensor(ALPHA), K
+    scale, engage = tb._sw_scale(sw), tb._engaged((s_cw - sc) / a, sw)
+    match = "float32"
+    if bad == "dtype":
+        s_cw = s_cw.to(torch.float64)
+    elif bad == "non_contiguous":
+        s_cw = s_cw.transpose(0, 1).contiguous().transpose(0, 1)
+        match = "contiguous"
+    elif bad == "inv_blk_length":
+        inv_blk, match = inv_blk[:-1], "inv_blk"
+    elif bad == "inv_blk_dtype":
+        inv_blk, match = inv_blk.to(torch.float32), "inv_blk"
+    elif bad == "k9":
+        k, match = 9, "k must be in 1..8"
+    elif bad == "sw_channels":
+        sw, match = sw[:2].contiguous(), "sw must be"
+    elif bad == "engage_shape":
+        engage, match = engage[0], "engage"
+    else:
+        s_cw, sc = (torch.empty(t.shape, device="meta") for t in (s_cw, sc))
+        match = "unsupported device"
+    with pytest.raises(ValueError, match=match):
+        tail_cuda.tail_front(s_cw, sc, inv_blk, a, k, sw, scale, engage)
