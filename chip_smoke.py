@@ -20,11 +20,15 @@
                                             # 128), in both tail forms
     python3 chip_smoke.py --recon-forms     # only the extract tail's
                                             # k-term product, in each form
+    python3 chip_smoke.py --color-bounds    # only K6's and K7's times
+                                            # beside their issue bound,
+                                            # from the library's SASS
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the eleven hand-written kernels (K1, K2,
-K3, K4, K2r, K1g, K5, and the probes' copy_f32, cols_view, fma_chain and
-spectrum_probe; K2, K3 and K5 in one instance per k) from
+an H100, ``sm_90a``). It builds the fourteen hand-written kernels (K1, K2,
+K3, K4, K2r, K1g, K5f, K5, the gray scheme's color conversions K6 and K7,
+and the probes' copy_f32, cols_view, fma_chain and spectrum_probe; K2, K3
+and K5 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
@@ -37,8 +41,13 @@ and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
 a batch of 32 1080p frames (with the set-up time of prepare and the
 detect rate), the recompute extract tail (color and gray
-``extract_*_prepared(recompute=True)``, K5) on the same batch, and the
-recon-embed and Gram-spectrum entries
+``extract_*_prepared(recompute=True)``, K5) on the same batch; K6
+(``luma_f32``, ``bgr_to_gray``) and K7 (``replace_luma``) bit-equal to
+their twins on every BGR triple, seeded Y' with its edge values, the
+batch of 32 and the scalar path's frames, timed beside their byte and
+issue bounds, and the gray slice (prepare -> embed -> extract -> detect)
+on the batch of 32 through them, byte-equal with their twins in their
+places (``color_1080p``); and the recon-embed and Gram-spectrum entries
 on 8 frames, each with its launch
 counters set to 0 just before and read just after; checks the scores;
 runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
@@ -65,9 +74,10 @@ equal to the whole-frame embed; the GUI's handlers on a 1080p PNG
 (blocked and parity); and the graft entry points (``entry()``,
 ``dryrun_multichip(4)``), and ``dctsvd_tpu_torch/bench.py``'s thirteen
 configs in this process at cut sizes (``BENCH_RUNS``), each giving
-``bench.py``'s JSON line with its keys and finite values, with K1-K4's
-and cols_view's launches, every call of those kernels at each new
-signature made again through the kernel and its twin: bit-equal. Then
+``bench.py``'s JSON line with its keys and finite values, with K1-K4's,
+K5f's, K6's, K7's and cols_view's launches, every call of those kernels
+at each new signature made again through the kernel and its twin:
+bit-equal. Then
 video
 (``models/video``) on a seeded 48-frame 1080p clip: the blocked and the
 full scheme, gray and color, each embed and extract timed with K1's, K2's
@@ -83,7 +93,9 @@ Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
-K2r, K1g and K5 are held to their twins run on the card bit for bit.
+K2r, K1g, K5f, K5, K6 and K7 are held to their twins run on the card
+bit for bit; K6's and K7's launches are counted on the gray slice, the
+resync and parity phases, ``plane_8k`` and the bench.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -1172,6 +1184,239 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     return row["launches"]
 
 
+# ---------------------------------------------------------------------------
+# K6 and K7: the gray scheme's color conversions
+# ---------------------------------------------------------------------------
+
+COLOR_SEED = 20261025
+COLOR_EDGES = (float("nan"), float("inf"), float("-inf"), -0.0, 254.99998,
+               255.99998, 256.0, -1e-30, 1e30)
+# each instance's wrapper name: the mangled-name stem of its vector kernel
+COLOR_KERNELS = {"luma_f32": "luma_kernelIfLb0ELb1E",
+                 "bgr_to_gray": "luma_kernelIhLb1ELb1E",
+                 "replace_luma": "replace_luma_kernelILb1E"}
+
+
+def color_wrappers():
+    from dctsvd_tpu_torch.ops import color_cuda
+    return {name: getattr(color_cuda, name) for name in COLOR_KERNELS}
+
+
+def zero_color_counts() -> None:
+    """K6's and K7's counters set to 0, the card synchronised first."""
+    import torch
+    torch.cuda.synchronize()
+    for w in color_wrappers().values():
+        w.launches = 0
+
+
+def color_counts() -> dict:
+    """K6's and K7's launches since zero_color_counts, the card
+    synchronised first."""
+    import torch
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in color_wrappers().items()}
+
+
+@contextlib.contextmanager
+def color_twins():
+    """The twins of K6 and K7 in the wrappers' places in ops/color_cuda.py,
+    whose names ops/color.py calls."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    saved = color_wrappers()
+    try:
+        for name in saved:
+            setattr(color_cuda, name, getattr(color_cuda, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(color_cuda, name, fn)
+
+
+def color_luma(dev, shape, seed):
+    """Seeded f32 Y' around the u8 range and past both ends, the edge
+    values in the first columns of every 512th row (row 0 among them)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(shape, generator=gen, device=dev) * 90 + 128
+    y[..., ::512, :len(COLOR_EDGES)] = torch.tensor(COLOR_EDGES, device=dev)
+    return y
+
+
+def phase_color(dev, covers, wm_u8, blk, intra):
+    """K6 (luma_f32, bgr_to_gray) and K7 (replace_luma) against their
+    twins run on the card, torch.equal, on (a) a 4096x4096 frame of all
+    2^24 BGR triples, (b) K7 with seeded Y' over it and the edge values
+    (NaN, ±inf, −0.0, the truncation's edges), (c) the 32 1080p covers,
+    (d) a 1079x1917 frame and a view one pixel into a frame (both the
+    scalar path); each instance timed at (c) beside its twin and its
+    bytes bound. Then the gray slice at batch 32 (prepare -> embed with
+    metrics -> extract -> detect), K6's and K7's counters set to 0 just
+    before and read just after, and the same slice with the twins in the
+    kernels' places: every output byte-equal; the gray embed+extract
+    step's frames/s through each. Returns (kernel rows, the slice's
+    launches)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, color_cuda, metrics
+    from dctsvd_tpu_torch.utils import kernels
+
+    t0 = time.perf_counter()
+    v = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+    table = torch.stack([v & 255, (v >> 8) & 255, v >> 16], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+    del v
+    odd = covers[0, :1079, :1917].contiguous()
+    shifted = covers.reshape(-1)[3:3 + H * W * 3].view(H, W, 3)
+    inputs = {"all_triples": table, "frames_1080p": covers,
+              "odd_1079x1917": odd, "pixel_offset": shifted}
+    lumas = {name: color_luma(dev, x.shape[:-1], COLOR_SEED + i)
+             for i, (name, x) in enumerate(inputs.items())}
+    checks = {}
+    for fn in COLOR_KERNELS:
+        wrapper = getattr(color_cuda, fn)
+        twin = getattr(color_cuda, f"{fn}_plain")
+        checks[fn] = {}
+        for name, x in inputs.items():
+            args = (lumas[name], x) if fn == "replace_luma" else (x,)
+            ptrs = [a.data_ptr() for a in args] + [0]
+            vector, _ = color_cuda.color_plan(
+                fn, x.shape[-3] * x.shape[-2], *ptrs)
+            require(vector == (name in ("all_triples", "frames_1080p")),
+                    f"{fn} on {name}: the {'vector' if vector else 'scalar'}"
+                    " path")
+            got, ref = wrapper(*args), twin(*args)
+            err = float((got.to(torch.float32) - ref.to(torch.float32))
+                        .abs().max())
+            require(torch.equal(got, ref), f"{fn} on {name} "
+                    f"{list(x.shape)}: not bit-equal to its twin ({err})")
+            checks[fn][name] = dict(shape=list(x.shape), max_abs_err=err,
+                                    vector=vector, equals_twin=True)
+    del table, lumas, inputs
+
+    # times at the slice's shape beside the bytes bound (the issue bound,
+    # which stays under it, is --color-bounds')
+    seconds = {"checks": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    y32 = color_luma(dev, covers.shape[:-1], COLOR_SEED + 9)
+    ptxas = kernels.ptxas_report(kernels.BUILD_INFO["ptxas"])
+    results = {}
+    for fn, stem in COLOR_KERNELS.items():
+        wrapper = getattr(color_cuda, fn)
+        twin = getattr(color_cuda, f"{fn}_plain")
+        args = (y32, covers) if fn == "replace_luma" else (covers,)
+        out = wrapper(*args)
+        moved = nbytes(*args, out)
+        results[fn] = dict(
+            shape=list(covers.shape), max_abs_err=max(
+                r["max_abs_err"] for r in checks[fn].values()),
+            ms=cuda_time(lambda: wrapper(*args), 20),
+            plain_ms=cuda_time(lambda: twin(*args), 3), library_ms=None,
+            bound_ms=moved / PEAK_BYTES * 1e3, bound_by="bytes",
+            bytes=moved, checks=checks[fn],
+            ptxas={n: v for n, v in ptxas.items() if stem in n})
+        kname = "K7" if fn == "replace_luma" else "K6"
+        emit({"phase": "kernel_vs_plain", "kernel": f"{kname} {fn}",
+              **results[fn]})
+    del y32
+    seconds["times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the gray slice at batch 32 through the kernels, then the twins
+    def gray_slice():
+        pw = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
+        stego, sc, psnr, ssim = blocked.embed_gray_prepared(covers, pw.sw,
+                                                            ALPHA)
+        rec = blocked.extract_gray_prepared(stego, sc, pw.ebasis,
+                                            pw.inv_blk, ALPHA, sw=pw.sw)
+        return dict(stego=stego, sc=sc, psnr=psnr, ssim=ssim, rec=rec,
+                    scores=blocked.detect_gray(stego, sc, pw.sw, ALPHA),
+                    clean=blocked.detect_gray(covers, sc, pw.sw, ALPHA)), pw
+
+    zero_color_counts()
+    out, pw = gray_slice()
+    launches = color_counts()
+    require(all(launches.values()),
+            f"K6 or K7 not launched on the gray slice: {launches}")
+    wm_gray = color.bgr_to_gray(wm_u8)
+    nc = metrics.nc(out["rec"].reshape(BATCH, -1).to(torch.float32),
+                    wm_gray.reshape(-1).to(torch.float32))
+    require(out["stego"].shape == covers.shape
+            and out["rec"].shape == covers.shape[:-1], "gray slice shapes")
+    require(float(out["psnr"].min()) > 20.0, f"gray psnr {out['psnr']}")
+    require(float(out["scores"].min()) >= DETECT_THRESH
+            and float(out["clean"].max()) < DETECT_THRESH,
+            f"gray detect {float(out['scores'].min())}, clean "
+            f"{float(out['clean'].max())}")
+    require(float(nc.min()) > 0.4, f"gray extraction NC {float(nc.min())}")
+
+    def step():
+        st, sc_ = blocked.embed_gray_prepared(covers, pw.sw, ALPHA,
+                                              with_metrics=False)[:2]
+        return blocked.extract_gray_prepared(st, sc_, pw.ebasis, pw.inv_blk,
+                                             ALPHA, sw=pw.sw)
+
+    def fps() -> float:
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        return BATCH * 5 / (time.perf_counter() - t0)
+
+    fps_kernels = fps()
+    with color_twins():
+        twin_out, _ = gray_slice()
+        fps_twins = fps()
+    for name, got in out.items():
+        require(torch.equal(got, twin_out[name]), f"gray slice {name}: "
+                "differs with K6's and K7's twins in their places")
+    seconds["slice"] = time.perf_counter() - t0
+    emit({"phase": "color_1080p", "batch": BATCH, "launches": launches,
+          "seconds": seconds,
+          "gray_slice": dict(psnr_min=float(out["psnr"].min()),
+                             ssim_min=float(out["ssim"].min()),
+                             detect_min=float(out["scores"].min()),
+                             clean_max=float(out["clean"].max()),
+                             extract_nc_min=float(nc.min()),
+                             bytes_equal_with_twins=sorted(out)),
+          "gray_embed_extract_fps": dict(kernels=fps_kernels,
+                                         twins=fps_twins),
+          "card": smi_line()})
+    return results, launches
+
+
+
+def color_bounds(dev, covers) -> dict:
+    """K6's and K7's issue bound at the 32 1080p covers: the SASS
+    instructions of a thread of 4 pixels (the vector instance's body, read
+    from the library that runs) at one a lane a clock, at the SM clock read
+    while K7 runs; beside each instance's ms and bytes bound."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    from dctsvd_tpu_torch.utils import kernels
+
+    sass = kernels.sass_mix(kernels.sass_dump(kernels.BUILD_INFO["path"]), 2)
+    y32 = color_luma(dev, covers.shape[:-1], COLOR_SEED + 9)
+    _, clocks = clocked_ms(lambda: color_cuda.replace_luma(y32, covers),
+                           1500)
+    pix = covers.numel() // 3
+    rows = {}
+    for fn, stem in COLOR_KERNELS.items():
+        wrapper = getattr(color_cuda, fn)
+        args = (y32, covers) if fn == "replace_luma" else (covers,)
+        mangled = [n for n in sass if stem in n]
+        require(len(mangled) == 1, f"{fn}: SASS of {stem} {mangled}")
+        mix = sass[mangled[0]]["main"]
+        rows[fn] = dict(
+            kernel=mangled[0], sass_per_thread=mix,
+            issue_bound_ms=insn_bound_ms(sum(mix.values()) * pix / 4,
+                                         clocks["sm_mhz"]),
+            bytes_ms=nbytes(*args, wrapper(*args)) / PEAK_BYTES * 1e3,
+            ms=cuda_time(lambda: wrapper(*args), 20))
+    return dict(shape=list(covers.shape), clocks=clocks, rows=rows)
+
+
 PROBE_SEED = 20261023
 CHAIN_FUSED_TOL = 1e-6   # fused chain vs its float64 twin, x max |twin|:
                          # the twin rounds twice where the FMA rounds once,
@@ -1998,7 +2243,9 @@ def phase_parity(dev, cover_np, wm_np):
     tests/test_image_roundtrip.py (the clean host being the unmarked
     cover, as there), svd_full's bit stability and the exact cancellation
     of Sc, and CUDA-event times after one untimed embed. Returns the
-    extracted gray and color watermarks (for enhance)."""
+    extracted gray and color watermarks (for enhance) and K6's and K7's
+    launches in the timed embeds, extracts and detects (their counters
+    set to 0 just before each and read just after)."""
     import torch
     from dctsvd_tpu_torch.models import image
     from dctsvd_tpu_torch.ops import color, dct, resize
@@ -2016,13 +2263,17 @@ def phase_parity(dev, cover_np, wm_np):
     wm = resize.resize_area_u8(torch.as_tensor(wm_np, device=dev), H, W)
     wm_gray = color.bgr_to_gray(wm)
     out, extracted = {}, {}
+    n_color = dict.fromkeys(COLOR_KERNELS, 0)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def timed(fn):
+        zero_color_counts()
         start.record()
         res = fn()
         stop.record()
         torch.cuda.synchronize()
+        for name, n in color_counts().items():
+            n_color[name] += n
         return res, start.elapsed_time(stop)
 
     # one untimed embed first: the first cuSOLVER call of the process
@@ -2077,8 +2328,8 @@ def phase_parity(dev, cover_np, wm_np):
                          extract_ms=extract_ms, detect_ms=detect_ms,
                          svd_full_ms=svd_ms, svd_shape=list(c.shape))
     emit({"phase": "parity_1080p", "alpha": ALPHA, **out,
-          "card": smi_line()})
-    return extracted
+          "color_launches": n_color, "card": smi_line()})
+    return extracted, n_color
 
 
 def phase_parity_reference(dev):
@@ -2330,7 +2581,10 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     scans. Before that, K1 is held to its twin, bit for bit, on the first
     chunk of 64 rolls of each search's input, gathered as the search
     gathers it: u8 color frames [64, H, W, 3] and f32 luma planes
-    [64, H, W]. Returns K1's launches on each search."""
+    [64, H, W]. K6's and K7's counters are set to 0 just before the gray
+    search and read just after (it launches luma_f32 once, and no other).
+    Returns (K1's launches on each search, K6's and K7's on the gray
+    search)."""
     import cv2
     import numpy as np
     import torch
@@ -2395,9 +2649,11 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                                      DETECT_THRESH, resync=True, device=dev))
     gplain = float(blocked.detect_gray(grolled, gres.sc, gres.sw, ALPHA,
                                        sweeps=SWEEPS))
+    zero_color_counts()
     (gscore, gshift, _), gray_s, n_gray = counted(
         lambda: blocked.detect_gray_resync(grolled, gres.sc, gres.sw, ALPHA,
                                            sweeps=SWEEPS))
+    n_color = color_counts()
     rot_plain = float(blocked.detect_color(rotated, sc, sw, ALPHA,
                                            sweeps=SWEEPS))
     (rscore, rshift, rangle), rot_s, n_rot = counted(
@@ -2423,6 +2679,7 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
             f"K1 launches on the resync searches {launches}, expected "
             f"{n_chunks} a scan of {len(shifts)} shifts")
     emit({"phase": "resync_1080p", "spectrum_blocks_launches": launches,
+          "color_launches": n_color,
           "k1_chunk_vs_twin": twin,
           "shift_color": dict(plain=plain, score=score, found=list(shift),
                               angle=angle, search_s=shift_s),
@@ -2432,7 +2689,7 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
           "rotation_color": dict(plain=rot_plain, score=rscore, angle=rangle,
                                  shift=list(rshift), search_s=rot_s),
           "card": smi_line()})
-    return launches
+    return launches, n_color
 
 
 # ---------------------------------------------------------------------------
@@ -2963,22 +3220,24 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's and K5f's wrappers and cols_view's (T2b, the bench budget's
-    view row): {name: wrapper}, the calls :func:`recorded_calls` notes."""
+    """K1..K4's, K5f's, K6's and K7's wrappers and cols_view's (T2b, the
+    bench budget's view row): {name: wrapper}, the calls
+    :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
-    return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view)
+    return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view,
+                **color_wrappers())
 
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's, K5f's and cols_view's wrappers
-    at each signature (shapes, dtypes, strides and the other arguments)
+    """Records the first call of K1..K4's, K5f's, K6's, K7's and
+    cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
     made inside the block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
     inputs, then calls the wrapper (whose count, kept on the module's
     name, is the recorder's while it stands in for it)."""
-    from dctsvd_tpu_torch.ops import (probe_cuda, svd, svd_cuda, tail_cuda,
-                                      wm_cuda)
+    from dctsvd_tpu_torch.ops import (color_cuda, probe_cuda, svd, svd_cuda,
+                                      tail_cuda, wm_cuda)
     calls = {}
     patched = []
     for name, orig in twinned_wrappers().items():
@@ -2988,7 +3247,8 @@ def recorded_calls():
             calls.setdefault(key, (args, kw))
             return _orig(*args, **kw)
         recorder.launches = orig.launches
-        for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda):
+        for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda,
+                    color_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -3000,20 +3260,23 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4, K5f and cols_view again, through its
-    kernel and through its plain twin on the same inputs on the card:
-    bit-equal, or the run fails. One row a call: its input shapes, max
+    """Each recorded call of K1..K4, K5f, K6, K7 and cols_view again,
+    through its kernel and through its plain twin on the same inputs on
+    the card: bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
     and 1 calls)."""
     import torch
-    from dctsvd_tpu_torch.ops import probe_cuda, svd_cuda, tail_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import (color_cuda, probe_cuda, svd_cuda,
+                                      tail_cuda, wm_cuda)
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
                  wm_cuda.roundtrip_frames_blocks_plain,
              "jacobi_svd8": svd_cuda.jacobi_svd8_plain,
              "cols_view": probe_cuda.cols_view_plain,
-             "tail_front": tail_cuda.tail_front_plain}
+             "tail_front": tail_cuda.tail_front_plain,
+             **{name: getattr(color_cuda, f"{name}_plain")
+                for name in COLOR_KERNELS}}
     kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
@@ -3444,8 +3707,9 @@ def phase_plane(dev):
     embed_gray_prepared on the whole frame; the own stego scores > 0.8,
     the cover < 0.3; embed and detect timed with CUDA events. K2 and K1,
     at each shape the bands gave them (the whole 8K luma plane, a
-    1080-row band), are made again through the kernel and the plain twin
-    on the same inputs: bit-equal. Returns the launches on the meshes."""
+    1080-row band), and K6 and K7 at theirs, are made again through the
+    kernel and the plain twin on the same inputs: bit-equal. Returns the
+    launches on the meshes (K1-K4's, K5f's, K6's and K7's)."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.parallel import mesh as pmesh
@@ -3464,20 +3728,21 @@ def phase_plane(dev):
     pw = blocked.prepare_wm_gray(wm, blk, intra, extract_basis=False)
     ref_st, ref_sc, _, _ = blocked.embed_gray_prepared(cover, pw.sw, ALPHA,
                                                        with_metrics=False)
-    rows, launches = {}, {n: 0 for n in parallel_wrappers()}
+    rows = {}
+    launches = dict.fromkeys([*parallel_wrappers(), *COLOR_KERNELS], 0)
     meshes = (("one_band", pmesh.make_mesh(1)),
               ("four_bands", pmesh.make_mesh(devices=[dev] * 4)))
     with recorded_calls() as path_calls:
         for mname, mesh in meshes:
             n_bands = len(mesh.devices)
+            # the recorders, which keep the counts while they stand in
+            counted = dict(parallel_wrappers(), **color_wrappers())
             (st, sc), _, n_emb = counted_run(
                 lambda: pplane.plane_embed_gray(cover, pw.sw, ALPHA,
-                                                mesh=mesh),
-                parallel_wrappers())
+                                                mesh=mesh), counted)
             score, _, n_det = counted_run(
                 lambda: pplane.plane_detect_gray(st, sc, pw.sw, ALPHA,
-                                                 mesh=mesh),
-                parallel_wrappers())
+                                                 mesh=mesh), counted)
             clean = pplane.plane_detect_gray(cover, sc, pw.sw, ALPHA,
                                              mesh=mesh)
             require(n_emb["embed_blocks"] == n_bands
@@ -3733,6 +3998,10 @@ def main(argv) -> int:
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
               "times_8_frames": paint_k_times(dev, covers), "card": card})
         return 0
+    if argv == ["--color-bounds"]:
+        emit({"phase": "color_bounds", **color_bounds(dev, covers),
+              "card": card})
+        return 0
     if argv == ["--tail-times"]:
         # K5f's and K5's k = 4 instances (the main path's): registers and
         # spills (when this run built the library), and their SASS by
@@ -3791,17 +4060,19 @@ def main(argv) -> int:
     front_paths["tail_recompute"] = tail.pop("tail_front")
     front_gray = {"tail_recompute": tail.pop("tail_front_gray")}
     launches.update(tail)
+    color_results, color_slice = phase_color(dev, covers, wm_u8, blk, intra)
+    results.update(color_results)
     phase_reference(dev)
     smooth = smooth_frame(20261017)
     wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
-    extracted = phase_parity(dev, smooth, wm_np)
+    extracted, parity_color = phase_parity(dev, smooth, wm_np)
     phase_parity_reference(dev)
     phase_enhance(dev, extracted)
     payload_launches, parity_text_recovered = phase_payload(dev, smooth)
     # resync on a noise cover: on smooth content neighbouring shifts and
     # angles score within the statistic's noise of the true one
-    resync_launches = phase_resync(dev, covers[0].cpu().numpy(), wm_u8, blk,
-                                   intra)
+    resync_launches, resync_color = phase_resync(
+        dev, covers[0].cpu().numpy(), wm_u8, blk, intra)
     par_launches = phase_parallel(dev, covers, wm_u8, blk, intra)
     plane_launches = phase_plane(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as gtd:
@@ -3865,6 +4136,12 @@ def main(argv) -> int:
                       "tools/exp_vpu_roofline.py:57"),
         "spectrum_probe": ("dctsvd_tpu_torch/csrc/probes.cu",
                            "tools/profile_view.py:44"),
+        "luma_f32": ("dctsvd_tpu_torch/csrc/color.cu",
+                     "dctsvd_tpu/ops/color.py:63"),
+        "bgr_to_gray": ("dctsvd_tpu_torch/csrc/color.cu",
+                        "dctsvd_tpu/ops/color.py:55"),
+        "replace_luma": ("dctsvd_tpu_torch/csrc/color.cu",
+                         "dctsvd_tpu/ops/color.py:75"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
@@ -3898,11 +4175,27 @@ def main(argv) -> int:
     paths["cols_view"] = {"probes": launches["cols_view"],
                           "bench": bench_launches["cols_view"]}
     launches["cols_view"] = sum(paths["cols_view"].values())
+    # K6 and K7: the gray slice, the gray resync search (luma_f32 alone:
+    # it embeds nothing), the 8K plane path (no bgr_to_gray: its gray
+    # watermark is made outside and it embeds with no metrics), the
+    # parity path and the bench
+    idle_ok = {("bgr_to_gray", "resync"), ("replace_luma", "resync"),
+               ("bgr_to_gray", "plane_8k")}
+    for name in COLOR_KERNELS:
+        paths[name] = {"slice": color_slice[name],
+                       "resync": resync_color[name],
+                       "plane_8k": plane_launches[name],
+                       "parity": parity_color[name],
+                       "bench": bench_launches[name]}
+        launches[name] = sum(paths[name].values())
+        idle = [p for p, n in paths[name].items()
+                if n == 0 and (name, p) not in idle_ok]
+        require(not idle, f"{name} was not launched on the paths {idle}")
     table = []
     for name, (src, repl) in sources.items():
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
-        for key in ("eager_ms", "front_ms"):
+        for key in ("eager_ms", "front_ms", "issue_bound_ms"):
             if key in r:
                 extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,

@@ -9,7 +9,12 @@ same, so results are byte-equal to cv2 and to the JAX package:
   BGR→GRAY  (15-bit):  g = (R·9798 + G·19235 + B·3735 + 2^14) >> 15
 
 All functions take/return channel-last uint8 tensors with any leading
-batch dims.
+batch dims. ``luma_f32`` and ``bgr_to_gray`` (K6) and ``replace_luma``
+(K7), the gray scheme's conversions, call the wrappers of the same names in
+``ops/color_cuda.py``, which launch the hand-written kernels on CUDA tensors
+and run the plain twins here (``*_plain``) on CPU tensors; that module is
+where a caller's call lands, so it is the one name to patch.
+``bgr_to_ycrcb`` and ``ycrcb_to_bgr`` are plain torch.
 """
 
 from __future__ import annotations
@@ -49,24 +54,52 @@ def ycrcb_to_bgr(ycc_u8: torch.Tensor) -> torch.Tensor:
     return out.clamp(0, 255).to(torch.uint8)
 
 
-def bgr_to_gray(bgr_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., 3] BGR -> uint8 [...] gray, bit-exact with cv2."""
+def bgr_to_gray_plain(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K6's gray instance: uint8 [..., 3] BGR -> uint8 [...]
+    gray, bit-exact with cv2."""
     b, g, r = _bgr_i32(bgr_u8)
     y = _descale(r * 9798 + g * 19235 + b * 3735, 15)
     return y.clamp(0, 255).to(torch.uint8)
 
 
-def luma_f32(bgr_u8: torch.Tensor) -> torch.Tensor:
-    """Quantized-u8 Y plane as float32 (only the Y lane of bgr_to_ycrcb)."""
+def luma_f32_plain(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K6's luma instance: the quantized-u8 Y plane as
+    float32 (only the Y lane of bgr_to_ycrcb)."""
     b, g, r = _bgr_i32(bgr_u8)
     y = _descale(r * 4899 + g * 9617 + b * 1868, 14)
     return y.clamp(0, 255).to(torch.float32)
 
 
-def replace_luma(y_f32: torch.Tensor, bgr_ref_u8: torch.Tensor) -> torch.Tensor:
-    """Clip Y to u8 (truncation, as the JAX package does), recombine with the
-    original Cr/Cb and convert back to BGR."""
+def replace_luma_plain(y_f32: torch.Tensor,
+                       bgr_ref_u8: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K7: clip Y to u8 (truncation, as the JAX package
+    does), recombine with the original Cr/Cb and convert back to BGR."""
     ycc = bgr_to_ycrcb(bgr_ref_u8)
     y = y_f32.clamp(0, 255).to(torch.uint8)
     ycc = torch.cat([y[..., None], ycc[..., 1:]], dim=-1)
     return ycrcb_to_bgr(ycc)
+
+
+# The public names call the wrappers, found at each call: ops/color_cuda.py
+# imports the twins above from this module.
+
+def bgr_to_gray(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., H, W, 3] BGR -> uint8 [..., H, W] gray, bit-exact with
+    cv2: ``color_cuda.bgr_to_gray`` (K6)."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return color_cuda.bgr_to_gray(bgr_u8)
+
+
+def luma_f32(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Quantized-u8 Y plane as float32 (only the Y lane of bgr_to_ycrcb):
+    ``color_cuda.luma_f32`` (K6)."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return color_cuda.luma_f32(bgr_u8)
+
+
+def replace_luma(y_f32: torch.Tensor, bgr_ref_u8: torch.Tensor) -> torch.Tensor:
+    """Clip Y to u8 (truncation, as the JAX package does), recombine with the
+    original Cr/Cb and convert back to BGR: ``color_cuda.replace_luma``
+    (K7)."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return color_cuda.replace_luma(y_f32, bgr_ref_u8)

@@ -2,7 +2,8 @@
 of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 (``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
 K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
-K5f and its recompute form K5 (``extract_tail.cu``), and the tools probes
+K5f and its recompute form K5 (``extract_tail.cu``), the gray scheme's
+color conversions K6 and K7 (``color.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
@@ -73,6 +74,8 @@ _SIGNATURES = {
                             _I, _I, _P],
     "dctsvd_tail_front": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
+    "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -7,9 +7,11 @@ serve steps on the card against the split calls, the probe kernels
 against K1, K5 (the recompute extract tail) against its twin run on the
 card in every layout and at k = 1, 4, 8, K5f (the extract tail's front
 stage) against its twin run on the card at 1080p on 1 to 128 frames and
-at every k, the default tail's bytes with either front, and the parity
-path, the enhancement stages and detect resync on the card against the
-CPU.
+at every k, the default tail's bytes with either front, K6 and K7 (the
+gray scheme's color conversions) against their twins run on the card on
+every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
+with the gray paths' bytes the same with either, and the parity path, the
+enhancement stages and detect resync on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -24,8 +26,8 @@ import torch
 from dctsvd_tpu_torch.models import blocked as tb
 from dctsvd_tpu_torch.models import enhance as tenh
 from dctsvd_tpu_torch.models import image as timg
-from dctsvd_tpu_torch.ops import (color, dct, probe_cuda, svd, svd_cuda,
-                                  tail_cuda, wm_cuda)
+from dctsvd_tpu_torch.ops import (color, color_cuda, dct, probe_cuda, svd,
+                                  svd_cuda, tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.utils import crypto
 
@@ -1358,3 +1360,150 @@ def test_tail_front_wrapper_never_runs_the_twin_on_the_card(dev,
     with pytest.raises(ValueError, match="one alpha or one a plane"):
         tail_cuda.tail_front(s_cw, sc, inv_blk,
                              torch.full((8,), ALPHA, device=dev), 4)
+
+
+# ---------------------------------------------------------------------------
+# K6 (luma_f32, bgr_to_gray) and K7 (replace_luma): ops/color_cuda.py
+# ---------------------------------------------------------------------------
+
+COLOR_FNS = ["luma_f32", "bgr_to_gray", "replace_luma"]
+COLOR_EDGES = [float("nan"), float("inf"), float("-inf"), -0.0, 254.99998,
+               255.99998, 256.0, -1e-30, 1e30]
+
+
+def _color_luma(shape, dev, seed):
+    """Seeded Y' around the u8 range and past both ends, with the edge
+    values in the first columns of every 512th row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(shape, generator=gen, device=dev) * 90 + 128
+    y[..., ::512, :len(COLOR_EDGES)] = torch.tensor(COLOR_EDGES, device=dev)
+    return y
+
+
+def _color_frames(shape, dev, seed=SEED + 50):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
+def _color_check(fn, x, y=None):
+    """The wrapper on CUDA tensors launches its kernel once and equals its
+    twin run on the card."""
+    wrapper = getattr(color_cuda, fn)
+    twin = getattr(color_cuda, f"{fn}_plain")
+    args = (y, x) if fn == "replace_luma" else (x,)
+    n0 = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    ref = twin(*args)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("fn", COLOR_FNS)
+def test_color_kernel_on_every_triple(dev, fn):
+    """A 4096x4096 frame holding all 2^24 BGR triples (K7 with seeded Y'
+    and the edge values: NaN, ±inf, −0.0, the truncation's edges)."""
+    v = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+    x = torch.stack([v & 255, (v >> 8) & 255, v >> 16], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+    _color_check(fn, x, _color_luma((4096, 4096), dev, SEED + 51))
+
+
+@pytest.mark.parametrize("frames", [1, 4, 32])
+@pytest.mark.parametrize("fn", COLOR_FNS)
+def test_color_kernel_at_1080p(dev, fn, frames):
+    x = _color_frames((frames, 1080, 1920, 3), dev)
+    _color_check(fn, x, _color_luma(x.shape[:-1], dev, SEED + 52))
+
+
+@pytest.mark.parametrize("fn", COLOR_FNS)
+def test_color_kernel_at_8k(dev, fn):
+    x = _color_frames((4320, 7680, 3), dev)
+    _color_check(fn, x, _color_luma(x.shape[:-1], dev, SEED + 53))
+
+
+@pytest.mark.parametrize("case", ["1079x1917", "pixel_offset"])
+@pytest.mark.parametrize("fn", COLOR_FNS)
+def test_color_kernel_scalar_path(dev, fn, case):
+    """Frames of a pixel count that is not a multiple of 4, and a view
+    that starts one pixel into a frame, take the scalar path."""
+    if case == "1079x1917":
+        x = _color_frames((2, 1079, 1917, 3), dev)
+    else:
+        flat = _color_frames((2 * 1080 * 1920 * 3 + 3,), dev)
+        x = flat[3:].view(2, 1080, 1920, 3)
+    y = _color_luma(x.shape[:-1], dev, SEED + 54)
+    ptrs = ((y.data_ptr(), x.data_ptr(), 0) if fn == "replace_luma"
+            else (x.data_ptr(), 0))
+    assert not color_cuda.color_plan(fn, x.shape[-3] * x.shape[-2],
+                                     *ptrs)[0]
+    _color_check(fn, x, y)
+
+
+@pytest.mark.parametrize("fn", COLOR_FNS)
+def test_color_kernel_over_2_31_bytes(dev, fn):
+    """350 1080p frames, 2.18e9 BGR bytes in one launch: equal to the twin
+    run on the card in chunks of 35 frames."""
+    x = _color_frames((350, 1080, 1920, 3), dev)
+    y = (_color_luma(x.shape[:-1], dev, SEED + 55)
+         if fn == "replace_luma" else None)
+    wrapper = getattr(color_cuda, fn)
+    twin = getattr(color_cuda, f"{fn}_plain")
+    got = wrapper(y, x) if y is not None else wrapper(x)
+    for a in range(0, 350, 35):
+        ref = (twin(y[a:a + 35], x[a:a + 35]) if y is not None
+               else twin(x[a:a + 35]))
+        assert torch.equal(got[a:a + 35], ref)
+
+
+def test_color_wrappers_never_run_the_twin_on_the_card(dev, monkeypatch):
+    """CUDA tensors launch K6 and K7 (no twin is reached); mixed devices
+    raise."""
+    x = _color_frames((2, 64, 80, 3), dev)
+    y = _color_luma(x.shape[:-1], dev, SEED + 56)
+    refs = [color_cuda.luma_f32(x), color_cuda.bgr_to_gray(x),
+            color_cuda.replace_luma(y, x)]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    for fn in COLOR_FNS:
+        monkeypatch.setattr(color_cuda, f"{fn}_plain", refuse)
+    got = [color_cuda.luma_f32(x), color_cuda.bgr_to_gray(x),
+           color_cuda.replace_luma(y, x)]
+    assert all(torch.equal(a, b) for a, b in zip(got, refs))
+    with pytest.raises(ValueError):
+        color_cuda.replace_luma(y.cpu(), x)
+
+
+def test_gray_paths_equal_with_color_twins(dev, monkeypatch):
+    """The gray embed (with its metrics), extract and detect give the same
+    stego, sc, metrics, extracted bytes and scores through K6 and K7 as
+    with their twins run on the card in their place (4 frames at 1080p)."""
+    covers = _color_frames((4, 1080, 1920, 3), dev, SEED + 57)
+    wm = _color_frames((1080, 1920), dev, SEED + 58)
+    key = crypto.derive_key("gpu-color", bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(
+                      key, tb.n_blocks_of(1080, 1920)))
+    pw = tb.prepare_wm_gray(wm, blk, intra)
+
+    def outputs():
+        st, sc, ps, ss = tb.embed_gray_prepared(covers, pw.sw, ALPHA)
+        rec = tb.extract_gray_prepared(st, sc, pw.ebasis, pw.inv_blk, ALPHA,
+                                       sw=pw.sw)
+        return [st, sc, ps, ss, rec, tb.detect_gray(st, sc, pw.sw, ALPHA)]
+
+    counters = {fn: getattr(color_cuda, fn).launches for fn in COLOR_FNS}
+    kernel = outputs()
+    assert all(getattr(color_cuda, fn).launches > n
+               for fn, n in counters.items())
+    for fn in COLOR_FNS:
+        plain = getattr(color_cuda, f"{fn}_plain")
+        monkeypatch.setattr(color_cuda, fn, plain)
+    twin = outputs()
+    for a, b in zip(kernel, twin):
+        assert torch.equal(a, b)

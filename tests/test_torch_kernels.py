@@ -314,3 +314,31 @@ def test_sass_mix_counts_every_loop():
     assert mix["loops"] == [dict(mufu=1, integer=1, other=1),
                             dict(f32=2, mufu=1, integer=1, other=2)]
     assert mix["sweep"] == mix["loops"][1]
+
+
+_C_TYPES = {"int": kernels._I, "long long": kernels._LL}
+
+
+def _c_entries() -> dict:
+    """{name: [ctypes type of each parameter]} of every ``extern "C"``
+    entry point in csrc/: pointers as c_void_p, int and long long as
+    theirs."""
+    import re
+    out = {}
+    for f in sorted(kernels._CSRC.glob("*.cu*")):
+        for m in re.finditer(r'extern "C" int (dctsvd_\w+)\(([^)]*)\)',
+                             f.read_text()):
+            out[m[1]] = [kernels._P if "*" in p
+                         else _C_TYPES[" ".join(p.split()[:-1])]
+                         for p in m[2].split(",")]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(kernels._SIGNATURES))
+def test_c_entry_matches_its_signature(name):
+    """Each launcher's ctypes argtypes name the C entry's parameters, in
+    order (ctypes would pass a wrong one without a word); every entry in
+    csrc/ has argtypes."""
+    entries = _c_entries()
+    assert set(entries) == set(kernels._SIGNATURES)
+    assert entries[name] == kernels._SIGNATURES[name]
