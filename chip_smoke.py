@@ -17,7 +17,8 @@
                                             # drivers of the parity SVD
     python3 chip_smoke.py --tail-times      # only the extract steps' times
                                             # at 1080p, batch 32 (and 1, 4,
-                                            # 128), in both tail forms
+                                            # 128), in both tail forms, and
+                                            # K5f, K5 and K8 alone
     python3 chip_smoke.py --recon-forms     # only the extract tail's
                                             # k-term product, in each form
     python3 chip_smoke.py --color-bounds    # only K6's and K7's times
@@ -25,10 +26,10 @@
                                             # from the library's SASS
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the fourteen hand-written kernels (K1, K2,
-K3, K4, K2r, K1g, K5f, K5, the gray scheme's color conversions K6 and K7,
-and the probes' copy_f32, cols_view, fma_chain and spectrum_probe; K2, K3
-and K5 in one instance per k) from
+an H100, ``sm_90a``). It builds the fifteen hand-written kernels (K1, K2,
+K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6 and
+K7, and the probes' copy_f32, cols_view, fma_chain and spectrum_probe; K2,
+K3 and K5 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
@@ -36,12 +37,18 @@ path gives it (all seven bit for bit), with the time of one PyTorch
 library call that computes the same function where there is one (and K5,
 in color frames and in gray planes, on the stego and on it with three
 quadrants zeroed, whose flagged blocks it repaints, beside the eager tail it can
-replace); holds K2
+replace; and K8, the default tail's normaliser, against its twin, the
+eager form, in color frames and gray planes on the stego, without sw,
+with three quadrants zeroed, with every block flagged, without normalize,
+with f32 output, on 1, 4, 32, 33 and 128 frames, a frame alone, in a
+shard and in the batch); holds K2
 and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
 a batch of 32 1080p frames (with the set-up time of prepare and the
 detect rate), the recompute extract tail (color and gray
-``extract_*_prepared(recompute=True)``, K5) on the same batch; K6
+``extract_*_prepared(recompute=True)``, K5) on the same batch, and the
+default one's K8 launches with no eager normaliser call (color, gray,
+serve+verify); K6
 (``luma_f32``, ``bgr_to_gray``) and K7 (``replace_luma``) bit-equal to
 their twins on every BGR triple, seeded Y' with its edge values, the
 batch of 32 and the scalar path's frames, timed beside their byte and
@@ -93,9 +100,11 @@ Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
-K2r, K1g, K5f, K5, K6 and K7 are held to their twins run on the card
-bit for bit; K6's and K7's launches are counted on the gray slice, the
-resync and parity phases, ``plane_8k`` and the bench.
+K2r, K1g, K5f, K5, K8, K6 and K7 are held to their twins run on the card
+bit for bit; K8's launches are counted on the slice, the serve steps,
+the tail phase's default extracts, ``parallel/`` and the bench;
+K6's and K7's on the gray slice, the resync and parity phases,
+``plane_8k`` and the bench.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -461,6 +470,14 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
         emit({"phase": "kernel_vs_plain", "kernel": f"K5 {name}",
               **results[name]})
 
+    # K8 on the 1080p batch of 32: the default extract tail's normaliser
+    # over the materialised product, color frames and gray planes
+    for name, gray in (("normalize_blocks", False),
+                       ("normalize_blocks_gray", True)):
+        results[name] = tail_k8_row(dev, frames_u8, wm_u8, blk, intra, gray)
+        emit({"phase": "kernel_vs_plain", "kernel": f"K8 {name}",
+              **results[name]})
+
     # K2 on smoothed (natural-like) frames: no bound, reported only. Near-
     # degenerate blocks are far from converged at s1.25, so ulp-level
     # differences (FMA contraction, rsqrtf) move their rotations.
@@ -673,7 +690,8 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     from dctsvd_tpu_torch.ops import metrics, svd_cuda, tail_cuda, wm_cuda
 
     wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks, tail_cuda.tail_front]
+                wm_cuda.spectrum_blocks, tail_cuda.tail_front,
+                tail_cuda.normalize_blocks]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -756,8 +774,8 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
 
 def phase_serve(dev, covers, wm_u8, blk, intra):
     """The three serve steps on the 1080p batch of 32: each equal to the
-    split calls on the card, taking K3 (and K5f for the verify steps) and
-    neither K2 nor K1."""
+    split calls on the card, taking K3 (and K5f and K8 for the verify
+    steps) and neither K2 nor K1."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import tail_cuda, wm_cuda
@@ -771,7 +789,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     clean = blocked.detect_color(covers, sc, pw.sw, ALPHA)
 
     wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks, tail_cuda.tail_front]
+                wm_cuda.spectrum_blocks, tail_cuda.tail_front,
+                tail_cuda.normalize_blocks]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -785,8 +804,9 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
     require(launches["roundtrip_frames_blocks"] >= 1
-            and launches["tail_front"] >= 2,
-            f"K3 or K5f not launched by the serve steps: {launches}")
+            and launches["tail_front"] >= 2
+            and launches["normalize_blocks"] >= 2,
+            f"K3, K5f or K8 not launched by the serve steps: {launches}")
     require(launches["embed_blocks"] == 0 and launches["spectrum_blocks"] == 0,
             f"the serve steps launched K2 or K1: {launches}")
 
@@ -838,7 +858,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
         card=smi_line())
     emit(out)
     return {"roundtrip_frames_blocks": launches["roundtrip_frames_blocks"],
-            "tail_front": launches["tail_front"]}
+            "tail_front": launches["tail_front"],
+            "normalize_blocks": launches["normalize_blocks"]}
 
 
 def phase_variants(dev, covers):
@@ -1040,7 +1061,7 @@ def tail_kernel_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
 
     def eager(xi=x):
         blocks = blocked._recon(xi[..., :K], eb64)
-        blocks = blocked._normalize_blocks(blocks, xi[..., K] > 0.5, True)
+        blocks = tail_cuda.minmax_blocks(blocks, xi[..., K] > 0.5, True)
         blocks = blocks.clamp(0, 255).to(torch.uint8)
         blocks = blocks.reshape(*blocks.shape[:-1], 8, 8)
         if frames:
@@ -1086,6 +1107,135 @@ def tail_kernel_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
     return out
 
 
+K8_BATCHES = (1, 4, 33, 128)    # besides the batch of 32
+
+
+def k8_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
+    """K8's inputs on the main path for the 1080p batch of 32 as
+    _extract_tail_prepared hands them over: K5f's estimates (rows of 8
+    floats) of the stego and of the three-quadrants-zeroed stego
+    (tail_spectra), with the erasure flag, and of the stego without sw (no
+    flag column), and the k = 4 rows of the prepared basis."""
+    from dctsvd_tpu_torch.models import blocked
+    pw, sc, spectra = tail_spectra(dev, covers, wm_u8, blk, intra, gray)
+    x, xz = (blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, K, pw.sw)
+             for s_cw in spectra)
+    x_nosw = blocked._tail_front(spectra[0], sc, pw.inv_blk, ALPHA, K)
+    eb = pw.ebasis[..., :K, :, :]
+    return x, xz, x_nosw, eb.reshape(*eb.shape[:-2], 64)
+
+
+def tail_k8_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
+    """K8 against its plain twin (the eager form) run on the card
+    (torch.equal) on models/blocked._recon's product of the main path's
+    estimates (k8_inputs), in one layout (color channels-last frames, or
+    gray planes): the stego (with sw, no block flagged), without sw,
+    with three quadrants zeroed (flagged blocks, the repaint), every
+    block flagged, without normalize and with f32 output, at the batch of
+    32 and of 1, 4, 33 and 128 frames (the zeroed stego repeated); a
+    frame's bytes the same alone, in a shard of 4 and in the batch. ms:
+    K8 on the stego at 32 frames; plain_ms: the twin; ms_128 and
+    plain_ms_128 at 128. bound_ms counts the reconstruction's frames, the
+    flags (4 bytes a block) and the output once; two_pass_bound_ms the
+    reconstruction read in each pass."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+
+    x, xz, x_nosw, eb64 = k8_inputs(dev, covers, wm_u8, blk, intra, gray)
+    frames = not gray
+    name = "gray" if gray else "color"
+    every = xz.clone()
+    every[..., K] = 1.0
+
+    def calls(xi, **kw):
+        blocks = blocked._recon(xi[..., :K], eb64)
+        return (lambda: tail_cuda.normalize_blocks(
+                    blocks, xi, K, H, W, to_frames=frames, **kw),
+                lambda: tail_cuda.normalize_blocks_plain(
+                    blocks, xi, K, H, W, to_frames=frames, **kw))
+
+    def check(case, xi, **kw):
+        k8, plain = calls(xi, **kw)
+        y = k8()
+        require(torch.equal(y, k8()), f"K8 {name} {case}: two runs differ")
+        py = plain()
+        d = (y.to(torch.float32) - py.to(torch.float32)).abs()
+        require(torch.equal(y, py), f"K8 {name} {case} vs twin: |d| max "
+                f"{float(d.max())} on {float((d > 0).float().mean())}")
+        return y, dict(max_abs_err=float(d.max()), equals_twin=True,
+                       frames=int(xi.shape[0]), dtype=str(y.dtype),
+                       flagged_share=float((xi[..., K] > 0.5).float().mean())
+                       if xi.shape[-1] > K else 0.0)
+
+    checks = {}
+    y32, checks["stego"] = check("stego", x)
+    _, checks["no_sw"] = check("no_sw", x_nosw)
+    yz, checks["three_quadrants_zeroed"] = check("zeroed", xz)
+    _, checks["all_flagged"] = check("all_flagged", every)
+    _, checks["no_normalize"] = check("no_normalize", xz, normalize=False)
+    _, checks["f32_out"] = check("f32_out", xz, out_u8=False)
+    require(checks["stego"]["flagged_share"] == 0.0
+            and 0 < checks["three_quadrants_zeroed"]["flagged_share"] < 1,
+            f"K8 {name}: the cases miss their paths {checks}")
+    for n in K8_BATCHES:
+        xb = xz.repeat(-(-n // xz.shape[0]), *[1] * (xz.ndim - 1))[:n]
+        _, checks[f"batch_{n}"] = check(f"batch {n}", xb)
+    for a, b in ((0, 1), (BATCH - 1, BATCH), (4, 8)):
+        require(torch.equal(calls(xz[a:b])[0](), yz[a:b]),
+                f"K8 {name}: frames {a}:{b} differ alone or in a shard "
+                "from the batch")
+    k8, plain = calls(x)
+    x128 = x.repeat(4, *[1] * (x.ndim - 1))
+    k8_128, plain_128 = calls(x128)
+    recon_bytes = x[..., 0].numel() * 64 * 4
+    flag_bytes = x[..., 0].numel() * 4
+    once = recon_bytes + flag_bytes + nbytes(y32)
+    out = dict(
+        layout="frames" if frames else "planes",
+        shape=list(x.shape[:-1]) + [64], out_shape=list(y32.shape),
+        checks=checks, max_abs_err=max(c["max_abs_err"]
+                                       for c in checks.values()),
+        equals_twin=True, batch_invariant=True,
+        ms=cuda_time(k8, 20), plain_ms=cuda_time(plain, 3),
+        ms_128=cuda_time(k8_128, 20), plain_ms_128=cuda_time(plain_128, 2),
+        library_ms=None,
+        two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y32),
+        # a pixel: the min and max compares, the difference and the product
+        **bound(y32.numel(), 4, once))
+    out["eager_ms"] = out["plain_ms"]
+    out["two_pass_bound_ms"] = out["two_pass_bytes"] / PEAK_BYTES * 1e3
+    out["two_pass_bound_ms_128"] = 4 * out["two_pass_bound_ms"]
+    return out
+
+
+@contextlib.contextmanager
+def eager_normaliser_calls():
+    """Counts the calls of the eager normaliser's functions made inside the
+    block (the twin of K8, the block-level normaliser and its window, the
+    unaligned form): {name: calls}. Each still runs."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    counts, patched = {}, []
+    for mod, name in ((tail_cuda, "normalize_blocks_plain"),
+                      (tail_cuda, "minmax_blocks"),
+                      (tail_cuda, "block_window"),
+                      (blocked, "_masked_normalize")):
+        orig = getattr(mod, name)
+        counts[name] = 0
+
+        def counted(*args, _orig=orig, _name=name, **kw):
+            counts[_name] += 1
+            return _orig(*args, **kw)
+        patched.append((mod, name, orig))
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, orig in patched:
+            setattr(mod, name, orig)
+
+
 def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     """extract_color_prepared and extract_gray_prepared with recompute=True
     on the 1080p batch of 32, K5's and K5f's counters set to 0 just before
@@ -1093,7 +1243,10 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     of recompute=False on the whole batch, and a frame's bytes the same
     alone, in a shard of 4 and in the batch. Then the default form
     (recompute=False) and serve_verify_color_prepared with K5f's twin in
-    its place: byte-equal to their outputs with K5f."""
+    its place: byte-equal to their outputs with K5f. The default form's
+    color and gray extracts and serve+verify launch K8, each counted alone,
+    and call no eager normaliser (:func:`eager_normaliser_calls`); a
+    frame's bytes are the same alone, in a shard of 4 and in the batch."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import color, metrics, tail_cuda
@@ -1168,6 +1321,36 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
             color=color_x(st, sc), gray=gray_x(stg, scg),
             serve_verify=blocked.serve_verify_color_prepared(
                 covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk)[2])
+
+    # the default form on the card: K8 on each path, no eager normaliser
+    k8 = {}
+    with eager_normaliser_calls() as eager_calls:
+        for name, fn in (
+                ("color", lambda: color_x(st, sc)),
+                ("gray", lambda: gray_x(stg, scg)),
+                ("serve_verify", lambda: blocked.serve_verify_color_prepared(
+                    covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk))):
+            torch.cuda.synchronize()
+            tail_cuda.normalize_blocks.launches = 0
+            fn()
+            torch.cuda.synchronize()
+            k8[name] = tail_cuda.normalize_blocks.launches
+    require(min(k8.values()) >= 1 and not any(eager_calls.values()),
+            f"the default aligned extract: K8 launches {k8}, eager "
+            f"normaliser calls {eager_calls}")
+    row["default_form"] = dict(normalize_blocks_launches=k8,
+                               eager_normaliser_calls=eager_calls)
+    row["launches"].update(normalize_blocks=k8["color"] + k8["serve_verify"],
+                           normalize_blocks_gray=k8["gray"])
+    default_color, default_gray = color_x(st, sc), gray_x(stg, scg)
+    for name, fn, stego, sc_, whole in (
+            ("color", color_x, st, sc, default_color),
+            ("gray", gray_x, stg, scg, default_gray)):
+        require(all(torch.equal(fn(stego[a:b], sc_[a:b]), whole[a:b])
+                    for a, b in ((0, 1), (BATCH - 1, BATCH), (4, 8))),
+                f"{name} default form: a frame's bytes differ alone, in a "
+                "shard of 4 or in the batch")
+        row["default_form"][f"{name}_batch_invariant"] = True
 
     with_kernel = default_outputs()
     front_kernel = tail_cuda.tail_front
@@ -2758,11 +2941,12 @@ def video_wrappers():
     return {"spectrum_blocks": wm_cuda.spectrum_blocks,
             "embed_blocks": wm_cuda.embed_blocks,
             "jacobi_svd8": svd_cuda.jacobi_svd8,
-            "tail_front": tail_cuda.tail_front}
+            "tail_front": tail_cuda.tail_front,
+            "normalize_blocks": tail_cuda.normalize_blocks}
 
 
 def counted_run(fn, wrappers=None):
-    """(fn(), seconds, launches of K1, K2, K4, K5f or of ``wrappers``): the
+    """(fn(), seconds, launches of K1, K2, K4, K5f, K8 or of ``wrappers``): the
     counters set to 0 just before and read just after, the card
     synchronised on both sides."""
     import torch
@@ -2962,10 +3146,13 @@ def phase_video(dev, td: str, clip: str, wm_png: str):
             nc = nc_np(cv2.imread(wm_out, cv2.IMREAD_GRAYSCALE), ref)
             if scheme == "blocked":
                 want_e = {"jacobi_svd8": 1, "embed_blocks": dispatches,
-                          "spectrum_blocks": 0, "tail_front": 0}
+                          "spectrum_blocks": 0, "tail_front": 0,
+                          "normalize_blocks": 0}
+                # video consumes the raw estimates: no normaliser
                 want_x = {"jacobi_svd8": 0, "embed_blocks": 0,
                           "spectrum_blocks": dispatches,
-                          "tail_front": dispatches}
+                          "tail_front": dispatches,
+                          "normalize_blocks": 0}
             else:
                 want_e = want_x = {n: 0 for n in total}
             require(n_embed == want_e and n_extract == want_x,
@@ -3220,7 +3407,7 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's, K5f's, K6's and K7's wrappers and cols_view's (T2b, the
+    """K1..K4's, K5f's, K8's, K6's and K7's wrappers and cols_view's (T2b, the
     bench budget's view row): {name: wrapper}, the calls
     :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
@@ -3230,7 +3417,7 @@ def twinned_wrappers():
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's, K5f's, K6's, K7's and
+    """Records the first call of K1..K4's, K5f's, K8's, K6's, K7's and
     cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
     made inside the block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
@@ -3260,7 +3447,7 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4, K5f, K6, K7 and cols_view again,
+    """Each recorded call of K1..K4, K5f, K8, K6, K7 and cols_view again,
     through its kernel and through its plain twin on the same inputs on
     the card: bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
@@ -3275,6 +3462,7 @@ def recorded_vs_twin(calls: dict) -> list:
              "jacobi_svd8": svd_cuda.jacobi_svd8_plain,
              "cols_view": probe_cuda.cols_view_plain,
              "tail_front": tail_cuda.tail_front_plain,
+             "normalize_blocks": tail_cuda.normalize_blocks_plain,
              **{name: getattr(color_cuda, f"{name}_plain")
                 for name in COLOR_KERNELS}}
     kernels_ = twinned_wrappers()
@@ -3332,14 +3520,16 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     extract at batch 128 (the bench's headline batch) runs in both forms,
     K5's output there held to its twin first, and the kernels run alone on
     the front's output: ``k5_*`` (K5), ``k5_paint_*`` (its paint pass, no
-    normalize) and, where the tree has it, ``k5f_*`` (K5f). Only entry points
-    every tree of the port has otherwise, so that this function, copied
-    into an older tree, times that tree."""
+    normalize), where the tree has it, ``k5f_*`` (K5f) and ``k8_*`` (K8 on
+    the product of the same estimates; the extract rows are the default
+    form, K8 since it exists), and at 128 frames :func:`k8_at_128`. Only
+    entry points every tree of the port has otherwise, so that this
+    function, copied into an older tree, times that tree."""
     import inspect
 
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import color
+    from dctsvd_tpu_torch.ops import color, tail_cuda
     pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
     pwg = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
     st, sc, _, _ = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
@@ -3394,7 +3584,6 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     # the kernels alone on the front's output: K5 (and its paint pass
     # alone, without normalize) where the tree has it, and K5f
     if "_recompute" in forms:
-        from dctsvd_tpu_torch.ops import tail_cuda
         for name, s_, sc_, pw, frames in (("color", s_cw, sc, pwc, True),
                                           ("gray", s_cwg, scg, pwg, False)):
             x = blocked._tail_front(s_, sc_, pw.inv_blk, ALPHA, k, pw.sw)
@@ -3413,6 +3602,12 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
                         blocked._engaged(raw, pw.sw))
                 steps[f"k5f_{name}"] = (
                     lambda a=args: tail_cuda.tail_front(*a))
+            # K8 alone on the product of the same estimates
+            if hasattr(tail_cuda, "normalize_blocks"):
+                blocks = blocked._recon(x[..., :k], eb64)
+                steps[f"k8_{name}"] = (
+                    lambda b=blocks, x=x, fr=frames:
+                    tail_cuda.normalize_blocks(b, x, k, H, W, to_frames=fr))
     out = {name: [cuda_time(fn, 10) for _ in range(2)]
            for name, fn in steps.items()}
     # the bench's batch of 128: the 32 frames four times
@@ -3436,15 +3631,56 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
             cuda_time(lambda kw=kw: blocked.extract_color_prepared(
                 st128, sc128, pwc.ebasis, pwc.inv_blk, ALPHA, sw=pwc.sw,
                 **kw), 5) for _ in range(2)]
+    if hasattr(tail_cuda, "normalize_blocks"):
+        out.update(k8_at_128(st128, sc128, stg.repeat(4, 1, 1, 1),
+                             scg.repeat(4, 1, 1), pwc, pwg, k))
+    return out
+
+
+def k8_at_128(st128, sc128, stg128, scg128, pwc, pwg, k) -> dict:
+    """At the bench's batch of 128: K8 alone on the color product (held to
+    its twin first), two readings of 10 launches; K5f's gray instance on
+    the gray spectra (held to its twin first), two readings of 50
+    launches, with its byte bound (``k5f_gray_128_bound_ms``: the spectra,
+    sw and inv_blk read once, the k + 1 columns written once)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, tail_cuda
+    out = {}
+    x = blocked._tail_front(blocked._frames_spectrum(st128, SWEEPS), sc128,
+                            pwc.inv_blk, ALPHA, k, pwc.sw)
+    eb = pwc.ebasis[..., :k, :, :]
+    blocks = blocked._recon(x[..., :k], eb.reshape(*eb.shape[:-2], 64))
+    y = tail_cuda.normalize_blocks(blocks, x, k, H, W, to_frames=True)
+    require(torch.equal(y, tail_cuda.normalize_blocks_plain(
+        blocks, x, k, H, W, to_frames=True)), "K8 at batch 128 vs twin")
+    out["k8_color_128"] = [cuda_time(lambda: tail_cuda.normalize_blocks(
+        blocks, x, k, H, W, to_frames=True), 10) for _ in range(2)]
+    out["k8_color_128_two_pass_bound_ms"] = (
+        (2 * x[..., 0].numel() * (64 + 1) * 4 + y.numel()) / PEAK_BYTES * 1e3)
+    del x, blocks, y
+    s_cw = blocked._plane_spectrum(color.luma_f32(stg128), SWEEPS)
+    raw = blocked._raw_estimate(s_cw, scg128, ALPHA)
+    args = (s_cw, scg128, pwg.inv_blk, blocked._alpha(ALPHA, s_cw.device), k,
+            pwg.sw, blocked._sw_scale(pwg.sw), blocked._engaged(raw, pwg.sw))
+    y = tail_cuda.tail_front(*args)
+    require(torch.equal(y, tail_cuda.tail_front_plain(*args)),
+            "K5f gray at batch 128 vs twin")
+    out["k5f_gray_128"] = [cuda_time(lambda: tail_cuda.tail_front(*args), 50)
+                           for _ in range(2)]
+    out["k5f_gray_128_bound_ms"] = nbytes(
+        s_cw, scg128, pwg.sw, pwg.inv_blk, y) / PEAK_BYTES * 1e3
     return out
 
 
 def k5_times(dev, covers, wm_u8, blk, intra) -> dict:
-    """ms of K5 (normalize, and its paint pass alone without) and K5f on
-    the main path's inputs at the 1080p batch of 32, color frames and gray
-    planes, CUDA events, two readings of 20 launches. Checks nothing: it
-    times patched copies of the tree under build/ (the smoke and
-    --tail-times hold the kernels to their twins)."""
+    """ms of K5 (normalize, and its paint pass alone without), K5f and,
+    where the tree has it, K8 (normalize, and its paint pass alone) on the
+    main path's inputs at the 1080p batch of 32, color frames and gray
+    planes, and K8 on 128 color frames, CUDA events, two readings of 20
+    launches. Checks nothing: it times patched copies of the tree under
+    build/ (the smoke and --tail-times hold the kernels to their
+    twins)."""
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import tail_cuda
     out = {}
@@ -3457,13 +3693,29 @@ def k5_times(dev, covers, wm_u8, blk, intra) -> dict:
         raw = blocked._raw_estimate(s_cw, sc, ALPHA)
         args = (s_cw, sc, pw.inv_blk, blocked._alpha(ALPHA, dev), K, pw.sw,
                 blocked._sw_scale(pw.sw), blocked._engaged(raw, pw.sw))
-        for row, fn in (
-                ("k5", lambda: tail_cuda.recon_normalize(
+        rows = [("k5", lambda: tail_cuda.recon_normalize(
                     x, eb64, H, W, to_frames=not gray)),
                 ("k5_paint", lambda: tail_cuda.recon_normalize(
                     x, eb64, H, W, normalize=False, to_frames=not gray)),
-                ("k5f", lambda: tail_cuda.tail_front(*args))):
+                ("k5f", lambda: tail_cuda.tail_front(*args))]
+        if hasattr(tail_cuda, "normalize_blocks"):
+            blocks = blocked._recon(x[..., :K], eb64)
+            rows += [("k8", lambda: tail_cuda.normalize_blocks(
+                         blocks, x, K, H, W, to_frames=not gray)),
+                     ("k8_paint", lambda: tail_cuda.normalize_blocks(
+                         blocks, x, K, H, W, normalize=False,
+                         to_frames=not gray))]
+        for row, fn in rows:
             out[f"{row}_{name}"] = [cuda_time(fn, 20) for _ in range(2)]
+        if hasattr(tail_cuda, "normalize_blocks") and not gray:
+            del blocks
+            x128 = x.repeat(4, 1, 1, 1)
+            b128 = blocked._recon(x128[..., :K], eb64)
+            out["k8_color_128"] = [cuda_time(
+                lambda: tail_cuda.normalize_blocks(b128, x128, K, H, W,
+                                                   to_frames=True), 20)
+                for _ in range(2)]
+            del x128, b128
     return out
 
 
@@ -3545,10 +3797,12 @@ def parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded):
         shards = 1 if mesh is None else len(mesh.devices)
         # each shard launches its kernels once, K4 once a device
         expect = {"serve": {"roundtrip_frames_blocks": shards,
-                            "tail_front": shards},
+                            "tail_front": shards,
+                            "normalize_blocks": shards},
                   "embed_prepared": {"embed_blocks": shards},
                   "extract_prepared": {"spectrum_blocks": shards,
-                                       "tail_front": shards},
+                                       "tail_front": shards,
+                                       "normalize_blocks": shards},
                   "detect_blocked": {"spectrum_blocks": shards},
                   "embed_blocked": {"embed_blocks": shards,
                                     "jacobi_svd8": 1}}
@@ -3709,7 +3963,7 @@ def phase_plane(dev):
     at each shape the bands gave them (the whole 8K luma plane, a
     1080-row band), and K6 and K7 at theirs, are made again through the
     kernel and the plain twin on the same inputs: bit-equal. Returns the
-    launches on the meshes (K1-K4's, K5f's, K6's and K7's)."""
+    launches on the meshes (K1-K4's, K5f's, K8's, K6's and K7's)."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.parallel import mesh as pmesh
@@ -4023,7 +4277,7 @@ def main(argv) -> int:
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
               "ptxas": {n: v for n, v in kernels.ptxas_report(
                   kernels.BUILD_INFO["ptxas"]).items()
-                  if "tail_" in n and "ILi4E" in n},
+                  if "tail_" in n and "ILi4E" in n or "norm_" in n},
               "times": k5_times(dev, covers, wm_u8, blk, intra),
               "card": card})
         return 0
@@ -4052,13 +4306,18 @@ def main(argv) -> int:
     # K5f's launches on each path (one counter for both layouts; the gray
     # row's are the gray recompute extract's)
     front_paths = {"slice": launches.pop("tail_front")}
+    # K8's likewise (the gray row's: the gray default extract's)
+    k8_paths = {"slice": launches.pop("normalize_blocks")}
     serve = phase_serve(dev, covers, wm_u8, blk, intra)
     front_paths["serve"] = serve.pop("tail_front")
+    k8_paths["serve"] = serve.pop("normalize_blocks")
     launches.update(serve)
     launches.update(phase_variants(dev, covers))
     tail = phase_tail_recompute(dev, covers, wm_u8, blk, intra)
     front_paths["tail_recompute"] = tail.pop("tail_front")
     front_gray = {"tail_recompute": tail.pop("tail_front_gray")}
+    k8_paths["tail_default"] = tail.pop("normalize_blocks")
+    k8_gray = {"tail_default": tail.pop("normalize_blocks_gray")}
     launches.update(tail)
     color_results, color_slice = phase_color(dev, covers, wm_u8, blk, intra)
     results.update(color_results)
@@ -4128,6 +4387,10 @@ def main(argv) -> int:
                        "dctsvd_tpu/models/blocked.py:1003"),
         "tail_front_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
                             "dctsvd_tpu/models/blocked.py:1003"),
+        "normalize_blocks": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                             "dctsvd_tpu/models/blocked.py:869"),
+        "normalize_blocks_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                                  "dctsvd_tpu/models/blocked.py:869"),
         "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
                      "tools/profile_transpose.py:45"),
         "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
@@ -4169,7 +4432,18 @@ def main(argv) -> int:
                        + plane_launches["tail_front"],
                        bench=bench_launches["tail_front"])
     paths["tail_front"], paths["tail_front_gray"] = front_paths, front_gray
-    for name in ("tail_front", "tail_front_gray"):
+    # K8: the default tail on the slice, the serve steps, the tail phase's
+    # default extracts, parallel/ and the bench (video's blocked extract
+    # averages the raw estimates and normalises nothing)
+    k8_paths.update(parallel=par_launches["normalize_blocks"]
+                    + plane_launches["normalize_blocks"],
+                    bench=bench_launches["normalize_blocks"])
+    idle = [p for p, n in k8_paths.items() if n == 0]
+    require(not idle, f"K8 was not launched on the paths {idle}")
+    paths["normalize_blocks"], paths["normalize_blocks_gray"] = (k8_paths,
+                                                                 k8_gray)
+    for name in ("tail_front", "tail_front_gray", "normalize_blocks",
+                 "normalize_blocks_gray"):
         launches[name] = sum(paths[name].values())
     # cols_view: the probes' launches and the bench budget's T2b row
     paths["cols_view"] = {"probes": launches["cols_view"],
@@ -4195,7 +4469,8 @@ def main(argv) -> int:
     for name, (src, repl) in sources.items():
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
-        for key in ("eager_ms", "front_ms", "issue_bound_ms"):
+        for key in ("eager_ms", "front_ms", "issue_bound_ms", "ms_128",
+                    "plain_ms_128", "two_pass_bound_ms"):
             if key in r:
                 extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,

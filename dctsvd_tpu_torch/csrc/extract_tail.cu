@@ -1,7 +1,8 @@
 // The blocked extract tail on the card: K5f, its front stage (the estimator
-// and the slot gather, which both tail forms read), and K5, the recompute
+// and the slot gather, which both tail forms read), K5, the recompute
 // form's two passes (extract_color_prepared / extract_gray_prepared with
-// recompute=True).
+// recompute=True), and K8, the default form's normaliser (the same two
+// passes over the materialised reconstruction).
 //
 // ---------------------------------------------------------------------------
 // K5f tail_front. Replaces the front of the XLA fusion of dctsvd_tpu/models/
@@ -95,6 +96,37 @@
 //   - Offsets within a frame are 32-bit (the host refuses a frame of 2^31
 //     elements or more); -fmad=false and the _rn intrinsics keep every
 //     rounding the twin's.
+//
+// ---------------------------------------------------------------------------
+// K8 normalize_blocks. Replaces the XLA fusion of dctsvd_tpu/models/
+// blocked.py::_normalize_blocks (:869), the clip and cast (:1045-1047) and
+// _unblockify_to_frames (:942) or dct.unblockify, reached through
+// _extract_tail_prepared(recompute=False) at block-aligned sizes; no
+// pl.pallas_call. Plain twin: dctsvd_tpu_torch/ops/tail_cuda.py::
+// normalize_blocks_plain.
+//
+// What it computes: K5's two passes, with each block's 64 pixels read
+// from the reconstruction that the caller's batched product materialised
+// (models/blocked.py::_recon) instead of rebuilt from the estimates; the
+// erasure flag from column k of K5f's rows. The window's fold and slots,
+// the params kernel (one IEEE division for the scale), the repaint, the
+// cast and the stores are K5's, so the bytes are the eager form's.
+//
+// What bounds it on the H100: bytes. The reconstruction is read in each
+// pass (at 1080p color, batch 32: 2 x 796 MB, which the 50 MB L2 cannot
+// keep between them) and the u8 frames written once (199 MB): 0.535 ms at
+// 3.35 TB/s. What the design does about it: K5's grid, lanes, fold and
+// stores (shared inline helpers), in a window and a paint kernel of its
+// own (norm_window_kernel, norm_paint_kernel; sharing K5's kernels through
+// a source policy cost K5 5 % of its time): each lane loads its
+// 32-byte row of its block for all the chunk's 8 frames before it uses
+// one, so a lane has 256 bytes in flight; the 8 warps of a CTA read the
+// 8 rows of each block, and a block's frames lie next to each other in
+// the product's layout, so a CTA's reads of a chunk are 2 KB runs. Pass 1
+// loads through L2 (a batch that fits is read again from there), pass 2
+// as evict-first; no basis in registers, so no stage of estimates: the
+// flags come as one 4-byte load a lane and frame.
+//
 // chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and,
 // with --tail-times, its SASS by class.
 
@@ -400,9 +432,58 @@ __global__ void tail_init_kernel(uint32_t* __restrict__ slots, int n) {
   if (t < n) *win_slot(slots, t >> 2, t & 3) = (t & 1) ? kHiInit : kLoInit;
 }
 
-// Pass 1. Slots 0..3 of plane p = f * chans + c: keys of (unflagged lo,
-// unflagged hi, lo, hi), filled with the keys of (+inf, -inf, +inf, -inf)
-// before the launch. Shared memory: the fold's part, then the stage.
+// Pass 1's fold, both sources: warp r folds frame f0 + r of the chunk in
+// part (each lane's (lo, hi, unflagged lo, unflagged hi) of each frame and
+// row) over the 8 rows, then over its lanes, and its channel lanes take
+// one atomic a slot. Slots 0..3 of plane p = f * chans + c: keys of
+// (unflagged lo, unflagged hi, lo, hi), filled with the keys of (+inf,
+// -inf, +inf, -inf) before the launch.
+template <int kC>
+__device__ __forceinline__ void fold_window(
+    const float4 (*part)[kTailWarps][32], const TailLane<kC>& t, int f0,
+    int nf, int chans, int flagged, uint32_t* __restrict__ slots) {
+  if (t.r >= nf) return;
+  float4 v = part[t.r][0][t.lane];
+#pragma unroll
+  for (int q = 1; q < kTailWarps; ++q) {
+    const float4 u = part[t.r][q][t.lane];
+    v.x = min_nan(v.x, u.x);
+    v.y = max_nan(v.y, u.y);
+    v.z = min_nan(v.z, u.z);
+    v.w = max_nan(v.w, u.w);
+  }
+  v.x = warp_fold<kC, false>(v.x);
+  v.y = warp_fold<kC, true>(v.y);
+  if (flagged) {
+    v.z = warp_fold<kC, false>(v.z);
+    v.w = warp_fold<kC, true>(v.w);
+  }
+  if (t.lane < kC) {
+    const int64_t p = static_cast<int64_t>(f0 + t.r) * chans + t.cg * kC +
+                      t.lane;
+    if (flagged) {
+      atomicMin(win_slot(slots, p, 0), key_lo(v.z));
+      atomicMax(win_slot(slots, p, 1), key_hi(v.w));
+    }
+    atomicMin(win_slot(slots, p, 2), key_lo(v.x));
+    atomicMax(win_slot(slots, p, 3), key_hi(v.y));
+  }
+}
+
+// A lane's (lo, hi, unflagged lo, unflagged hi) over its row of 8 pixels.
+__device__ __forceinline__ float4 row_window(const float (&y)[kB],
+                                             bool bad) {
+  const float inf = __int_as_float(0x7f800000);
+  float lo = y[0], hi = y[0];
+#pragma unroll
+  for (int i = 1; i < kB; ++i) {
+    lo = min_nan(lo, y[i]);
+    hi = max_nan(hi, y[i]);
+  }
+  return make_float4(lo, hi, bad ? inf : lo, bad ? -inf : hi);
+}
+
+// K5's pass 1. Shared memory: the fold's part, then the stage.
 constexpr int kPartPieces = kTailChunk * kTailWarps * 32;
 
 template <int K>
@@ -446,47 +527,89 @@ __global__ void __launch_bounds__(kTailThreads, 4)
         xv.load(staged<K>(xs, b, fi, t.lane));
         float y[kB];
         produce<K>(xv, e, y);
-        float lo = y[0], hi = y[0];
-#pragma unroll
-        for (int i = 1; i < kB; ++i) {
-          lo = min_nan(lo, y[i]);
-          hi = max_nan(hi, y[i]);
-        }
-        const bool bad = flagged && xv.v[K] > 0.5f;
-        v = make_float4(lo, hi, bad ? inf : lo, bad ? -inf : hi);
+        v = row_window(y, flagged && xv.v[K] > 0.5f);
       }
       part[fi][t.r][t.lane] = v;
     }
     __syncthreads();
-    // warp r folds frame f0 + r: over the 8 rows, then over its lanes (the
-    // next chunk's stage and barrier keep part until every warp is done)
-    if (t.r < nf) {
-      float4 v = part[t.r][0][t.lane];
+    // the next chunk's stage and barrier keep part until every warp has
+    // folded
+    fold_window<kC>(part, t, f0, nf, chans, flagged, slots);
+  }
+}
+
+// K8's pixel source: lane (block, row r)'s 32-byte row of the
+// reconstruction, frame f at rec + blk * bstride + r * 8 + f * fstride,
+// and its flag at x[blk * xrow + f * xstep + xflag] (x null: no flags).
+struct RecSrc {
+  const float* rec;
+  const float* x;
+  int64_t bstride, fstride, xrow;
+  int xflag;
+};
+
+struct RecRows {
+  const float* row;     // this lane's row of its block, frame 0
+  const float* flag;    // its flag, frame 0 (null: no flags)
+  int64_t fstride, xstep;
+
+  template <int kC>
+  __device__ __forceinline__ RecRows(const RecSrc& s, const TailLane<kC>& t,
+                                     int chans, int n_blk)
+      : fstride(s.fstride) {
+    const int64_t blk = static_cast<int64_t>(t.c) * n_blk + t.n;
+    row = s.rec + blk * s.bstride + t.r * kB;
+    flag = s.x ? s.x + blk * s.xrow + s.xflag : nullptr;
+    xstep = static_cast<int64_t>(chans) * n_blk * s.xrow;
+  }
+
+  // every row of the chunk's frames in flight at once, 32 bytes a frame:
+  // pass 1 keeps them in L2 (a small batch is read again from there),
+  // pass 2 (kLast) reads them for the last time
+  template <bool kLast>
+  __device__ __forceinline__ void load(int f0, int nf, bool active,
+                                       float (&y)[kTailChunk][kB],
+                                       bool (&bad)[kTailChunk]) const {
 #pragma unroll
-      for (int q = 1; q < kTailWarps; ++q) {
-        const float4 u = part[t.r][q][t.lane];
-        v.x = min_nan(v.x, u.x);
-        v.y = max_nan(v.y, u.y);
-        v.z = min_nan(v.z, u.z);
-        v.w = max_nan(v.w, u.w);
-      }
-      v.x = warp_fold<kC, false>(v.x);
-      v.y = warp_fold<kC, true>(v.y);
-      if (flagged) {
-        v.z = warp_fold<kC, false>(v.z);
-        v.w = warp_fold<kC, true>(v.w);
-      }
-      if (t.lane < kC) {
-        const int64_t p = static_cast<int64_t>(f0 + t.r) * chans +
-                          t.cg * kC + t.lane;
-        if (flagged) {
-          atomicMin(win_slot(slots, p, 0), key_lo(v.z));
-          atomicMax(win_slot(slots, p, 1), key_hi(v.w));
-        }
-        atomicMin(win_slot(slots, p, 2), key_lo(v.x));
-        atomicMax(win_slot(slots, p, 3), key_hi(v.y));
+    for (int fi = 0; fi < kTailChunk; ++fi) {
+      if (active && fi < nf) {
+        const float4* p =
+            reinterpret_cast<const float4*>(row + (f0 + fi) * fstride);
+        const float4 a = kLast ? __ldcs(p) : __ldg(p);
+        const float4 c = kLast ? __ldcs(p + 1) : __ldg(p + 1);
+        y[fi][0] = a.x; y[fi][1] = a.y; y[fi][2] = a.z; y[fi][3] = a.w;
+        y[fi][4] = c.x; y[fi][5] = c.y; y[fi][6] = c.z; y[fi][7] = c.w;
+        bad[fi] = flag != nullptr && __ldg(flag + (f0 + fi) * xstep) > 0.5f;
       }
     }
+  }
+};
+
+// K8's pass 1: K5's with each row loaded from the reconstruction.
+template <int kC>
+__global__ void __launch_bounds__(kTailThreads, 2)
+    norm_window_kernel(RecSrc s, uint32_t* __restrict__ slots, int frames,
+                       int chans, int hb, int wb, int groups, int splits,
+                       int fper) {
+  __shared__ float4 part[kTailChunk][kTailWarps][32];
+  const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
+  const RecRows src(s, t, chans, hb * wb);
+  const int flagged = s.x != nullptr;
+  const float inf = __int_as_float(0x7f800000);
+  for (int f0 = t.fbeg; f0 < t.fend; f0 += kTailChunk) {
+    const int nf = min(kTailChunk, t.fend - f0);
+    float y[kTailChunk][kB];
+    bool bad[kTailChunk];
+    src.load<false>(f0, nf, t.active, y, bad);
+    __syncthreads();    // the last fold read part
+#pragma unroll
+    for (int fi = 0; fi < kTailChunk; ++fi)
+      if (fi < nf)
+        part[fi][t.r][t.lane] = t.active
+                                    ? row_window(y[fi], bad[fi])
+                                    : make_float4(inf, -inf, inf, -inf);
+    __syncthreads();
+    fold_window<kC>(part, t, f0, nf, chans, flagged, slots);
   }
 }
 
@@ -526,7 +649,76 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
                      0x5410);
 }
 
-// Pass 2: (y or fill - lo) * scale with each plane's (lo, scale, fill)
+// The shared memory a warp's channels-last row goes through.
+template <int kC>
+__host__ __device__ constexpr int stage_elems() {
+  return kC > 1 ? TailLane<kC>::kG * kC * kB : 1;
+}
+
+// Pass 2's store, both sources: a lane's 8 values of its pixel row at o,
+// cast; planes 8 elements a lane, channels-last frames through the warp's
+// stage st, its first `live` lanes storing 8 elements each.
+template <int kC, typename Out>
+__device__ __forceinline__ void store_row(Out* o, const float (&v)[kB],
+                                          Out* st, const TailLane<kC>& t,
+                                          int live) {
+  if constexpr (std::is_same<Out, uint8_t>::value) {
+    if constexpr (kC == 1) {
+      if (t.active) {
+        uint2 wd;
+        wd.x = pack4(sat_u8(v[0]), sat_u8(v[1]), sat_u8(v[2]), sat_u8(v[3]));
+        wd.y = pack4(sat_u8(v[4]), sat_u8(v[5]), sat_u8(v[6]), sat_u8(v[7]));
+        __stcs(reinterpret_cast<uint2*>(o), wd);
+      }
+    } else {
+      if (t.active) {
+#pragma unroll
+        for (int i = 0; i < kB; ++i)
+          st[t.bxl * kC * kB + i * kC + t.ci] =
+              static_cast<uint8_t>(sat_u8(v[i]));
+      }
+      __syncwarp();
+      if (t.lane < live)
+        __stcs(reinterpret_cast<uint2*>(o),
+               *reinterpret_cast<const uint2*>(st + t.lane * kB));
+      __syncwarp();
+    }
+  } else {
+    if constexpr (kC == 1) {
+      if (t.active) {
+        float4* q = reinterpret_cast<float4*>(o);
+        __stcs(q, make_float4(v[0], v[1], v[2], v[3]));
+        __stcs(q + 1, make_float4(v[4], v[5], v[6], v[7]));
+      }
+    } else {
+      if (t.active) {
+#pragma unroll
+        for (int i = 0; i < kB; ++i) st[t.bxl * kC * kB + i * kC + t.ci] = v[i];
+      }
+      __syncwarp();
+      if (t.lane < live) {
+        const float4* sp = reinterpret_cast<const float4*>(st + t.lane * kB);
+        float4* q = reinterpret_cast<float4*>(o);
+        __stcs(q, sp[0]);
+        __stcs(q + 1, sp[1]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Where a lane's pixel row of frame 0 goes in the output: warp r's run
+// of pixel row by * 8 + r, cg * H * W + (y * W + the first block's column)
+// * kC, 8 elements a lane.
+template <int kC>
+__device__ __forceinline__ int out_seg(const TailLane<kC>& t, int n_blk,
+                                       int wb) {
+  return t.cg * (n_blk * kB * kB) +
+         ((t.by * kB + t.r) * (wb * kB) + t.g * TailLane<kC>::kG * kB) * kC +
+         t.lane * kB;
+}
+
+// K5's pass 2: (y or fill - lo) * scale with each plane's (lo, scale, fill)
 // (prm; null without normalize: (0, 1, 0)), cast and store.
 template <int K, int kC, typename Out>
 __global__ void __launch_bounds__(kTailThreads)
@@ -535,13 +727,10 @@ __global__ void __launch_bounds__(kTailThreads)
                       const float4* __restrict__ prm, Out* __restrict__ out,
                       int frames, int chans, int hb, int wb, int groups,
                       int splits, int fper, int flagged) {
-  constexpr int kG = TailLane<kC>::kG;
-  constexpr int kStage = kC > 1 ? kG * kC * kB : 1;
-  __shared__ __align__(16) Out stage[kTailWarps][kStage];
+  __shared__ __align__(16) Out stage[kTailWarps][stage_elems<kC>()];
   __shared__ float4 xs[stage_pieces<K>()];
   const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const int n_blk = hb * wb;
-  const int w = wb * kB;
   float e[K][kB];
   if (t.active)
     load_basis<K>(eb, bstride, static_cast<int64_t>(t.c) * n_blk + t.n, t.r,
@@ -550,14 +739,10 @@ __global__ void __launch_bounds__(kTailThreads)
   const int64_t xstep = static_cast<int64_t>(chans) * n_blk * kRow;
   const float* xr = x + (static_cast<int64_t>(t.c) * n_blk + t.n) * kRow;
   const int64_t frame_out = static_cast<int64_t>(n_blk) * kB * kB * chans;
-  // this warp's run of pixel row by * 8 + r: cg * H * W + (y * W + the
-  // first block's column) * kC, 8 elements a lane
-  const int seg = t.cg * (n_blk * kB * kB) +
-                  ((t.by * kB + t.r) * w + t.g * kG * kB) * kC + t.lane * kB;
-  Out* o = out + t.fbeg * frame_out + seg;
+  Out* o = out + t.fbeg * frame_out + out_seg(t, n_blk, wb);
   const float4* pp = prm ? prm + static_cast<int64_t>(t.fbeg) * chans + t.c
                          : nullptr;
-  const int live = min(kG, wb - t.g * kG) * kC;   // lanes that store
+  const int live = min(TailLane<kC>::kG, wb - t.g * TailLane<kC>::kG) * kC;
   stage_chunk<K>(xs, 0, xr, xstep, t.fbeg, t.fend, t.r, t.lane, t.active);
   for (int f0 = t.fbeg, b = 0; f0 < t.fend; f0 += kTailChunk, b ^= 1) {
     const int nf = min(kTailChunk, t.fend - f0);
@@ -579,57 +764,46 @@ __global__ void __launch_bounds__(kTailThreads)
         for (int i = 0; i < kB; ++i)
           v[i] = __fmul_rn(__fsub_rn(bad ? pr.z : y[i], pr.x), pr.y);
       }
-      if constexpr (std::is_same<Out, uint8_t>::value) {
-        if constexpr (kC == 1) {
-          if (t.active) {
-            uint2 wd;
-            wd.x = pack4(sat_u8(v[0]), sat_u8(v[1]), sat_u8(v[2]),
-                         sat_u8(v[3]));
-            wd.y = pack4(sat_u8(v[4]), sat_u8(v[5]), sat_u8(v[6]),
-                         sat_u8(v[7]));
-            __stcs(reinterpret_cast<uint2*>(o), wd);
-          }
-        } else {
-          uint8_t* st = stage[t.r];
-          if (t.active) {
-#pragma unroll
-            for (int i = 0; i < kB; ++i)
-              st[t.bxl * kC * kB + i * kC + t.ci] =
-                  static_cast<uint8_t>(sat_u8(v[i]));
-          }
-          __syncwarp();
-          if (t.lane < live)
-            __stcs(reinterpret_cast<uint2*>(o),
-                   *reinterpret_cast<const uint2*>(st + t.lane * kB));
-          __syncwarp();
-        }
-      } else {
-        if constexpr (kC == 1) {
-          if (t.active) {
-            float4* q = reinterpret_cast<float4*>(o);
-            __stcs(q, make_float4(v[0], v[1], v[2], v[3]));
-            __stcs(q + 1, make_float4(v[4], v[5], v[6], v[7]));
-          }
-        } else {
-          float* st = stage[t.r];
-          if (t.active) {
-#pragma unroll
-            for (int i = 0; i < kB; ++i)
-              st[t.bxl * kC * kB + i * kC + t.ci] = v[i];
-          }
-          __syncwarp();
-          if (t.lane < live) {
-            const float4* sp =
-                reinterpret_cast<const float4*>(st + t.lane * kB);
-            float4* q = reinterpret_cast<float4*>(o);
-            __stcs(q, sp[0]);
-            __stcs(q + 1, sp[1]);
-          }
-          __syncwarp();
-        }
-      }
+      store_row<kC>(o, v, stage[t.r], t, live);
     }
     __syncthreads();   // buffer b is staged again by the next chunk
+  }
+}
+
+// K8's pass 2: K5's with each row loaded from the reconstruction.
+template <int kC, typename Out>
+__global__ void __launch_bounds__(kTailThreads)
+    norm_paint_kernel(RecSrc s, const float4* __restrict__ prm,
+                      Out* __restrict__ out, int frames, int chans, int hb,
+                      int wb, int groups, int splits, int fper) {
+  __shared__ __align__(16) Out stage[kTailWarps][stage_elems<kC>()];
+  const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
+  const int n_blk = hb * wb;
+  const RecRows src(s, t, chans, n_blk);
+  const int64_t frame_out = static_cast<int64_t>(n_blk) * kB * kB * chans;
+  Out* o = out + t.fbeg * frame_out + out_seg(t, n_blk, wb);
+  const float4* pp = prm ? prm + static_cast<int64_t>(t.fbeg) * chans + t.c
+                         : nullptr;
+  const int live = min(TailLane<kC>::kG, wb - t.g * TailLane<kC>::kG) * kC;
+  for (int f0 = t.fbeg; f0 < t.fend; f0 += kTailChunk) {
+    const int nf = min(kTailChunk, t.fend - f0);
+    float y[kTailChunk][kB];
+    bool bad[kTailChunk];
+    src.load<true>(f0, nf, t.active, y, bad);
+#pragma unroll
+    for (int fi = 0; fi < kTailChunk; ++fi) {
+      if (fi >= nf) break;
+      const float4 pr = pp ? *pp : make_float4(0.0f, 1.0f, 0.0f, 0.0f);
+      if (pp) pp += chans;
+      float v[kB];
+      if (t.active) {
+#pragma unroll
+        for (int i = 0; i < kB; ++i)
+          v[i] = __fmul_rn(__fsub_rn(bad[fi] ? pr.z : y[fi][i], pr.x), pr.y);
+      }
+      store_row<kC>(o, v, stage[t.r], t, live);
+      o += frame_out;
+    }
   }
 }
 
@@ -650,9 +824,6 @@ bool tail_with_k(int k, F&& f) {
 }
 
 struct TailArgs {
-  const float* x;
-  const float* eb;
-  int64_t bstride;
   void* out;
   bool out_u8;
   uint32_t* win;
@@ -695,9 +866,13 @@ inline int frames_per_cta(const TailArgs& a, int per_sm) {
   return static_cast<int>((a.frames + splits - 1) / splits);
 }
 
-template <int K, int kC>
-cudaError_t launch_tail(const TailArgs& a) {
-  static const int per_sm = ctas_per_sm(tail_paint_kernel<K, kC, uint8_t>);
+// The two passes: the init, window and params kernels (with normalize),
+// then the paint kernel. per_sm: the paint kernel's CTAs an SM;
+// window(grid, splits, fper, slots) and paint(grid, splits, fper, prm)
+// launch the source's instances and return their launch error.
+template <class Window, class Paint>
+cudaError_t launch_tail(const TailArgs& a, int per_sm, Window&& window,
+                        Paint&& paint) {
   const int fper = frames_per_cta(a, per_sm);
   const int splits = (a.frames + fper - 1) / fper;
   const unsigned grid = a.tiles * static_cast<unsigned>(splits);
@@ -711,15 +886,7 @@ cudaError_t launch_tail(const TailArgs& a) {
                                                                  planes * 4);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    constexpr int smem = window_smem<K>();
-    err = cudaFuncSetAttribute(tail_window_kernel<K, kC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    tail_window_kernel<K, kC><<<grid, kTailThreads, smem, a.st>>>(
-        a.x, a.eb, a.bstride, slots, a.frames, a.chans, a.hb, a.wb,
-        a.groups, splits, fper, a.flagged);
-    err = cudaGetLastError();
+    err = window(grid, splits, fper, slots);
     if (err != cudaSuccess) return err;
     tail_params_kernel<<<(planes + 255) / 256, 256, 0, a.st>>>(
         slots, params, planes, a.flagged);
@@ -727,15 +894,93 @@ cudaError_t launch_tail(const TailArgs& a) {
     if (err != cudaSuccess) return err;
     prm = params;
   }
-  if (a.out_u8)
-    tail_paint_kernel<K, kC, uint8_t><<<grid, kTailThreads, 0, a.st>>>(
-        a.x, a.eb, a.bstride, prm, static_cast<uint8_t*>(a.out), a.frames,
-        a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
-  else
-    tail_paint_kernel<K, kC, float><<<grid, kTailThreads, 0, a.st>>>(
-        a.x, a.eb, a.bstride, prm, static_cast<float*>(a.out), a.frames,
-        a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
-  return cudaGetLastError();
+  return paint(grid, splits, fper, prm);
+}
+
+// K5: the two passes rebuilding each row from the estimates x and the
+// basis eb.
+template <int K, int kC>
+cudaError_t launch_rebuild(const TailArgs& a, const float* x, const float* eb,
+                           int64_t bstride) {
+  static const int per_sm = ctas_per_sm(tail_paint_kernel<K, kC, uint8_t>);
+  auto window = [&](unsigned grid, int splits, int fper, uint32_t* slots) {
+    constexpr int smem = window_smem<K>();
+    cudaError_t err = cudaFuncSetAttribute(
+        tail_window_kernel<K, kC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    tail_window_kernel<K, kC><<<grid, kTailThreads, smem, a.st>>>(
+        x, eb, bstride, slots, a.frames, a.chans, a.hb, a.wb, a.groups,
+        splits, fper, a.flagged);
+    return cudaGetLastError();
+  };
+  auto paint = [&](unsigned grid, int splits, int fper, const float4* prm) {
+    if (a.out_u8)
+      tail_paint_kernel<K, kC, uint8_t><<<grid, kTailThreads, 0, a.st>>>(
+          x, eb, bstride, prm, static_cast<uint8_t*>(a.out), a.frames,
+          a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
+    else
+      tail_paint_kernel<K, kC, float><<<grid, kTailThreads, 0, a.st>>>(
+          x, eb, bstride, prm, static_cast<float*>(a.out), a.frames,
+          a.chans, a.hb, a.wb, a.groups, splits, fper, a.flagged);
+    return cudaGetLastError();
+  };
+  return launch_tail(a, per_sm, window, paint);
+}
+
+// K8: the two passes reading each row from the reconstruction.
+template <int kC>
+cudaError_t launch_rec(const TailArgs& a, const RecSrc& s) {
+  static const int per_sm = ctas_per_sm(norm_paint_kernel<kC, uint8_t>);
+  auto window = [&](unsigned grid, int splits, int fper, uint32_t* slots) {
+    norm_window_kernel<kC><<<grid, kTailThreads, 0, a.st>>>(
+        s, slots, a.frames, a.chans, a.hb, a.wb, a.groups, splits, fper);
+    return cudaGetLastError();
+  };
+  auto paint = [&](unsigned grid, int splits, int fper, const float4* prm) {
+    if (a.out_u8)
+      norm_paint_kernel<kC, uint8_t><<<grid, kTailThreads, 0, a.st>>>(
+          s, prm, static_cast<uint8_t*>(a.out), a.frames, a.chans, a.hb,
+          a.wb, a.groups, splits, fper);
+    else
+      norm_paint_kernel<kC, float><<<grid, kTailThreads, 0, a.st>>>(
+          s, prm, static_cast<float*>(a.out), a.frames, a.chans, a.hb, a.wb,
+          a.groups, splits, fper);
+    return cudaGetLastError();
+  };
+  return launch_tail(a, per_sm, window, paint);
+}
+
+// The checks and the grid both entry points share: fills a's geometry and
+// returns cudaErrorInvalidValue for a shape or scratch outside the
+// kernels' bounds, else cudaSuccess (kc: channels on a frame's lanes).
+inline cudaError_t tail_geometry(TailArgs& a, void* out, int out_is_u8,
+                                 void* win, int frames, int chans, int kc,
+                                 int h, int w, int normalize, void* stream) {
+  if (h % kB || w % kB || h <= 0 || w <= 0 || frames < 0 || chans < 1 ||
+      (kc != 1 && kc != 3) ||
+      static_cast<int64_t>(h) * w * chans >= (int64_t{1} << 31) ||
+      reinterpret_cast<uintptr_t>(win) % 16 ||
+      static_cast<int64_t>(frames) * chans * 4 * kWinStride >=
+          (int64_t{1} << 31))
+    return cudaErrorInvalidValue;
+  const int hb = h / kB, wb = w / kB;
+  const int kg = 32 / kc;
+  const int groups = (wb + kg - 1) / kg;
+  const int64_t tiles = static_cast<int64_t>(chans / kc) * hb * groups;
+  if (tiles * frames >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  a.out = out;
+  a.out_u8 = out_is_u8 != 0;
+  a.win = static_cast<uint32_t*>(win);
+  a.frames = frames;
+  a.chans = chans;
+  a.hb = hb;
+  a.wb = wb;
+  a.groups = groups;
+  a.normalize = normalize != 0;
+  a.tiles = static_cast<unsigned>(tiles);
+  a.st = static_cast<cudaStream_t>(stream);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -794,7 +1039,7 @@ extern "C" int dctsvd_tail_front(const void* s_cw, const void* sc,
 // frames [frames, h, w, chans] (frames_layout, chans 1 or 3) or planes
 // [frames, chans, h, w]; win: u32 scratch of frames * chans * (4 + 4 *
 // kWinStride) words, 16-byte aligned, used only with normalize. Launches
-// the init, window and params kernels (with normalize) and the paint
+// K5's init, window and params kernels (with normalize) and its paint
 // kernel on `stream`; returns the first launch's error, or
 // cudaErrorInvalidValue, launching nothing, for an input outside these
 // bounds or a frame of 2^31 elements or more.
@@ -806,30 +1051,56 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
                                    void* stream) {
   using namespace dctsvd;
   const int kc = frames_layout ? chans : 1;
-  if (h % kB || w % kB || h <= 0 || w <= 0 || frames < 0 || chans < 1 ||
-      (kc != 1 && kc != 3) || (kx != k && kx != k + 1) || bstride % 4 ||
+  TailArgs a{};
+  if ((kx != k && kx != k + 1) || bstride % 4 ||
       reinterpret_cast<uintptr_t>(eb) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      static_cast<int64_t>(h) * w * chans >= (int64_t{1} << 31) ||
-      reinterpret_cast<uintptr_t>(win) % 16 ||
-      static_cast<int64_t>(frames) * chans * 4 * kWinStride >=
-          (int64_t{1} << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int hb = h / kB, wb = w / kB;
-  const int kg = 32 / kc;
-  const int groups = (wb + kg - 1) / kg;
-  const int64_t tiles = static_cast<int64_t>(chans / kc) * hb * groups;
-  if (tiles * frames >= (int64_t{1} << 31))
+      tail_geometry(a, out, out_is_u8, win, frames, chans, kc, h, w,
+                    normalize, stream) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0) return static_cast<int>(cudaSuccess);
-  TailArgs a{static_cast<const float*>(x), static_cast<const float*>(eb),
-             bstride, out, out_is_u8 != 0, static_cast<uint32_t*>(win),
-             frames, chans, hb, wb, groups, kx == k + 1, normalize != 0,
-             static_cast<unsigned>(tiles), static_cast<cudaStream_t>(stream)};
+  a.flagged = kx == k + 1;
+  const float* xf = static_cast<const float*>(x);
+  const float* ebf = static_cast<const float*>(eb);
   cudaError_t err = cudaErrorInvalidValue;
   const bool ok = tail_with_k(k, [&](auto kk) {
     constexpr int K = decltype(kk)::value;
-    err = kc == 1 ? launch_tail<K, 1>(a) : launch_tail<K, 3>(a);
+    err = kc == 1 ? launch_rebuild<K, 1>(a, xf, ebf, bstride)
+                  : launch_rebuild<K, 3>(a, xf, ebf, bstride);
   });
   return static_cast<int>(ok ? err : cudaErrorInvalidValue);
+}
+
+// rec: the f32 reconstruction, the 64 pixels of block (c, n) of frame f
+// (row-major 8 x 8, contiguous) at rec + (c * N + n) * bstride + f *
+// fstride, 16-byte aligned (bstride and fstride multiples of 4); x: null
+// (no flags) or f32 rows, the erasure flag of block (f, c, n) at
+// x[((f * chans + c) * N + n) * xrow + xflag] (flagged when > 0.5); out,
+// win and the rest as dctsvd_extract_tail's. Launches K8's init, window
+// and params kernels (with normalize) and its paint kernel on `stream`;
+// returns the first launch's error, or cudaErrorInvalidValue, launching
+// nothing, for an input outside these bounds.
+extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
+                                       long long fstride, const void* x,
+                                       long long xrow, int xflag, void* out,
+                                       int out_is_u8, void* win, int frames,
+                                       int chans, int frames_layout, int h,
+                                       int w, int normalize, void* stream) {
+  using namespace dctsvd;
+  const int kc = frames_layout ? chans : 1;
+  TailArgs a{};
+  if (bstride < 0 || fstride < 0 || bstride % 4 || fstride % 4 ||
+      reinterpret_cast<uintptr_t>(rec) % 16 ||
+      (x && (reinterpret_cast<uintptr_t>(x) % 4 || xflag < 0 ||
+             xrow <= xflag)) ||
+      tail_geometry(a, out, out_is_u8, win, frames, chans, kc, h, w,
+                    normalize, stream) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (frames == 0) return static_cast<int>(cudaSuccess);
+  const RecSrc src{static_cast<const float*>(rec),
+                   static_cast<const float*>(x), bstride, fstride,
+                   x ? xrow : 0, xflag};
+  a.flagged = x != nullptr;
+  return static_cast<int>(kc == 1 ? launch_rec<1>(a, src)
+                                  : launch_rec<3>(a, src));
 }

@@ -472,7 +472,7 @@ def _masked_normalize(wy: torch.Tensor, bad_nat: Optional[torch.Tensor],
             return wy
         lo = wy.amin(dim=dims, keepdim=True)
         hi = wy.amax(dim=dims, keepdim=True)
-        return (wy - lo) * (255.0 / torch.clamp(hi - lo, min=1e-12))
+        return (wy - lo) * tail_cuda.scale_255(lo, hi)
     mask8 = bad_nat[..., None, None].expand(*bad_nat.shape, BLOCK, BLOCK)
     mask = dct.unblockify(mask8.to(torch.float32), hp, wp)[..., :h, :w]
     bad_pix = mask > 0.5
@@ -487,27 +487,12 @@ def _masked_normalize(wy: torch.Tensor, bad_nat: Optional[torch.Tensor],
     lo = torch.where(ok, lo, wy.amin(dim=dims, keepdim=True))
     hi = torch.where(ok, hi, wy.amax(dim=dims, keepdim=True))
     wy = torch.where(bad_pix, (lo + hi) * 0.5, wy)
-    return (wy - lo) * (255.0 / torch.clamp(hi - lo, min=1e-12))
+    return (wy - lo) * tail_cuda.scale_255(lo, hi)
 
 
 def _permute_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Slot order -> natural block order: ``take(x, idx, axis=-2)``."""
     return x.index_select(-2, idx)
-
-
-def _normalize_blocks(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor],
-                      normalize: bool) -> torch.Tensor:
-    """Block-level form of :func:`_masked_normalize` for block-aligned
-    planes (min/max over good pixels == min/max of good blocks' extrema).
-    ``blocks`` [..., N, 64]; ``bad_nat`` [..., N] or None."""
-    if not normalize:
-        if bad_nat is None:
-            return blocks
-        return torch.where(bad_nat[..., None], 0.0, blocks)
-    lo, hi = tail_cuda.block_window(blocks, bad_nat)
-    if bad_nat is not None:
-        blocks = torch.where(bad_nat[..., None], (lo + hi) * 0.5, blocks)
-    return (blocks - lo) * (255.0 / torch.clamp(hi - lo, min=1e-12))
 
 
 # the JAX package's names for the recompute normaliser (K5's arithmetic,
@@ -615,11 +600,12 @@ def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
 
     ``recompute`` picks the formulation for block-aligned sizes, as the
     JAX package's does. False (default) materializes the [..., N, 64]
-    reconstruction once (_recon) and normalizes it in eager ops; True
-    rebuilds it in each of K5's two passes (ops/tail_cuda.py:
-    recon_normalize), which sums the k terms in one fixed order where the
-    batched product need not. The two agree within a couple of u8 quanta.
-    An unaligned size takes the materializing form either way."""
+    reconstruction once (_recon) and normalizes it in K8's two passes
+    (ops/tail_cuda.py: normalize_blocks); True rebuilds it in each of K5's
+    two passes (ops/tail_cuda.py: recon_normalize), which sums the k terms
+    in one fixed order where the batched product need not. The two agree
+    within a couple of u8 quanta. An unaligned size takes the
+    materializing form either way, normalized in eager ops."""
     k = k_of_block(kfrac)
     hp, wp = h + (-h) % BLOCK, w + (-w) % BLOCK
     x = _tail_front(s_cw, sc, inv_blk, alpha, k, sw)
@@ -628,18 +614,14 @@ def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
     if recompute and (hp, wp) == (h, w):
         return tail_cuda.recon_normalize(x, eb64, h, w, normalize=normalize,
                                          out_u8=out_u8, to_frames=to_frames)
-    sw_nat = x[..., :k]
-    bad_nat = x[..., k] > 0.5 if x.shape[-1] > k else None
-    blocks = _recon(sw_nat, eb64)
+    blocks = _recon(x[..., :k], eb64)
     if (hp, wp) == (h, w):
-        # block-aligned: normalize on the [..., N, 64] block tensor
-        blocks = _normalize_blocks(blocks, bad_nat, normalize)
-        if out_u8:
-            blocks = blocks.clamp(0, 255).to(torch.uint8)
-        blocks = blocks.reshape(*blocks.shape[:-1], BLOCK, BLOCK)
-        if to_frames:
-            return _unblockify_to_frames(blocks, hp, wp)
-        return dct.unblockify(blocks, hp, wp)
+        # block-aligned: normalize on the [..., N, 64] block tensor, cast
+        # and unblockify (K8 on the card, the eager form on the CPU)
+        return tail_cuda.normalize_blocks(blocks, x, k, h, w,
+                                          normalize=normalize, out_u8=out_u8,
+                                          to_frames=to_frames)
+    bad_nat = x[..., k] > 0.5 if x.shape[-1] > k else None
     blocks = blocks.reshape(*blocks.shape[:-1], BLOCK, BLOCK)
     wy = dct.unblockify(blocks, hp, wp)[..., :h, :w]
     wy = _masked_normalize(wy, bad_nat, hp, wp, h, w, normalize)

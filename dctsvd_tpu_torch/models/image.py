@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from dctsvd_tpu_torch.models.blocked import _alpha
-from dctsvd_tpu_torch.ops import color, dct, metrics, permute
+from dctsvd_tpu_torch.ops import color, dct, metrics, permute, tail_cuda
 from dctsvd_tpu_torch.ops.svd import svd_full
 from dctsvd_tpu_torch.utils.config import K_FRAC_DEFAULT
 
@@ -188,8 +188,7 @@ def _minmax_255(x: torch.Tensor) -> torch.Tensor:
     """cv2.normalize(..., 0, 255, NORM_MINMAX) of each [H, W] plane."""
     lo = x.amin(dim=(-2, -1), keepdim=True)
     hi = x.amax(dim=(-2, -1), keepdim=True)
-    scale = 255.0 / torch.clamp(hi - lo, min=1e-12)
-    return (x - lo) * scale
+    return (x - lo) * tail_cuda.scale_255(lo, hi)
 
 
 def _nc_score(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,

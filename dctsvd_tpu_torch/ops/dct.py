@@ -92,6 +92,13 @@ def dct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ki,...nij,lj->...nkl", d, blocks, d)
 
 
+def idct2_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Batched b×b inverse DCT over a [..., N, b, b] coefficient tensor:
+    Dᵀ·C·D."""
+    d = dct_matrix(blocks.shape[-1], blocks.device, blocks.dtype)
+    return torch.einsum("ik,...nij,jl->...nkl", d, blocks, d)
+
+
 def dct2_plane_blocks(x: torch.Tensor, b: int = 8) -> torch.Tensor:
     """[..., H, W] plane -> [..., N, b, b] block-DCT coefficients, equal to
     ``dct2_blocks(blockify(x))`` in one contraction with the Kronecker

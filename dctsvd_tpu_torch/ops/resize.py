@@ -1,5 +1,6 @@
-"""INTER_AREA resize of u8 images, matching cv2 (counterpart of
-``resize_area_u8`` in ``dctsvd_tpu/ops/resize.py``).
+"""INTER_AREA resize of u8 images, matching cv2, and its float form
+(counterparts of ``resize_area_u8`` and ``resize_area`` in
+``dctsvd_tpu/ops/resize.py``).
 
 cv2's INTER_AREA has two regimes:
   1. both axes shrinking: area averaging (f32 weights, round half to even);
@@ -90,3 +91,37 @@ def resize_area_u8(img_u8: torch.Tensor, out_h: int, out_w: int,
         out = ((vpass + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
     return torch.movedim(out, 0, -1) if chan else out
+
+
+def resize_area(img: torch.Tensor, out_h: int, out_w: int,
+                channels_last: bool | None = None) -> torch.Tensor:
+    """Float INTER_AREA resize of [..., H, W] or [..., H, W, C] tensors
+    (f32, unquantized weights: the area averages when both axes shrink,
+    else the zoom path's taps as linear blends); ``channels_last`` as in
+    :func:`resize_area_u8`."""
+    chan = (img.ndim >= 3 and img.shape[-1] <= 4
+            if channels_last is None else channels_last)
+    x = torch.movedim(img, -1, 0) if chan else img
+    h, w = x.shape[-2], x.shape[-1]
+    dev = x.device
+    xf = x.to(torch.float32)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    if out_h <= h and out_w <= w:
+        wy = t(_shrink_weights_np(h, out_h), torch.float32)
+        wx = t(_shrink_weights_np(w, out_w), torch.float32)
+        y = torch.einsum("oh,...hw->...ow", wy, xf)
+        y = torch.einsum("...ow,pw->...op", y, wx)
+    else:
+        sy0, sy1, fy = _zoom_taps_np(h, out_h)
+        sx0, sx1, fx = _zoom_taps_np(w, out_w)
+        fyt = t(fy, torch.float32)[:, None]
+        fxt = t(fx, torch.float32)
+        hp = (xf.index_select(-1, t(sx0, torch.long)) * (1 - fxt)
+              + xf.index_select(-1, t(sx1, torch.long)) * fxt)
+        y = (hp.index_select(-2, t(sy0, torch.long)) * (1 - fyt)
+             + hp.index_select(-2, t(sy1, torch.long)) * fyt)
+
+    return torch.movedim(y, 0, -1) if chan else y

@@ -1,6 +1,6 @@
 """The blocked extract tail's kernels and their plain twins: K5f, the
-front stage that both tail forms read, and K5, the recompute form's two
-passes (``csrc/extract_tail.cu``).
+front stage that both tail forms read, K8, the default form's normaliser,
+and K5, the recompute form's two passes (``csrc/extract_tail.cu``).
 
 K5f ``tail_front`` replaces the front of the XLA fusion of
 ``dctsvd_tpu/models/blocked.py::_extract_tail_prepared`` (:1003-1016; no
@@ -33,6 +33,14 @@ finite), then a paint pass that repaints flagged blocks at the window's
 midpoint, maps the window to [0, 255] and writes u8 (clamped, truncated)
 or f32 channels-last frames [..., H, W, C] or planes [..., (C,) H, W].
 
+K8 ``normalize_blocks`` replaces the XLA fusion of the default form,
+``dctsvd_tpu/models/blocked.py::_normalize_blocks`` with the clip, cast
+and unblockify after it (``_extract_tail_prepared(recompute=False)`` at
+block-aligned sizes; no ``pl.pallas_call``): K5's two passes and stores,
+with each block's 64 pixels read from the materialised reconstruction
+``blocks`` [..., (C,) N, 64] (models/blocked.py::_recon's strided view)
+and the erasure flags from column k of ``x``. Its twin is the eager form.
+
 The scale is one IEEE division, ``255 / max(hi - lo, 1e-12)``, as the JAX
 package's ``255.0 / x``: torch's ``255.0 / t`` is ``t.reciprocal() * 255``,
 which rounds twice, so the twin writes ``torch.div`` and the kernel
@@ -55,7 +63,8 @@ from dctsvd_tpu_torch.utils.config import BLOCK
 
 __all__ = ["tail_front", "tail_front_plain", "shrink_estimate",
            "recon_normalize", "recon_normalize_plain", "block_window",
-           "normalize_blocks_recompute"]
+           "scale_255", "minmax_blocks", "normalize_blocks_recompute",
+           "normalize_blocks", "normalize_blocks_plain"]
 
 K_MAX = BLOCK            # K5f and K5 are compiled for k = 1..8
 FRAME_CHANNELS = (1, 3)  # channels of a channels-last frame on the card
@@ -240,8 +249,8 @@ def _f32(value: float, device) -> torch.Tensor:
 def block_window(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor]):
     """The normalisation window (lo, hi), each [..., 1, 1], of each plane of
     [..., N, 64] blocks: min/max over the pixels of unflagged blocks, or
-    over all when ``bad_nat`` is None or flags every block. Shared with
-    the materialising tail (models/blocked.py::_normalize_blocks)."""
+    over all when ``bad_nat`` is None or flags every block: the window of
+    :func:`minmax_blocks`, K8's twin."""
     if bad_nat is None:
         return (blocks.amin(dim=(-2, -1), keepdim=True),
                 blocks.amax(dim=(-2, -1), keepdim=True))
@@ -258,6 +267,29 @@ def block_window(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor]):
     return lo[..., None], hi[..., None]
 
 
+def scale_255(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """255 / max(hi - lo, 1e-12) as one IEEE division, as the JAX
+    package's ``255.0 / x``: torch's ``255.0 / t`` is
+    ``t.reciprocal() * 255``, which rounds twice."""
+    return torch.div(_f32(255.0, lo.device), torch.clamp(hi - lo, min=1e-12))
+
+
+def minmax_blocks(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor],
+                  normalize: bool) -> torch.Tensor:
+    """The JAX package's ``_normalize_blocks`` in torch: the min–max
+    normalisation of block-aligned planes [..., N, 64] to [0, 255] (f32),
+    flagged blocks (``bad_nat`` [..., N]) out of the window and repainted
+    at its midpoint (0 without ``normalize``)."""
+    if not normalize:
+        if bad_nat is None:
+            return blocks
+        return torch.where(bad_nat[..., None], 0.0, blocks)
+    lo, hi = block_window(blocks, bad_nat)
+    if bad_nat is not None:
+        blocks = torch.where(bad_nat[..., None], (lo + hi) * 0.5, blocks)
+    return (blocks - lo) * scale_255(lo, hi)
+
+
 def normalize_blocks_recompute(produce, bad_nat: Optional[torch.Tensor],
                                normalize: bool,
                                out_u8: bool) -> torch.Tensor:
@@ -268,8 +300,7 @@ def normalize_blocks_recompute(produce, bad_nat: Optional[torch.Tensor],
     amin/amax let a NaN through."""
     if normalize:
         lo, hi = block_window(produce(), bad_nat)
-        scale = torch.div(_f32(255.0, lo.device),
-                          torch.clamp(hi - lo, min=1e-12))
+        scale = scale_255(lo, hi)
     blocks = produce()
     if bad_nat is not None:
         fill = (lo + hi) * 0.5 if normalize else 0.0
@@ -380,3 +411,138 @@ def recon_normalize(x: torch.Tensor, eb64: torch.Tensor, h: int, w: int,
 
 
 recon_normalize.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the default form's normaliser over the materialised reconstruction
+# ---------------------------------------------------------------------------
+
+
+def _blocks_layout(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
+                   w: int, to_frames: bool):
+    """Check the shapes; whether ``x`` holds the flag column."""
+    if blocks.dtype != torch.float32 or x.dtype != torch.float32:
+        raise ValueError(f"normalize_blocks takes float32 blocks and "
+                         f"estimates, got {blocks.dtype} and {x.dtype}")
+    if h % BLOCK or w % BLOCK or h <= 0 or w <= 0:
+        raise ValueError(f"normalize_blocks needs block-aligned H and W "
+                         f"(multiples of {BLOCK}), got {h}x{w}")
+    n = (h // BLOCK) * (w // BLOCK)
+    if blocks.ndim < 2 or tuple(blocks.shape[-2:]) != (n, _PIXELS):
+        raise ValueError(f"blocks must be [..., {n}, {_PIXELS}] for {h}x{w}, "
+                         f"got {tuple(blocks.shape)}")
+    if (k < 1 or x.shape[:-1] != blocks.shape[:-1]
+            or x.shape[-1] not in (k, k + 1)):
+        raise ValueError(f"x must be [{', '.join(map(str, blocks.shape[:-1]))}"
+                         f", {k} or {k + 1}], got {tuple(x.shape)}")
+    if to_frames and blocks.ndim < 3:
+        raise ValueError("to_frames needs a channel dimension: blocks "
+                         "[..., C, N, 64]")
+    return x.shape[-1] == k + 1
+
+
+def normalize_blocks_plain(blocks: torch.Tensor, x: torch.Tensor, k: int,
+                           h: int, w: int, normalize: bool = True,
+                           out_u8: bool = True,
+                           to_frames: bool = False) -> torch.Tensor:
+    """Plain twin of K8: the eager form (models/blocked.py::
+    _normalize_blocks, the clip and cast, the unblockify)."""
+    flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
+    bad_nat = x[..., k] > 0.5 if flagged else None
+    out = minmax_blocks(blocks, bad_nat, normalize)
+    if out_u8:
+        out = out.clamp(0, 255).to(torch.uint8)
+    out = out.reshape(*out.shape[:-1], BLOCK, BLOCK)
+    if to_frames:
+        return dct.unblockify_to_frames(out, h, w)
+    return dct.unblockify(out, h, w)
+
+
+def _frame_stride(t: torch.Tensor, nlead: int) -> Optional[int]:
+    """Elements between consecutive frames when the first ``nlead`` dims of
+    ``t`` flatten to one strided dim (0 for a single frame), else None."""
+    fs, step = 0, None
+    for d in range(nlead - 1, -1, -1):
+        if t.shape[d] == 1:
+            continue
+        if step is None:
+            fs = step = t.stride(d)
+        elif t.stride(d) != step:
+            return None
+        step *= t.shape[d]
+    return fs
+
+
+def _blocks_strides(blocks: torch.Tensor, to_frames: bool) -> tuple:
+    """(floats between blocks, floats between frames, frame dims) of
+    ``blocks`` [..., N, 64] whose 64 pixels a block are contiguous on
+    16-byte boundaries: the dims before N are frames, then channels N
+    blocks apart (with ``to_frames`` the one before N, else as many as
+    lie so); raises for any other layout."""
+    st, shape = blocks.stride(), blocks.shape
+    bstride = st[-2]
+    nlead, step = blocks.ndim - 2, shape[-2] * bstride
+    while nlead > 0 and (shape[nlead - 1] == 1 or st[nlead - 1] == step):
+        step *= shape[nlead - 1]
+        nlead -= 1
+        if to_frames:
+            break
+    fstride = _frame_stride(blocks, nlead)
+    if (st[-1] != 1 or fstride is None or bstride % 4 or fstride % 4
+            or (to_frames and nlead != blocks.ndim - 3)
+            or blocks.data_ptr() % 16):
+        raise ValueError(f"normalize_blocks needs the 64 pixels of a block "
+                         f"contiguous on 16-byte boundaries, block and "
+                         f"frame strides that are multiples of 4 floats "
+                         f"and channels N blocks apart; got strides {st}")
+    return bstride, fstride, nlead
+
+
+def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
+                     w: int, normalize: bool = True, out_u8: bool = True,
+                     to_frames: bool = False) -> torch.Tensor:
+    """Normalise, cast and unblockify the materialised reconstruction (see
+    the module docstring): K8 on CUDA tensors, its plain twin on CPU
+    tensors. ``blocks`` [..., (C,) N, 64] f32, ``x`` [..., (C,) N, k or
+    k + 1] f32 (column k, when there, the erasure flag); returns u8
+    (``out_u8``) or f32 frames [..., H, W, C] (``to_frames``) or planes
+    [..., (C,) H, W]."""
+    flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
+    if wm_cuda._device_ok("normalize_blocks", blocks, x):
+        return normalize_blocks_plain(blocks, x, k, h, w, normalize, out_u8,
+                                      to_frames)
+    c = blocks.shape[-3] if to_frames else 1
+    if to_frames and c not in FRAME_CHANNELS:
+        raise ValueError(f"normalize_blocks writes frames of "
+                         f"{FRAME_CHANNELS} channels on the GPU, got {c}")
+    bstride, fstride, nlead = _blocks_strides(blocks, to_frames)
+    lead = tuple(blocks.shape[:nlead])
+    xrow = 0
+    if flagged:
+        xrow = _row_stride(x)
+        if xrow is None:
+            raise ValueError("normalize_blocks needs the flags in rows of a "
+                             "contiguous tensor on the GPU")
+    frames = 1
+    for d in lead:
+        frames *= d
+    chans = 1
+    for d in blocks.shape[nlead:-2]:
+        chans *= d
+    shape = ((*lead, h, w, c) if to_frames
+             else (*blocks.shape[:-2], h, w))
+    out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=blocks.device)
+    win = torch.empty((frames * chans if normalize else 0,
+                       4 + 4 * WIN_STRIDE), dtype=torch.int32,
+                      device=blocks.device)
+    if frames and out.numel():
+        kernels.launch("dctsvd_normalize_blocks", blocks.device, blocks,
+                       bstride, fstride, x if flagged else None, xrow, k,
+                       out, int(out_u8), win, frames, chans, int(to_frames),
+                       h, w, int(normalize))
+        normalize_blocks.launches += 1
+    return out
+
+
+normalize_blocks.launches = 0

@@ -2,7 +2,8 @@
 of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 (``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
 K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
-K5f and its recompute form K5 (``extract_tail.cu``), the gray scheme's
+K5f, its default form's normaliser K8 and its recompute form K5
+(``extract_tail.cu``), the gray scheme's
 color conversions K6 and K7 (``color.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
@@ -74,6 +75,8 @@ _SIGNATURES = {
                             _I, _I, _P],
     "dctsvd_tail_front": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
+    "dctsvd_normalize_blocks": [_P, _LL, _LL, _P, _LL, _I, _P, _I, _P, _I,
+                                _I, _I, _I, _I, _I, _P],
     "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

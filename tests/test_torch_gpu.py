@@ -7,7 +7,9 @@ serve steps on the card against the split calls, the probe kernels
 against K1, K5 (the recompute extract tail) against its twin run on the
 card in every layout and at k = 1, 4, 8, K5f (the extract tail's front
 stage) against its twin run on the card at 1080p on 1 to 128 frames and
-at every k, the default tail's bytes with either front, K6 and K7 (the
+at every k, the default tail's bytes with either front, K8 (the default
+tail's normaliser) against its twin run on the card in every layout, on
+1 to 128 1080p frames and through the default extract, K6 and K7 (the
 gray scheme's color conversions) against their twins run on the card on
 every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
 with the gray paths' bytes the same with either, and the parity path, the
@@ -1333,6 +1335,144 @@ def test_default_tail_bytes_are_the_same_with_either_front(dev, path,
     eager = outputs()
     for a, b in zip(kernel, eager):
         assert torch.equal(a, b)
+
+
+def _k8_inputs(dev, layout, flags, frames=2, seed=SEED + 50):
+    """K8's inputs from _tail_inputs' estimates and basis: the product as
+    models/blocked._recon makes it on the card (a strided view), and the
+    estimates whose column 4 flags blocks."""
+    x, eb64, h, w = _tail_inputs(layout, 4, flags, frames=frames, seed=seed)
+    x, eb64 = x.to(dev), eb64.to(dev)
+    return tb._recon(x[..., :4], eb64), x, eb64, h, w
+
+
+@pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("normalize", [True, False],
+                         ids=["normalize", "raw"])
+@pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
+@pytest.mark.parametrize("layout", ["frames", "planes", "color_planes"])
+def test_k8_matches_twin(dev, layout, flags, normalize, out_u8):
+    """K8 equals its twin, the eager form, run on the card (torch.equal)
+    in each layout: color channels-last frames, gray planes, color
+    planes."""
+    blocks, x, _, h, w = _k8_inputs(dev, layout, flags)
+    cl = layout == "frames"
+    n0 = tail_cuda.normalize_blocks.launches
+    got = tail_cuda.normalize_blocks(blocks, x, 4, h, w, normalize=normalize,
+                                     out_u8=out_u8, to_frames=cl)
+    torch.cuda.synchronize()
+    assert tail_cuda.normalize_blocks.launches == n0 + 1
+    ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w,
+                                           normalize=normalize,
+                                           out_u8=out_u8, to_frames=cl)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.equal(got, ref), float(
+        (got.to(torch.float64) - ref.to(torch.float64)).abs().max())
+
+
+@pytest.mark.parametrize("frames", [8, 70])
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_k8_is_batch_invariant(dev, layout, frames):
+    """A frame's bytes are the same alone, in a shard of 4 and in the
+    batch (70 frames: partial chunks of 8, frame splits, and a product of
+    three RECON_FRAMES slices), and the whole batch equals the twin."""
+    blocks, x, eb64, h, w = _k8_inputs(dev, layout, True, frames=frames)
+    cl = layout == "frames"
+    whole = tail_cuda.normalize_blocks(blocks, x, 4, h, w, to_frames=cl)
+    assert torch.equal(whole, tail_cuda.normalize_blocks_plain(
+        blocks, x, 4, h, w, to_frames=cl))
+
+    def alone(a, b):
+        xs = x[a:b]
+        return tail_cuda.normalize_blocks(tb._recon(xs[..., :4], eb64), xs,
+                                          4, h, w, to_frames=cl)
+    for i in (0, 5, frames - 1):
+        assert torch.equal(alone(i, i + 1), whole[i:i + 1])
+    for a in sorted({4, min(30, frames - 4), frames - 6}):
+        assert torch.equal(alone(a, a + 4), whole[a:a + 4])
+
+
+def test_k8_all_flagged_and_nan(dev):
+    """Every block of a plane flagged flattens it; a NaN in an unflagged
+    block of another plane propagates through its window (f32 out,
+    compared with NaN equal), as the twin's amin and amax let it."""
+    blocks, x, _, h, w = _k8_inputs(dev, "frames", True)
+    x[0, 1, :, 4] = 1.0
+    blocks = blocks.clone()
+    blocks[1, 2, 7, 5] = float("nan")
+    x[1, 2, 7, 4] = 0.0
+    for out_u8 in (True, False):
+        got = tail_cuda.normalize_blocks(blocks, x, 4, h, w, out_u8=out_u8,
+                                         to_frames=True)
+        ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w,
+                                               out_u8=out_u8, to_frames=True)
+        plane = got[0, ..., 1]
+        assert torch.equal(plane, plane[:1, :1].expand_as(plane))
+        if out_u8:
+            assert torch.equal(got, ref)
+        else:
+            assert bool(torch.isnan(got[1, ..., 2]).all())
+            torch.testing.assert_close(got, ref, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+def test_k8_wrapper_never_runs_the_twin_on_the_card(dev, monkeypatch):
+    """A CUDA tensor launches K8 (the twin is not reached), and a product
+    or flags the kernel cannot read raise instead of falling back."""
+    blocks, x, _, h, w = _k8_inputs(dev, "frames", True)
+    ref = tail_cuda.normalize_blocks(blocks, x, 4, h, w, to_frames=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tail_cuda, "normalize_blocks_plain", refuse)
+    n0 = tail_cuda.normalize_blocks.launches
+    assert torch.equal(tail_cuda.normalize_blocks(blocks, x, 4, h, w,
+                                                  to_frames=True), ref)
+    assert tail_cuda.normalize_blocks.launches == n0 + 1
+    buf = torch.empty(blocks.numel() + 1, device=dev)
+    off = buf[1:].view(blocks.shape).copy_(blocks)       # 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_cuda.normalize_blocks(off, x, 4, h, w, to_frames=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_cuda.normalize_blocks(blocks.transpose(-1, -2).contiguous()
+                                   .transpose(-1, -2), x, 4, h, w,
+                                   to_frames=True)
+    with pytest.raises(ValueError, match="rows"):
+        tail_cuda.normalize_blocks(blocks, x.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), 4, h, w, to_frames=True)
+
+
+@pytest.mark.parametrize("case", ["stego", "zeroed", "black", "no_sw"])
+@pytest.mark.parametrize("path", ["color", "gray"])
+def test_default_extract_takes_k8_at_1080p(dev, path, case, monkeypatch):
+    """The default extract at 1080p launches K8 once and gives the bytes
+    of K8's twin in its place, on 1, 4, 32, 33 and 128 frames; a frame's
+    bytes are the same alone, in a shard of 4 and in the batch of 128."""
+    st = _front_state(dev, path)
+    pw, sc, s_cw = st["pw"], st["sc"], st["s_cw"][case]
+    sw = None if case == "no_sw" else pw.sw
+
+    def extract(a, b):
+        return tb._extract_tail_prepared(
+            s_cw[a:b], sc[a:b], pw.ebasis, pw.inv_blk, ALPHA,
+            tb.K_FRAC_DEFAULT, True,
+            1080, 1920, sw=sw, to_frames=path == "color", out_u8=True)
+
+    kernel = {}
+    for n in (1, 4, 32, 33, 128):
+        n0 = tail_cuda.normalize_blocks.launches
+        kernel[n] = extract(0, n)
+        torch.cuda.synchronize()
+        assert tail_cuda.normalize_blocks.launches == n0 + 1
+    for i in (0, 5, 127):
+        assert torch.equal(extract(i, i + 1), kernel[128][i:i + 1])
+    for a in (4, 62, 122):
+        assert torch.equal(extract(a, a + 4), kernel[128][a:a + 4])
+    monkeypatch.setattr(tail_cuda, "normalize_blocks",
+                        tail_cuda.normalize_blocks_plain)
+    for n, got in kernel.items():
+        assert torch.equal(got, extract(0, n)), n
 
 
 def test_tail_front_wrapper_never_runs_the_twin_on_the_card(dev,

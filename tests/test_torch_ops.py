@@ -168,3 +168,128 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=repo)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# ---------------------------------------------------------------------------
+# The general Jacobi SVD, its values-only alias, idct2_blocks and the float
+# resize_area against the JAX package (its XLA formulations on the CPU).
+# Tolerances: S within 1e-5 of the largest singular value (the same f32
+# rotations, with dots summed in another order); U·S·Vᵀ within
+# tests/test_svd.py's 2e-4 of the input; idct2_blocks within
+# tests/test_dct.py's 1e-4; resize_area within tests/test_resize.py's 1.0 of
+# cv2 and within 1e-4 of the JAX package's (f32 sums of up to a few dozen
+# weighted pixels of at most 255, in another order).
+# ---------------------------------------------------------------------------
+
+SVD_CASES = {
+    "16x8": dict(shape=(10, 16, 8)),
+    "10x6": dict(shape=(7, 10, 6)),
+    "32x32": dict(shape=(3, 32, 32)),
+    "zero": dict(shape=(4, 12, 8), kind="zero"),
+    "rank1": dict(shape=(5, 16, 8), kind="rank1"),
+    "s1.25": dict(shape=(10, 16, 8), sweeps=1.25),
+    "unsorted": dict(shape=(10, 16, 8), sort_descending=False),
+    "values_only": dict(shape=(10, 16, 8), compute_uv=False),
+}
+
+
+def _svd_input(case):
+    c = SVD_CASES[case]
+    rng = _rng(50)
+    a = rng.normal(size=c["shape"]).astype(np.float32) * 3
+    if c.get("kind") == "zero":
+        a[:] = 0
+    elif c.get("kind") == "rank1":
+        u = rng.normal(size=(*c["shape"][:-1], 1))
+        v = rng.normal(size=(c["shape"][0], 1, c["shape"][-1]))
+        a = (u * v).astype(np.float32)
+    kw = {k: c[k] for k in ("sweeps", "sort_descending", "compute_uv")
+          if k in c}
+    return a, kw
+
+
+@pytest.mark.parametrize("case", list(SVD_CASES))
+def test_jacobi_svd_matches_jax(case):
+    from dctsvd_tpu.ops import svd as jsvd
+    from dctsvd_tpu_torch.ops import svd
+    a, kw = _svd_input(case)
+    got = svd.jacobi_svd(torch.from_numpy(a), **kw)
+    ref = jsvd.jacobi_svd(jnp.asarray(a), impl="xla", **kw)
+    if not kw.get("compute_uv", True):
+        got, ref = (None, got, None), (None, ref, None)
+    s, s_ref = got[1].numpy(), np.asarray(ref[1])
+    assert s.shape == s_ref.shape == (*a.shape[:-2], a.shape[-1])
+    tol = 1e-5 * max(float(np.abs(s_ref).max()), 1e-30)
+    np.testing.assert_allclose(s, s_ref, rtol=0, atol=tol)
+    if kw.get("sort_descending", True):
+        assert (np.diff(s, axis=-1) <= 0).all()
+    if got[0] is not None:
+        u, vt = got[0].numpy(), got[2].numpy()
+        assert u.shape == a.shape and vt.shape == (*a.shape[:-2],
+                                                   a.shape[-1], a.shape[-1])
+        rec = np.einsum("bij,bj,bjk->bik", u, s, vt)
+        np.testing.assert_allclose(rec, a, atol=2e-4)
+
+
+def test_jacobi_singular_values_matches_jax():
+    from dctsvd_tpu.ops import svd as jsvd
+    from dctsvd_tpu_torch.ops import svd
+    a, _ = _svd_input("16x8")
+    got = svd.jacobi_singular_values(torch.from_numpy(a)).numpy()
+    ref = np.asarray(jsvd.jacobi_singular_values(jnp.asarray(a)))
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.max()))
+    np.testing.assert_allclose(got, np.linalg.svd(a, compute_uv=False),
+                               rtol=2e-5, atol=1e-4)
+
+
+def test_jacobi_svd_routes(monkeypatch):
+    """The shape alone picks the route: sorted 8×8 takes the kernel (K4's
+    twin on the CPU) whatever DCTSVD_SVD_IMPL says (the JAX package's
+    variable; the port reads none), unsorted 8×8 and every other shape
+    the plain formulation; n > m raises."""
+    from dctsvd_tpu_torch.ops import svd, svd_cuda
+    a = torch.from_numpy(_rng(51).normal(size=(6, 8, 8)).astype(np.float32))
+    k4 = svd_cuda.jacobi_svd8(a, sweeps=5, compute_uv=True)
+    monkeypatch.setenv("DCTSVD_SVD_IMPL", "xla")
+    for x, y in zip(svd.jacobi_svd(a), k4):
+        assert torch.equal(x, y)
+    with pytest.raises(TypeError):
+        svd.jacobi_svd(a, impl="xla")
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel route was taken")
+    monkeypatch.setattr(svd, "jacobi_svd8", refuse)
+    for x, y in zip(svd.jacobi_svd(a, sort_descending=False),
+                    svd._jacobi_svd_plain(a, sort_descending=False)):
+        assert torch.equal(x, y)
+    svd.jacobi_svd(torch.zeros(2, 9, 8))
+    svd.jacobi_svd(torch.zeros(2, 8, 6))
+    with pytest.raises(ValueError, match="m >= n"):
+        svd.jacobi_svd(torch.zeros(2, 6, 8))
+
+
+def test_idct2_blocks_matches_jax():
+    x = _rng(52).normal(size=(3, 40, 8, 8)).astype(np.float32)
+    coefs = dct.dct2_blocks(torch.from_numpy(x))
+    got = dct.idct2_blocks(coefs)
+    ref = jdct.idct2_blocks(jnp.asarray(coefs.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), x, atol=1e-4)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((64, 48), (512, 512)), ((96, 80), (40, 30)), ((2, 60, 84, 3), (45, 63)),
+    ((50, 70, 3), (50, 140))])
+def test_resize_area_matches_jax_and_cv2(src, dst):
+    import cv2
+    img = _rng(53).integers(0, 256, src, np.uint8)
+    got = resize.resize_area(torch.from_numpy(img.astype(np.float32)), *dst)
+    ref = np.asarray(jresize.resize_area(jnp.asarray(img.astype(np.float32)),
+                                         *dst))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+    frames = img.reshape(-1, *img.shape[-3:]) if img.ndim == 4 else [img]
+    want = np.stack([cv2.resize(f, dst[::-1], interpolation=cv2.INTER_AREA)
+                     for f in frames]).reshape(got.shape)
+    assert np.abs(got.numpy() - want.astype(np.float32)).max() <= 1.0

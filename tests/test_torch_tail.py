@@ -1,7 +1,9 @@
-"""The recompute form of the port's extract tail (``recompute=True``: the
-plain twin of K5, ops/tail_cuda.py) against the JAX package's
-``recompute=True`` on the CPU, against the port's own materialising form,
-and the wrapper's refusals.
+"""The port's extract tail against the JAX package on the CPU: the
+recompute form (``recompute=True``: the plain twin of K5,
+ops/tail_cuda.py) against the JAX package's ``recompute=True`` and the
+port's own materialising form; the front (K5f's twin); the min–max
+normalisers' one-division scale; the default form's normaliser (K8's
+twin) and the default extract; each wrapper's refusals.
 
 Inputs are uniform u8 noise from a seeded numpy generator, 64×80 (and an
 unaligned 65×83), batch 2, α 0.15; both packages read the same watermark
@@ -15,8 +17,7 @@ their reasons:
 - against the port's ``recompute=False``, within 2 quanta: the
   reference's own "couple of quanta" between its two forms
   (dctsvd_tpu/models/blocked.py::_extract_tail_prepared): the batched
-  product may pair the k terms otherwise, and the eager normaliser
-  multiplies by a reciprocal where the recompute form divides;
+  product may pair the k terms otherwise;
 - an unaligned frame takes the materialising form either way: equal;
 - a frame extracts to the same bytes alone and in a batch: equal.
 """
@@ -432,3 +433,240 @@ def test_front_wrapper_refuses_bad_input(states, bad):
         match = "unsupported device"
     with pytest.raises(ValueError, match=match):
         tail_cuda.tail_front(s_cw, sc, inv_blk, a, k, sw, scale, engage)
+
+
+# ---------------------------------------------------------------------------
+# The min–max normalisers' scale: one IEEE division, 255 / max(hi - lo,
+# 1e-12), as the JAX package's ``255.0 / x`` (torch's ``255.0 / t`` is a
+# reciprocal and a product, which rounds twice and moved about 1e-4 of the
+# u8 bytes below by one quantum; each case's message counts them). Each normaliser, then clip and cast, is
+# byte-equal to the JAX package's on the same seeded f32 input: min and max
+# are exact in any order and the rest is the same elementwise arithmetic.
+# Inputs: 96 planes, values ~ N(s, s²) at scales s from 1e-3 to 1e3, a
+# fifth of the blocks flagged where flags are on.
+# ---------------------------------------------------------------------------
+
+NORM_SCALES = [1e-3, 1e-1, 1.0, 10.0, 1e3]
+NORM_PLANES, NORM_H, NORM_W = 96, 48, 40
+
+
+def _norm_input(scale, flags, seed=SEED + 40):
+    """f32 planes [P, H, W], their blocks [P, N, 64] (row-major pixels of
+    each block) and the flags [P, N] or None."""
+    rng = np.random.default_rng(seed)
+    planes = (rng.standard_normal((NORM_PLANES, NORM_H, NORM_W)) * scale
+              + scale).astype(np.float32)
+    hb, wb = NORM_H // 8, NORM_W // 8
+    blocks = planes.reshape(NORM_PLANES, hb, 8, wb, 8).transpose(
+        0, 1, 3, 2, 4).reshape(NORM_PLANES, hb * wb, 64)
+    bad = (rng.random((NORM_PLANES, hb * wb)) < 0.2) if flags else None
+    return planes, np.ascontiguousarray(blocks), bad
+
+
+def _u8(t):
+    return t.clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _u8_jax(a):
+    return np.asarray(jnp.clip(a, 0, 255).astype(jnp.uint8))
+
+
+def _opt(a, conv):
+    return None if a is None else conv(a)
+
+
+def _bytes_equal(got, ref):
+    """Byte-equal, or fail naming how many bytes differ and of how many."""
+    assert got.shape == ref.shape
+    assert np.array_equal(got, ref), (
+        f"{int((got != ref).sum())} of {got.size} bytes differ")
+
+
+@pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
+@pytest.mark.parametrize("scale", NORM_SCALES)
+def test_normalize_blocks_equals_jax(scale, flags):
+    _, blocks, bad = _norm_input(scale, flags)
+    got = tail_cuda.minmax_blocks(torch.from_numpy(blocks),
+                                  _opt(bad, torch.from_numpy), True)
+    ref = jb._normalize_blocks(jnp.asarray(blocks), _opt(bad, jnp.asarray),
+                               True)
+    _bytes_equal(_u8(got), _u8_jax(ref))
+
+
+@pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
+@pytest.mark.parametrize("scale", NORM_SCALES)
+def test_masked_normalize_equals_jax(scale, flags):
+    planes, _, bad = _norm_input(scale, flags, seed=SEED + 41)
+    # an unaligned crop of the planes, as the materialising tail passes
+    h, w = NORM_H - 3, NORM_W - 5
+    args = (NORM_H, NORM_W, h, w, True)
+    got = tb._masked_normalize(torch.from_numpy(planes[:, :h, :w]),
+                               _opt(bad, torch.from_numpy), *args)
+    ref = jb._masked_normalize(jnp.asarray(planes[:, :h, :w]),
+                               _opt(bad, jnp.asarray), *args)
+    _bytes_equal(_u8(got), _u8_jax(ref))
+
+
+@pytest.mark.parametrize("scale", NORM_SCALES)
+def test_minmax_255_equals_jax(scale):
+    from dctsvd_tpu.models import image as jimage
+    from dctsvd_tpu_torch.models import image as timage
+    planes, _, _ = _norm_input(scale, False, seed=SEED + 42)
+    got = timage._minmax_255(torch.from_numpy(planes))
+    ref = jax.vmap(jimage._minmax_255)(jnp.asarray(planes))
+    _bytes_equal(_u8(got), _u8_jax(ref))
+
+
+# ---------------------------------------------------------------------------
+# K8, the default form's normaliser over the materialised product
+# (ops/tail_cuda.py::normalize_blocks): its twin is byte-equal to the JAX
+# package's _normalize_blocks, clip and cast, and unblockify on the same
+# reconstruction (the same arithmetic since the scale divides once); the
+# default tail stays within 2 quanta of the JAX package's (the bound
+# tests/test_torch_serve.py holds, for the estimator's and the product's
+# order); the wrapper takes the twin on the CPU and refuses what the
+# kernel does not take.
+# ---------------------------------------------------------------------------
+
+
+def _k8_case(layout, flags=True, frames=2, h=64, w=80, seed=SEED + 60,
+             flag_share=0.2):
+    """The product [frames, (3,) N, 64] of seeded estimates and basis, as
+    models/blocked._recon makes it (a strided view), and the estimates
+    [frames, (3,) N, k (+1)] whose column k flags blocks."""
+    x, eb64 = _tail_case(layout, flags=flags, frames=frames, h=h, w=w,
+                         seed=seed, flag_share=flag_share)
+    return tb._recon(x[..., :K], eb64), x
+
+
+def _jax_default(blocks, x, h, w, normalize, out_u8, to_frames):
+    bj = jnp.asarray(blocks.numpy())
+    bad = (jnp.asarray(x.numpy()[..., K] > 0.5) if x.shape[-1] == K + 1
+           else None)
+    out = jb._normalize_blocks(bj, bad, normalize)
+    if out_u8:
+        out = jnp.clip(out, 0, 255).astype(jnp.uint8)
+    out = out.reshape(*out.shape[:-1], 8, 8)
+    if to_frames:
+        return np.asarray(jb._unblockify_to_frames(out, h, w))
+    return np.asarray(jdct.unblockify(out, h, w))
+
+
+@pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_k8_twin_equals_jax_normalizer(layout, flags, normalize, out_u8):
+    blocks, x = _k8_case(layout, flags=flags)
+    cl = layout == "frames"
+    got = tail_cuda.normalize_blocks(blocks, x, K, 64, 80,
+                                     normalize=normalize, out_u8=out_u8,
+                                     to_frames=cl)
+    ref = _jax_default(blocks, x, 64, 80, normalize, out_u8, cl)
+    assert got.shape == ref.shape == ((2, 64, 80, 3) if cl else (2, 64, 80))
+    assert got.dtype == (torch.uint8 if out_u8 else torch.float32)
+    assert np.array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_k8_all_flagged_equals_jax(layout):
+    """Every block flagged: the whole window, each plane flat."""
+    blocks, x = _k8_case(layout, seed=SEED + 61)
+    x[..., K] = 1.0
+    cl = layout == "frames"
+    got = tail_cuda.normalize_blocks(blocks, x, K, 64, 80, to_frames=cl)
+    assert np.array_equal(got.numpy(),
+                          _jax_default(blocks, x, 64, 80, True, True, cl))
+    planes = torch.movedim(got, -1, 1) if cl else got[:, None]
+    flat = planes.reshape(*planes.shape[:2], -1)
+    assert torch.equal(flat, flat[..., :1].expand_as(flat))
+
+
+@pytest.mark.parametrize("hw", SHAPES, ids=["64x80", "65x83"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("path", ["color", "gray"])
+def test_default_matches_jax_default(states, path, case, hw):
+    s = states[path, hw]
+    stego, sw_j, _, normalize = _case_inputs(s, case)
+    fn = (jb.extract_color_prepared if path == "color"
+          else jb.extract_gray_prepared)
+    ref = fn(jnp.asarray(stego.numpy()), jnp.asarray(s["sc"].numpy()),
+             s["pj"].ebasis, s["pj"].inv_blk, jnp.float32(ALPHA),
+             normalize=normalize, sw=sw_j, sweeps=SWEEPS, recompute=False)
+    _within(_port(path, s, case, False), ref)
+
+
+def test_k8_wrapper_takes_the_twin_for_cpu_tensors(states):
+    """The default extract reaches K8's wrapper, which runs the twin for
+    CPU tensors and counts no launch."""
+    blocks, x = _k8_case("frames")
+    before = tail_cuda.normalize_blocks.launches
+    got = tail_cuda.normalize_blocks(blocks, x, K, 64, 80, out_u8=False,
+                                     to_frames=True)
+    assert torch.equal(got, tail_cuda.normalize_blocks_plain(
+        blocks, x, K, 64, 80, out_u8=False, to_frames=True))
+    calls = []
+    orig = tail_cuda.normalize_blocks
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return orig(*args, **kw)
+    tail_cuda.normalize_blocks = spy
+    try:
+        _port("color", states["color", SHAPES[0]], "sw", False)
+        _port("color", states["color", SHAPES[1]], "sw", False)
+    finally:
+        tail_cuda.normalize_blocks = orig
+    assert calls == [(2, 3, 80, 64)]          # aligned only
+    assert tail_cuda.normalize_blocks.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "unaligned", "blocks", "columns",
+                                 "lead", "frames_without_channels",
+                                 "device"])
+def test_k8_wrapper_refuses_bad_input(bad):
+    blocks, x = _k8_case("frames")
+    h, w, cl, match = 64, 80, True, "float32"
+    if bad == "dtype":
+        blocks = blocks.to(torch.float64)
+    elif bad == "unaligned":
+        h, match = 65, "block-aligned"
+    elif bad == "blocks":
+        w, match = 88, "blocks must be"
+    elif bad == "columns":
+        x, match = x[..., :2].contiguous(), "x must be"
+    elif bad == "lead":
+        x, match = x[:1], "x must be"
+    elif bad == "frames_without_channels":
+        blocks, x = _k8_case("planes")
+        blocks, x = blocks[0], x[0]
+        match = "channel dimension"
+    else:
+        blocks = torch.empty(blocks.shape, device="meta")
+        x = torch.empty(x.shape, device="meta")
+        match = "unsupported device"
+    with pytest.raises(ValueError, match=match):
+        tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=cl)
+
+
+def test_k8_layout_of_the_product():
+    """The strides the kernel is given for the product's strided view
+    (blocks F_pad·64 floats apart, frames 64, channels N blocks apart),
+    and the layouts it refuses: pixels not contiguous, block or frame
+    strides off 16 bytes, channels not N blocks apart."""
+    blocks, _ = _k8_case("frames", frames=3)
+    pad = tb.RECON_FRAMES
+    assert tail_cuda._blocks_strides(blocks, True) == (pad * 64, 64, 1)
+    assert tail_cuda._blocks_strides(blocks, False) == (pad * 64, 64, 1)
+    gray, _ = _k8_case("planes", frames=3)
+    assert tail_cuda._blocks_strides(gray, False) == (pad * 64, 64, 1)
+    assert tail_cuda._blocks_strides(gray[:1], False)[1:] == (0, 0)
+    wide = torch.zeros(2, 3, 80, 68)
+    refused = {
+        "pixels": torch.zeros(2, 3, 64, 80).transpose(-1, -2),
+        "block_stride": wide[..., 2:66],
+        "channels": torch.zeros(3, 2, 80, 64).transpose(0, 1),
+    }
+    for name, t in refused.items():
+        with pytest.raises(ValueError, match="normalize_blocks needs"):
+            tail_cuda._blocks_strides(t, True)
