@@ -26,10 +26,10 @@
                                             # from the library's SASS
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the fifteen hand-written kernels (K1, K2,
+an H100, ``sm_90a``). It builds the sixteen hand-written kernels (K1, K2,
 K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6 and
-K7, and the probes' copy_f32, cols_view, fma_chain and spectrum_probe; K2,
-K3 and K5 in one instance per k) from
+K7, the detect statistic K9, and the probes' copy_f32, cols_view,
+fma_chain and spectrum_probe; K2, K3, K5 and K9 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
@@ -48,7 +48,14 @@ a batch of 32 1080p frames (with the set-up time of prepare and the
 detect rate), the recompute extract tail (color and gray
 ``extract_*_prepared(recompute=True)``, K5) on the same batch, and the
 default one's K8 launches with no eager normaliser call (color, gray,
-serve+verify); K6
+serve+verify); K9, the detect statistic, bit-equal to its twin on the
+1080p spectra of the batch of 32 and of 128 frames, gray and color
+(frame and band scores, grid 2, a shared sc, the clean covers, a clean
+host scoring exactly 0, a frame alone and in a shard), within 1e-5 of the
+eager form it replaced, timed beside its byte bound, that eager form and
+the detect step with either, and detect_gray, detect_color, serve+score
+and a resync chunk each launching K9 once and calling no eager band
+function (``detect_1080p``); K6
 (``luma_f32``, ``bgr_to_gray``) and K7 (``replace_luma``) bit-equal to
 their twins on every BGR triple, seeded Y' with its edge values, the
 batch of 32 and the scalar path's frames, timed beside their byte and
@@ -102,7 +109,10 @@ times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
 K2r, K1g, K5f, K5, K8, K6 and K7 are held to their twins run on the card
 bit for bit; K8's launches are counted on the slice, the serve steps,
-the tail phase's default extracts, ``parallel/`` and the bench;
+the tail phase's default extracts, ``parallel/`` and the bench; K9's on
+the slice, the serve steps, ``detect_1080p``, the resync searches,
+``parallel/`` (``plane_8k``'s detect calls no eager band function) and
+the bench;
 K6's and K7's on the gray slice, the resync and parity phases,
 ``plane_8k`` and the bench.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
@@ -687,11 +697,12 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     """The 1080p color slice, batch 32, with the launch counters."""
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import metrics, svd_cuda, tail_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import (detect_cuda, metrics, svd_cuda,
+                                      tail_cuda, wm_cuda)
 
     wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
                 wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks]
+                tail_cuda.normalize_blocks, detect_cuda.band_scores]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -775,10 +786,10 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
 def phase_serve(dev, covers, wm_u8, blk, intra):
     """The three serve steps on the 1080p batch of 32: each equal to the
     split calls on the card, taking K3 (and K5f and K8 for the verify
-    steps) and neither K2 nor K1."""
+    steps, K9 for the scoring steps) and neither K2 nor K1."""
     import torch
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import tail_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import detect_cuda, tail_cuda, wm_cuda
 
     pw = blocked.prepare_wm_color(wm_u8, blk, intra)
     st, sc, _, _ = blocked.embed_color_prepared(covers, pw.sw, ALPHA,
@@ -790,7 +801,7 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
 
     wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
                 wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks]
+                tail_cuda.normalize_blocks, detect_cuda.band_scores]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -805,8 +816,9 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     launches = {fn.__name__: fn.launches for fn in wrappers}
     require(launches["roundtrip_frames_blocks"] >= 1
             and launches["tail_front"] >= 2
-            and launches["normalize_blocks"] >= 2,
-            f"K3, K5f or K8 not launched by the serve steps: {launches}")
+            and launches["normalize_blocks"] >= 2
+            and launches["band_scores"] == 2,
+            f"K3, K5f, K8 or K9 not launched by the serve steps: {launches}")
     require(launches["embed_blocks"] == 0 and launches["spectrum_blocks"] == 0,
             f"the serve steps launched K2 or K1: {launches}")
 
@@ -857,9 +869,9 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
             covers, pw.sw, ALPHA)),
         card=smi_line())
     emit(out)
-    return {"roundtrip_frames_blocks": launches["roundtrip_frames_blocks"],
-            "tail_front": launches["tail_front"],
-            "normalize_blocks": launches["normalize_blocks"]}
+    return {name: launches[name] for name in (
+        "roundtrip_frames_blocks", "tail_front", "normalize_blocks",
+        "band_scores")}
 
 
 def phase_variants(dev, covers):
@@ -1210,17 +1222,11 @@ def tail_k8_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
 
 
 @contextlib.contextmanager
-def eager_normaliser_calls():
-    """Counts the calls of the eager normaliser's functions made inside the
-    block (the twin of K8, the block-level normaliser and its window, the
-    unaligned form): {name: calls}. Each still runs."""
-    from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import tail_cuda
+def counted_calls(targets):
+    """Counts the calls of the functions ``targets`` ((module, name) pairs)
+    made inside the block: {name: calls}. Each still runs."""
     counts, patched = {}, []
-    for mod, name in ((tail_cuda, "normalize_blocks_plain"),
-                      (tail_cuda, "minmax_blocks"),
-                      (tail_cuda, "block_window"),
-                      (blocked, "_masked_normalize")):
+    for mod, name in targets:
         orig = getattr(mod, name)
         counts[name] = 0
 
@@ -1234,6 +1240,28 @@ def eager_normaliser_calls():
     finally:
         for mod, name, orig in patched:
             setattr(mod, name, orig)
+
+
+def eager_normaliser_calls():
+    """:func:`counted_calls` of the eager normaliser's functions (the twin
+    of K8, the block-level normaliser and its window, the unaligned
+    form)."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    return counted_calls(((tail_cuda, "normalize_blocks_plain"),
+                          (tail_cuda, "minmax_blocks"),
+                          (tail_cuda, "block_window"),
+                          (blocked, "_masked_normalize")))
+
+
+def eager_band_calls():
+    """:func:`counted_calls` of the eager band statistic's functions (the
+    twin of K9, metrics.nc, the two damps)."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import detect_cuda, metrics
+    return counted_calls(((detect_cuda, "band_scores_plain"),
+                          (metrics, "nc"), (blocked, "band_scale_damp"),
+                          (blocked, "band_presence_damp")))
 
 
 def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
@@ -1365,6 +1393,214 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     row["default_bytes_equal_with_twin_front"] = sorted(with_kernel)
     emit(dict(row, card=smi_line()))
     return row["launches"]
+
+
+# ---------------------------------------------------------------------------
+# K9: the detect statistic
+# ---------------------------------------------------------------------------
+
+def eager_band_nc(s_cw, sc, sw, alpha, k, hb, wb, grid=4):
+    """The eager detect statistic K9 replaced (models/blocked.py at commit
+    83dcf91: _sw_hat, _band_scores' to_bands, metrics.nc, band_scale_damp,
+    band_presence_damp, _median_last, and detect_color's channel mean),
+    kept here as K9's yardstick: the frame scores [...]."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import metrics
+    hat = (torch.clamp((s_cw - sc)[..., :k], min=0.0)
+           / torch.clamp(blocked._alpha(alpha, s_cw.device), min=1e-8))
+    ref = sw[..., :k].expand(hat.shape)
+    *lead, _, b = hat.shape
+    g = max(1, min(grid, hb, wb))
+    gh, gw = hb // g, wb // g
+
+    def to_bands(x):
+        x = x.reshape(*lead, hb, wb, b)[..., :g * gh, :g * gw, :]
+        x = x.reshape(*lead, g, gh, g, gw, b).transpose(-4, -3)
+        return x.reshape(*lead, g * g, gh * gw, b)
+
+    sw_b, hat_b = to_bands(ref), to_bands(hat)
+    sw_f = sw_b.reshape(*sw_b.shape[:-2], -1)
+    hat_f = hat_b.reshape(*hat_b.shape[:-2], -1)
+    scores = blocked._median_last(metrics.nc(sw_f, hat_f)
+                                  * blocked.band_scale_damp(sw_f, hat_f)
+                                  * blocked.band_presence_damp(sw_b, hat_b))
+    return scores.mean(dim=-1) if sw.ndim == 3 else scores
+
+
+def band_ops(k: int) -> int:
+    """f32 operations K9 does for a block of a band: per value the
+    estimate (3), pass 1's four sums (6) and pass 2's centred sums (8);
+    column 0's sums (2 + 8)."""
+    return 17 * k + 10
+
+
+def detect_row(dev, s_cw, sc, sw, clean, steps, detect, name) -> dict:
+    """K9 against its plain twin run on the card (torch.equal) on the main
+    path's spectra of one layout at 1080p (gray planes or color frames):
+    the stego batch of 32 (frame scores and, ``reduce=False``, the band
+    scores; grid 2; a shared sc), the clean covers, a clean host (s_cw =
+    sc: every score exactly 0) and 128 frames; a frame's score the same
+    alone, in a shard of 4 and in the batch; within 1e-5 of the eager form.
+    ms: K9 at 32 frames; plain_ms: its twin; eager_ms: the eager form;
+    *_128: at 128 frames; detect_ms_N / detect_ms_eager_N: the detect step
+    (``detect(stego, sc)``: K6, K1 and the statistic) on the N frames of
+    ``steps`` (32 and 128) with K9 and with the eager form in its place.
+    bound_ms counts the s_cw and sc rows of the blocks in
+    the bands (one 32-byte sector each), sw's once and the scores once."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import detect_cuda
+
+    hb, wb = H // 8, W // 8
+    alpha = blocked._alpha(ALPHA, dev)
+    s128 = s_cw.repeat(4, *[1] * (s_cw.ndim - 1))
+    sc128 = sc.repeat(4, *[1] * (sc.ndim - 1))
+
+    def k9(s_, q_, **kw):
+        return detect_cuda.band_scores(s_, q_, sw, alpha, K, hb, wb, **kw)
+
+    def twin(s_, q_, **kw):
+        return detect_cuda.band_scores_plain(s_, q_, sw, alpha, K, hb, wb,
+                                             **kw)
+
+    def check(case, s_, q_, **kw):
+        y = k9(s_, q_, **kw)
+        require(torch.equal(y, k9(s_, q_, **kw)),
+                f"K9 {name} {case}: two runs differ")
+        py = twin(s_, q_, **kw)
+        d = float((y - py).abs().max())
+        require(torch.equal(y, py), f"K9 {name} {case} vs twin: |d| max {d}")
+        checks[case] = dict(max_abs_err=d, equals_twin=True,
+                            shape=list(y.shape), min=float(y.min()),
+                            max=float(y.max()))
+        return y
+
+    checks = {}
+    y = check("stego", s_cw, sc)
+    check("stego_bands", s_cw, sc, reduce=False)
+    check("grid_2", s_cw, sc, grid=2)
+    check("shared_sc", s_cw, sc[0])
+    yc = check("clean_cover", clean, sc)
+    yz = check("clean_host", sc, sc)
+    check("batch_128", s128, sc128)
+    require(not bool(yz.any()), f"K9 {name}: a clean host scores "
+            f"{float(yz.abs().max())}, not 0")
+    require(float(y.min()) >= DETECT_THRESH
+            and float(yc.max()) < DETECT_THRESH,
+            f"K9 {name}: stego min {float(y.min())}, clean max "
+            f"{float(yc.max())}")
+    for a, b in ((0, 1), (BATCH - 1, BATCH), (4, 8)):
+        require(torch.equal(k9(s_cw[a:b], sc[a:b]), y[a:b]),
+                f"K9 {name}: frames {a}:{b} differ alone or in a shard "
+                "from the batch")
+    eager = eager_band_nc(s_cw, sc, sw, ALPHA, K, hb, wb)
+    eager_err = float((y - eager).abs().max())
+    require(eager_err <= 1e-5, f"K9 {name} vs the eager form: {eager_err}")
+
+    def with_eager(fn):
+        # the detect step with the eager statistic in K9's place
+        def step():
+            orig = blocked._band_nc
+            blocked._band_nc = lambda s_, q_, w_, a_, k_, hb_, wb_: \
+                eager_band_nc(s_, q_, w_, a_, k_, hb_, wb_)
+            try:
+                return fn()
+            finally:
+                blocked._band_nc = orig
+        return step
+
+    bands = hb // 4 * 4 * (wb // 4 * 4)       # blocks in the 4 x 4 bands
+    sw_planes = sw[..., 0, 0].numel()
+
+    def k9_bound(s_):
+        planes = s_[..., 0, 0].numel()
+        moved = (2 * planes + sw_planes) * bands * 32 + 4 * s_.shape[0]
+        return bound(planes * bands, band_ops(K), moved)
+
+    out = dict(
+        layout=name, shape=list(s_cw.shape), checks=checks,
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        equals_twin=True, batch_invariant=True, vs_eager_max_abs_err=eager_err,
+        ms=cuda_time(lambda: k9(s_cw, sc), 20),
+        plain_ms=cuda_time(lambda: twin(s_cw, sc), 3),
+        eager_ms=cuda_time(lambda: eager_band_nc(s_cw, sc, sw, ALPHA, K, hb,
+                                                 wb), 10),
+        ms_128=cuda_time(lambda: k9(s128, sc128), 20),
+        plain_ms_128=cuda_time(lambda: twin(s128, sc128), 2),
+        eager_ms_128=cuda_time(lambda: eager_band_nc(s128, sc128, sw, ALPHA,
+                                                     K, hb, wb), 5),
+        library_ms=None, **k9_bound(s_cw))
+    out["bound_ms_128"] = k9_bound(s128)["bound_ms"]
+    for st, q in steps:
+        n_frames = st.shape[0]
+        out[f"detect_ms_{n_frames}"] = cuda_time(lambda: detect(st, q), 5)
+        out[f"detect_ms_eager_{n_frames}"] = cuda_time(
+            with_eager(lambda: detect(st, q)), 5)
+    return out
+
+
+def phase_detect(dev, covers, wm_u8, blk, intra):
+    """K9 at 1080p (:func:`detect_row`, gray planes and color frames, on the
+    batch of 32 and 128 frames), then detect_gray, detect_color,
+    serve+score (serve_detect_color_prepared) and a resync chunk of 64
+    rolls (gray and color), K9's counter set to 0 just before each and
+    read just after: each launches K9 once and calls no eager band
+    function (:func:`eager_band_calls`). Returns (the two rows, K9's
+    launches on those paths, those of the color ones)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, detect_cuda
+
+    pwg = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra,
+                                  extract_basis=False)
+    pwc = blocked.prepare_wm_color(wm_u8, blk, intra, extract_basis=False)
+    stg, scg = blocked.embed_gray_prepared(covers, pwg.sw, ALPHA,
+                                           with_metrics=False)[:2]
+    st, sc = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                          with_metrics=False)[:2]
+    rows = {}
+    for name, stego, sc_, sw, spectrum, detect in (
+            ("band_scores", stg, scg, pwg.sw,
+             lambda x: blocked._plane_spectrum(color.luma_f32(x)),
+             lambda x, q: blocked.detect_gray(x, q, pwg.sw, ALPHA)),
+            ("band_scores_color", st, sc, pwc.sw, blocked._frames_spectrum,
+             lambda x, q: blocked.detect_color(x, q, pwc.sw, ALPHA))):
+        steps = [(stego, sc_), (stego.repeat(4, 1, 1, 1),
+                                sc_.repeat(4, *[1] * (sc_.ndim - 1)))]
+        rows[name] = detect_row(dev, spectrum(stego), sc_, sw,
+                                spectrum(covers), steps, detect, name)
+        del steps
+        emit({"phase": "kernel_vs_plain", "kernel": f"K9 {name}",
+              **rows[name]})
+
+    shifts = torch.as_tensor(blocked._resync_shifts(blocked.BLOCK, 0)[:64],
+                             device=dev)
+    paths = {
+        "detect_gray": lambda: blocked.detect_gray(stg, scg, pwg.sw, ALPHA),
+        "detect_color": lambda: blocked.detect_color(st, sc, pwc.sw, ALPHA),
+        "serve_score": lambda: blocked.serve_detect_color_prepared(
+            covers, pwc.sw, ALPHA),
+        "resync_chunk_gray": lambda: blocked._detect_shift_chunk(
+            color.luma_f32(stg[0]), scg[0], pwg.sw, ALPHA, shifts),
+        "resync_chunk_color": lambda: blocked._detect_shift_chunk(
+            st[0], sc[0], pwc.sw, ALPHA, shifts, color_frames=True)}
+    k9 = {}
+    with eager_band_calls() as eager_calls:
+        for pname, fn in paths.items():
+            torch.cuda.synchronize()
+            detect_cuda.band_scores.launches = 0
+            fn()
+            torch.cuda.synchronize()
+            k9[pname] = detect_cuda.band_scores.launches
+    require(all(n == 1 for n in k9.values()) and not any(eager_calls.values()),
+            f"the detect paths: K9 launches {k9}, eager band calls "
+            f"{eager_calls}")
+    emit({"phase": "detect_1080p", "batch": BATCH,
+          "band_scores_launches": k9, "eager_band_calls": eager_calls,
+          "card": smi_line()})
+    return rows, sum(k9.values()), sum(n for p, n in k9.items()
+                                       if "gray" not in p)
 
 
 # ---------------------------------------------------------------------------
@@ -2773,7 +3009,7 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     import torch
     from dctsvd_tpu_torch.io import meta as metaio
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import color, wm_cuda
+    from dctsvd_tpu_torch.ops import color, detect_cuda, wm_cuda
 
     chunk, step, rot_range = 64, 0.05, 0.5
     cover = torch.as_tensor(cover_np, device=dev)
@@ -2815,34 +3051,41 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                           equals_twin=True)
         del stack, got, ref
 
-    def counted(fn):
+    k9 = {}
+
+    def counted(fn, name):
         torch.cuda.synchronize()
         wm_cuda.spectrum_blocks.launches = 0
+        detect_cuda.band_scores.launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        k9[name] = detect_cuda.band_scores.launches
         return out, time.perf_counter() - t0, wm_cuda.spectrum_blocks.launches
 
     plain = float(blocked.detect_color(rolled, sc, sw, ALPHA, sweeps=SWEEPS))
     (score, shift, angle), shift_s, n_shift = counted(
         lambda: blocked.detect_color_resync(rolled, sc, sw, ALPHA,
-                                            sweeps=SWEEPS))
+                                            sweeps=SWEEPS),
+        "resync_shift_color")
     (found, path_score), path_s, n_path = counted(
         lambda: blocked.detect_paths(rolled.cpu().numpy(), meta,
-                                     DETECT_THRESH, resync=True, device=dev))
+                                     DETECT_THRESH, resync=True, device=dev),
+        "detect_paths_resync")
     gplain = float(blocked.detect_gray(grolled, gres.sc, gres.sw, ALPHA,
                                        sweeps=SWEEPS))
     zero_color_counts()
     (gscore, gshift, _), gray_s, n_gray = counted(
         lambda: blocked.detect_gray_resync(grolled, gres.sc, gres.sw, ALPHA,
-                                           sweeps=SWEEPS))
+                                           sweeps=SWEEPS),
+        "resync_shift_gray")
     n_color = color_counts()
     rot_plain = float(blocked.detect_color(rotated, sc, sw, ALPHA,
                                            sweeps=SWEEPS))
     (rscore, rshift, rangle), rot_s, n_rot = counted(
         lambda: blocked.detect_color_resync(
             rotated, sc, sw, ALPHA, sweeps=SWEEPS, rot_range=rot_range,
-            rot_step=step))
+            rot_step=step), "resync_rotation_color")
     angles = len(blocked._resync_angles(rot_range, step))
     angles += 8 if rangle != 0.0 else 0          # the step/5 refinement
     launches = {"resync_shift_color": n_shift,
@@ -2861,7 +3104,10 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
             and n_path == n_chunks + 1 and n_rot == n_chunks * angles,
             f"K1 launches on the resync searches {launches}, expected "
             f"{n_chunks} a scan of {len(shifts)} shifts")
+    require(k9 == launches, f"K9 launches on the resync searches {k9}, "
+            f"K1's {launches}: one each a chunk and an aligned detect")
     emit({"phase": "resync_1080p", "spectrum_blocks_launches": launches,
+          "band_scores_launches": k9,
           "color_launches": n_color,
           "k1_chunk_vs_twin": twin,
           "shift_color": dict(plain=plain, score=score, found=list(shift),
@@ -2872,7 +3118,7 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
           "rotation_color": dict(plain=rot_plain, score=rscore, angle=rangle,
                                  shift=list(rshift), search_s=rot_s),
           "card": smi_line()})
-    return launches, n_color
+    return launches, n_color, k9
 
 
 # ---------------------------------------------------------------------------
@@ -3393,9 +3639,10 @@ PLANE_H, PLANE_W = 4320, 7680   # one 8K frame: 518,400 blocks
 
 
 def parallel_wrappers():
-    from dctsvd_tpu_torch.ops import wm_cuda
+    from dctsvd_tpu_torch.ops import detect_cuda, wm_cuda
     return dict(video_wrappers(),
-                roundtrip_frames_blocks=wm_cuda.roundtrip_frames_blocks)
+                roundtrip_frames_blocks=wm_cuda.roundtrip_frames_blocks,
+                band_scores=detect_cuda.band_scores)
 
 
 def _signature(value):
@@ -3407,8 +3654,8 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's, K5f's, K8's, K6's and K7's wrappers and cols_view's (T2b, the
-    bench budget's view row): {name: wrapper}, the calls
+    """K1..K4's, K5f's, K8's, K9's, K6's and K7's wrappers and cols_view's
+    (T2b, the bench budget's view row): {name: wrapper}, the calls
     :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
     return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view,
@@ -3417,14 +3664,14 @@ def twinned_wrappers():
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's, K5f's, K8's, K6's, K7's and
+    """Records the first call of K1..K4's, K5f's, K8's, K9's, K6's, K7's and
     cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
     made inside the block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
     inputs, then calls the wrapper (whose count, kept on the module's
     name, is the recorder's while it stands in for it)."""
-    from dctsvd_tpu_torch.ops import (color_cuda, probe_cuda, svd, svd_cuda,
-                                      tail_cuda, wm_cuda)
+    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, probe_cuda,
+                                      svd, svd_cuda, tail_cuda, wm_cuda)
     calls = {}
     patched = []
     for name, orig in twinned_wrappers().items():
@@ -3435,7 +3682,7 @@ def recorded_calls():
             return _orig(*args, **kw)
         recorder.launches = orig.launches
         for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda,
-                    color_cuda):
+                    color_cuda, detect_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -3447,14 +3694,14 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4, K5f, K8, K6, K7 and cols_view again,
+    """Each recorded call of K1..K4, K5f, K8, K9, K6, K7 and cols_view again,
     through its kernel and through its plain twin on the same inputs on
     the card: bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
     and 1 calls)."""
     import torch
-    from dctsvd_tpu_torch.ops import (color_cuda, probe_cuda, svd_cuda,
-                                      tail_cuda, wm_cuda)
+    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, probe_cuda,
+                                      svd_cuda, tail_cuda, wm_cuda)
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
@@ -3463,6 +3710,7 @@ def recorded_vs_twin(calls: dict) -> list:
              "cols_view": probe_cuda.cols_view_plain,
              "tail_front": tail_cuda.tail_front_plain,
              "normalize_blocks": tail_cuda.normalize_blocks_plain,
+             "band_scores": detect_cuda.band_scores_plain,
              **{name: getattr(color_cuda, f"{name}_plain")
                 for name in COLOR_KERNELS}}
     kernels_ = twinned_wrappers()
@@ -3798,12 +4046,14 @@ def parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded):
         # each shard launches its kernels once, K4 once a device
         expect = {"serve": {"roundtrip_frames_blocks": shards,
                             "tail_front": shards,
-                            "normalize_blocks": shards},
+                            "normalize_blocks": shards,
+                            "band_scores": shards},
                   "embed_prepared": {"embed_blocks": shards},
                   "extract_prepared": {"spectrum_blocks": shards,
                                        "tail_front": shards,
                                        "normalize_blocks": shards},
-                  "detect_blocked": {"spectrum_blocks": shards},
+                  "detect_blocked": {"spectrum_blocks": shards,
+                                     "band_scores": shards},
                   "embed_blocked": {"embed_blocks": shards,
                                     "jacobi_svd8": 1}}
         for name, fn in fns.items():
@@ -3994,14 +4244,18 @@ def phase_plane(dev):
             (st, sc), _, n_emb = counted_run(
                 lambda: pplane.plane_embed_gray(cover, pw.sw, ALPHA,
                                                 mesh=mesh), counted)
-            score, _, n_det = counted_run(
-                lambda: pplane.plane_detect_gray(st, sc, pw.sw, ALPHA,
-                                                 mesh=mesh), counted)
+            with eager_band_calls() as eager_calls:
+                score, _, n_det = counted_run(
+                    lambda: pplane.plane_detect_gray(st, sc, pw.sw, ALPHA,
+                                                     mesh=mesh), counted)
             clean = pplane.plane_detect_gray(cover, sc, pw.sw, ALPHA,
                                              mesh=mesh)
             require(n_emb["embed_blocks"] == n_bands
-                    and n_det["spectrum_blocks"] == n_bands,
-                    f"{mname}: launches {n_emb} {n_det}")
+                    and n_det["spectrum_blocks"] == n_bands
+                    and n_det["band_scores"] == n_bands
+                    and not any(eager_calls.values()),
+                    f"{mname}: launches {n_emb} {n_det}, eager band calls "
+                    f"{eager_calls}")
             for k in launches:
                 launches[k] += n_emb[k] + n_det[k]
             require(torch.equal(st, ref_st) and torch.equal(sc, ref_sc),
@@ -4308,9 +4562,13 @@ def main(argv) -> int:
     front_paths = {"slice": launches.pop("tail_front")}
     # K8's likewise (the gray row's: the gray default extract's)
     k8_paths = {"slice": launches.pop("normalize_blocks")}
+    # K9's likewise (both layouts; the color row's: the detect phase's
+    # color calls)
+    k9_paths = {"slice": launches.pop("band_scores")}
     serve = phase_serve(dev, covers, wm_u8, blk, intra)
     front_paths["serve"] = serve.pop("tail_front")
     k8_paths["serve"] = serve.pop("normalize_blocks")
+    k9_paths["serve"] = serve.pop("band_scores")
     launches.update(serve)
     launches.update(phase_variants(dev, covers))
     tail = phase_tail_recompute(dev, covers, wm_u8, blk, intra)
@@ -4319,6 +4577,9 @@ def main(argv) -> int:
     k8_paths["tail_default"] = tail.pop("normalize_blocks")
     k8_gray = {"tail_default": tail.pop("normalize_blocks_gray")}
     launches.update(tail)
+    detect_results, k9_paths["detect_1080p"], k9_color = phase_detect(
+        dev, covers, wm_u8, blk, intra)
+    results.update(detect_results)
     color_results, color_slice = phase_color(dev, covers, wm_u8, blk, intra)
     results.update(color_results)
     phase_reference(dev)
@@ -4330,7 +4591,7 @@ def main(argv) -> int:
     payload_launches, parity_text_recovered = phase_payload(dev, smooth)
     # resync on a noise cover: on smooth content neighbouring shifts and
     # angles score within the statistic's noise of the true one
-    resync_launches, resync_color = phase_resync(
+    resync_launches, resync_color, resync_k9 = phase_resync(
         dev, covers[0].cpu().numpy(), wm_u8, blk, intra)
     par_launches = phase_parallel(dev, covers, wm_u8, blk, intra)
     plane_launches = phase_plane(dev)
@@ -4405,6 +4666,10 @@ def main(argv) -> int:
                         "dctsvd_tpu/ops/color.py:55"),
         "replace_luma": ("dctsvd_tpu_torch/csrc/color.cu",
                          "dctsvd_tpu/ops/color.py:75"),
+        "band_scores": ("dctsvd_tpu_torch/csrc/detect.cu",
+                        "dctsvd_tpu/models/blocked.py:1191"),
+        "band_scores_color": ("dctsvd_tpu_torch/csrc/detect.cu",
+                              "dctsvd_tpu/models/blocked.py:1191"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
@@ -4445,6 +4710,18 @@ def main(argv) -> int:
     for name in ("tail_front", "tail_front_gray", "normalize_blocks",
                  "normalize_blocks_gray"):
         launches[name] = sum(paths[name].values())
+    # K9: the slice's detects, the serve steps' scores, the detect phase,
+    # the resync searches, parallel/ (batch, serve and plane) and the bench
+    k9_paths.update(resync=sum(resync_k9.values()),
+                    parallel=par_launches["band_scores"]
+                    + plane_launches["band_scores"],
+                    bench=bench_launches["band_scores"])
+    idle = [p for p, n in k9_paths.items() if n == 0]
+    require(not idle, f"K9 was not launched on the paths {idle}")
+    paths["band_scores"] = k9_paths
+    paths["band_scores_color"] = {"detect_1080p": k9_color}
+    for name in ("band_scores", "band_scores_color"):
+        launches[name] = sum(paths[name].values())
     # cols_view: the probes' launches and the bench budget's T2b row
     paths["cols_view"] = {"probes": launches["cols_view"],
                           "bench": bench_launches["cols_view"]}
@@ -4470,7 +4747,9 @@ def main(argv) -> int:
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
         for key in ("eager_ms", "front_ms", "issue_bound_ms", "ms_128",
-                    "plain_ms_128", "two_pass_bound_ms"):
+                    "plain_ms_128", "two_pass_bound_ms", "eager_ms_128",
+                    "bound_ms_128", "detect_ms_32", "detect_ms_128",
+                    "detect_ms_eager_32", "detect_ms_eager_128"):
             if key in r:
                 extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,

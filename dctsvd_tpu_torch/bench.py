@@ -28,10 +28,11 @@ a wall-time ratio, run on the host clock after a synchronise. For a CPU
 device (``--device cpu``, as the tests run it) every time is the host
 clock's.
 
-``--profile DIR`` wraps the first timed rep of the device loops (and
-8k-plane's first rep) in ``utils/profiling.trace`` (a Chrome trace in DIR)
-and logs the 15 device ops with the most device time, with their share of
-the traced device time and the device's busy share of the rep.
+``--profile DIR`` wraps the first timed rep of the device loops (with
+``1080p``'s serve+verify and serve+score loops, and 8k-plane's first rep)
+in ``utils/profiling.trace`` (a Chrome trace in DIR) and logs, labelled
+with its loop, the 15 device ops with the most device time, with their
+share of the traced device time and the device's busy share of the rep.
 
 The kernels are built (``utils/kernels.load``) before any timed region.
 There is no CPU fallback: with ``--device cuda`` (the default) and no
@@ -152,10 +153,11 @@ class _Clock:
         return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
 
 
-def _log_device_ops(prof, window_ms: float) -> None:
-    """The TOP_OPS device ops of a trace by self device time, each with
-    its share of the traced device time; the hand-written kernels' sum;
-    the device's busy share of the traced window."""
+def _log_device_ops(prof, window_ms: float, label: str) -> None:
+    """The TOP_OPS device ops of a trace (of the loop ``label``) by self
+    device time, each with its share of the traced device time; the
+    hand-written kernels' sum; the device's busy share of the traced
+    window."""
     ops = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -173,7 +175,8 @@ def _log_device_ops(prof, window_ms: float) -> None:
     ops.sort(reverse=True)
     hand = sum(t for t, _, k in ops if HAND_WRITTEN in k)
     log("profile: " + json.dumps({
-        "device_ms": round(total, 3), "window_ms": round(window_ms, 3),
+        "label": label, "device_ms": round(total, 3),
+        "window_ms": round(window_ms, 3),
         "busy_share": round(total / window_ms, 4) if window_ms else None,
         "hand_written_ms": round(hand, 3),
         "hand_written_share": round(hand / total, 4),
@@ -208,7 +211,7 @@ def _reps(label, step, iters, per_step, device, profile=None):
             f"frames ({per_step * iters / (total / 1e3):.1f} fps); step "
             f"p50 {p50:.3f} ms, p90 {p90:.3f} ms")
         if prof is not None:
-            _log_device_ops(prof, total)
+            _log_device_ops(prof, total, label)
         best = min(best, total / 1e3 / iters)
     return best
 
@@ -243,9 +246,9 @@ def bench_embed_extract(h=1080, w=1920, batch=4, iters=32, color=True, *,
         # split embed -> extract pipeline it is labeled as
         _reps("serve+verify", lambda: blocked.serve_verify_color_prepared(
             frames, pw.sw, alpha, pw.ebasis, pw.inv_blk), iters, batch,
-            device)
+            device, profile)
         _reps("serve+score", lambda: blocked.serve_detect_color_prepared(
-            frames, pw.sw, alpha), iters, batch, device)
+            frames, pw.sw, alpha), iters, batch, device, profile)
     return fps
 
 
@@ -935,7 +938,7 @@ def bench_8k_plane(h=4320, w=7680, iters=8, *, device=DEFAULT_DEVICE,
         log(f"8k-plane rep{rep}: {dt:.3f}s for {iters} frames "
             f"({iters / dt:.2f} fps), mean score {acc / iters:.4f}")
         if prof is not None:
-            _log_device_ops(prof, dt * 1e3)
+            _log_device_ops(prof, dt * 1e3, "8k-plane")
         fps = max(fps, iters / dt)
     return fps
 

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 
 from dctsvd_tpu_torch.io import image_io, meta as metaio
-from dctsvd_tpu_torch.ops import (color, dct, enhance, metrics, permute, svd,
-                                  tail_cuda, wm_cuda)
+from dctsvd_tpu_torch.ops import (color, dct, detect_cuda, enhance, metrics,
+                                  permute, svd, tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.utils import crypto
 from dctsvd_tpu_torch.utils.config import BLOCK, K_FRAC_DEFAULT
 
@@ -333,15 +333,6 @@ def _serve_front(cover_bgr_u8: torch.Tensor, sw: torch.Tensor, alpha,
         cover_bgr_u8, sws, sweeps=_FUSED_SWEEPS, k=k_of_block(kfrac))
 
 
-def _color_scores(s_cw, sc, sw, alpha, kfrac: float, h: int, w: int):
-    """detect_color's statistic on a measured stego spectrum: the
-    per-channel band-median NC, averaged over the channels."""
-    k = k_of_block(kfrac)
-    scores = _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
-                      -(-h // BLOCK), -(-w // BLOCK))
-    return scores.mean(dim=-1)
-
-
 def serve_verify_color_prepared(cover_bgr_u8: torch.Tensor,
                                 sw: torch.Tensor, alpha,
                                 ebasis: torch.Tensor, inv_blk: torch.Tensor,
@@ -375,7 +366,7 @@ def serve_verify_detect_color_prepared(cover_bgr_u8: torch.Tensor,
     rec = _extract_tail_prepared(s_cw, sc, ebasis, inv_blk, alpha, kfrac,
                                  normalize, h, w, sw=sw, to_frames=True,
                                  out_u8=True)
-    return stego, sc, rec, _color_scores(s_cw, sc, sw, alpha, kfrac, h, w)
+    return stego, sc, rec, _detect_scores(s_cw, sc, sw, alpha, kfrac, h, w)
 
 
 def serve_detect_color_prepared(cover_bgr_u8: torch.Tensor,
@@ -386,7 +377,7 @@ def serve_detect_color_prepared(cover_bgr_u8: torch.Tensor,
     scores equal detect_color on the produced stego."""
     h, w = cover_bgr_u8.shape[-3], cover_bgr_u8.shape[-2]
     stego, sc, s_cw = _serve_front(cover_bgr_u8, sw, alpha, kfrac)
-    return stego, sc, _color_scores(s_cw, sc, sw, alpha, kfrac, h, w)
+    return stego, sc, _detect_scores(s_cw, sc, sw, alpha, kfrac, h, w)
 
 
 def embed_gray(cover_bgr_u8: torch.Tensor, wm_gray_u8: torch.Tensor,
@@ -729,57 +720,38 @@ def band_presence_damp(sw_bands: torch.Tensor,
     return torch.clamp((rho0 - knee) / 0.30, 0.0, 1.0)
 
 
-def _median_last(x: torch.Tensor) -> torch.Tensor:
-    """jnp.median over the last axis: the mean of the two middle values
-    for an even count (torch.median would return the lower one)."""
-    n = x.shape[-1]
-    srt = torch.sort(x, dim=-1).values
-    if n % 2:
-        return srt[..., n // 2]
-    return (srt[..., n // 2 - 1] + srt[..., n // 2]) * 0.5
+#: jnp.median over the last axis (parallel/plane.py's median of the
+#: gathered bands)
+_median_last = detect_cuda.median_last
 
 
-def _band_scores(sw: torch.Tensor, sw_hat: torch.Tensor, hb: int, wb: int,
-                 grid: int = 4) -> torch.Tensor:
+def _band_scores(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,
+                 alpha, k: int, hb: int, wb: int, grid: int = 4, *,
+                 reduce: bool) -> torch.Tensor:
     """NC · scale damp · presence damp of each of the grid×grid spatial
-    bands of an hb×wb block grid: [..., g*g]."""
-    sw = sw.expand(sw_hat.shape)
-    *lead, n, b = sw_hat.shape
-    g = max(1, min(grid, hb, wb))
-    gh, gw = hb // g, wb // g
-
-    def to_bands(x):
-        x = x.reshape(*lead, hb, wb, b)[..., :g * gh, :g * gw, :]
-        x = x.reshape(*lead, g, gh, g, gw, b).transpose(-4, -3)
-        return x.reshape(*lead, g * g, gh * gw, b)
-
-    sw_b, hat_b = to_bands(sw), to_bands(sw_hat)
-    sw_f = sw_b.reshape(*sw_b.shape[:-2], -1)
-    hat_f = hat_b.reshape(*hat_b.shape[:-2], -1)
-    return (metrics.nc(sw_f, hat_f)
-            * band_scale_damp(sw_f, hat_f)
-            * band_presence_damp(sw_b, hat_b))
+    bands of an hb×wb block grid, between the stored ``sw`` [(C,) N, 8] and
+    the rectified estimate max(s_cw − sc, 0)/max(α, 1e-8) over the first k
+    columns (the JAX package's detect takes it before its _band_nc; K9
+    takes it in its load): with ``reduce`` the frame scores of
+    :func:`_band_nc`, without it the band scores [..., (C,) g*g]. K9
+    (ops/detect_cuda.py) on the card, its twin on the CPU."""
+    return detect_cuda.band_scores(s_cw, sc, sw, _alpha(alpha, s_cw.device),
+                                   k, hb, wb, grid, reduce=reduce)
 
 
-def _band_nc(sw: torch.Tensor, sw_hat: torch.Tensor, hb: int, wb: int,
-             grid: int = 4) -> torch.Tensor:
-    """Median over grid×grid spatial bands of NC · scale damp · presence
-    damp (robust to a minority of destroyed bands)."""
-    return _median_last(_band_scores(sw, sw_hat, hb, wb, grid))
+def _band_nc(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor, alpha,
+             k: int, hb: int, wb: int, grid: int = 4) -> torch.Tensor:
+    """Median over grid×grid spatial bands of :func:`_band_scores` (robust
+    to a minority of destroyed bands), averaged over the channels when
+    ``sw`` has them: the frame scores [...], in the same K9 launch."""
+    return _band_scores(s_cw, sc, sw, alpha, k, hb, wb, grid, reduce=True)
 
 
-def _sw_hat(s_cw, sc, alpha, k):
-    # rectified at 0: a negative recovered component is not watermark
-    # signal (singular values are non-negative)
-    return (torch.clamp((s_cw - sc)[..., :k], min=0.0)
-            / torch.clamp(_alpha(alpha, s_cw.device), min=1e-8))
-
-
-def _gray_scores(s_cw, sc, sw, alpha, kfrac: float, h: int, w: int):
-    """detect_gray's statistic on a measured luma spectrum."""
-    k = k_of_block(kfrac)
-    return _band_nc(sw[..., :k], _sw_hat(s_cw, sc, alpha, k),
-                    -(-h // BLOCK), -(-w // BLOCK))
+def _detect_scores(s_cw, sc, sw, alpha, kfrac: float, h: int, w: int):
+    """detect_gray's and detect_color's statistic on a measured stego
+    spectrum [..., (C,) N, 8] of h×w frames."""
+    return _band_nc(s_cw, sc, sw, alpha, k_of_block(kfrac), -(-h // BLOCK),
+                    -(-w // BLOCK))
 
 
 def detect_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
@@ -788,8 +760,8 @@ def detect_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
     """Median-of-band NC between stored and recovered per-block singular
     values, restricted to the k embedded components."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
-    return _gray_scores(_plane_spectrum(color.luma_f32(stego_bgr_u8),
-                                        sweeps), sc, sw, alpha, kfrac, h, w)
+    return _detect_scores(_plane_spectrum(color.luma_f32(stego_bgr_u8),
+                                          sweeps), sc, sw, alpha, kfrac, h, w)
 
 
 def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
@@ -797,8 +769,8 @@ def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                  sweeps=None) -> torch.Tensor:
     """Per-channel band-median NC, averaged over the channels."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
-    return _color_scores(_frames_spectrum(stego_bgr_u8, sweeps), sc, sw,
-                         alpha, kfrac, h, w)
+    return _detect_scores(_frames_spectrum(stego_bgr_u8, sweeps), sc, sw,
+                          alpha, kfrac, h, w)
 
 
 # ---------------------------------------------------------------------------
@@ -904,11 +876,9 @@ def _detect_shift_chunk(img: torch.Tensor, sc: torch.Tensor,
     rolls stack on a leading batch axis, whose spectrum is one launch."""
     h, w = img.shape[0], img.shape[1]
     stack = _roll_stack(img, shifts)
-    if color_frames:
-        return _color_scores(_frames_spectrum(stack, sweeps), sc, sw, alpha,
-                             kfrac, h, w)
-    return _gray_scores(_plane_spectrum(stack, sweeps), sc, sw, alpha,
-                        kfrac, h, w)
+    s_cw = (_frames_spectrum(stack, sweeps) if color_frames
+            else _plane_spectrum(stack, sweeps))
+    return _detect_scores(s_cw, sc, sw, alpha, kfrac, h, w)
 
 
 def _detect_resync(img, sc, sw, alpha, *, kfrac, sweeps, window,

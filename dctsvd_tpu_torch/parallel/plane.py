@@ -5,8 +5,9 @@ independent, so one frame splits into horizontal bands, one per batch
 shard of the mesh: each band runs the same embed (K2) with the matching
 rows of the prepared watermark's slot-ordered singular values, and the
 bands' outputs are disjoint. Detection scores a grid × grid sub-grid of
-each band (K1 for the band's spectrum), gathers the n·grid² band scores
-on the mesh's first device and takes their median.
+each band (K1 for the band's spectrum, K9's band scores without its
+median), gathers the n·grid² band scores on the mesh's first device and
+takes their median.
 """
 
 from __future__ import annotations
@@ -72,13 +73,12 @@ def plane_detect_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
     def body(band, sc_band, sw_band, a):
         s_cw = blocked._plane_spectrum(color.luma_f32(band), sweeps)
         # restricted to the k embedded components and rectified at 0,
-        # exactly like detect_gray: the statistic the threshold was
-        # calibrated on
-        hat = blocked._sw_hat(s_cw, sc_band, a, k)
+        # exactly like detect_gray (the statistic the threshold was
+        # calibrated on): K9's band scores, without its median
         hb_local = band.shape[0] // BLOCK          # band dims, not global
         wb = -(-band.shape[1] // BLOCK)
-        return blocked._band_scores(sw_band[..., :k], hat, hb_local, wb,
-                                    grid)
+        return blocked._band_scores(s_cw, sc_band, sw_band, a, k, hb_local,
+                                    wb, grid, reduce=False)
 
     bands = mesh_lib.map_shards(mesh, body, (stego_bgr_u8, sc, sw), (),
                                 alpha)

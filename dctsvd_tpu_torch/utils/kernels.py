@@ -4,7 +4,8 @@ of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
 K5f, its default form's normaliser K8 and its recompute form K5
 (``extract_tail.cu``), the gray scheme's
-color conversions K6 and K7 (``color.cu``), and the tools probes
+color conversions K6 and K7 (``color.cu``), the detect statistic K9
+(``detect.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
@@ -79,6 +80,8 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P],
     "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dctsvd_band_scores": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -12,7 +12,11 @@ tail's normaliser) against its twin run on the card in every layout, on
 1 to 128 1080p frames and through the default extract, K6 and K7 (the
 gray scheme's color conversions) against their twins run on the card on
 every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
-with the gray paths' bytes the same with either, and the parity path, the
+with the gray paths' bytes the same with either, K9 (the detect
+statistic) against its twin run on the card on 1 to 128 1080p frames, at
+small and tiny block grids, at grid 4 and 2, with a shared sc, on a clean
+host, at every k and over the scale damp's range, and the detect paths
+through it, and the parity path, the
 enhancement stages and detect resync on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
@@ -21,6 +25,8 @@ This file imports no jax, so on a GPU machine without jax it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -28,8 +34,9 @@ import torch
 from dctsvd_tpu_torch.models import blocked as tb
 from dctsvd_tpu_torch.models import enhance as tenh
 from dctsvd_tpu_torch.models import image as timg
-from dctsvd_tpu_torch.ops import (color, color_cuda, dct, probe_cuda, svd,
-                                  svd_cuda, tail_cuda, wm_cuda)
+from dctsvd_tpu_torch.ops import (color, color_cuda, dct, detect_cuda,
+                                  probe_cuda, svd, svd_cuda, tail_cuda,
+                                  wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.utils import crypto
 
@@ -1647,3 +1654,178 @@ def test_gray_paths_equal_with_color_twins(dev, monkeypatch):
     twin = outputs()
     for a, b in zip(kernel, twin):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K9: the detect statistic
+# ---------------------------------------------------------------------------
+
+K9_SHAPES = {"1080p": (1080, 1920), "65x83": (65, 83), "64x80": (64, 80),
+             "1x1": (8, 8), "2x3": (16, 24), "3x17": (24, 136)}
+
+
+def _k9_inputs(dev, hw, frames, color_, seed=SEED, ratios=None):
+    """Seeded spectra on the card: sw [(3,) N, 8] sorted descending per
+    block, sc [frames, (3,) N, 8], and s_cw = sc + α·ŝ with ŝ = sw · ratio
+    (0.6–1.1, or ``ratios`` [frames]) plus noise. Returns (s_cw, sc, sw,
+    hb, wb)."""
+    h, w = hw
+    hb, wb = -(-h // 8), -(-w // 8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cd = (3,) if color_ else ()
+    sw = torch.sort(torch.rand((*cd, hb * wb, 8), generator=gen,
+                               device=dev) * 40, dim=-1,
+                    descending=True).values
+    sc = torch.rand((frames, *cd, hb * wb, 8), generator=gen,
+                    device=dev) * 200
+    if ratios is None:
+        ratios = 0.6 + 0.5 * torch.rand((frames,), generator=gen, device=dev)
+    ratios = ratios.reshape(frames, *[1] * (sw.ndim))
+    hat = sw * ratios + 4 * torch.randn(sc.shape, generator=gen, device=dev)
+    return sc + ALPHA * hat, sc, sw, hb, wb
+
+
+def _k9_equal(s_cw, sc, sw, hb, wb, k=4, **kw):
+    """K9 once (its counter up by one), torch.equal to its twin run on the
+    card; returns K9's output."""
+    alpha = torch.full((), ALPHA, dtype=torch.float32, device=s_cw.device)
+    n0 = detect_cuda.band_scores.launches
+    got = detect_cuda.band_scores(s_cw, sc, sw, alpha, k, hb, wb, **kw)
+    torch.cuda.synchronize()
+    assert detect_cuda.band_scores.launches == n0 + 1
+    ref = detect_cuda.band_scores_plain(s_cw, sc, sw, alpha, k, hb, wb, **kw)
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    return got
+
+
+@pytest.mark.parametrize("frames", [1, 4, 32, 33, 128])
+@pytest.mark.parametrize("layout", ["gray", "color"])
+def test_k9_matches_twin_at_1080p(dev, layout, frames):
+    """K9 equals its twin run on the card at 1080p on 1 to 128 frames, and
+    a frame's score is the same alone and in the batch."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["1080p"], frames,
+                                      layout == "color", SEED + frames)
+    got = _k9_equal(s_cw, sc, sw, hb, wb)
+    assert got.shape == (frames,) and float(got.min()) > 0.3
+    for i in {0, frames // 2, frames - 1}:
+        assert torch.equal(_k9_equal(s_cw[i:i + 1], sc[i:i + 1], sw, hb, wb),
+                           got[i:i + 1])
+
+
+@pytest.mark.parametrize("grid", [4, 2])
+@pytest.mark.parametrize("shape", list(K9_SHAPES))
+@pytest.mark.parametrize("layout", ["gray", "color"])
+def test_k9_matches_twin_at_each_grid(dev, layout, shape, grid):
+    """K9's frame scores and band scores (reduce=False) equal its twin's at
+    1080p, an unaligned and an aligned small frame and tiny block grids
+    (1x1, 2x3, 3x17: g < 4, down to one block a band), at grid 4 and 2."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES[shape], 4,
+                                      layout == "color", SEED + grid)
+    _k9_equal(s_cw, sc, sw, hb, wb, grid=grid)
+    g = max(1, min(grid, hb, wb))
+    bands = _k9_equal(s_cw, sc, sw, hb, wb, grid=grid, reduce=False)
+    assert bands.shape == (*s_cw.shape[:-2], g * g)
+
+
+@pytest.mark.parametrize("layout", ["gray", "color"])
+def test_k9_shared_sc_and_clean_host(dev, layout):
+    """A shared sc [(3,) N, 8] (the resync chunks': frame stride 0) gives
+    the scores of the same sc repeated per frame; a clean host (s_cw = sc)
+    scores exactly 0."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["1080p"], 8,
+                                      layout == "color", SEED + 71)
+    shared = sc[0]
+    got = _k9_equal(s_cw, shared, sw, hb, wb)
+    assert torch.equal(got, _k9_equal(
+        s_cw, shared.expand(sc.shape).contiguous(), sw, hb, wb))
+    clean = _k9_equal(sc, sc, sw, hb, wb)
+    assert not bool(clean.any())
+    assert not bool(_k9_equal(sc, sc, sw, hb, wb, reduce=False).any())
+
+
+@pytest.mark.parametrize("layout", ["gray", "color"])
+def test_k9_over_the_scale_damps_range(dev, layout):
+    """33 frames whose estimate is sw scaled by r = 0.5 .. 8 (the scale
+    damp's whole range, log2 through libdevice in both): K9 equals its
+    twin, and the scores fall as r grows past ~1.3."""
+    ratios = torch.logspace(math.log10(0.5), math.log10(8.0), 33,
+                            device=dev)
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["1080p"], 33,
+                                      layout == "color", SEED + 72,
+                                      ratios=ratios)
+    got = _k9_equal(s_cw, sc, sw, hb, wb)
+    assert float(got[-1]) < 0.1 < 0.5 < float(got[:8].min())
+    _k9_equal(s_cw, sc, sw, hb, wb, reduce=False)
+
+
+@pytest.mark.parametrize("k", list(range(1, 9)))
+def test_k9_at_every_k(dev, k):
+    """Each of K9's eight instances equals its twin (color, 65x83)."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["65x83"], 3, True,
+                                      SEED + k)
+    _k9_equal(s_cw, sc, sw, hb, wb, k=k)
+    _k9_equal(s_cw, sc, sw, hb, wb, k=k, reduce=False)
+
+
+def test_k9_wrapper_never_runs_the_twin_on_the_card(dev, monkeypatch):
+    """A CUDA tensor launches K9 (the twin is not reached); mixed devices
+    and a k outside 1..8 raise."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["64x80"], 2, False)
+    alpha = torch.full((), ALPHA, device=dev)
+    ref = detect_cuda.band_scores(s_cw, sc, sw, alpha, 4, hb, wb)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(detect_cuda, "band_scores_plain", refuse)
+    strided = s_cw.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(detect_cuda.band_scores(strided, sc, sw, alpha, 4, hb,
+                                               wb), ref)
+    with pytest.raises(ValueError, match="devices"):
+        detect_cuda.band_scores(s_cw, sc.cpu(), sw, alpha, 4, hb, wb)
+    with pytest.raises(ValueError, match="k must"):
+        detect_cuda.band_scores(s_cw, sc, sw, alpha, 9, hb, wb)
+
+
+@pytest.mark.parametrize("path", ["gray", "color"])
+def test_detect_paths_take_k9_at_1080p(dev, path, monkeypatch):
+    """detect_gray / detect_color at 1080p on 4 frames launch K9 once and
+    give the scores of K9's twin in its place; the resync chunk launches
+    it once too."""
+    covers = _color_frames((4, 1080, 1920, 3), dev, SEED + 73)
+    wm = _color_frames((1080, 1920, 3), dev, SEED + 74)
+    key = crypto.derive_key("gpu-detect", bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(
+                      key, tb.n_blocks_of(1080, 1920)))
+    if path == "gray":
+        pw = tb.prepare_wm_gray(color.bgr_to_gray(wm), blk, intra,
+                                extract_basis=False)
+        st, sc = tb.embed_gray_prepared(covers, pw.sw, ALPHA,
+                                        with_metrics=False)[:2]
+        detect, img = tb.detect_gray, color.luma_f32(st[0])
+    else:
+        pw = tb.prepare_wm_color(wm, blk, intra, extract_basis=False)
+        st, sc = tb.embed_color_prepared(covers, pw.sw, ALPHA,
+                                         with_metrics=False)[:2]
+        detect, img = tb.detect_color, st[0]
+    shifts = torch.as_tensor([[0, 0], [3, -5], [1, 1]], device=dev)
+    k9 = detect_cuda.band_scores
+
+    def run():
+        n0 = k9.launches
+        scores = detect(st, sc, pw.sw, ALPHA)
+        chunk = tb._detect_shift_chunk(img, sc[0], pw.sw, ALPHA, shifts,
+                                       color_frames=path == "color")
+        torch.cuda.synchronize()
+        return scores, chunk, k9.launches - n0
+
+    scores, chunk, n = run()
+    assert n == 2 and float(scores.min()) > 0.3
+    assert float(chunk[0]) > 0.3 > float(chunk[1])
+    monkeypatch.setattr(detect_cuda, "band_scores",
+                        detect_cuda.band_scores_plain)
+    twin_scores, twin_chunk, _ = run()
+    assert torch.equal(scores, twin_scores)
+    assert torch.equal(chunk, twin_chunk)
