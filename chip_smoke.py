@@ -24,12 +24,17 @@
     python3 chip_smoke.py --color-bounds    # only K6's and K7's times
                                             # beside their issue bound,
                                             # from the library's SASS
+    python3 chip_smoke.py --enhance-times   # only the enhancement
+                                            # stages' and chains' times at
+                                            # 1080p (copied into an older
+                                            # tree, that tree's)
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the sixteen hand-written kernels (K1, K2,
-K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6 and
-K7, the detect statistic K9, and the probes' copy_f32, cols_view,
-fma_chain and spectrum_probe; K2, K3, K5 and K9 in one instance per k) from
+an H100, ``sm_90a``). It builds the eighteen hand-written kernels (K1,
+K2, K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6
+and K7, the detect statistic K9, the enhancement chain's NLM K10 and
+CLAHE K11, and the probes' copy_f32, cols_view, fma_chain and
+spectrum_probe; K2, K3, K5 and K9 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
 watermark kernels against its plain PyTorch twin at the shapes the 1080p
@@ -73,7 +78,13 @@ rest of the image API at 1080p: the parity path gray and color (its
 gates, ``svd_full``'s bit stability, the exact cancellation of Sc,
 CUDA-event times) and, on a small frame, against the CPU; the
 enhancement chains (any degradation fails the run) with each stage's
-time, and against the CPU on a small plane; text and
+time, each chain launching K10 (NLM) and both K11 kernels (CLAHE's LUTs
+and interpolation) once, and each chain's time with the eager NLM and
+CLAHE in their places; K10 bit-equal to its twin on the 1080p extracted
+gray plane, the color frame's three YCrCb planes and planes smaller than
+its window, and K11 on the gray and luma planes and small ones, each
+timed beside its bound, its twin and the eager form it replaced; and
+against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
 stego, with K1's launches on each search and K1 held to its twin on one
@@ -89,7 +100,8 @@ equal to the whole-frame embed; the GUI's handlers on a 1080p PNG
 ``dryrun_multichip(4)``), and ``dctsvd_tpu_torch/bench.py``'s thirteen
 configs in this process at cut sizes (``BENCH_RUNS``), each giving
 ``bench.py``'s JSON line with its keys and finite values, with K1-K4's,
-K5f's, K6's, K7's and cols_view's launches, every call of those kernels
+K5f's, K8's, K9's, K6's, K7's, K10's, K11's and cols_view's launches,
+every call of those kernels
 at each new signature made again through the kernel and its twin:
 bit-equal. Then
 video
@@ -114,7 +126,9 @@ the slice, the serve steps, ``detect_1080p``, the resync searches,
 ``parallel/`` (``plane_8k``'s detect calls no eager band function) and
 the bench;
 K6's and K7's on the gray slice, the resync and parity phases,
-``plane_8k`` and the bench.
+``plane_8k`` and the bench; K10's and K11's on the enhance phase's
+chains, the CLI's enhanced extract (counted in its process) and the
+bench's robustness extracts.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -2398,11 +2412,19 @@ def phase_reference(dev):
           "psnr_gpu": ps_g})
 
 
-def cli_call(dev, *args, check=True, nonce=None):
+def cli_call(dev, *args, check=True, nonce=None, enhance_launches=False):
     """``python -m dctsvd_tpu_torch.cli --device DEV ARGS`` in a child
-    process (with the embed nonce pinned to ``nonce`` if given); raises on
-    a non-zero exit when ``check``."""
+    process (with the embed nonce pinned to ``nonce`` if given; with
+    ``enhance_launches``, ``cli.main`` run so that the child prints K10's
+    and K11's launches as a JSON line after it, the last of its standard
+    error); raises on a non-zero exit when ``check``."""
     entry = ["-m", "dctsvd_tpu_torch.cli"]
+    if enhance_launches:
+        entry = ["-c", "import json, sys; from dctsvd_tpu_torch import cli; "
+                 "from dctsvd_tpu_torch.ops import enhance_cuda as e; "
+                 "rc = cli.main(sys.argv[1:]); "
+                 f"print(json.dumps({{n: getattr(e, n).launches for n in "
+                 f"{ENHANCE_KERNELS!r}}}), file=sys.stderr); sys.exit(rc)"]
     if nonce is not None:
         entry = ["-c", "import sys; from dctsvd_tpu_torch.utils "
                  "import crypto; n = bytes.fromhex(sys.argv.pop(1)); "
@@ -2515,9 +2537,16 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
         emb_f = json.loads(cli("embed", sp, wp, "--out", full, "--color",
                                "--password", PASSWORD).stdout)
         meta_f = emb_f["meta"]
-        ext_f = json.loads(cli("extract", full, meta_f, "--out",
-                               os.path.join(td, "full_wm.png"),
-                               "--password", PASSWORD).stdout)
+        proc = cli_call(dev, "extract", full, meta_f, "--out",
+                        os.path.join(td, "full_wm.png"), "--password",
+                        PASSWORD, enhance_launches=True)
+        ext_f = json.loads(proc.stdout)
+        # K10's and K11's launches in the enhanced extract's process: each
+        # counter is 0 at its start and read after cli.main returned
+        enhanced = json.loads(proc.stderr.strip().splitlines()[-1])
+        require(enhanced == dict.fromkeys(ENHANCE_KERNELS, 1),
+                f"the CLI's enhanced extract: K10 and K11 launches "
+                f"{enhanced}")
         got = image_io.read_bgr(ext_f["watermark"])
         require(got.shape == (H, W, 3), f"parity extracted shape {got.shape}")
         det_f = json.loads(cli("detect", full, meta_f).stdout)
@@ -2562,9 +2591,11 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
               "detect": det, "wrong_password": "refused",
               "parity_color": {"psnr": emb_f["psnr"], "ssim": emb_f["ssim"],
                                "detect": det_f, "enhanced_extract": True,
+                               "enhance_launches": enhanced,
                                "wrong_password": "refused"},
               "payload": payload, "video": video_cli,
               "parity_calls_s": t1 - t0})
+    return enhanced
 
 
 # ---------------------------------------------------------------------------
@@ -2808,23 +2839,272 @@ def phase_parity_reference(dev):
     emit({"phase": "parity_reference_small", "shape": [64, 80, 3], **rows})
 
 
-def phase_enhance(dev, extracted):
-    """The enhancement chains on the 1080p extracted watermarks, with any
-    degradation warning an error; each stage's time; and every stage on
-    the card against the CPU on a small plane (unsharp and CLAHE within 1
-    quantum, NLM within 1 on >= 99 % of pixels, the chains' mean |Δ| <
-    0.5)."""
-    import warnings
-    import cv2
+# ---------------------------------------------------------------------------
+# K10 and K11: the enhancement chain's NLM and CLAHE
+# ---------------------------------------------------------------------------
+
+# The H100 SXM's special-function units: 16 results (exp2, rcp, rsqrt) a
+# clock an SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), 132 SMs at the 1980 MHz boost clock
+# that PEAK_F32 assumes.
+PEAK_SFU = 132 * 16 * 1.98e9
+SEARCH_OFFSETS = 21 * 21
+# f32 or int operations NLM's least-work form does a pixel and offset: the
+# squared difference (2), sliding column and row sums (2 + 2), the
+# conversion (1), the two divisions (2), wsum's sum, the product by
+# x(R(p + o)) and vsum's sum (3); its exp is one SFU result.
+NLM_OPS = 12
+CLAHE_LUT_OPS_PIXEL = 1      # a histogram increment
+CLAHE_LUT_OPS_BIN = 12       # clip, excess, redistribution, scan, LUT
+CLAHE_APPLY_OPS = 11         # 1 - wx, 1 - wy, 6 products, 3 sums
+ENHANCE_KERNELS = ("nlm_planes", "clahe_luts", "clahe_apply")
+# the K10 planes smaller than its 21-pixel window and a border-heavy one
+NLM_BORDER_SHAPES = ((1, 1), (7, 9), (12, 11), (37, 51))
+CLAHE_SMALL_SHAPES = ((1, 37, 51), (3, 40, 52))
+
+
+def enhance_wrappers():
+    from dctsvd_tpu_torch.ops import enhance_cuda
+    return {name: getattr(enhance_cuda, name) for name in ENHANCE_KERNELS}
+
+
+def eager_box_filter(x, r: int):
+    """The eager form's box filter (ops/enhance.py at commit 417cd0b):
+    mean over (2r+1)² windows, reflect-101 borders, two cumsums."""
+    import torch
+    from dctsvd_tpu_torch.ops.enhance import _pad_reflect
+    k = 2 * r + 1
+    xp = _pad_reflect(x, r, r, r, r)
+    c = torch.cumsum(xp, dim=-2)
+    c = torch.cat([torch.zeros_like(c[..., :1, :]), c], dim=-2)
+    rows = c[..., k:, :] - c[..., :-k, :]
+    c2 = torch.cumsum(rows, dim=-1)
+    c2 = torch.cat([torch.zeros_like(c2[..., :1]), c2], dim=-1)
+    return (c2[..., :, k:] - c2[..., :, :-k]) / (k * k)
+
+
+def eager_nlm(planes, h2, template: int = 7, search: int = 21):
+    """The eager NLM K10 replaced (ops/enhance.py::_nlm_f32 at commit
+    417cd0b: a Python loop over the 441 offsets, about 16 ops each), kept
+    here as K10's yardstick: u8 planes [P, H, W], h² [P] -> u8."""
+    import torch
+    from dctsvd_tpu_torch.ops.enhance import _pad_reflect
+    x = planes.to(torch.float32)
+    h2 = h2.reshape(-1, 1, 1)
+    tr, sr = template // 2, search // 2
+    hh, ww = x.shape[-2], x.shape[-1]
+    xp = _pad_reflect(x, sr, sr, sr, sr)
+    wsum = torch.zeros_like(x)
+    vsum = torch.zeros_like(x)
+    for dy in range(-sr, sr + 1):
+        for dx in range(-sr, sr + 1):
+            shifted = xp[..., sr + dy:sr + dy + hh, sr + dx:sr + dx + ww]
+            d2 = eager_box_filter((x - shifted) ** 2, tr)
+            wgt = torch.exp(-d2 / h2)
+            wsum = wsum + wgt
+            vsum = vsum + wgt * shifted
+    out = vsum / torch.clamp(wsum, min=1e-12)
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def eager_clahe(img_u8, tiles: int = 8, clip_limit: float = 2.0):
+    """The eager CLAHE K11 replaced (ops/enhance.py::clahe_u8 at commit
+    417cd0b), kept here as K11's yardstick: u8 planes [..., H, W]."""
     import numpy as np
+    import torch
+    from dctsvd_tpu_torch.ops.enhance import _pad_reflect
+    lead, (h, w) = img_u8.shape[:-2], img_u8.shape[-2:]
+    dev = img_u8.device
+    planes = img_u8.reshape(-1, h, w)
+    p = planes.shape[0]
+    th, tw = -(-h // tiles), -(-w // tiles)
+    x = _pad_reflect(planes, 0, th * tiles - h, 0, tw * tiles - w)
+    t = x.reshape(p, tiles, th, tiles, tw).transpose(2, 3)
+    t = t.reshape(p, tiles * tiles, th * tw).to(torch.int64)
+    hist = torch.zeros(p, tiles * tiles, 256, dtype=torch.int32, device=dev)
+    hist.scatter_add_(-1, t, torch.ones_like(t, dtype=torch.int32))
+    hist = hist.to(torch.float32)
+    area = th * tw
+    limit = max(float(np.floor(np.float32(clip_limit * area / 256.0))), 1.0)
+    excess = torch.clamp(hist - limit, min=0.0).sum(dim=-1, keepdim=True)
+    hist = torch.clamp(hist, max=limit)
+    batch = torch.floor(excess / 256.0)
+    resid = excess - batch * 256.0
+    hist = hist + batch
+    b = torch.arange(256, dtype=torch.float32, device=dev)
+    step = torch.clamp(torch.floor(256.0 / torch.clamp(resid, min=1.0)),
+                       min=1.0)
+    hit = (torch.remainder(b, step) == 0) & (torch.floor(b / step) < resid)
+    hist = hist + hit.to(hist.dtype)
+    cdf = torch.cumsum(hist, dim=-1)
+    scale = torch.tensor(255.0 / area, dtype=torch.float32, device=dev)
+    lut = torch.round(cdf * scale).clamp(0, 255)
+    ty = torch.arange(h, dtype=torch.float32, device=dev) / th - 0.5
+    tx = torch.arange(w, dtype=torch.float32, device=dev) / tw - 0.5
+    y0 = torch.floor(ty).clamp(0, tiles - 1).to(torch.int64)
+    x0 = torch.floor(tx).clamp(0, tiles - 1).to(torch.int64)
+    y1 = (y0 + 1).clamp(0, tiles - 1)
+    x1 = (x0 + 1).clamp(0, tiles - 1)
+    wy = (ty - y0).clamp(0.0, 1.0)[:, None]
+    wx = (tx - x0).clamp(0.0, 1.0)[None, :]
+    flat = lut.reshape(p, tiles * tiles * 256)
+    v = planes.to(torch.int64)
+
+    def pick(tyi, txi):
+        tid = tyi[:, None] * tiles + txi[None, :]
+        return flat.gather(-1, (tid * 256 + v).reshape(p, h * w)
+                           ).reshape(p, h, w)
+
+    v00, v01 = pick(y0, x0), pick(y0, x1)
+    v10, v11 = pick(y1, x0), pick(y1, x1)
+    out = ((1 - wy) * ((1 - wx) * v00 + wx * v01)
+           + wy * ((1 - wx) * v10 + wx * v11))
+    out = torch.round(out).clamp(0, 255).to(torch.uint8)
+    return out.reshape(*lead, h, w)
+
+
+@contextlib.contextmanager
+def eager_enhance():
+    """The eager NLM and CLAHE in the kernels' places (the chain as it ran
+    before K10 and K11; the color chain's CLAHE keeps K6 and K7)."""
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda
+    saved = enhance_cuda.nlm_planes, e_ops.clahe_u8
+    enhance_cuda.nlm_planes = lambda planes, h2, t=7, s=21: eager_nlm(
+        planes, h2, t, s)
+    e_ops.clahe_u8 = eager_clahe
+    try:
+        yield
+    finally:
+        enhance_cuda.nlm_planes, e_ops.clahe_u8 = saved
+
+
+def nlm_bound(planes) -> dict:
+    """K10's bound on u8 planes [P, H, W]: the larger of its bytes (a u8
+    read and a u8 write a pixel, h² once), the least-work form's f32 or
+    int operations over PEAK_F32 and its exps over PEAK_SFU."""
+    p, h, w = planes.shape
+    n = p * h * w * SEARCH_OFFSETS
+    moved = 2 * p * h * w + 4 * p
+    t_ops, t_sfu = n * NLM_OPS / PEAK_F32 * 1e3, n / PEAK_SFU * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_sfu, t_bytes),
+                bound_by="bytes" if t_bytes > max(t_ops, t_sfu)
+                else "operations", ops=n * NLM_OPS, exps=n,
+                ops_ms=t_ops, exps_ms=t_sfu, bytes=moved)
+
+
+def clahe_bound(planes, lut: bool, tiles: int = 8) -> dict:
+    """K11's bounds on u8 planes [P, H, W]: the LUT kernel reads the
+    planes once and writes the LUTs; the interpolation reads the planes
+    and the LUTs and writes the planes."""
+    p, h, w = planes.shape
+    lut_bytes = p * tiles * tiles * 256
+    if lut:
+        moved = p * h * w + lut_bytes
+        ops = p * h * w * CLAHE_LUT_OPS_PIXEL + lut_bytes * CLAHE_LUT_OPS_BIN
+    else:
+        moved = 2 * p * h * w + lut_bytes
+        ops = p * h * w * CLAHE_APPLY_OPS
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, moved / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=moved)
+
+
+def enhance_rows(dev, gray, frames) -> dict:
+    """K10 and both K11 kernels against their plain twins run on the card
+    (torch.equal) at the main path's shapes: K10 on the 1080p extracted
+    gray plane (h² 49) and on the color frame's three YCrCb planes (h² 9),
+    and on planes smaller than its window and a border-heavy one
+    (NLM_BORDER_SHAPES, two planes each, h² 49 and 9); the CLAHE LUTs and
+    interpolation on the gray plane, the color frame's luma plane and
+    CLAHE_SMALL_SHAPES. Each row: the kernel's ms, its twin's, the eager
+    form's (for the CLAHE rows the whole eager CLAHE, both stages), and its
+    bound."""
+    import torch
+    from dctsvd_tpu_torch.ops import color
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda as ec
+
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+
+    def smooth(shape):
+        x = torch.randint(0, 256, shape, generator=gen, device=dev,
+                          dtype=torch.uint8).to(torch.float32)
+        return torch.round(torch.nn.functional.avg_pool2d(
+            x[None], 3, 1, 1, count_include_pad=False)[0]).to(torch.uint8)
+
+    def equal(name, case, got, ref):
+        d = float((got.to(torch.float32) - ref.to(torch.float32)).abs()
+                  .max()) if got.numel() else 0.0
+        require(torch.equal(got, ref), f"{name} on {case} "
+                f"{list(got.shape)}: not bit-equal to its twin ({d})")
+        return dict(shape=list(got.shape), max_abs_err=d, equals_twin=True)
+
+    g_planes = gray.reshape(1, *gray.shape[-2:]).contiguous()
+    ycc = torch.movedim(color.bgr_to_ycrcb(frames), -1, -3)
+    c_planes = ycc.reshape(-1, *ycc.shape[-2:]).contiguous()
+    h2g = torch.full((1,), 49.0, device=dev)
+    h2c = torch.full((3,), 9.0, device=dev)
+    rows = {}
+    for name, planes, h2 in (("nlm_planes", g_planes, h2g),
+                             ("nlm_planes_color", c_planes, h2c)):
+        checks = {"1080p": equal(name, "1080p", ec.nlm_planes(planes, h2),
+                                 e_ops.nlm_planes_plain(planes, h2))}
+        if name == "nlm_planes":
+            h2b = torch.tensor([49.0, 9.0], device=dev)
+            for shp in NLM_BORDER_SHAPES:
+                x = smooth((2, *shp))
+                checks[f"{shp[0]}x{shp[1]}"] = equal(
+                    name, shp, ec.nlm_planes(x, h2b),
+                    e_ops.nlm_planes_plain(x, h2b))
+        eager = eager_nlm(planes, h2)
+        rows[name] = dict(
+            shape=list(planes.shape), h2=h2.tolist(), checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+            vs_eager_bytes=int((eager != ec.nlm_planes(planes, h2)).sum()),
+            ms=cuda_time(lambda: ec.nlm_planes(planes, h2), 5),
+            plain_ms=cuda_time(lambda: e_ops.nlm_planes_plain(planes, h2),
+                               1),
+            eager_ms=cuda_time(lambda: eager_nlm(planes, h2), 1),
+            library_ms=None, **nlm_bound(planes))
+    luma = color.luma_f32(frames).to(torch.uint8).reshape(1, *gray.shape)
+    cases = {"gray_1080p": g_planes, "luma_1080p": luma.contiguous(),
+             **{"x".join(map(str, shp)): smooth(shp)
+                for shp in CLAHE_SMALL_SHAPES}}
+    checks_l, checks_a = {}, {}
+    for case, x in cases.items():
+        ref = e_ops.clahe_luts_plain(x)
+        checks_l[case] = equal("clahe_luts", case, ec.clahe_luts(x), ref)
+        checks_a[case] = equal("clahe_apply", case, ec.clahe_apply(x, ref),
+                               e_ops.clahe_apply_plain(x, ref))
+    luts = ec.clahe_luts(g_planes)
+    eager_ms = cuda_time(lambda: eager_clahe(g_planes), 5)
+    for name, checks, kern, plain, lut in (
+            ("clahe_luts", checks_l, lambda: ec.clahe_luts(g_planes),
+             lambda: e_ops.clahe_luts_plain(g_planes), True),
+            ("clahe_apply", checks_a, lambda: ec.clahe_apply(g_planes, luts),
+             lambda: e_ops.clahe_apply_plain(g_planes, luts), False)):
+        rows[name] = dict(
+            shape=list(g_planes.shape), checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+            ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+            eager_ms=eager_ms, library_ms=None,
+            **clahe_bound(g_planes, lut))
+    return rows
+
+
+def enhance_stages(gray, frames) -> dict:
+    """{name: call} of each enhancement stage and chain on a u8 gray plane
+    and a u8 BGR frame, through the package's public functions (in any
+    tree, so an older one's too)."""
     import torch
     from dctsvd_tpu_torch.models import enhance
     from dctsvd_tpu_torch.ops import color
     from dctsvd_tpu_torch.ops import enhance as e_ops
-
-    gray, frames = extracted["gray"], extracted["color"]
     ycc = color.bgr_to_ycrcb(frames)[..., 0]
-    stages = {
+    return {
         "nlm_gray": lambda: e_ops.nlm_gray_u8(gray, 7.0),
         "clahe_gray": lambda: e_ops.clahe_u8(gray),
         "unsharp_gray": lambda: e_ops.unsharp_u8(gray, 1.25, -0.25),
@@ -2835,13 +3115,59 @@ def phase_enhance(dev, extracted):
             torch.movedim(frames, -1, -3), 1.15, -0.15),
         "chain_color": lambda: enhance.enhance_color_u8(frames),
     }
+
+
+def phase_enhance(dev, extracted):
+    """The enhancement chains on the 1080p extracted watermarks, with any
+    degradation warning an error: K10's and K11's counters set to 0 just
+    before each chain and read just after (each launches each kernel
+    once); each stage's time, and each chain's with the eager NLM
+    and CLAHE in the kernels' places; K10 and K11 against their twins
+    (:func:`enhance_rows`); and every stage on the card against the CPU
+    on a small plane (unsharp and CLAHE within 1 quantum, NLM within 1 on
+    >= 99 % of pixels, the chains' mean |Δ| < 0.5). Returns (the kernel
+    rows, the chains' launches)."""
+    import warnings
+    import cv2
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.models import enhance
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+
+    gray, frames = extracted["gray"], extracted["color"]
+    stages = enhance_stages(gray, frames)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        out_g = enhance.enhance_gray_u8(gray)
-        out_c = enhance.enhance_color_u8(frames)
+        launches, outs = {}, {}
+        for chain, fn, x in (("chain_gray", enhance.enhance_gray_u8, gray),
+                             ("chain_color", enhance.enhance_color_u8,
+                              frames)):
+            torch.cuda.synchronize()
+            for w in enhance_wrappers().values():
+                w.launches = 0
+            outs[chain] = fn(x)
+            torch.cuda.synchronize()
+            launches[chain] = {n: w.launches
+                               for n, w in enhance_wrappers().items()}
+        require(all(n == dict.fromkeys(ENHANCE_KERNELS, 1)
+                    for n in launches.values()),
+                f"the chains' K10 and K11 launches {launches}")
+        out_g, out_c = outs["chain_gray"], outs["chain_color"]
         ms = {name: cuda_time(fn, 2) for name, fn in stages.items()}
+        with eager_enhance():
+            eager_g = enhance.enhance_gray_u8(gray)
+            eager_c = enhance.enhance_color_u8(frames)
+            for name in ("chain_gray", "chain_color"):
+                ms[f"{name}_eager"] = cuda_time(stages[name], 1)
     require(out_g.shape == gray.shape and out_c.shape == frames.shape
             and out_g.dtype == torch.uint8, "enhance outputs")
+    vs_eager = {"chain_gray": differ(out_g, eager_g),
+                "chain_color": differ(out_c, eager_c)}
+    rows = enhance_rows(dev, gray, frames)
+    for name, row in rows.items():
+        emit({"phase": "kernel_vs_plain",
+              "kernel": f"{'K10' if 'nlm' in name else 'K11'} {name}",
+              **row})
 
     rng = np.random.default_rng(13)
     plane = cv2.GaussianBlur(rng.integers(0, 256, (64, 80), np.uint8),
@@ -2876,8 +3202,38 @@ def phase_enhance(dev, extracted):
         require(d["share_over_1"] <= 0.01, f"{name} GPU vs CPU {d}")
     for name in ("chain_gray", "chain_color"):
         require(diffs[name]["mean"] < 0.5, f"{name} GPU vs CPU {diffs[name]}")
-    emit({"phase": "enhance_1080p", "ms": ms, "gpu_vs_cpu_64x80": diffs,
+    emit({"phase": "enhance_1080p", "ms": ms, "launches": launches,
+          "chains_vs_eager": vs_eager, "gpu_vs_cpu_64x80": diffs,
           "card": smi_line()})
+    return rows, launches
+
+
+def enhance_times(dev) -> dict:
+    """The enhancement stages' and chains' ms (CUDA events, a warm-up and 3
+    calls) on a seeded 1080p watermark, gray and color, through this
+    tree's package, with K10's and K11's launches in one chain each where
+    the tree has them: run in a parent tree and this one in turns."""
+    import torch
+    from dctsvd_tpu_torch.ops import color
+
+    frames = torch.as_tensor(smooth_frame(20261019), device=dev)
+    stages = enhance_stages(color.bgr_to_gray(frames), frames)
+    ms = {name: cuda_time(fn, 3) for name, fn in stages.items()}
+    try:
+        wrappers = enhance_wrappers()
+    except ImportError:
+        wrappers = {}
+    launches = {}
+    for chain in ("chain_gray", "chain_color"):
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        stages[chain]()
+        torch.cuda.synchronize()
+        launches[chain] = {n: w.launches for n, w in wrappers.items()}
+    return dict(tree=REPO, ms=ms, launches=launches,
+                outputs={name: list(stages[name]().shape)
+                         for name in ("chain_gray", "chain_color")})
 
 
 def seeded_nonces(n: int) -> list:
@@ -3654,24 +4010,25 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's, K5f's, K8's, K9's, K6's and K7's wrappers and cols_view's
-    (T2b, the bench budget's view row): {name: wrapper}, the calls
-    :func:`recorded_calls` notes."""
+    """K1..K4's, K5f's, K8's, K9's, K6's, K7's, K10's and K11's wrappers and
+    cols_view's (T2b, the bench budget's view row): {name: wrapper}, the
+    calls :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
     return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view,
-                **color_wrappers())
+                **color_wrappers(), **enhance_wrappers())
 
 
 @contextlib.contextmanager
 def recorded_calls():
-    """Records the first call of K1..K4's, K5f's, K8's, K9's, K6's, K7's and
-    cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
+    """Records the first call of K1..K4's, K5f's, K8's, K9's, K6's, K7's,
+    K10's, K11's and cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
     made inside the block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
     inputs, then calls the wrapper (whose count, kept on the module's
     name, is the recorder's while it stands in for it)."""
-    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, probe_cuda,
-                                      svd, svd_cuda, tail_cuda, wm_cuda)
+    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, enhance_cuda,
+                                      probe_cuda, svd, svd_cuda, tail_cuda,
+                                      wm_cuda)
     calls = {}
     patched = []
     for name, orig in twinned_wrappers().items():
@@ -3682,7 +4039,7 @@ def recorded_calls():
             return _orig(*args, **kw)
         recorder.launches = orig.launches
         for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda,
-                    color_cuda, detect_cuda):
+                    color_cuda, detect_cuda, enhance_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -3694,14 +4051,16 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4, K5f, K8, K9, K6, K7 and cols_view again,
+    """Each recorded call of K1..K4, K5f, K8, K9, K6, K7, K10, K11 and
+    cols_view again,
     through its kernel and through its plain twin on the same inputs on
     the card: bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
     and 1 calls)."""
     import torch
-    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, probe_cuda,
-                                      svd_cuda, tail_cuda, wm_cuda)
+    from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, enhance_cuda,
+                                      probe_cuda, svd_cuda, tail_cuda,
+                                      wm_cuda)
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
@@ -3712,7 +4071,9 @@ def recorded_vs_twin(calls: dict) -> list:
              "normalize_blocks": tail_cuda.normalize_blocks_plain,
              "band_scores": detect_cuda.band_scores_plain,
              **{name: getattr(color_cuda, f"{name}_plain")
-                for name in COLOR_KERNELS}}
+                for name in COLOR_KERNELS},
+             **{name: getattr(enhance_cuda, f"{name}_plain")
+                for name in ENHANCE_KERNELS}}
     kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
@@ -4387,8 +4748,9 @@ def phase_bench(dev):
     the cut sizes of BENCH_RUNS, through the bench's own functions: each
     gives bench.py's JSON line (``bench.result_line``) with its keys and
     finite values, and passes bench.py's own checks (the 8K score and the
-    mesh's lowest score above 0.5, inside the functions). K1-K4's and
-    cols_view's (the budget's T2b row) launches are counted for each
+    mesh's lowest score above 0.5, inside the functions). The launches of
+    :func:`twinned_wrappers` (K1-K4, K5f, K8, K9, K6, K7, K10, K11 and
+    cols_view, the budget's T2b row) are counted for each
     config, set to 0 just before it runs and read just after, and summed
     over the phase. Every call of those kernels in a config, at each
     signature the config gave it and not checked in an earlier config,
@@ -4539,6 +4901,10 @@ def main(argv) -> int:
         emit({"phase": "recon_forms", "forms": recon_forms(dev),
               "card": card})
         return 0
+    if argv == ["--enhance-times"]:
+        emit({"phase": "enhance_times", **enhance_times(dev),
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"], "card": card})
+        return 0
     if argv == ["--copy-times"]:
         emit({"phase": "copy_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
@@ -4587,7 +4953,8 @@ def main(argv) -> int:
     wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
     extracted, parity_color = phase_parity(dev, smooth, wm_np)
     phase_parity_reference(dev)
-    phase_enhance(dev, extracted)
+    enhance_results, enhance_launches = phase_enhance(dev, extracted)
+    results.update(enhance_results)
     payload_launches, parity_text_recovered = phase_payload(dev, smooth)
     # resync on a noise cover: on smooth content neighbouring shifts and
     # angles score within the statistic's noise of the true one
@@ -4607,8 +4974,8 @@ def main(argv) -> int:
         phase_video_resume(dev, vtd, clip, wm_png)
         phase_video_audio(dev, vtd, clip, wm_png)
         phase_video_reference(dev, vtd)
-        phase_files(dev, covers, wm_u8, smooth, parity_text_recovered, clip,
-                    wm_png)
+        cli_enhance = phase_files(dev, covers, wm_u8, smooth,
+                                  parity_text_recovered, clip, wm_png)
     probe_launches, probe_results, t3, clocks = phase_probes(dev, covers)
     launches.update(probe_launches)
     results.update(probe_results)
@@ -4670,6 +5037,14 @@ def main(argv) -> int:
                         "dctsvd_tpu/models/blocked.py:1191"),
         "band_scores_color": ("dctsvd_tpu_torch/csrc/detect.cu",
                               "dctsvd_tpu/models/blocked.py:1191"),
+        "nlm_planes": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                       "dctsvd_tpu/ops/enhance.py:189"),
+        "nlm_planes_color": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                             "dctsvd_tpu/ops/enhance.py:234"),
+        "clahe_luts": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                       "dctsvd_tpu/ops/enhance.py:92"),
+        "clahe_apply": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                        "dctsvd_tpu/ops/enhance.py:92"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
@@ -4742,6 +5117,26 @@ def main(argv) -> int:
         idle = [p for p, n in paths[name].items()
                 if n == 0 and (name, p) not in idle_ok]
         require(not idle, f"{name} was not launched on the paths {idle}")
+    # K10 (one counter; the gray row's: the gray chain and the bench's
+    # robustness extracts, the color row's: the color chain and the CLI's
+    # enhanced color extract) and K11: the enhance phase's chains, the
+    # CLI's enhanced extract and the bench
+    paths["nlm_planes"] = {
+        "enhance": enhance_launches["chain_gray"]["nlm_planes"],
+        "bench": bench_launches["nlm_planes"]}
+    paths["nlm_planes_color"] = {
+        "enhance": enhance_launches["chain_color"]["nlm_planes"],
+        "cli_files": cli_enhance["nlm_planes"]}
+    for name in ("clahe_luts", "clahe_apply"):
+        paths[name] = {"enhance": sum(n[name] for n in
+                                      enhance_launches.values()),
+                       "cli_files": cli_enhance[name],
+                       "bench": bench_launches[name]}
+    for name in ("nlm_planes", "nlm_planes_color", "clahe_luts",
+                 "clahe_apply"):
+        idle = [p for p, n in paths[name].items() if n == 0]
+        require(not idle, f"{name} was not launched on the paths {idle}")
+        launches[name] = sum(paths[name].values())
     table = []
     for name, (src, repl) in sources.items():
         r = results[name]

@@ -1,0 +1,372 @@
+// K10 and K11: the extraction enhancement chain's non-local means and CLAHE
+// on the card.
+//
+// They replace no pl.pallas_call: in the JAX package both are XLA graphs,
+// nlm_gray_u8 (dctsvd_tpu/ops/enhance.py:189, one jitted lax.scan over the
+// 441 offsets of the search window), nlm_color_u8 (:234, three such planes
+// of YCrCb) and clahe_u8 (:92). The port ran them as eager op chains (about
+// 7,000 launches a plane for NLM). Plain twins: dctsvd_tpu_torch/ops/
+// enhance.py::nlm_planes_plain, clahe_luts_plain and clahe_apply_plain,
+// which follow this file's order of operations step for step; the wrappers
+// are dctsvd_tpu_torch/ops/enhance_cuda.py.
+//
+// K10 nlm_kernel: u8 planes [P, H, W] and an h^2 a plane (gray: h 7, h^2
+// 49; color: the Y, Cr and Cb planes of a frame, h^2 9 each) -> u8 planes.
+// R is reflect-101 on each axis (period 2(n - 1); every index 0 when
+// n = 1), as reflect_index. For each pixel p and offset o in (dy, dx)
+// raster order over [-10, 10]^2:
+//   D = sum over t in [-3, 3]^2 of (x(c) - x(R(c + o)))^2, c = R(p + t):
+//       the JAX package box-filters the squared-difference image with
+//       reflected borders, so a window centre is reflected before the
+//       offset is added (x(R(R(p + t) + o)), not x(R(p + t + o)));
+//   w = exp(-((D / 49) / h^2)), each division one IEEE division;
+//   wsum += w, vsum += w * x(R(p + o)), a product then a sum, in offset
+//   order; out = rint(vsum / max(wsum, 1e-12)) clamped to [0, 255].
+// D is an integer of at most 49 * 255^2 = 3,186,225 < 2^24, summed in
+// int32: exact in any order, so only the weights' sums fix the order.
+// expf is libdevice's full-precision expf, as torch's exp on the card
+// (tests/test_torch_gpu.py holds nlm_weight to torch.exp for every D at
+// h^2 9 and 49).
+//
+// K11 clahe_lut_kernel: a CTA a (plane, tile) of the tiles x tiles grid of
+// th x tw tiles (th = ceil(H / tiles), tw = ceil(W / tiles); rows and
+// columns past H and W reflected): the tile's 256-bin histogram (a
+// sub-histogram a warp, int atomics in shared memory), clipped at `limit`
+// with cv2's stepped redistribution of the excess (excess / 256 to every
+// bin, then one more to bins 0, step, 2 step, ... while b / step < resid,
+// step = max(floor(256 / max(resid, 1)), 1), each division one IEEE
+// division), its inclusive cumulative sum and LUT = rint(cdf * scale)
+// clamped to [0, 255] as u8 [P, tiles^2, 256]. Every count is an integer
+// below 2^24, so the twin's f32 sums are exact in any order.
+// K11 clahe_apply_kernel: a thread a pixel: ty = y / th - 0.5 and tx (one
+// division each), the four neighbouring tiles (clamped to the grid), the
+// weights wy, wx clamped to [0, 1], the four LUT entries at the pixel's
+// value and ((1 - wy)((1 - wx) v00 + wx v01) + wy((1 - wx) v10 + wx v11))
+// in that order, then rint, clamp and u8.
+// Every product, sum and division rounds once (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn: never contracted, never a product by a
+// reciprocal), so each kernel is bit-equal to its twin run on the card.
+//
+// What bounds them on the H100. K10: the work, not the bytes (one u8 read
+// and one u8 write a pixel: 1.2 us for a 1080p plane). The least-work form
+// (sliding column and row sums of the squared differences) does about 12
+// f32 or int operations and one exp (MUFU) a pixel and offset: at 1080p,
+// 914 M pixel-offsets a plane, 0.16 ms of f32 issue and 0.22 ms of the
+// SFU's 16 results a clock an SM. K11: bytes and launches (a 1080p plane
+// is 2 MB; the LUTs 16 KB a plane).
+//
+// What the design does about it. K10 is the simple form: a CTA takes a
+// 32 x 8 tile of one plane and stages its reflected halo (tile +- 13, 58
+// x 34 bytes) in shared memory once; a thread a pixel keeps its 49 window
+// centres in registers and, for each offset, sums the 49 squared
+// differences against shared memory in int32 (interior pixels address the
+// window by immediate offsets; pixels within 3 of a border take the
+// reflected centres). That is 441 x 49 shared-memory terms a pixel, about
+// 30 times the least-work form; sliding sums are a later redesign. K11
+// takes the histogram a tile per CTA (64 CTAs a plane), and the
+// interpolation a row segment of 256 pixels per CTA, its LUTs read through
+// the L1 cache.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace dctsvd {
+namespace {
+
+constexpr int kTr = 3;                       // template radius (7 x 7)
+constexpr int kSr = 10;                      // search radius (21 x 21)
+constexpr int kTaps = 2 * kTr + 1;
+constexpr int kHalo = kTr + kSr;             // 13
+constexpr int kNlmTileW = 32;
+constexpr int kNlmTileH = 8;
+constexpr int kNlmThreads = kNlmTileW * kNlmTileH;
+constexpr int kHaloW = kNlmTileW + 2 * kHalo;   // 58
+constexpr int kHaloH = kNlmTileH + 2 * kHalo;   // 34
+constexpr float kTemplateArea = static_cast<float>(kTaps * kTaps);
+
+constexpr int kBins = 256;
+constexpr int kClaheThreads = 256;           // a bin a thread
+constexpr int kClaheWarps = kClaheThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxGrid = 65535;              // planes a launch (grid z / y)
+
+// Reflect-101 index of i on an axis of length n (dctsvd_tpu_torch/ops/
+// enhance.py::reflect_index).
+__device__ __forceinline__ int reflect(int i, int n) {
+  if (static_cast<unsigned>(i) < static_cast<unsigned>(n)) return i;
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
+  int m = i % period;
+  if (m < 0) m += period;
+  return m < n ? m : period - m;
+}
+
+__device__ __forceinline__ uint8_t to_u8(float v) {
+  return static_cast<uint8_t>(static_cast<int>(fminf(fmaxf(v, 0.0f),
+                                                     255.0f)));
+}
+
+// The weight of an offset whose window sum of squared differences is n.
+__device__ __forceinline__ float nlm_weight(int n, float h2) {
+  const float d = __fdiv_rn(static_cast<float>(n), kTemplateArea);
+  return expf(-__fdiv_rn(d, h2));
+}
+
+// The offsets' weights and sums of one pixel. crow / ccol: the reflected
+// window centres as row and column offsets into the halo; self: the
+// pixel's own offset there; kInterior: no centre is reflected, so the
+// window is the contiguous 7 x 7 around self.
+template <bool kInterior>
+__device__ __forceinline__ void nlm_pixel(const uint8_t* xs,
+                                          const int (&crow)[kTaps],
+                                          const int (&ccol)[kTaps],
+                                          int self, float h2, float& wsum,
+                                          float& vsum) {
+  int xc[kTaps * kTaps];
+#pragma unroll
+  for (int ty = 0; ty < kTaps; ++ty)
+#pragma unroll
+    for (int tx = 0; tx < kTaps; ++tx)
+      xc[ty * kTaps + tx] = xs[crow[ty] + ccol[tx]];
+  const uint8_t* corner = xs + self - kTr * kHaloW - kTr;
+#pragma unroll 1
+  for (int dy = -kSr; dy <= kSr; ++dy) {
+#pragma unroll 1
+    for (int dx = -kSr; dx <= kSr; ++dx) {
+      const int off = dy * kHaloW + dx;
+      int dist = 0;
+#pragma unroll
+      for (int ty = 0; ty < kTaps; ++ty) {
+#pragma unroll
+        for (int tx = 0; tx < kTaps; ++tx) {
+          const int v = kInterior ? corner[off + ty * kHaloW + tx]
+                                  : xs[crow[ty] + ccol[tx] + off];
+          const int d = xc[ty * kTaps + tx] - v;
+          dist += d * d;
+        }
+      }
+      const float w = nlm_weight(dist, h2);
+      wsum = __fadd_rn(wsum, w);
+      vsum = __fadd_rn(vsum,
+                       __fmul_rn(w, static_cast<float>(xs[self + off])));
+    }
+  }
+}
+
+// K10. Grid (column tiles, row tiles, planes of this launch); plane
+// plane0 + blockIdx.z of x, h2s [P] f32, out.
+__global__ void __launch_bounds__(kNlmThreads, 2)
+    nlm_kernel(const uint8_t* __restrict__ x, const float* __restrict__ h2s,
+               uint8_t* __restrict__ out, int h, int w, int plane0) {
+  __shared__ uint8_t xs[kHaloH * kHaloW];
+  const int64_t plane = plane0 + static_cast<int64_t>(blockIdx.z);
+  const int64_t pix = static_cast<int64_t>(h) * w;
+  const uint8_t* src = x + plane * pix;
+  const int ty0 = blockIdx.y * kNlmTileH, tx0 = blockIdx.x * kNlmTileW;
+  for (int i = threadIdx.x; i < kHaloH * kHaloW; i += kNlmThreads) {
+    const int r = i / kHaloW, c = i - r * kHaloW;
+    xs[i] = __ldg(src + static_cast<int64_t>(reflect(ty0 - kHalo + r, h)) * w
+                  + reflect(tx0 - kHalo + c, w));
+  }
+  __syncthreads();
+  const int ly = threadIdx.x / kNlmTileW, lx = threadIdx.x % kNlmTileW;
+  const int py = ty0 + ly, px = tx0 + lx;
+  if (py >= h || px >= w) return;
+  int crow[kTaps], ccol[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    crow[t] = (reflect(py + t - kTr, h) - (ty0 - kHalo)) * kHaloW;
+    ccol[t] = reflect(px + t - kTr, w) - (tx0 - kHalo);
+  }
+  const int self = (ly + kHalo) * kHaloW + lx + kHalo;
+  const bool interior = py >= kTr && py + kTr < h && px >= kTr &&
+                        px + kTr < w;
+  const float h2 = h2s[plane];
+  float wsum = 0.0f, vsum = 0.0f;
+  if (interior)
+    nlm_pixel<true>(xs, crow, ccol, self, h2, wsum, vsum);
+  else
+    nlm_pixel<false>(xs, crow, ccol, self, h2, wsum, vsum);
+  out[plane * pix + static_cast<int64_t>(py) * w + px] =
+      to_u8(rintf(__fdiv_rn(vsum, fmaxf(wsum, 1e-12f))));
+}
+
+// nlm_weight for n = 0 .. count - 1 at one h^2 (the tests' and the smoke's
+// exhaustive check of the exp against torch's).
+__global__ void nlm_weight_kernel(const float* __restrict__ h2,
+                                  float* __restrict__ out, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = nlm_weight(i, *h2);
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// K11's LUTs. Grid (tiles^2, planes of this launch); plane plane0 +
+// blockIdx.y; luts [P, tiles^2, 256].
+__global__ void __launch_bounds__(kClaheThreads)
+    clahe_lut_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ luts,
+                     int h, int w, int tiles, int th, int tw, int limit,
+                     float scale, int plane0) {
+  __shared__ int hist[kClaheWarps][kBins];
+  __shared__ int part[kClaheWarps];
+  const int64_t plane = plane0 + static_cast<int64_t>(blockIdx.y);
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles, tx = tile - ty * tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kClaheWarps; ++k) hist[k][b] = 0;
+  __syncthreads();
+  const uint8_t* src = x + plane * h * static_cast<int64_t>(w);
+  for (int r = warp; r < th; r += kClaheWarps) {
+    const uint8_t* row =
+        src + static_cast<int64_t>(reflect(ty * th + r, h)) * w;
+    for (int c = lane; c < tw; c += 32)
+      atomicAdd(&hist[warp][__ldg(row + reflect(tx * tw + c, w))], 1);
+  }
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < kClaheWarps; ++k) count += hist[k][b];
+  // clip, and the excess over all bins (integers: exact)
+  const int clipped = min(count, limit);
+  int excess = warp_sum(count - clipped);
+  if (lane == 0) part[warp] = excess;
+  __syncthreads();
+  excess = 0;
+#pragma unroll
+  for (int k = 0; k < kClaheWarps; ++k) excess += part[k];
+  const int batch = excess / kBins;            // floor(excess / 256)
+  const float resid = static_cast<float>(excess - batch * kBins);
+  const float step =
+      fmaxf(floorf(__fdiv_rn(256.0f, fmaxf(resid, 1.0f))), 1.0f);
+  const float bf = static_cast<float>(b);
+  const bool hit = b % static_cast<int>(step) == 0 &&
+                   floorf(__fdiv_rn(bf, step)) < resid;
+  int v = clipped + batch + (hit ? 1 : 0);
+  // inclusive scan over the 256 bins: a warp's lanes, then the warps'
+  // totals
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  __syncthreads();                             // part[] read above
+  if (lane == 31) part[warp] = v;
+  __syncthreads();
+  for (int k = 0; k < warp; ++k) v += part[k];
+  const float lut = rintf(__fmul_rn(static_cast<float>(v), scale));
+  luts[(plane * tiles * tiles + tile) * kBins + b] = to_u8(lut);
+}
+
+// K11's interpolation. Grid (column segments of 256, rows, planes of this
+// launch); plane plane0 + blockIdx.z.
+__global__ void __launch_bounds__(kClaheThreads)
+    clahe_apply_kernel(const uint8_t* __restrict__ x,
+                       const uint8_t* __restrict__ luts,
+                       uint8_t* __restrict__ out, int h, int w, int tiles,
+                       int th, int tw, int plane0) {
+  const int64_t plane = plane0 + static_cast<int64_t>(blockIdx.z);
+  const int y = blockIdx.y;
+  const int c = blockIdx.x * kClaheThreads + threadIdx.x;
+  if (c >= w) return;
+  const float fy = __fsub_rn(__fdiv_rn(static_cast<float>(y),
+                                       static_cast<float>(th)), 0.5f);
+  const float fx = __fsub_rn(__fdiv_rn(static_cast<float>(c),
+                                       static_cast<float>(tw)), 0.5f);
+  const int y0 = min(max(static_cast<int>(floorf(fy)), 0), tiles - 1);
+  const int x0 = min(max(static_cast<int>(floorf(fx)), 0), tiles - 1);
+  const int y1 = min(y0 + 1, tiles - 1), x1 = min(x0 + 1, tiles - 1);
+  const float wy =
+      fminf(fmaxf(__fsub_rn(fy, static_cast<float>(y0)), 0.0f), 1.0f);
+  const float wx =
+      fminf(fmaxf(__fsub_rn(fx, static_cast<float>(x0)), 0.0f), 1.0f);
+  const int64_t at = (plane * h + y) * static_cast<int64_t>(w) + c;
+  const int v = __ldg(x + at);
+  const uint8_t* lut = luts + plane * tiles * tiles * kBins + v;
+  const float v00 = __ldg(lut + (y0 * tiles + x0) * kBins);
+  const float v01 = __ldg(lut + (y0 * tiles + x1) * kBins);
+  const float v10 = __ldg(lut + (y1 * tiles + x0) * kBins);
+  const float v11 = __ldg(lut + (y1 * tiles + x1) * kBins);
+  const float ux = __fsub_rn(1.0f, wx);
+  const float top = __fadd_rn(__fmul_rn(ux, v00), __fmul_rn(wx, v01));
+  const float bot = __fadd_rn(__fmul_rn(ux, v10), __fmul_rn(wx, v11));
+  const float o = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, wy), top),
+                            __fmul_rn(wy, bot));
+  out[at] = to_u8(rintf(o));
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace
+}  // namespace dctsvd
+
+using namespace dctsvd;
+
+extern "C" int dctsvd_nlm(const void* x, const void* h2, void* out,
+                          int planes, int h, int w, void* stream) {
+  if (planes <= 0 || h <= 0 || w <= 0 || ceil_div(h, kNlmTileH) > kMaxGrid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int p0 = 0; p0 < planes; p0 += kMaxGrid) {
+    const dim3 grid(ceil_div(w, kNlmTileW), ceil_div(h, kNlmTileH),
+                    planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
+    nlm_kernel<<<grid, kNlmThreads, 0, st>>>(
+        static_cast<const uint8_t*>(x), static_cast<const float*>(h2),
+        static_cast<uint8_t*>(out), h, w, p0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dctsvd_nlm_weights(const void* h2, void* out, int count,
+                                  void* stream) {
+  if (count <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  nlm_weight_kernel<<<ceil_div(count, 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h2), static_cast<float*>(out), count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// limit: the clip limit in counts (the host's max(floor(f32(clip_limit *
+// area / 256)), 1)); the LUT scale is the f32 nearest 255 / area, as the
+// host's np.float32(255.0 / area).
+extern "C" int dctsvd_clahe_luts(const void* x, void* luts, int planes, int h,
+                                 int w, int tiles, int limit, void* stream) {
+  if (planes <= 0 || h <= 0 || w <= 0 || tiles < 1 ||
+      tiles * tiles > kMaxGrid || limit < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int th = ceil_div(h, tiles), tw = ceil_div(w, tiles);
+  const float scale = static_cast<float>(
+      255.0 / (static_cast<double>(th) * static_cast<double>(tw)));
+  for (int p0 = 0; p0 < planes; p0 += kMaxGrid) {
+    const dim3 grid(tiles * tiles,
+                    planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
+    clahe_lut_kernel<<<grid, kClaheThreads, 0, st>>>(
+        static_cast<const uint8_t*>(x), static_cast<uint8_t*>(luts), h, w,
+        tiles, th, tw, limit, scale, p0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dctsvd_clahe_apply(const void* x, const void* luts, void* out,
+                                  int planes, int h, int w, int tiles,
+                                  void* stream) {
+  if (planes <= 0 || h <= 0 || w <= 0 || tiles < 1 || h > kMaxGrid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int th = ceil_div(h, tiles), tw = ceil_div(w, tiles);
+  for (int p0 = 0; p0 < planes; p0 += kMaxGrid) {
+    const dim3 grid(ceil_div(w, kClaheThreads), h,
+                    planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
+    clahe_apply_kernel<<<grid, kClaheThreads, 0, st>>>(
+        static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
+        static_cast<uint8_t*>(out), h, w, tiles, th, tw, p0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -11,9 +11,12 @@ without the stage that failed (ref: :89-93,223-224,275-276); the chain
 here degrades the same way, stage by stage: if NLM raises, CLAHE and
 unsharp run on the un-denoised input; if CLAHE raises, unsharp runs
 alone. Each degradation emits a RuntimeWarning naming the stage and the
-exception. A device error (out of memory, a failed launch) is not a
-stage failure and propagates. With no stage failing the output is the
-JAX package's.
+exception. A device error (out of memory, a failed launch, a kernel
+that does not build: ``utils/kernels.KernelError``) is not a stage
+failure and propagates, so a broken NLM or CLAHE kernel (K10, K11) is
+never hidden behind the un-denoised output. With no stage failing the
+output is the JAX package's, within the tolerances of
+tests/test_torch_enhance.py.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ import torch
 
 from dctsvd_tpu_torch.ops import color as c_ops
 from dctsvd_tpu_torch.ops import enhance as e_ops
+from dctsvd_tpu_torch.utils.kernels import KernelError
 
 DEFAULT_DEVICE = "cuda"
 
-#: Errors of the device itself, which no stage may skip past.
+#: Errors of the device and its kernels, which no stage may skip past.
 _DEVICE_ERRORS = tuple(getattr(torch, name) for name in
                        ("OutOfMemoryError", "AcceleratorError")
-                       if hasattr(torch, name))
+                       if hasattr(torch, name)) + (KernelError,)
 
 
 def _stage(stage: str, fn, x: torch.Tensor) -> torch.Tensor:
@@ -59,10 +63,12 @@ def enhance_gray_u8(x: torch.Tensor, denoise: bool = True) -> torch.Tensor:
 
 
 def _clahe_luma(x: torch.Tensor) -> torch.Tensor:
-    ycc = c_ops.bgr_to_ycrcb(x)
-    y = e_ops.clahe_u8(ycc[..., 0], tiles=8, clip_limit=2.0)
-    return c_ops.ycrcb_to_bgr(torch.cat([y[..., None], ycc[..., 1:]],
-                                        dim=-1))
+    """CLAHE of the Y plane of BGR frames, with their Cr and Cb: K6's
+    luma and K7's replace_luma, byte-equal to bgr_to_ycrcb, a new Y and
+    ycrcb_to_bgr (tests/test_torch_enhance.py, on every BGR triple)."""
+    y = e_ops.clahe_u8(c_ops.luma_f32(x).to(torch.uint8), tiles=8,
+                       clip_limit=2.0)
+    return c_ops.replace_luma(y.to(torch.float32), x)
 
 
 def enhance_color_u8(x: torch.Tensor, denoise: bool = True) -> torch.Tensor:

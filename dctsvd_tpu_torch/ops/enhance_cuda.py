@@ -1,0 +1,154 @@
+"""The extraction enhancement chain's NLM and CLAHE: the wrappers of K10 and
+K11 (``csrc/enhance.cu``); their plain twins are ``ops/enhance.py``'s
+``nlm_planes_plain``, ``clahe_luts_plain`` and ``clahe_apply_plain``.
+
+The JAX package has no ``pl.pallas_call`` for these: ``nlm_gray_u8``
+(``dctsvd_tpu/ops/enhance.py:189``, a jitted ``lax.scan`` over the 441
+offsets of the search window), ``nlm_color_u8`` (``:234``) and
+``clahe_u8`` (``:92``) are XLA graphs.
+
+  - K10 ``nlm_planes`` (``nlm_kernel``): u8 planes [P, H, W] and h² [P]
+    (f32) -> u8 planes: NLM with a 7×7 template and a 21×21 search window
+    (gray: a plane a frame, h² 49; color: the Y, Cr and Cb planes of each
+    frame, h² 9 each).
+  - K11 ``clahe_luts`` (``clahe_lut_kernel``): u8 planes [P, H, W] -> the
+    tiles' u8 LUTs [P, tiles², 256]; ``clahe_apply``
+    (``clahe_apply_kernel``): the planes and their LUTs -> u8 planes.
+
+What each computes, in which order, what bounds it and what its design
+does about that: ``csrc/enhance.cu``'s header. The window sums are exact
+integers, so only the weights' sums fix NLM's order; every division is
+one IEEE division in kernel and twin alike. So each kernel is bit-equal
+(``torch.equal``) to its twin run on the card. ``nlm_weights`` launches
+K10's weight function alone over window sums 0 .. n − 1, for the check
+that its ``expf`` is torch's ``exp`` on every weight NLM can take.
+
+Each wrapper runs its twin only for CPU tensors; for CUDA tensors it
+launches its kernel or raises. Each counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dctsvd_tpu_torch.ops.enhance import (clahe_apply_plain,
+                                          clahe_luts_plain, clahe_params,
+                                          nlm_planes_plain,
+                                          nlm_weights_plain)
+from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
+from dctsvd_tpu_torch.utils import kernels
+
+__all__ = ["nlm_planes", "clahe_luts", "clahe_apply", "nlm_weights",
+           "nlm_planes_plain", "clahe_luts_plain", "clahe_apply_plain",
+           "nlm_weights_plain", "TEMPLATE", "SEARCH", "MAX_WINDOW_SUM"]
+
+TEMPLATE, SEARCH = 7, 21   # the kernel's template and search window
+#: The largest 7×7 window sum of squared u8 differences.
+MAX_WINDOW_SUM = TEMPLATE * TEMPLATE * 255 * 255
+MAX_GRID = 65535           # rows a CLAHE launch takes (grid y)
+
+
+def _check_planes(name: str, planes: torch.Tensor) -> tuple:
+    """(P, H, W) of u8 planes; raises for another dtype or rank, or a plane
+    of 2^31 pixels or more (the kernels' offsets in a plane are 32-bit)."""
+    if planes.dtype != torch.uint8 or planes.ndim != 3:
+        raise ValueError(f"{name}: takes u8 planes [P, H, W], got "
+                         f"{planes.dtype} {tuple(planes.shape)}")
+    p, h, w = planes.shape
+    if h * w >= 1 << 31:
+        raise ValueError(f"{name}: a plane of {h}x{w} is too large for the "
+                         "kernel")
+    return p, h, w
+
+
+def nlm_planes(planes: torch.Tensor, h2: torch.Tensor, template: int = 7,
+               search: int = 21) -> torch.Tensor:
+    """NLM of u8 planes [P, H, W] with h² [P] (f32): K10 on CUDA tensors
+    (a 7×7 template and a 21×21 search window only), its twin on CPU
+    tensors."""
+    p, h, w = _check_planes("nlm_planes", planes)
+    if h2.dtype != torch.float32 or tuple(h2.shape) != (p,):
+        raise ValueError(f"nlm_planes: h2 must be f32 [{p}], got "
+                         f"{h2.dtype} {tuple(h2.shape)}")
+    if _device_ok("nlm_planes", planes, h2):
+        return nlm_planes_plain(planes, h2, template, search)
+    if (template, search) != (TEMPLATE, SEARCH):
+        raise ValueError(f"nlm_planes: the kernel takes a {TEMPLATE}x"
+                         f"{TEMPLATE} template and a {SEARCH}x{SEARCH} "
+                         f"search window, got {template} and {search}")
+    x, h2 = planes.contiguous(), h2.contiguous()
+    out = torch.empty_like(x)
+    if out.numel():
+        kernels.launch("dctsvd_nlm", x.device, x, h2, out, p, h, w)
+        nlm_planes.launches += 1
+    return out
+
+
+def clahe_luts(planes: torch.Tensor, tiles: int = 8,
+               clip_limit: float = 2.0) -> torch.Tensor:
+    """The CLAHE LUTs of u8 planes [P, H, W]: u8 [P, tiles², 256]. K11's
+    LUT kernel on a CUDA tensor, its twin on a CPU tensor."""
+    p, h, w = _check_planes("clahe_luts", planes)
+    if not 1 <= tiles <= 255:
+        raise ValueError(f"clahe_luts: tiles must be in 1..255, got {tiles}")
+    if _device_ok("clahe_luts", planes):
+        return clahe_luts_plain(planes, tiles, clip_limit)
+    x = planes.contiguous()
+    luts = torch.empty((p, tiles * tiles, 256), dtype=torch.uint8,
+                       device=x.device)
+    if x.numel():
+        limit = clahe_params(h, w, tiles, clip_limit)[2]
+        kernels.launch("dctsvd_clahe_luts", x.device, x, luts, p, h, w,
+                       tiles, int(limit))
+        clahe_luts.launches += 1
+    return luts
+
+
+def clahe_apply(planes: torch.Tensor, luts: torch.Tensor,
+                tiles: int = 8) -> torch.Tensor:
+    """u8 planes [P, H, W] through their tiles' LUTs [P, tiles², 256]
+    (``clahe_luts``), bilinearly blended: u8 [P, H, W]. K11's
+    interpolation kernel on CUDA tensors, its twin on CPU tensors."""
+    p, h, w = _check_planes("clahe_apply", planes)
+    if luts.dtype != torch.uint8 or tuple(luts.shape) != (p, tiles * tiles,
+                                                          256):
+        raise ValueError(f"clahe_apply: luts must be u8 [{p}, "
+                         f"{tiles * tiles}, 256], got {luts.dtype} "
+                         f"{tuple(luts.shape)}")
+    if _device_ok("clahe_apply", planes, luts):
+        return clahe_apply_plain(planes, luts, tiles)
+    if h > MAX_GRID:
+        raise ValueError(f"clahe_apply: {h} rows, the kernel takes at most "
+                         f"{MAX_GRID}")
+    x, luts = planes.contiguous(), luts.contiguous()
+    out = torch.empty_like(x)
+    if out.numel():
+        kernels.launch("dctsvd_clahe_apply", x.device, x, luts, out, p, h, w,
+                       tiles)
+        clahe_apply.launches += 1
+    return out
+
+
+def nlm_weights(n: int, h2: torch.Tensor) -> torch.Tensor:
+    """K10's weights exp(−((D / 49) / h²)) of the window sums D = 0 .. n − 1
+    at one h² (a 0-d f32 tensor): f32 [n]. The kernel's weight function on
+    a CUDA ``h2``, the twin's on a CPU one."""
+    if h2.dtype != torch.float32 or h2.numel() != 1:
+        raise ValueError(f"nlm_weights: h2 must be one f32, got {h2.dtype} "
+                         f"{tuple(h2.shape)}")
+    if not 0 < n < 1 << 24:
+        raise ValueError(f"nlm_weights: n must be in 1..2^24 - 1, got {n}")
+    if _device_ok("nlm_weights", h2):
+        d2 = torch.arange(n, dtype=torch.float32)
+        return nlm_weights_plain(d2, h2.reshape(()), TEMPLATE * TEMPLATE)
+    out = torch.empty((n,), dtype=torch.float32, device=h2.device)
+    kernels.launch("dctsvd_nlm_weights", h2.device, h2.contiguous(), out, n)
+    nlm_weights.launches += 1
+    return out
+
+
+nlm_planes.launches = 0
+clahe_luts.launches = 0
+clahe_apply.launches = 0
+nlm_weights.launches = 0
+

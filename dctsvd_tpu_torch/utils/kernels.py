@@ -5,7 +5,8 @@ K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
 K5f, its default form's normaliser K8 and its recompute form K5
 (``extract_tail.cu``), the gray scheme's
 color conversions K6 and K7 (``color.cu``), the detect statistic K9
-(``detect.cu``), and the tools probes
+(``detect.cu``), the enhancement chain's NLM K10 and CLAHE K11
+(``enhance.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
@@ -27,7 +28,8 @@ from the twin's by up to 11 quanta. No ``--use_fast_math``: it would change
 and spills; the log is kept in :data:`BUILD_INFO`. The library lands in
 ``build/dctsvd_tpu_torch/<hash of sources + flags>/`` under the repository
 root, so an edited source always rebuilds. Importing this module builds
-nothing; a failed build raises with nvcc's stderr.
+nothing; a failed build raises :class:`KernelError` with nvcc's stderr,
+and so does a launch that returns a CUDA error.
 """
 
 from __future__ import annotations
@@ -82,7 +84,17 @@ _SIGNATURES = {
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dctsvd_band_scores": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
+    "dctsvd_nlm": [_P, _P, _P, _I, _I, _I, _P],
+    "dctsvd_nlm_weights": [_P, _P, _I, _P],
+    "dctsvd_clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "dctsvd_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build (nvcc missing or failing) or whose
+    launch returned a CUDA error: a fault of the device path, which no
+    caller may skip past as a failed stage."""
 
 
 def _nvcc() -> str:
@@ -92,8 +104,8 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelError("nvcc not found: the CUDA kernels need the CUDA "
+                          "toolkit (set CUDA_HOME or put nvcc on PATH)")
     return path
 
 
@@ -226,8 +238,8 @@ def _run_all(cmds) -> str:
     outs = [p.communicate() for p in procs]
     for cmd, p, (so, se) in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(cmd)}\n{se}{so}")
+            raise KernelError(f"nvcc failed ({p.returncode}): "
+                              f"{' '.join(cmd)}\n{se}{so}")
     return "".join(se + so for so, se in outs)
 
 
@@ -271,8 +283,8 @@ def load() -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     """Raise when a launcher returned a nonzero cudaError_t."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA kernel launch failed "
-                           f"(cudaError_t {err})")
+        raise KernelError(f"{what}: CUDA kernel launch failed "
+                          f"(cudaError_t {err})")
 
 
 def launch(fn: str, device, *args) -> None:

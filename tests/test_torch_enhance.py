@@ -1,14 +1,18 @@
 """The port's enhancement stages and chains (dctsvd_tpu_torch/ops/enhance.py,
-models/enhance.py) against the JAX package on the CPU.
+models/enhance.py) against the JAX package on the CPU, and K10's and K11's
+wrappers (ops/enhance_cuda.py) on CPU tensors.
 
 Tolerances: unsharp and CLAHE within 1 quantum (the JAX package's own
 bound against cv2, tests/test_enhance.py); NLM within 1 quantum on at
-least 99 % of pixels; the whole chains' mean |Δ| < 0.5. The chain
-degrades stage by stage where the JAX package collapses any failure to
-unsharp only (an intended divergence): with NLM failing the output is
-exactly the port's un-denoised chain, which holds the chain tolerance
-(mean |Δ| < 0.5) against the JAX package's
-``enhance_gray_u8(x, denoise=False)``."""
+least 99 % of pixels; the whole chains' mean |Δ| < 0.5. NLM's twin sums
+each window exactly in integers; its border semantics (the squared
+difference image reflected, not x) and its sums are held to a float64
+numpy form exactly. The chain degrades stage by stage where the JAX
+package collapses any failure to unsharp only (an intended divergence):
+with NLM failing the output is exactly the port's un-denoised chain,
+which holds the chain tolerance (mean |Δ| < 0.5) against the JAX
+package's ``enhance_gray_u8(x, denoise=False)``. A kernel error
+(``utils/kernels.KernelError``) is the device's, never a stage's."""
 
 import warnings
 
@@ -21,8 +25,11 @@ import torch
 from dctsvd_tpu.models import enhance as jme
 from dctsvd_tpu.ops import enhance as je
 from dctsvd_tpu_torch.models import enhance as tme
+from dctsvd_tpu_torch.ops import color as tcolor
 from dctsvd_tpu_torch.ops import enhance as te
+from dctsvd_tpu_torch.ops import enhance_cuda as tec
 from dctsvd_tpu_torch.ops import metrics as tmetrics
+from dctsvd_tpu_torch.utils.kernels import KernelError
 
 torch.set_num_threads(2)
 
@@ -72,11 +79,220 @@ def test_gaussian_blur_is_the_metrics_blur(sigma):
 
 
 def test_box_filter_matches_jax():
-    x = (np.random.default_rng(SEED).random((2, 29, 33)) * 65025.0
-         ).astype(np.float32)
-    a = te._box_filter(torch.as_tensor(x), 3).numpy()
-    b = np.asarray(je._box_filter(jnp.asarray(x), 3))
-    assert np.abs(a - b).max() <= 1e-6 * 65025.0 * 49
+    """The twin's exact window sum (integer inputs, reflect-101 borders) is
+    the float64 sum, and over 49 within the JAX package's cumsum box
+    filter's f32 error."""
+    x = np.random.default_rng(SEED).integers(0, 65026, (2, 29, 33))
+    a = te._box_sum(torch.as_tensor(x, dtype=torch.int32), 3).numpy()
+    assert np.array_equal(a, _box_sum_f64(x, 3))
+    b = np.asarray(je._box_filter(jnp.asarray(x.astype(np.float32)), 3))
+    assert np.abs(a / 49.0 - b).max() <= 1e-6 * 65025.0 * 49
+
+
+def _reflect(i, n):
+    """numpy reflect-101 indices (period 2(n - 1); all 0 when n = 1)."""
+    if n == 1:
+        return np.zeros_like(i)
+    m = np.mod(i, 2 * (n - 1))
+    return np.where(m < n, m, 2 * (n - 1) - m)
+
+
+def _box_sum_f64(e, r):
+    """Σ over the (2r+1)² window of e[..., R(y + ty), R(x + tx)], float64."""
+    h, w = e.shape[-2:]
+    ys, xs = np.arange(h), np.arange(w)
+    out = np.zeros(e.shape, np.float64)
+    for ty in range(-r, r + 1):
+        for tx in range(-r, r + 1):
+            out += e[..., _reflect(ys + ty, h)[:, None],
+                     _reflect(xs + tx, w)[None, :]]
+    return out
+
+
+def _window_sum_f64(x, dy, dx, tr=3):
+    """D of offset (dy, dx): Σ_t (x(c) − x(R(c + o)))², c = R(p + t), in
+    float64 (the JAX package's box filter over the reflected
+    squared-difference image)."""
+    h, w = x.shape[-2:]
+    ys, xs = np.arange(h), np.arange(w)
+    x = x.astype(np.float64)
+    e = (x - x[..., _reflect(ys + dy, h)[:, None],
+               _reflect(xs + dx, w)[None, :]]) ** 2
+    return _box_sum_f64(e, tr)
+
+
+def _nlm_f64(x, h2, tr=3, sr=10):
+    """NLM in float64 from _window_sum_f64, [H, W] -> float64."""
+    h, w = x.shape
+    ys, xs = np.arange(h), np.arange(w)
+    wsum = np.zeros((h, w))
+    vsum = np.zeros((h, w))
+    for dy in range(-sr, sr + 1):
+        for dx in range(-sr, sr + 1):
+            wgt = np.exp(-(_window_sum_f64(x, dy, dx, tr) / 49.0) / h2)
+            wsum += wgt
+            vsum += wgt * x[_reflect(ys + dy, h)[:, None],
+                            _reflect(xs + dx, w)[None, :]]
+    return vsum / wsum
+
+
+BORDER_SHAPES = [(9, 12), (12, 11), (37, 51)]
+
+
+@pytest.mark.parametrize("shape", BORDER_SHAPES, ids=str)
+def test_nlm_window_sums_reflect_the_squared_difference(shape):
+    """Every offset's window sums equal the float64 form's, on planes
+    whose 3-pixel border frame is a large share (the 9-row plane, smaller
+    than the 21-pixel window, folds more than once); a form that pads x
+    once and takes plain differences differs there."""
+    x = _plane(shape, seed=SEED + 5, sigma=1.0).astype(np.int32)
+    xt = torch.as_tensor(x)
+    xp = te._pad_reflect(xt, 10, 10, 10, 10)
+    xq = te._pad_reflect(xt, 13, 13, 13, 13).double()
+    h, w = shape
+    naive_differs = False
+    for dy in range(-10, 11):
+        for dx in range(-10, 11):
+            dist, shifted = te.window_sums(xt, xp, dy, dx, 3, 10)
+            ref = _window_sum_f64(x, dy, dx)
+            assert np.array_equal(dist.numpy(), ref), (dy, dx)
+            naive = sum((xq[13 + ty:13 + ty + h, 13 + tx:13 + tx + w]
+                         - xq[13 + ty + dy:13 + ty + dy + h,
+                              13 + tx + dx:13 + tx + dx + w]) ** 2
+                        for ty in range(-3, 4) for tx in range(-3, 4))
+            naive_differs |= not np.array_equal(naive.numpy(), ref)
+    assert naive_differs
+
+
+@pytest.mark.parametrize("shape", BORDER_SHAPES, ids=str)
+@pytest.mark.parametrize("h", [3.0, 7.0])
+def test_nlm_twin_matches_float64_form(shape, h):
+    """The twin's output within 1 quantum of the float64 NLM everywhere,
+    the border frame included."""
+    x = _plane(shape, seed=SEED + 6, sigma=1.0)
+    got = te.nlm_gray_u8(torch.as_tensor(x), h).numpy().astype(int)
+    ref = _nlm_f64(x.astype(np.float64), h * h)
+    assert np.abs(got - ref).max() <= 0.5 + 1.0
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+def test_nlm_box_sum_is_exact_at_its_largest(phase):
+    """Alternating 0/255 columns: the offsets (0, ±1) give every window
+    sum 49 · 255² = 3,186,225 (the largest there is), held exactly; the
+    NLM output against the float64 form and the JAX package."""
+    x = np.zeros((40, 52), np.uint8)
+    x[:, phase::2] = 255
+    x[12:20, 20:31] = 128
+    xt = torch.as_tensor(x.astype(np.int32))
+    xp = te._pad_reflect(xt, 10, 10, 10, 10)
+    dist, _ = te.window_sums(xt, xp, 0, 1, 3, 10)
+    assert int(dist.max()) == tec.MAX_WINDOW_SUM == 3186225
+    assert np.array_equal(dist.numpy(), _window_sum_f64(x, 0, 1))
+    for h in (7.0, 50.0):
+        got = te.nlm_gray_u8(torch.as_tensor(x), h)
+        assert np.abs(got.numpy() - _nlm_f64(x.astype(np.float64),
+                                             h * h)).max() <= 1.5
+        d = _diff(got, je.nlm_gray_u8(jnp.asarray(x), h))
+        assert (d <= 1).mean() >= 0.99
+
+
+def _sinusoid(shape, noise, seed):
+    """A smooth sinusoid (per channel in color) and the same plus seeded
+    Gaussian noise of σ ``noise``, both u8."""
+    h, w = shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    base = 128 + 60 * np.sin(2 * np.pi * xx / 23.0) * np.cos(
+        2 * np.pi * yy / 17.0)
+    if len(shape) == 3:
+        base = np.stack([base, 255 - base, 0.5 * base + 40], -1)
+    noisy = base + np.random.default_rng(seed).normal(0, noise, shape)
+    return (np.clip(np.round(base), 0, 255).astype(np.uint8),
+            np.clip(np.round(noisy), 0, 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("shape,noise", [((64, 80), 4.0), ((96, 128), 2.0),
+                                         ((64, 80, 3), 2.0),
+                                         ((96, 128, 3), 3.0)], ids=str)
+def test_nlm_denoises_as_jax(shape, noise):
+    """Gray NLM (h 7) and color NLM (h 3) on sinusoid-plus-noise planes
+    that NLM really denoises (the output nearer the clean plane than the
+    input, more than half a quantum from the input on average): within 1
+    quantum of the JAX package on >= 99 % of pixels."""
+    clean, x = _sinusoid(shape, noise, SEED + len(shape) + int(noise))
+    if len(shape) == 2:
+        got = te.nlm_gray_u8(torch.as_tensor(x), 7.0)
+        ref = je.nlm_gray_u8(jnp.asarray(x), 7.0)
+    else:
+        got = te.nlm_color_u8(torch.as_tensor(x), 3.0, 3.0)
+        ref = je.nlm_color_u8(jnp.asarray(x), 3.0, 3.0)
+    d = _diff(got, ref)
+    assert (d <= 1).mean() >= 0.99
+    g = got.numpy().astype(float)
+    assert np.abs(g - x).mean() > 0.5
+    if len(shape) == 2:    # color NLM runs in YCrCb, which rounds the BGR
+        assert ((g - clean) ** 2).mean() < ((x.astype(float) - clean) ** 2
+                                            ).mean()
+
+
+def test_enhance_wrappers_run_the_twins_on_the_cpu():
+    """CPU tensors run each twin (equal outputs) and count no launch;
+    mixed devices raise; the kernel's template and search are the only
+    shapes it takes on the card, the twin takes any."""
+    x = torch.as_tensor(_plane((2, 23, 29), seed=SEED + 7))
+    h2 = torch.tensor([49.0, 9.0])
+    counts = [f.launches for f in (tec.nlm_planes, tec.clahe_luts,
+                                   tec.clahe_apply, tec.nlm_weights)]
+    assert torch.equal(tec.nlm_planes(x, h2), te.nlm_planes_plain(x, h2))
+    assert torch.equal(tec.nlm_planes(x, h2, 5, 11),
+                       te.nlm_planes_plain(x, h2, 5, 11))
+    luts = tec.clahe_luts(x)
+    assert luts.shape == (2, 64, 256) and luts.dtype == torch.uint8
+    assert torch.equal(luts, te.clahe_luts_plain(x))
+    assert torch.equal(tec.clahe_apply(x, luts),
+                       te.clahe_apply_plain(x, luts))
+    w = tec.nlm_weights(100, torch.tensor(9.0))
+    assert w[0] == 1.0 and torch.all(w[1:] < w[:-1])
+    assert counts == [f.launches for f in (tec.nlm_planes, tec.clahe_luts,
+                                           tec.clahe_apply,
+                                           tec.nlm_weights)] == [0] * 4
+    meta = torch.empty(2, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        tec.nlm_planes(x, meta)
+    with pytest.raises(ValueError, match="devices"):
+        tec.clahe_apply(x, torch.empty((2, 64, 256), dtype=torch.uint8,
+                                       device="meta"))
+    with pytest.raises(ValueError, match="u8 planes"):
+        tec.clahe_luts(x.float())
+    with pytest.raises(ValueError, match="h2"):
+        tec.nlm_planes(x, torch.tensor([49.0]))
+
+
+def test_clahe_luma_through_k6_k7_equals_the_ycrcb_form():
+    """The color chain's CLAHE stage (K6's luma, CLAHE, K7's replace_luma)
+    is byte-equal to bgr_to_ycrcb -> CLAHE of Y -> ycrcb_to_bgr on seeded
+    frames; and on all 2^24 BGR triples K6's luma is YCrCb's Y and K7
+    with a random new Y is the YCrCb round trip."""
+    frames = torch.as_tensor(np.stack([_plane((37, 51, 3), seed=SEED + i)
+                                       for i in range(8, 11)]))
+
+    def ycrcb_form(x):
+        ycc = tcolor.bgr_to_ycrcb(x)
+        y = te.clahe_u8(ycc[..., 0])
+        return tcolor.ycrcb_to_bgr(torch.cat([y[..., None], ycc[..., 1:]],
+                                             dim=-1))
+
+    for x in (frames, frames[0]):
+        assert torch.equal(tme._clahe_luma(x), ycrcb_form(x))
+    v = torch.arange(1 << 24, dtype=torch.int32)
+    bgr = torch.stack([v & 255, (v >> 8) & 255, v >> 16], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+    ycc = tcolor.bgr_to_ycrcb(bgr)
+    assert torch.equal(tcolor.luma_f32(bgr).to(torch.uint8), ycc[..., 0])
+    y = torch.as_tensor(np.random.default_rng(SEED + 9).integers(
+        0, 256, (4096, 4096), np.uint8))
+    assert torch.equal(tcolor.replace_luma(y.to(torch.float32), bgr),
+                       tcolor.ycrcb_to_bgr(torch.cat(
+                           [y[..., None], ycc[..., 1:]], dim=-1)))
 
 
 @pytest.mark.parametrize("kind", ["gray", "color"])
@@ -152,3 +368,22 @@ def test_device_errors_are_not_skipped(monkeypatch):
         warnings.simplefilter("error")
         with pytest.raises(torch.OutOfMemoryError):
             tme.enhance_gray_u8(torch.as_tensor(_plane((16, 16))))
+
+
+@pytest.mark.parametrize("kind", ["gray", "color"])
+def test_kernel_errors_are_not_skipped(monkeypatch, kind):
+    """A kernel that fails to build or launch (KernelError, raised by
+    utils/kernels.py) inside the NLM stage propagates from the chain with
+    no degradation warning: a broken kernel is never hidden behind the
+    un-denoised output."""
+    def broken(*args, **kwargs):
+        raise KernelError("nvcc failed (1): for the test")
+    monkeypatch.setattr(tec, "nlm_planes", broken)
+    shape = (16, 16) if kind == "gray" else (16, 16, 3)
+    x = torch.as_tensor(_plane(shape, seed=SEED + 10))
+    chain = tme.enhance_gray_u8 if kind == "gray" else tme.enhance_color_u8
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(KernelError, match="nvcc failed"):
+            chain(x)
+    assert issubclass(KernelError, RuntimeError)

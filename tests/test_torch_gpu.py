@@ -16,8 +16,11 @@ with the gray paths' bytes the same with either, K9 (the detect
 statistic) against its twin run on the card on 1 to 128 1080p frames, at
 small and tiny block grids, at grid 4 and 2, with a shared sc, on a clean
 host, at every k and over the scale damp's range, and the detect paths
-through it, and the parity path, the
-enhancement stages and detect resync on the card against the CPU.
+through it, K10 (NLM) and both K11 kernels (CLAHE's LUTs and
+interpolation) against their twins run on the card at 1080p and on
+planes smaller than NLM's window, K10's exp against torch's at every
+window sum, the 1080p extracts launching each once, and the parity path,
+the enhancement stages and detect resync on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -38,6 +41,7 @@ from dctsvd_tpu_torch.ops import (color, color_cuda, dct, detect_cuda,
                                   probe_cuda, svd, svd_cuda, tail_cuda,
                                   wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
+from dctsvd_tpu_torch.ops import enhance_cuda
 from dctsvd_tpu_torch.utils import crypto
 
 torch.set_num_threads(2)
@@ -1829,3 +1833,134 @@ def test_detect_paths_take_k9_at_1080p(dev, path, monkeypatch):
     twin_scores, twin_chunk, _ = run()
     assert torch.equal(scores, twin_scores)
     assert torch.equal(chunk, twin_chunk)
+
+
+# ---------------------------------------------------------------------------
+# K10 and K11: the enhancement chain's NLM and CLAHE
+# ---------------------------------------------------------------------------
+
+# planes [P, H, W] and their h² (gray 49; a color frame's YCrCb planes 9)
+K10_SHAPES = {"1080p_gray": ((1, 1080, 1920), (49.0,)),
+              "1080p_ycrcb": ((3, 1080, 1920), (9.0,) * 3),
+              "1x1": ((1, 1, 1), (49.0,)), "7x9": ((1, 7, 9), (49.0,)),
+              "12x11": ((2, 12, 11), (49.0, 9.0)),
+              "37x51": ((3, 37, 51), (9.0,) * 3)}
+K11_SHAPES = {"1080p_gray": (1, 1080, 1920), "1080p_luma": None,
+              "37x51": (1, 37, 51), "3x40x52": (3, 40, 52),
+              "1x1": (1, 1, 1)}
+
+
+def _enh_planes(dev, shape, seed):
+    """Seeded u8 planes on the card: noise smoothed by a 3×3 mean, so NLM
+    finds similar patches."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, shape, generator=gen, device=dev,
+                      dtype=torch.uint8).to(torch.float32)
+    x = torch.nn.functional.avg_pool2d(x[None], 3, 1, 1,
+                                       count_include_pad=False)[0]
+    return torch.round(x).to(torch.uint8).contiguous()
+
+
+@pytest.mark.parametrize("shape", list(K10_SHAPES))
+def test_k10_matches_twin(dev, shape):
+    """K10 equals its twin run on the card (torch.equal) at 1080p (a gray
+    plane, a frame's three YCrCb planes) and on planes smaller than its
+    21-pixel window, in one launch."""
+    dims, h2 = K10_SHAPES[shape]
+    x = _enh_planes(dev, dims, SEED + 80)
+    h2 = torch.tensor(h2, device=dev)
+    n0 = enhance_cuda.nlm_planes.launches
+    got = enhance_cuda.nlm_planes(x, h2)
+    torch.cuda.synchronize()
+    assert enhance_cuda.nlm_planes.launches == n0 + 1
+    ref = e_ops.nlm_planes_plain(x, h2)
+    assert torch.equal(got, ref), int((got.int() - ref.int()).abs().max())
+
+
+@pytest.mark.parametrize("h2", [9.0, 49.0])
+def test_k10_weights_are_torch_exp(dev, h2):
+    """K10's weight function equals the twin's torch.exp(−((n/49)/h²)) on
+    the card for every window sum n in [0, 49 · 255²]."""
+    n = enhance_cuda.MAX_WINDOW_SUM + 1
+    h2t = torch.full((), h2, device=dev)
+    got = enhance_cuda.nlm_weights(n, h2t)
+    ref = e_ops.nlm_weights_plain(
+        torch.arange(n, dtype=torch.float32, device=dev), h2t)
+    bad = int((got != ref).sum())
+    assert bad == 0 and float(got[0]) == 1.0 and float(got[-1]) == 0.0
+
+
+@pytest.mark.parametrize("shape", list(K11_SHAPES))
+def test_k11_matches_twin(dev, shape):
+    """Both CLAHE kernels equal their twins run on the card (torch.equal):
+    the LUTs, the interpolation (on the twin's LUTs) and clahe_u8, on a
+    1080p gray plane, a 1080p color frame's luma plane and small planes."""
+    dims = K11_SHAPES[shape]
+    if dims is None:
+        frame = torch.from_numpy(_frames((1080, 1920, 3), SEED + 81)).to(dev)
+        x = color.luma_f32(frame).to(torch.uint8)[None]
+    else:
+        x = _enh_planes(dev, dims, SEED + 82)
+    n0 = (enhance_cuda.clahe_luts.launches, enhance_cuda.clahe_apply.launches)
+    luts = enhance_cuda.clahe_luts(x)
+    ref = e_ops.clahe_luts_plain(x)
+    assert torch.equal(luts, ref)
+    assert torch.equal(enhance_cuda.clahe_apply(x, ref),
+                       e_ops.clahe_apply_plain(x, ref))
+    assert torch.equal(e_ops.clahe_u8(x), e_ops.clahe_apply_plain(x, ref))
+    torch.cuda.synchronize()
+    assert (enhance_cuda.clahe_luts.launches - n0[0],
+            enhance_cuda.clahe_apply.launches - n0[1]) == (2, 2)
+
+
+def test_enhance_wrappers_never_run_the_twins_on_the_card(dev, monkeypatch):
+    """CUDA tensors launch K10 and K11 through both chains (the twins are
+    not reached); mixed devices and a template or search window the
+    kernel does not take raise."""
+    plane = _enh_planes(dev, (40, 52), SEED + 83)
+    frame = torch.stack([plane, plane.flip(0), plane.flip(1)], -1)
+    ref = (tenh.enhance_gray_u8(plane), tenh.enhance_color_u8(frame))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a twin ran for a CUDA tensor")
+
+    for name in ("nlm_planes_plain", "clahe_luts_plain", "clahe_apply_plain"):
+        monkeypatch.setattr(enhance_cuda, name, refuse)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.equal(tenh.enhance_gray_u8(plane), ref[0])
+        assert torch.equal(tenh.enhance_color_u8(frame), ref[1])
+    h2 = torch.full((1,), 49.0, device=dev)
+    with pytest.raises(ValueError, match="devices"):
+        enhance_cuda.nlm_planes(plane[None], h2.cpu())
+    with pytest.raises(ValueError, match="template"):
+        enhance_cuda.nlm_planes(plane[None], h2, 5, 21)
+
+
+@pytest.mark.parametrize("color_", [False, True], ids=["gray", "color"])
+def test_extract_at_1080p_launches_k10_and_k11_once(dev, tmp_path, color_):
+    """api.extract with the enhancement chain on a 1080p blocked stego
+    launches K10 once (gray: one plane; color: the three YCrCb planes in
+    one batch) and each CLAHE kernel once, and writes the watermark."""
+    import cv2
+    from dctsvd_tpu_torch import api
+    from dctsvd_tpu_torch.io import image_io
+    cp, wp = str(tmp_path / "cover.png"), str(tmp_path / "wm.png")
+    image_io.write_png(cp, _frames((1080, 1920, 3), SEED + 84))
+    image_io.write_png(wp, _frames((270, 480, 3), SEED + 85))
+    out, meta, _, _ = api.embed(cp, wp, str(tmp_path / "s.png"),
+                                str(tmp_path / "m.npz"), alpha=ALPHA,
+                                color=color_, password="pw",
+                                method="blocked", device=dev)
+    torch.cuda.synchronize()
+    kernels_ = (enhance_cuda.nlm_planes, enhance_cuda.clahe_luts,
+                enhance_cuda.clahe_apply)
+    for k in kernels_:
+        k.launches = 0
+    wm = api.extract(out, meta, str(tmp_path / "x.png"), password="pw",
+                     device=dev)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels_] == [1, 1, 1]
+    got = cv2.imread(wm, cv2.IMREAD_UNCHANGED)
+    assert got.shape[:2] == (1080, 1920)
