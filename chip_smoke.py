@@ -26,8 +26,9 @@
                                             # from the library's SASS
     python3 chip_smoke.py --enhance-times   # only the enhancement
                                             # stages' and chains' times at
-                                            # 1080p (copied into an older
-                                            # tree, that tree's)
+                                            # 1080p, and K10 and K9 alone
+                                            # (copied into an older tree,
+                                            # that tree's)
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
 an H100, ``sm_90a``). It builds the eighteen hand-written kernels (K1,
@@ -83,7 +84,8 @@ and interpolation) once, and each chain's time with the eager NLM and
 CLAHE in their places; K10 bit-equal to its twin on the 1080p extracted
 gray plane, the color frame's three YCrCb planes and planes smaller than
 its window, and K11 on the gray and luma planes and small ones, each
-timed beside its bound, its twin and the eager form it replaced; and
+timed beside its bound (K10 also beside its weight's issue bound, from
+the library's SASS), its twin and the eager form it replaced; and
 against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
@@ -141,9 +143,11 @@ agree with the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3068,7 +3072,8 @@ def enhance_rows(dev, gray, frames) -> dict:
             plain_ms=cuda_time(lambda: e_ops.nlm_planes_plain(planes, h2),
                                1),
             eager_ms=cuda_time(lambda: eager_nlm(planes, h2), 1),
-            library_ms=None, **nlm_bound(planes))
+            library_ms=None, **nlm_bound(planes),
+            **nlm_weight_issue(planes, lambda: ec.nlm_planes(planes, h2)))
     luma = color.luma_f32(frames).to(torch.uint8).reshape(1, *gray.shape)
     cases = {"gray_1080p": g_planes, "luma_1080p": luma.contiguous(),
              **{"x".join(map(str, shp)): smooth(shp)
@@ -3212,7 +3217,8 @@ def enhance_times(dev) -> dict:
     """The enhancement stages' and chains' ms (CUDA events, a warm-up and 3
     calls) on a seeded 1080p watermark, gray and color, through this
     tree's package, with K10's and K11's launches in one chain each where
-    the tree has them: run in a parent tree and this one in turns."""
+    the tree has them, and K10 and K9 alone (:func:`kernel_times`): run
+    in a parent tree and this one in turns."""
     import torch
     from dctsvd_tpu_torch.ops import color
 
@@ -3233,7 +3239,173 @@ def enhance_times(dev) -> dict:
         launches[chain] = {n: w.launches for n, w in wrappers.items()}
     return dict(tree=REPO, ms=ms, launches=launches,
                 outputs={name: list(stages[name]().shape)
-                         for name in ("chain_gray", "chain_color")})
+                         for name in ("chain_gray", "chain_color")},
+                kernels=kernel_times(dev, frames))
+
+
+# the SASS opcodes of nlm_weight_kernel that are not the weight: the
+# thread's index and bound check, h2's load, the store and the exit
+WEIGHT_FRAME_OPS = ("S2R", "S2UR", "LDC", "LDC.64", "ULDC", "ULDC.64",
+                    "LDG.E.CONSTANT", "STG.E", "EXIT", "ISETP.GE.AND",
+                    "IMAD", "IMAD.WIDE")
+
+
+def sass_fast_path(sass: str, stem: str) -> list:
+    """The SASS opcodes that one thread of the one function whose mangled
+    name holds ``stem`` executes on its fast path, in order: from the
+    start to its first unpredicated EXIT, leaving out each IEEE division's
+    slow path (in a BSSY .. BSYNC region, what follows the region's
+    branch)."""
+    from dctsvd_tpu_torch.utils import kernels
+    parts = [p for p in sass.split("Function : ")[1:]
+             if stem in p.split(None, 1)[0]]
+    require(len(parts) == 1, f"SASS of {stem}: {len(parts)} functions")
+    ops, regions = [], []          # per open region: past its branch?
+    for ln in parts[0].splitlines():
+        m = kernels._SASS_INSN.search(ln)
+        if not m or m[2] == "NOP":
+            continue
+        op = m[2]
+        if op.startswith("BSYNC") and regions:
+            regions.pop()
+        elif any(regions):
+            continue
+        ops.append(op)
+        if op.startswith("BSSY"):
+            regions.append(False)
+        elif op.startswith("BRA") and regions:
+            regions[-1] = True
+        if op == "EXIT" and not re.search(r"\*/\s+@", ln):
+            break
+    return ops
+
+
+@functools.lru_cache(maxsize=None)
+def weight_sass() -> tuple:
+    """The SASS opcodes of K10's weight a pixel and offset: the weight
+    kernel's fast path (:func:`sass_fast_path`) less WEIGHT_FRAME_OPS,
+    read once from this run's library."""
+    from dctsvd_tpu_torch.utils import kernels
+    ops = sass_fast_path(kernels.sass_dump(kernels.BUILD_INFO["path"]),
+                         "nlm_weight_kernel")
+    return tuple(op for op in ops if op not in WEIGHT_FRAME_OPS)
+
+
+def nlm_weight_issue(planes, fn) -> dict:
+    """K10's weight issue bound on u8 planes [P, H, W]: :func:`weight_sass`
+    a pixel and offset at one instruction a lane a clock, at the SM clock
+    nvidia-smi reads while ``fn`` (K10 on those planes) runs 20 times."""
+    _, clocks = clocked_ms(fn, 20)
+    ops = len(weight_sass()) * planes.numel() * SEARCH_OFFSETS
+    return dict(issue_bound_ms=insn_bound_ms(ops, clocks["sm_mhz"]),
+                weight_sass=len(weight_sass()), issue_clocks=clocks)
+
+
+def device_ms(fn, reps: int, stem: str):
+    """Mean device time a call (ms) of the kernels whose name holds
+    ``stem``, summed from torch.profiler's CUDA activity over ``reps``
+    calls after a warm-up (None where the trace holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0)
+                for e in prof.key_averages() if stem in e.key)
+    return total / reps / 1e3 or None
+
+
+def k9_spectra(dev, frames: int, color_: bool, seed: int):
+    """Seeded 1080p spectra on the card (tests/test_torch_gpu.py's
+    _k9_inputs): sw [(3,) N, 8] sorted descending, sc [frames, (3,) N, 8]
+    and s_cw = sc + α (sw · ratio + noise)."""
+    import torch
+    hb, wb = H // 8, W // 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cd = (3,) if color_ else ()
+    sw = torch.sort(torch.rand((*cd, hb * wb, 8), generator=gen,
+                               device=dev) * 40, dim=-1,
+                    descending=True).values
+    sc = torch.rand((frames, *cd, hb * wb, 8), generator=gen,
+                    device=dev) * 200
+    ratios = 0.6 + 0.5 * torch.rand((frames,), generator=gen, device=dev)
+    hat = (sw * ratios.reshape(frames, *[1] * sw.ndim)
+           + 4 * torch.randn(sc.shape, generator=gen, device=dev))
+    return sc + ALPHA * hat, sc, sw
+
+
+def kernel_times(dev, frames) -> dict:
+    """K10 and K9 alone at the main path's shapes, through this tree's
+    wrappers (so in an older tree, its kernels): K10 on the gray 1080p
+    plane of ``frames`` (h² 49), its three YCrCb planes (h² 9) and a
+    uniform-noise gray plane (h² 49, where most window sums pass the
+    weight's cutoff); K9 on seeded gray spectra of 32 and 128 frames and
+    color ones of 128. Each torch.equal to its twin run on the card
+    first, then two readings (CUDA events, a warm-up each; K10 5 calls a
+    reading, K9 20, which the host's launches can pace) and K9's device
+    time from torch.profiler (:func:`device_ms`: its band and median
+    kernels), each beside its bound; the
+    registers and spills of K10's and K9's instances when this run built
+    the library, and K10's weight issue bound (:func:`nlm_weight_issue`)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, detect_cuda
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda as ec
+    from dctsvd_tpu_torch.utils import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    gray = color.bgr_to_gray(frames).reshape(1, H, W).contiguous()
+    ycc = torch.movedim(color.bgr_to_ycrcb(frames), -1, -3)
+    noise = torch.randint(0, 256, (1, H, W), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    rows = {}
+    for name, planes, h2v in (("nlm_gray", gray, 49.0),
+                              ("nlm_color", ycc.contiguous(), 9.0),
+                              ("nlm_noise", noise, 49.0)):
+        h2 = torch.full((planes.shape[0],), h2v, device=dev)
+        got = ec.nlm_planes(planes, h2)
+        require(torch.equal(got, e_ops.nlm_planes_plain(planes, h2)),
+                f"K10 {name}: not bit-equal to its twin")
+        rows[name] = dict(shape=list(planes.shape), h2=h2v,
+                          equals_twin=True, ms=[cuda_time(
+                              lambda: ec.nlm_planes(planes, h2), 5)
+                              for _ in range(2)], **nlm_bound(planes))
+        rows[name].update(nlm_weight_issue(
+            planes, lambda: ec.nlm_planes(planes, h2)))
+    alpha = blocked._alpha(ALPHA, dev)
+    hb, wb = H // 8, W // 8
+    bands = hb // 4 * 4 * (wb // 4 * 4)
+    for name, n_frames, color_ in (("band_gray_32", 32, False),
+                                   ("band_gray_128", 128, False),
+                                   ("band_color_128", 128, True)):
+        s_cw, sc, sw = k9_spectra(dev, n_frames, color_, 20261020 + n_frames)
+
+        def k9(s_cw=s_cw, sc=sc, sw=sw):
+            return detect_cuda.band_scores(s_cw, sc, sw, alpha, K, hb, wb)
+
+        require(torch.equal(k9(), detect_cuda.band_scores_plain(
+            s_cw, sc, sw, alpha, K, hb, wb)),
+            f"K9 {name}: not bit-equal to its twin")
+        planes = s_cw[..., 0, 0].numel()
+        moved = ((2 * planes + sw[..., 0, 0].numel()) * bands * 32
+                 + 4 * n_frames)
+        rows[name] = dict(shape=list(s_cw.shape), equals_twin=True,
+                          ms=[cuda_time(k9, 20), cuda_time(k9, 20)],
+                          device_ms=device_ms(k9, 20, "band_"),
+                          **bound(planes * bands, band_ops(K), moved))
+        del s_cw, sc, sw
+    out = dict(rows=rows)
+    if kernels.BUILD_INFO.get("ptxas"):
+        out["ptxas"] = {n: v for n, v in kernels.ptxas_report(
+            kernels.BUILD_INFO["ptxas"]).items()
+            if "nlm_" in n or "band_" in n}
+    out["nlm_weight_sass"] = list(weight_sass())
+    return out
 
 
 def seeded_nonces(n: int) -> list:

@@ -52,10 +52,23 @@
 // 32-byte block row (one sector) of s_cw and of sc; sw is shared by the
 // frames and stays in L2. At detect's 128 gray 1080p frames (hb 135,
 // wb 240, g 4, 31,680 of 32,400 blocks in the bands) 2 x 128 x 31,680 x
-// 32 B = 259.5 MB: 0.077 ms at 3.35 TB/s. The design reads the band
-// twice (the second pass mostly from L2) and stages nothing in shared
-// memory: a band of an 8K plane shard is 32,160 blocks. One gray 1080p
-// frame gives only 16 CTAs.
+// 32 B = 259.5 MB: 0.077 ms at 3.35 TB/s.
+//
+// What the design does about it. The values reach the registers in as
+// few loads as the rows allow, and the sums see them in the order above.
+// A row's first k values are one 16-byte load (two for k > 4) of s_cw, of
+// sc and of sw each, where the pointers and strides keep every row on a
+// 16-byte boundary (the vector instance; a scalar instance loads 4 bytes
+// at a time; ops/detect_cuda.py::band_plan picks). A band of at most 256 *
+// kBandRows blocks (1080p's 1,980) is resident: each thread issues the
+// loads of all its rows before any sum, so they are in flight together,
+// and keeps its estimates (and for k <= 4 sw's values) in registers, so
+// pass 2 reads no memory and divides no more. A larger band (4K's 8,040,
+// an 8K plane shard's 32,160) walks its rows twice, pass 2 mostly from
+// L2, with the same row loads; nothing is staged in shared memory. Three
+// CTAs an SM (kBandMinBlocks: 80 registers) keep more rows in flight than
+// two at 90 registers did (12 % faster in color at 128 frames; PERF.md
+// section 6).
 
 #include <cuda_runtime.h>
 
@@ -67,6 +80,8 @@ namespace {
 constexpr int kBandThreads = 256;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr int kSums = 6;                 // sums a pass reduces
+constexpr int kBandRows = 8;             // rows of 256 blocks a thread keeps
+constexpr int kBandMinBlocks = 3;        // CTAs an SM (at most 85 registers)
 constexpr int kMedianThreads = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -123,10 +138,83 @@ __device__ __forceinline__ float nc_of(float sxy, float sxx, float syy) {
       sxy, __fadd_rn(__fmul_rn(__fsqrt_rn(sxx), __fsqrt_rn(syy)), 1e-8f));
 }
 
-// One CTA a (band, plane, frame): blockIdx.x = (f * planes + c) * g^2 +
-// band, its score to bands[blockIdx.x].
+// A block row's first K values at p: one 16-byte load for K <= 4, two for
+// K <= 8 (kVec: p on a 16-byte boundary), else K 4-byte loads.
+template <int K, bool kVec>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[K]) {
+  if constexpr (kVec) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 hi = K > 4 ? __ldg(reinterpret_cast<const float4*>(p + 4))
+                            : lo;
+    const float all[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int i = 0; i < K; ++i) v[i] = all[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+// The estimate max(s - q, 0) / den of a block row.
 template <int K>
-__global__ void __launch_bounds__(kBandThreads)
+__device__ __forceinline__ void estimate(const float (&s)[K],
+                                         const float (&q)[K], float den,
+                                         float (&b)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    b[i] = __fdiv_rn(max_nan(__fsub_rn(s[i], q[i]), 0.0f), den);
+}
+
+// Pass 1's sums of one block row: a, b, a a, b b, and a, b over column 0.
+template <int K>
+__device__ __forceinline__ void raw_sums(const float (&a)[K],
+                                         const float (&b)[K],
+                                         float (&v)[kSums]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    v[0] = __fadd_rn(v[0], a[i]);
+    v[1] = __fadd_rn(v[1], b[i]);
+    v[2] = __fadd_rn(v[2], __fmul_rn(a[i], a[i]));
+    v[3] = __fadd_rn(v[3], __fmul_rn(b[i], b[i]));
+    if (i == 0) {
+      v[4] = __fadd_rn(v[4], a[i]);
+      v[5] = __fadd_rn(v[5], b[i]);
+    }
+  }
+}
+
+// Pass 2's sums of one block row: the centred squares and products over
+// all K columns (means ma, mb) and over column 0 (ma0, mb0).
+template <int K>
+__device__ __forceinline__ void centred_sums(const float (&a)[K],
+                                             const float (&b)[K], float ma,
+                                             float mb, float ma0, float mb0,
+                                             float (&u)[kSums]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float da = __fsub_rn(a[i], ma), db = __fsub_rn(b[i], mb);
+    u[0] = __fadd_rn(u[0], __fmul_rn(da, da));
+    u[1] = __fadd_rn(u[1], __fmul_rn(db, db));
+    u[2] = __fadd_rn(u[2], __fmul_rn(da, db));
+    if (i == 0) {
+      const float da0 = __fsub_rn(a[i], ma0), db0 = __fsub_rn(b[i], mb0);
+      u[3] = __fadd_rn(u[3], __fmul_rn(da0, da0));
+      u[4] = __fadd_rn(u[4], __fmul_rn(db0, db0));
+      u[5] = __fadd_rn(u[5], __fmul_rn(da0, db0));
+    }
+  }
+}
+
+// One CTA a (band, plane, frame): blockIdx.x = (f * planes + c) * g^2 +
+// band, its score to bands[blockIdx.x]. kVec: every row on a 16-byte
+// boundary (see load_row). kResident: the band has at most kBandThreads *
+// kBandRows blocks, so a thread loads all its rows of s_cw and sc (and,
+// for K <= 4, of sw) before pass 1 and keeps its estimates (and sw's
+// values) in registers for pass 2; for K > 4 sw's rows (shared by the
+// frames, in L2) are read in each pass; else pass 2 reads the band again
+// and recomputes the estimates.
+template <int K, bool kVec, bool kResident>
+__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
     band_kernel(const float* __restrict__ s_cw, int64_t s_fs, int64_t s_cs,
                 const float* __restrict__ sc, int64_t c_fs, int64_t c_cs,
                 const float* __restrict__ sw, int64_t w_cs,
@@ -134,6 +222,8 @@ __global__ void __launch_bounds__(kBandThreads)
                 int planes, int wb, int g, int gh, int gw) {
   __shared__ float red[kSums][kBandWarps];
   __shared__ float total[kSums];
+  constexpr bool kKeepA = kResident && K <= 4;
+  constexpr int kRows = kResident ? kBandRows : 1;
   const int nb = g * g;
   const int64_t cta = blockIdx.x;
   const int band = static_cast<int>(cta % nb);
@@ -147,26 +237,44 @@ __global__ void __launch_bounds__(kBandThreads)
   const int col0 = (band % g) * gw;
   const int m = gh * gw;
   const float den = max_nan(__ldg(alpha), 1e-8f);
+  // block j's offset: row row0 + j / gw, column col0 + j % gw of the grid
+  auto offset = [&](int j) {
+    return (static_cast<int64_t>(row0 + j / gw) * wb + col0 + j % gw) * 8;
+  };
 
   // pass 1: sum a, sum b, sum a a, sum b b, and a, b over column 0
   float v[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int j = threadIdx.x; j < m; j += kBandThreads) {
-    const int64_t off =
-        (static_cast<int64_t>(row0 + j / gw) * wb + col0 + j % gw) * 8;
+  float ar[kKeepA ? kRows : 1][K], br[kRows][K];
+  if constexpr (kResident) {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const float a = __ldg(w + off + i);
-      const float b = __fdiv_rn(
-          max_nan(__fsub_rn(__ldg(s + off + i), __ldg(q + off + i)), 0.0f),
-          den);
-      v[0] = __fadd_rn(v[0], a);
-      v[1] = __fadd_rn(v[1], b);
-      v[2] = __fadd_rn(v[2], __fmul_rn(a, a));
-      v[3] = __fadd_rn(v[3], __fmul_rn(b, b));
-      if (i == 0) {
-        v[4] = __fadd_rn(v[4], a);
-        v[5] = __fadd_rn(v[5], b);
+    for (int r = 0; r < kRows; ++r) {
+      const int j = threadIdx.x + r * kBandThreads;
+      if (j < m) {
+        const int64_t off = offset(j);
+        float sv[K], qv[K];
+        if constexpr (kKeepA) load_row<K, kVec>(w + off, ar[r]);
+        load_row<K, kVec>(s + off, sv);
+        load_row<K, kVec>(q + off, qv);
+        estimate<K>(sv, qv, den, br[r]);
       }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int j = threadIdx.x + r * kBandThreads;
+      if (j < m) {
+        if constexpr (!kKeepA) load_row<K, kVec>(w + offset(j), ar[0]);
+        raw_sums<K>(ar[kKeepA ? r : 0], br[r], v);
+      }
+    }
+  } else {
+    for (int j = threadIdx.x; j < m; j += kBandThreads) {
+      const int64_t off = offset(j);
+      float sv[K], qv[K];
+      load_row<K, kVec>(w + off, ar[0]);
+      load_row<K, kVec>(s + off, sv);
+      load_row<K, kVec>(q + off, qv);
+      estimate<K>(sv, qv, den, br[0]);
+      raw_sums<K>(ar[0], br[0], v);
     }
   }
   cta_sums(v, red, total);
@@ -178,25 +286,24 @@ __global__ void __launch_bounds__(kBandThreads)
 
   // pass 2: the centred sums, over all k columns and over column 0
   float u[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int j = threadIdx.x; j < m; j += kBandThreads) {
-    const int64_t off =
-        (static_cast<int64_t>(row0 + j / gw) * wb + col0 + j % gw) * 8;
+  if constexpr (kResident) {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const float a = __ldg(w + off + i);
-      const float b = __fdiv_rn(
-          max_nan(__fsub_rn(__ldg(s + off + i), __ldg(q + off + i)), 0.0f),
-          den);
-      const float da = __fsub_rn(a, ma), db = __fsub_rn(b, mb);
-      u[0] = __fadd_rn(u[0], __fmul_rn(da, da));
-      u[1] = __fadd_rn(u[1], __fmul_rn(db, db));
-      u[2] = __fadd_rn(u[2], __fmul_rn(da, db));
-      if (i == 0) {
-        const float da0 = __fsub_rn(a, ma0), db0 = __fsub_rn(b, mb0);
-        u[3] = __fadd_rn(u[3], __fmul_rn(da0, da0));
-        u[4] = __fadd_rn(u[4], __fmul_rn(db0, db0));
-        u[5] = __fadd_rn(u[5], __fmul_rn(da0, db0));
+    for (int r = 0; r < kRows; ++r) {
+      const int j = threadIdx.x + r * kBandThreads;
+      if (j < m) {
+        if constexpr (!kKeepA) load_row<K, kVec>(w + offset(j), ar[0]);
+        centred_sums<K>(ar[kKeepA ? r : 0], br[r], ma, mb, ma0, mb0, u);
       }
+    }
+  } else {
+    for (int j = threadIdx.x; j < m; j += kBandThreads) {
+      const int64_t off = offset(j);
+      float sv[K], qv[K];
+      load_row<K, kVec>(w + off, ar[0]);
+      load_row<K, kVec>(s + off, sv);
+      load_row<K, kVec>(q + off, qv);
+      estimate<K>(sv, qv, den, br[0]);
+      centred_sums<K>(ar[0], br[0], ma, mb, ma0, mb0, u);
     }
   }
   cta_sums(u, red, total);
@@ -258,10 +365,21 @@ void launch_band(const float* s_cw, int64_t s_fs, int64_t s_cs,
                  const float* sc, int64_t c_fs, int64_t c_cs,
                  const float* sw, int64_t w_cs, const float* alpha,
                  float* bands, int64_t ctas, int planes, int wb, int g,
-                 int gh, int gw, cudaStream_t st) {
-  band_kernel<K><<<static_cast<unsigned>(ctas), kBandThreads, 0, st>>>(
-      s_cw, s_fs, s_cs, sc, c_fs, c_cs, sw, w_cs, alpha, bands, planes, wb,
-      g, gh, gw);
+                 int gh, int gw, bool vec, bool resident, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(ctas);
+#define DCTSVD_BAND_LAUNCH(V, R)                                             \
+  band_kernel<K, V, R><<<grid, kBandThreads, 0, st>>>(                       \
+      s_cw, s_fs, s_cs, sc, c_fs, c_cs, sw, w_cs, alpha, bands, planes, wb,  \
+      g, gh, gw)
+  if (vec && resident)
+    DCTSVD_BAND_LAUNCH(true, true);
+  else if (vec)
+    DCTSVD_BAND_LAUNCH(true, false);
+  else if (resident)
+    DCTSVD_BAND_LAUNCH(false, true);
+  else
+    DCTSVD_BAND_LAUNCH(false, false);
+#undef DCTSVD_BAND_LAUNCH
 }
 
 }  // namespace
@@ -272,33 +390,46 @@ using namespace dctsvd;
 // s_cw, sc: f32 [frames, planes, hb * wb, 8] at the given frame and plane
 // strides (elements; rows of 8 contiguous floats), sc's frame stride may be
 // 0; sw: f32 [planes, hb * wb, 8] at plane stride w_cs; alpha: one f32 on
-// the card; g: the band grid (1 <= g <= min(hb, wb)); k: 1..8. Writes the
-// band scores bands [frames, planes, g * g] and, when out is not null, the
-// frame scores out [frames]. Returns the cudaError_t of the launches.
+// the card; g: the band grid (1 <= g <= min(hb, wb)); k: 1..8. vector and
+// resident: the instance (dctsvd_tpu_torch/ops/detect_cuda.py::band_plan):
+// vector needs the three pointers on 16-byte boundaries and every stride a
+// multiple of 4; resident needs a band of at most 256 * kBandRows blocks.
+// Writes the band scores bands [frames, planes, g * g] and, when out is
+// not null, the frame scores out [frames]. Returns the cudaError_t of the
+// launches.
 extern "C" int dctsvd_band_scores(const void* s_cw, long long s_fs,
                                   long long s_cs, const void* sc,
                                   long long c_fs, long long c_cs,
                                   const void* sw, long long w_cs,
                                   const void* alpha, void* bands, void* out,
                                   int frames, int planes, int hb, int wb,
-                                  int g, int k, void* stream) {
+                                  int g, int k, int vector, int resident,
+                                  void* stream) {
   if (frames <= 0 || planes <= 0 || g < 1 || g > hb || g > wb || k < 1 ||
       k > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t ctas = static_cast<int64_t>(frames) * planes * g * g;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int gh = hb / g, gw = wb / g;
+  if (resident && static_cast<int64_t>(gh) * gw >
+                      static_cast<int64_t>(kBandThreads) * kBandRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vector && ((reinterpret_cast<uintptr_t>(s_cw) |
+                  reinterpret_cast<uintptr_t>(sc) |
+                  reinterpret_cast<uintptr_t>(sw)) % 16 != 0 ||
+                 (s_fs | s_cs | c_fs | c_cs | w_cs) % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(s_cw);
   const float* q = static_cast<const float*>(sc);
   const float* w = static_cast<const float*>(sw);
   const float* a = static_cast<const float*>(alpha);
   float* b = static_cast<float*>(bands);
-  const int gh = hb / g, gw = wb / g;
   switch (k) {
 #define DCTSVD_BAND_CASE(KK)                                                 \
   case KK:                                                                   \
     launch_band<KK>(s, s_fs, s_cs, q, c_fs, c_cs, w, w_cs, a, b, ctas,       \
-                    planes, wb, g, gh, gw, st);                              \
+                    planes, wb, g, gh, gw, vector, resident, st);            \
     break;
     DCTSVD_BAND_CASE(1)
     DCTSVD_BAND_CASE(2)

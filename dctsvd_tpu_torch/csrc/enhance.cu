@@ -52,20 +52,43 @@
 // (sliding column and row sums of the squared differences) does about 12
 // f32 or int operations and one exp (MUFU) a pixel and offset: at 1080p,
 // 914 M pixel-offsets a plane, 0.16 ms of f32 issue and 0.22 ms of the
-// SFU's 16 results a clock an SM. K11: bytes and launches (a 1080p plane
-// is 2 MB; the LUTs 16 KB a plane).
+// SFU's 16 results a clock an SM. The weight itself, two IEEE divisions
+// and libdevice's expf, is about 30 SASS instructions, so issue binds
+// before the SFU does. K11: bytes and launches (a 1080p plane is 2 MB;
+// the LUTs 16 KB a plane).
 //
-// What the design does about it. K10 is the simple form: a CTA takes a
-// 32 x 8 tile of one plane and stages its reflected halo (tile +- 13, 58
-// x 34 bytes) in shared memory once; a thread a pixel keeps its 49 window
-// centres in registers and, for each offset, sums the 49 squared
-// differences against shared memory in int32 (interior pixels address the
-// window by immediate offsets; pixels within 3 of a border take the
-// reflected centres). That is 441 x 49 shared-memory terms a pixel, about
-// 30 times the least-work form; sliding sums are a later redesign. K11
-// takes the histogram a tile per CTA (64 CTAs a plane), and the
-// interpolation a row segment of 256 pixels per CTA, its LUTs read through
-// the L1 cache.
+// What the design does about it. K10 forms each offset's window sums by
+// separable sliding sums, each squared difference once a cell, where the
+// simple form loaded 49 bytes of shared memory a pixel and offset. A CTA
+// takes a kNlmTileW x kNlmTileH tile of one plane and stages its reflected
+// halo (x(R(g)) for every g within 13 of the tile) in shared memory once.
+// Its footprint is the tile +- 3: for each cell g the reflected centre
+// R(g) is a halo row and column (a cell past the plane's last row or
+// column + 3 serves only pixels past the plane and is clamped), so both
+// x(R(g)) and x(R(R(g) + o)) are halo reads. For each offset, in raster
+// order: pass 1, an item a thread (kRowItems of them), takes one footprint
+// row and kNlmRowRun columns, keeps its cells' centres in registers, forms
+// their squared differences (one halo byte each) and the 7-cell row sums
+// by a running add and subtract, stored to shared memory; one barrier;
+// pass 2, a thread kNlmRun pixels down one column, forms their 7-row sums
+// of the row sums the same way and, in the pixels' registers, the weights
+// and the two sums. The row sums are double-buffered, so an offset costs
+// one barrier. Window sums are integers below 2^24, exact in any order,
+// so the weights, wsum and vsum see the same values in the same order as
+// the simple form and the twin. The weight is exactly +0.0 from a window
+// sum on (expf underflows; the CTA finds that cutoff by bisection over
+// nlm_weight, whose values fall with n); adding +0.0 changes neither sum,
+// so a warp whose pixels' sums are all at or past it skips the offset's
+// weights. What binds K10 now is the weight: its 32 SASS instructions a
+// pixel and offset (two IEEE divisions, each with its slow-path check, and
+// expf) take 0.87 ms of issue a 1080p plane at 1980 MHz, and their
+// dependent chains, 128 registers a thread (16 warps an SM) and the
+// barrier an offset keep K10 at about 40 % of that rate. A branch-free
+// division, packed centres for more warps and a warp-specialised form
+// (pass 1 on warps of its own) measured no faster (PERF.md section 6).
+// K11 takes the histogram a tile per CTA (64 CTAs a plane), and the
+// interpolation a row segment of 256 pixels per CTA, its LUTs read
+// through the L1 cache.
 
 #include <cuda_runtime.h>
 
@@ -78,12 +101,35 @@ constexpr int kTr = 3;                       // template radius (7 x 7)
 constexpr int kSr = 10;                      // search radius (21 x 21)
 constexpr int kTaps = 2 * kTr + 1;
 constexpr int kHalo = kTr + kSr;             // 13
-constexpr int kNlmTileW = 32;
-constexpr int kNlmTileH = 8;
-constexpr int kNlmThreads = kNlmTileW * kNlmTileH;
-constexpr int kHaloW = kNlmTileW + 2 * kHalo;   // 58
-constexpr int kHaloH = kNlmTileH + 2 * kHalo;   // 34
 constexpr float kTemplateArea = static_cast<float>(kTaps * kTaps);
+constexpr int kMaxWindowSum = kTaps * kTaps * 255 * 255;   // 3,186,225
+
+// K10's tiling (PERF.md section 6 lists the forms measured): a CTA takes a
+// kNlmTileW x kNlmTileH tile of one plane; in pass 2 a thread owns kNlmRun
+// pixels down one column, in pass 1 an item kNlmRowRun row sums along one
+// footprint row.
+constexpr int kNlmTileW = 32;
+constexpr int kNlmTileH = 64;
+constexpr int kNlmRun = 16;
+constexpr int kNlmRowRun = 32;
+constexpr int kNlmMinBlocks = 4;
+constexpr int kNlmThreads = kNlmTileW * (kNlmTileH / kNlmRun);
+constexpr int kFootW = kNlmTileW + 2 * kTr;  // the window centres' footprint
+constexpr int kFootH = kNlmTileH + 2 * kTr;
+constexpr int kRowCells = kNlmRowRun + 2 * kTr;   // cells a pass-1 item
+constexpr int kRowItems = kFootH * (kNlmTileW / kNlmRowRun);
+// the staged halo (tile +- 13); a row's bytes are 4 mod 8, so pass 1's
+// lanes, on consecutive footprint rows, read distinct shared-memory banks
+constexpr int kHaloW = (kNlmTileW + 2 * kHalo + 3) / 8 * 8 + 4;
+constexpr int kHaloH = kNlmTileH + 2 * kHalo;
+// the row sums [kFootH][kNlmTileW], at an odd row stride (distinct banks
+// for pass 1's stores), twice: offset o writes buffer o % 2
+constexpr int kSumStride = kNlmTileW + 1;
+constexpr int kSumBuf = kFootH * kSumStride;
+static_assert(kNlmTileW % kNlmRowRun == 0 && kNlmTileH % kNlmRun == 0,
+              "K10's runs must tile its tile");
+static_assert(kRowItems <= kNlmThreads, "a pass-1 item a thread at most");
+static_assert(kNlmThreads % 32 == 0, "whole warps");
 
 constexpr int kBins = 256;
 constexpr int kClaheThreads = 256;           // a bin a thread
@@ -113,83 +159,154 @@ __device__ __forceinline__ float nlm_weight(int n, float h2) {
   return expf(-__fdiv_rn(d, h2));
 }
 
-// The offsets' weights and sums of one pixel. crow / ccol: the reflected
-// window centres as row and column offsets into the halo; self: the
-// pixel's own offset there; kInterior: no centre is reflected, so the
-// window is the contiguous 7 x 7 around self.
-template <bool kInterior>
-__device__ __forceinline__ void nlm_pixel(const uint8_t* xs,
-                                          const int (&crow)[kTaps],
-                                          const int (&ccol)[kTaps],
-                                          int self, float h2, float& wsum,
-                                          float& vsum) {
-  int xc[kTaps * kTaps];
-#pragma unroll
-  for (int ty = 0; ty < kTaps; ++ty)
-#pragma unroll
-    for (int tx = 0; tx < kTaps; ++tx)
-      xc[ty * kTaps + tx] = xs[crow[ty] + ccol[tx]];
-  const uint8_t* corner = xs + self - kTr * kHaloW - kTr;
+// The least window sum whose weight is +0.0 at h2 (kMaxWindowSum + 1 when
+// every weight is positive), by bisection over the weights, which are
+// non-increasing in n (tests/test_torch_gpu.py checks every n at h^2 9 and
+// 49).
+__device__ __forceinline__ int nlm_cutoff(float h2) {
+  int lo = 0, hi = kMaxWindowSum + 1;
 #pragma unroll 1
-  for (int dy = -kSr; dy <= kSr; ++dy) {
-#pragma unroll 1
-    for (int dx = -kSr; dx <= kSr; ++dx) {
-      const int off = dy * kHaloW + dx;
-      int dist = 0;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (nlm_weight(mid, h2) == 0.0f)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// Pass 1 of one offset for one item: the row sums of one footprint row at
+// footprint columns col0 .. col0 + kNlmRowRun - 1, each over the squared
+// differences of cells col .. col + 6, to dst. c: the cells' centres
+// x(R(g)); a cell's shifted value x(R(R(g) + o)) lies at its centre's halo
+// offset + off. kContig: no cell is reflected, so the centres' halo
+// offsets are base + j; else base (the row's) + ccol[j].
+template <bool kContig>
+__device__ __forceinline__ void nlm_row_sums(const uint8_t* xs,
+                                             const int* ccol, int base,
+                                             int off,
+                                             const int (&c)[kRowCells],
+                                             int* dst) {
+  int d2[kRowCells];
 #pragma unroll
-      for (int ty = 0; ty < kTaps; ++ty) {
+  for (int j = 0; j < kRowCells; ++j) {
+    const int d = c[j] - xs[base + off + (kContig ? j : ccol[j])];
+    d2[j] = d * d;
+  }
+  int sum = 0;
 #pragma unroll
-        for (int tx = 0; tx < kTaps; ++tx) {
-          const int v = kInterior ? corner[off + ty * kHaloW + tx]
-                                  : xs[crow[ty] + ccol[tx] + off];
-          const int d = xc[ty * kTaps + tx] - v;
-          dist += d * d;
-        }
-      }
-      const float w = nlm_weight(dist, h2);
-      wsum = __fadd_rn(wsum, w);
-      vsum = __fadd_rn(vsum,
-                       __fmul_rn(w, static_cast<float>(xs[self + off])));
-    }
+  for (int j = 0; j < kTaps; ++j) sum += d2[j];
+  dst[0] = sum;
+#pragma unroll
+  for (int j = 1; j < kNlmRowRun; ++j) {
+    sum += d2[j + kTaps - 1] - d2[j - 1];
+    dst[j] = sum;
   }
 }
 
 // K10. Grid (column tiles, row tiles, planes of this launch); plane
 // plane0 + blockIdx.z of x, h2s [P] f32, out.
-__global__ void __launch_bounds__(kNlmThreads, 2)
+__global__ void __launch_bounds__(kNlmThreads, kNlmMinBlocks)
     nlm_kernel(const uint8_t* __restrict__ x, const float* __restrict__ h2s,
                uint8_t* __restrict__ out, int h, int w, int plane0) {
   __shared__ uint8_t xs[kHaloH * kHaloW];
+  __shared__ int sums[2 * kSumBuf];
+  __shared__ int ccol[kFootW];
+  const int tid = threadIdx.x;
   const int64_t plane = plane0 + static_cast<int64_t>(blockIdx.z);
   const int64_t pix = static_cast<int64_t>(h) * w;
   const uint8_t* src = x + plane * pix;
   const int ty0 = blockIdx.y * kNlmTileH, tx0 = blockIdx.x * kNlmTileW;
-  for (int i = threadIdx.x; i < kHaloH * kHaloW; i += kNlmThreads) {
+  for (int i = tid; i < kHaloH * kHaloW; i += kNlmThreads) {
     const int r = i / kHaloW, c = i - r * kHaloW;
     xs[i] = __ldg(src + static_cast<int64_t>(reflect(ty0 - kHalo + r, h)) * w
                   + reflect(tx0 - kHalo + c, w));
   }
+  // each footprint column's reflected centre as a halo column; a column
+  // past w + 2 serves only pixels past the plane and is clamped into it
+  for (int i = tid; i < kFootW; i += kNlmThreads)
+    ccol[i] = reflect(min(tx0 - kTr + i, w - 1 + kTr), w) - (tx0 - kHalo);
   __syncthreads();
-  const int ly = threadIdx.x / kNlmTileW, lx = threadIdx.x % kNlmTileW;
-  const int py = ty0 + ly, px = tx0 + lx;
-  if (py >= h || px >= w) return;
-  int crow[kTaps], ccol[kTaps];
+
+  // pass 1's item: footprint row `row`, columns col0 ..
+  const bool row_item = tid < kRowItems;
+  const int row = tid % kFootH, col0 = tid / kFootH * kNlmRowRun;
+  const int crow =
+      (reflect(min(ty0 - kTr + row, h - 1 + kTr), h) - (ty0 - kHalo)) *
+      kHaloW;
+  const int gx0 = tx0 - kTr + col0;
+  const bool contig = row_item && gx0 >= 0 && gx0 + kRowCells <= w;
+  const int base = crow + (contig ? ccol[col0] : 0);
+  int c[kRowCells];
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    crow[t] = (reflect(py + t - kTr, h) - (ty0 - kHalo)) * kHaloW;
-    ccol[t] = reflect(px + t - kTr, w) - (tx0 - kHalo);
-  }
-  const int self = (ly + kHalo) * kHaloW + lx + kHalo;
-  const bool interior = py >= kTr && py + kTr < h && px >= kTr &&
-                        px + kTr < w;
+  for (int j = 0; j < kRowCells; ++j)
+    c[j] = row_item ? xs[crow + ccol[col0 + j]] : 0;
+  // pass 2's run: column lx, rows ly0 .. ly0 + kNlmRun - 1 of the tile
+  const int lx = tid % kNlmTileW, ly0 = tid / kNlmTileW * kNlmRun;
+  const int self = (ly0 + kHalo) * kHaloW + lx + kHalo;
   const float h2 = h2s[plane];
-  float wsum = 0.0f, vsum = 0.0f;
-  if (interior)
-    nlm_pixel<true>(xs, crow, ccol, self, h2, wsum, vsum);
-  else
-    nlm_pixel<false>(xs, crow, ccol, self, h2, wsum, vsum);
-  out[plane * pix + static_cast<int64_t>(py) * w + px] =
-      to_u8(rintf(__fdiv_rn(vsum, fmaxf(wsum, 1e-12f))));
+  const int cutoff = nlm_cutoff(h2);
+  float wsum[kNlmRun], vsum[kNlmRun];
+#pragma unroll
+  for (int i = 0; i < kNlmRun; ++i) wsum[i] = vsum[i] = 0.0f;
+
+  int buf = 0;
+#pragma unroll 1
+  for (int dy = -kSr; dy <= kSr; ++dy) {
+#pragma unroll 1
+    for (int dx = -kSr; dx <= kSr; ++dx) {
+      const int off = dy * kHaloW + dx;
+      int* rs = sums + buf * kSumBuf;
+      if (row_item) {
+        int* dst = rs + row * kSumStride + col0;
+        if (contig)
+          nlm_row_sums<true>(xs, ccol + col0, base, off, c, dst);
+        else
+          nlm_row_sums<false>(xs, ccol + col0, base, off, c, dst);
+      }
+      // one barrier an offset: the next offset writes the other buffer,
+      // and no thread passes this barrier before all have read this one
+      __syncthreads();
+      const int* col = rs + ly0 * kSumStride + lx;
+      int v[kNlmRun + kTaps - 1];
+#pragma unroll
+      for (int j = 0; j < kNlmRun + kTaps - 1; ++j) v[j] = col[j * kSumStride];
+      int dist[kNlmRun];
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < kTaps; ++j) sum += v[j];
+      dist[0] = sum;
+      int least = sum;
+#pragma unroll
+      for (int i = 1; i < kNlmRun; ++i) {
+        sum += v[i + kTaps - 1] - v[i - 1];
+        dist[i] = sum;
+        least = min(least, sum);
+      }
+      // the weights past the cutoff are +0.0: a warp all of whose sums are
+      // there skips the offset
+      if (__any_sync(kFull, least < cutoff)) {
+#pragma unroll
+        for (int i = 0; i < kNlmRun; ++i) {
+          const float wt = nlm_weight(dist[i], h2);
+          wsum[i] = __fadd_rn(wsum[i], wt);
+          vsum[i] = __fadd_rn(
+              vsum[i],
+              __fmul_rn(wt, static_cast<float>(xs[self + i * kHaloW + off])));
+        }
+      }
+      buf ^= 1;
+    }
+  }
+  const int px = tx0 + lx;
+#pragma unroll
+  for (int i = 0; i < kNlmRun; ++i) {
+    const int py = ty0 + ly0 + i;
+    if (py < h && px < w)
+      out[plane * pix + static_cast<int64_t>(py) * w + px] =
+          to_u8(rintf(__fdiv_rn(vsum[i], fmaxf(wsum[i], 1e-12f))));
+  }
 }
 
 // nlm_weight for n = 0 .. count - 1 at one h^2 (the tests' and the smoke's

@@ -29,6 +29,10 @@ product by its reciprocal, which rounds twice). So the twin, run on the
 card, is bit-equal to the kernel, and a frame's score is the same alone,
 in a shard or in any batch.
 
+How the values reach the kernel's registers (16-byte row loads, a band
+held in registers for the second pass) is chosen by :func:`band_plan`
+from the pointers, strides and band size; it changes no sum.
+
 The wrapper runs its twin only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. It counts its launches in ``.launches``.
 """
@@ -45,11 +49,15 @@ from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
 from dctsvd_tpu_torch.utils import kernels
 from dctsvd_tpu_torch.utils.config import BLOCK
 
-__all__ = ["band_scores", "band_scores_plain", "band_grid", "median_last"]
+__all__ = ["band_scores", "band_scores_plain", "band_grid", "band_plan",
+           "median_last"]
 
 K_MAX = BLOCK     # K9 is compiled for k = 1..8
 THREADS = 256     # a band's threads (csrc/detect.cu kBandThreads)
 WARP = 32
+#: Rows of THREADS blocks a thread keeps in registers (csrc/detect.cu
+#: kBandRows): a band of at most THREADS · RESIDENT_ROWS blocks is read once.
+RESIDENT_ROWS = 8
 
 
 def band_grid(hb: int, wb: int, grid: int) -> tuple:
@@ -58,6 +66,24 @@ def band_grid(hb: int, wb: int, grid: int) -> tuple:
     in no band)."""
     g = max(1, min(grid, hb, wb))
     return g, hb // g, wb // g
+
+
+def band_plan(hb: int, wb: int, grid: int, ptrs, strides) -> tuple:
+    """(vector, resident, rows) of K9 on an hb × wb block grid cut into
+    g × g bands, with the s_cw, sc and sw rows at the data pointers
+    ``ptrs`` and the frame and plane strides ``strides`` (elements).
+    vector: every row on a 16-byte boundary (each pointer on one, each
+    stride a multiple of 4 floats; sc's frame stride may be 0), so a row's
+    first k values take one 16-byte load (two for k > 4); else the scalar
+    instance loads 4 bytes at a time. rows: the rows of THREADS blocks a
+    band spans; resident: at most RESIDENT_ROWS of them, so each thread
+    loads all its rows before the sums and keeps them for the second pass;
+    larger bands (4K frames, an 8K shard's) read the band again."""
+    _, gh, gw = band_grid(hb, wb, grid)
+    rows = -(-gh * gw // THREADS)
+    vector = (all(p % 16 == 0 for p in ptrs)
+              and all(s % 4 == 0 for s in strides))
+    return vector, rows <= RESIDENT_ROWS, rows
 
 
 def median_last(x: torch.Tensor) -> torch.Tensor:
@@ -234,10 +260,15 @@ def band_scores(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,
     out = (torch.empty((frames,), dtype=torch.float32, device=s_cw.device)
            if reduce else None)
     if frames:
-        kernels.launch("dctsvd_band_scores", s_cw.device, s, s.stride(0),
-                       s.stride(1), q, q.stride(0), q.stride(1), w,
-                       w.stride(0), alpha, bands, out, frames, c, hb, wb, g,
-                       k)
+        strides = (s.stride(0), s.stride(1), q.stride(0), q.stride(1),
+                   w.stride(0))
+        vector, resident, _ = band_plan(
+            hb, wb, grid, (s.data_ptr(), q.data_ptr(), w.data_ptr()),
+            strides)
+        kernels.launch("dctsvd_band_scores", s_cw.device, s, strides[0],
+                       strides[1], q, strides[2], strides[3], w, strides[4],
+                       alpha, bands, out, frames, c, hb, wb, g, k,
+                       int(vector), int(resident))
         band_scores.launches += 1
     if reduce:
         return out.reshape(lead)

@@ -45,6 +45,12 @@ __all__ = ["nlm_planes", "clahe_luts", "clahe_apply", "nlm_weights",
 TEMPLATE, SEARCH = 7, 21   # the kernel's template and search window
 #: The largest 7×7 window sum of squared u8 differences.
 MAX_WINDOW_SUM = TEMPLATE * TEMPLATE * 255 * 255
+#: K10's tiling (csrc/enhance.cu): a CTA's tile (kNlmTileW, kNlmTileH); the
+#: pixels a thread sums down one column (kNlmRun) and the row sums a
+#: pass-1 item makes along one row (kNlmRowRun).
+NLM_TILE = (32, 64)
+NLM_RUN = 16
+NLM_ROW_RUN = 32
 MAX_GRID = 65535           # rows a CLAHE launch takes (grid y)
 
 

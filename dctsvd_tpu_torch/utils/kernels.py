@@ -83,7 +83,7 @@ _SIGNATURES = {
     "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dctsvd_band_scores": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_nlm": [_P, _P, _P, _I, _I, _I, _P],
     "dctsvd_nlm_weights": [_P, _P, _I, _P],
     "dctsvd_clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _P],

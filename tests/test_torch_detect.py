@@ -195,6 +195,49 @@ def test_twin_refuses_bad_input():
         detect_cuda.band_scores(s_cw, sc, sw, a.repeat(2), K, 9, 11)
 
 
+# grids (hb, wb, grid) of the main paths: a 512² frame (m = 256), 1080p
+# (1,980), 4K (8,040) and an 8K plane shard's band (parallel/plane.py's
+# grid 2: 32,160 blocks)
+PLAN_GRIDS = {"512": ((64, 64, 4), 1, True), "1080p": ((135, 240, 4), 8, True),
+              "4k": ((270, 480, 4), 32, False),
+              "8k_shard": ((135, 960, 2), 126, False),
+              "resident_edge": ((64, 128, 2), 8, True),
+              "past_the_edge": ((6, 1366, 2), 9, False)}
+
+
+@pytest.mark.parametrize("grid", list(PLAN_GRIDS))
+def test_band_plan_takes_the_resident_path_up_to_its_rows(grid):
+    """K9's plan: a band of at most 256 · RESIDENT_ROWS blocks is read
+    once (each thread keeps its rows), a larger one twice; the rows a
+    band spans are ceil(m / 256)."""
+    (hb, wb, g), rows, resident = PLAN_GRIDS[grid]
+    ptrs, strides = (1 << 20, 2 << 20, 3 << 20), (4 * hb * wb * 8, hb * wb * 8,
+                                                  0, hb * wb * 8, hb * wb * 8)
+    assert detect_cuda.band_plan(hb, wb, g, ptrs, strides) == (True, resident,
+                                                               rows)
+    assert detect_cuda.RESIDENT_ROWS == 8
+
+
+@pytest.mark.parametrize("case", ["s_cw_pointer", "sc_pointer", "sw_pointer",
+                                  "frame_stride", "plane_stride"])
+def test_band_plan_takes_the_scalar_instance_off_16_bytes(case):
+    """A row pointer off its 16-byte boundary, or a stride that is not a
+    multiple of 4 floats, takes the scalar instance; sc's frame stride of
+    0 (a shared sc) keeps the vector one."""
+    ptrs, strides = [1 << 20, 2 << 20, 3 << 20], [8 * 32400, 8 * 32400, 0,
+                                                  8 * 32400, 8 * 32400]
+    assert detect_cuda.band_plan(135, 240, 4, ptrs, strides)[0]
+    if case.endswith("pointer"):
+        ptrs[["s_cw", "sc", "sw"].index(case.split("_p")[0])] += 4
+    elif case == "frame_stride":
+        strides[0] += 2
+    else:
+        strides[1] += 2
+    vector, resident, rows = detect_cuda.band_plan(135, 240, 4, ptrs,
+                                                   strides)
+    assert (vector, resident, rows) == (False, True, 8)
+
+
 # ---------------------------------------------------------------------------
 # The detect paths over the twin, against the JAX package
 # ---------------------------------------------------------------------------

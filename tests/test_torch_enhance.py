@@ -196,6 +196,78 @@ def test_nlm_box_sum_is_exact_at_its_largest(phase):
         assert (d <= 1).mean() >= 0.99
 
 
+def _k10_walk(x, dy, dx, tile, run, row_run, tr=3, sr=10):
+    """A numpy model of K10's walk (csrc/enhance.cu nlm_kernel) for offset
+    (dy, dx) on an int plane [H, W]: for each tw × th tile, the staged halo
+    x(R(g)) for g within tr + sr of the tile; the footprint (the tile ± tr)
+    with each cell's reflected centre R(g) as a halo row and column (a row
+    or column past the plane's last + tr clamped to it); each cell's
+    squared difference (x(R(g)) − x(R(R(g) + o)))² from two halo reads;
+    pass 1's row sums over the cells col .. col + 2 tr, running along each
+    run of ``row_run`` columns (the first a sum of 2 tr + 1 cells, each next
+    one the last plus a cell and less a cell); pass 2's column sums of
+    those, running down each run of ``run`` rows. Returns D [H, W]."""
+    h, w = x.shape
+    tw, th = tile
+    halo = tr + sr
+    taps = 2 * tr + 1
+    out = np.zeros((h, w), np.int64)
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            rows = _reflect(np.arange(ty0 - halo, ty0 + th + halo), h)
+            cols = _reflect(np.arange(tx0 - halo, tx0 + tw + halo), w)
+            xs = x[rows[:, None], cols[None, :]].astype(np.int64)
+            crow = _reflect(np.minimum(np.arange(ty0 - tr, ty0 + th + tr),
+                                       h - 1 + tr), h) - (ty0 - halo)
+            ccol = _reflect(np.minimum(np.arange(tx0 - tr, tx0 + tw + tr),
+                                       w - 1 + tr), w) - (tx0 - halo)
+            cen = xs[crow[:, None], ccol[None, :]]
+            shifted = xs[crow[:, None] + dy, ccol[None, :] + dx]
+            d2 = (cen - shifted) ** 2                  # [th + 6, tw + 6]
+            rs = np.zeros((th + 2 * tr, tw), np.int64)
+            for col0 in range(0, tw, row_run):
+                seg = d2[:, col0:col0 + row_run + taps - 1]
+                steps = seg[:, taps:] - seg[:, :row_run - 1]
+                first = seg[:, :taps].sum(axis=1, keepdims=True)
+                rs[:, col0:col0 + row_run] = np.cumsum(
+                    np.concatenate([first, steps], axis=1), axis=1)
+            dist = np.zeros((th, tw), np.int64)
+            for row0 in range(0, th, run):
+                seg = rs[row0:row0 + run + taps - 1]
+                steps = seg[taps:] - seg[:run - 1]
+                first = seg[:taps].sum(axis=0, keepdims=True)
+                dist[row0:row0 + run] = np.cumsum(
+                    np.concatenate([first, steps], axis=0), axis=0)
+            hh, ww = min(th, h - ty0), min(tw, w - tx0)
+            out[ty0:ty0 + hh, tx0:tx0 + ww] = dist[:hh, :ww]
+    return out
+
+
+# K10's own tiling, and a small one that puts several tiles, interior and
+# border runs on these planes
+K10_TILINGS = {"kernel": (tec.NLM_TILE, tec.NLM_RUN, tec.NLM_ROW_RUN),
+               "small": ((8, 8), 4, 8)}
+
+
+@pytest.mark.parametrize("tiling", list(K10_TILINGS))
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (7, 9), (12, 11),
+                                   (33, 40), (37, 51)], ids=str)
+def test_k10_walk_equals_window_sums(shape, tiling):
+    """The numpy model of K10's walk (footprint, reflected centres, running
+    row and column sums over its runs) gives every offset's window sums
+    exactly as the twin's window_sums, on planes smaller than the template
+    and the search window, and across several tiles."""
+    tile, run, row_run = K10_TILINGS[tiling]
+    x = _plane(shape, seed=SEED + 9, sigma=1.0).astype(np.int32)
+    xt = torch.as_tensor(x)
+    xp = te._pad_reflect(xt, 10, 10, 10, 10)
+    for dy in range(-10, 11):
+        for dx in range(-10, 11):
+            ref, _ = te.window_sums(xt, xp, dy, dx, 3, 10)
+            got = _k10_walk(x, dy, dx, tile, run, row_run)
+            assert np.array_equal(got, ref.numpy()), (dy, dx)
+
+
 def _sinusoid(shape, noise, seed):
     """A smooth sinusoid (per channel in color) and the same plus seeded
     Gaussian noise of σ ``noise``, both u8."""

@@ -1835,6 +1835,106 @@ def test_detect_paths_take_k9_at_1080p(dev, path, monkeypatch):
     assert torch.equal(chunk, twin_chunk)
 
 
+def _k9_planned(monkeypatch):
+    """Records each plan K9's wrapper takes (vector, resident, rows)."""
+    plans = []
+    orig = detect_cuda.band_plan
+
+    def record(*args):
+        plans.append(orig(*args))
+        return plans[-1]
+
+    monkeypatch.setattr(detect_cuda, "band_plan", record)
+    return plans
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    base = (-flat.data_ptr() % 16) // 4 + 1
+    out = flat[base:base + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("layout", ["gray", "color"])
+@pytest.mark.parametrize("blocks", [2048, 2049])
+def test_k9_at_the_resident_edge(dev, blocks, layout, monkeypatch):
+    """Bands of 256 · RESIDENT_ROWS blocks (hb 64, wb 128, grid 2) are read
+    once, with each thread's rows in registers; one block more (hb 6, wb
+    1366, grid 2: 2,049 a band) reads the band again. Both equal the
+    twin."""
+    hw = (64 * 8, 128 * 8) if blocks == 2048 else (6 * 8, 1366 * 8)
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, hw, 3, layout == "color",
+                                      SEED + blocks)
+    assert (hb // 2) * (wb // 2) == blocks
+    plans = _k9_planned(monkeypatch)
+    _k9_equal(s_cw, sc, sw, hb, wb, grid=2)
+    _k9_equal(s_cw, sc, sw, hb, wb, grid=2, reduce=False)
+    resident = blocks <= 256 * detect_cuda.RESIDENT_ROWS
+    assert plans == [(True, resident, -(-blocks // 256))] * 2
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["vector", "scalar"])
+@pytest.mark.parametrize("k", list(range(1, 9)))
+def test_k9_both_load_instances_at_every_k(dev, k, aligned, monkeypatch):
+    """Each k on the vector instance (16-byte row loads) and on the scalar
+    one (s_cw and sw 4 bytes past a 16-byte boundary), on a resident band
+    (65x83) and a re-read one (hb 6, wb 1366, grid 2): equal to the twin."""
+    plans = _k9_planned(monkeypatch)
+    for hw, grid in (((65, 83), 4), ((6 * 8, 1366 * 8), 2)):
+        s_cw, sc, sw, hb, wb = _k9_inputs(dev, hw, 2, True, SEED + 90 + k)
+        if not aligned:
+            s_cw, sw = _unaligned(s_cw), _unaligned(sw)
+        _k9_equal(s_cw, sc, sw, hb, wb, k=k, grid=grid)
+        _k9_equal(s_cw, sc, sw, hb, wb, k=k, grid=grid, reduce=False)
+    assert [p[:2] for p in plans] == [(aligned, True)] * 2 + [
+        (aligned, False)] * 2
+
+
+@pytest.mark.parametrize("layout", ["gray", "color"])
+def test_k9_unaligned_view_takes_the_scalar_instance(dev, layout,
+                                                     monkeypatch):
+    """An sc view 4 bytes off its 16-byte boundary at 1080p takes the
+    scalar instance and gives the vector instance's scores."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["1080p"], 4,
+                                      layout == "color", SEED + 93)
+    plans = _k9_planned(monkeypatch)
+    got = _k9_equal(s_cw, sc, sw, hb, wb)
+    assert torch.equal(_k9_equal(s_cw, _unaligned(sc), sw, hb, wb), got)
+    assert plans == [(True, True, 8), (False, True, 8)]
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["vector", "scalar"])
+def test_k9_sc_with_frame_stride_0(dev, aligned, monkeypatch):
+    """One sc [(3,) N, 8] for every frame (the kernel reads it at frame
+    stride 0), on both load instances: equal to the twin and to that sc
+    repeated per frame."""
+    s_cw, sc, sw, hb, wb = _k9_inputs(dev, K9_SHAPES["1080p"], 6, True,
+                                      SEED + 94)
+    shared = sc[0] if aligned else _unaligned(sc[0])
+    plans = _k9_planned(monkeypatch)
+    got = _k9_equal(s_cw, shared, sw, hb, wb)
+    assert torch.equal(got, _k9_equal(
+        s_cw, shared.expand(sc.shape).contiguous(), sw, hb, wb))
+    assert plans[0] == (aligned, True, 8)
+
+
+def test_k9_8k_shard_band_takes_the_reread_path(dev, monkeypatch):
+    """An 8K plane shard (1080 × 7680, parallel/plane.py's grid 2: 32,160
+    blocks a band) and a 4K frame (8,040) read their bands twice: equal
+    to the twin."""
+    plans = _k9_planned(monkeypatch)
+    for hw, grid in (((1080, 7680), 2), ((2160, 3840), 4)):
+        s_cw, sc, sw, hb, wb = _k9_inputs(dev, hw, 2, False, SEED + 95)
+        _k9_equal(s_cw, sc, sw, hb, wb, grid=grid)
+        _k9_equal(s_cw, sc, sw, hb, wb, grid=grid, reduce=False)
+    assert plans == [(True, False, 126)] * 2 + [(True, False, 32)] * 2
+
+
 # ---------------------------------------------------------------------------
 # K10 and K11: the enhancement chain's NLM and CLAHE
 # ---------------------------------------------------------------------------
@@ -1845,6 +1945,26 @@ K10_SHAPES = {"1080p_gray": ((1, 1080, 1920), (49.0,)),
               "1x1": ((1, 1, 1), (49.0,)), "7x9": ((1, 7, 9), (49.0,)),
               "12x11": ((2, 12, 11), (49.0, 9.0)),
               "37x51": ((3, 37, 51), (9.0,) * 3)}
+# the edges of K10's tiling: heights and widths below the 7-pixel
+# template (2, 3, 4, 6), one below, at and one above the tile's width and
+# height and the run a thread sums down a column, several tiles; and a
+# 0/255 checkerboard, whose window sums reach 49 · 255²
+_TW, _TH = enhance_cuda.NLM_TILE
+_T = enhance_cuda.NLM_RUN
+K10_SHAPES.update({
+    "2x3": ((1, 2, 3), (49.0,)), "3x2": ((1, 3, 2), (9.0,)),
+    "4x6": ((2, 4, 6), (49.0, 9.0)), "6x4": ((1, 6, 4), (49.0,)),
+    "6x2": ((1, 6, 2), (9.0,)),
+    **{f"{h}x{w}": ((2, h, w), (49.0, 9.0))
+       for h, w in ((_TH - 1, _TW - 1), (_TH, _TW), (_TH + 1, _TW + 1),
+                    (_T - 1, _T + 1), (_T, _T), (_T + 1, _T - 1),
+                    (2 * _TH + 1, 3 * _TW - 1))},
+    "checker_40x52": ((2, 40, 52), (49.0, 9.0)),
+    # h² other than the chains' 9 and 49, of all-ones significands
+    "37x51_h2_ones": ((2, 37, 51), (float.fromhex("0x1.fffffep4"),
+                                    float.fromhex("0x1.fffffep0"))),
+    f"checker_{2 * _TH + 1}x{2 * _TW + 1}": ((1, 2 * _TH + 1, 2 * _TW + 1),
+                                             (49.0,))})
 K11_SHAPES = {"1080p_gray": (1, 1080, 1920), "1080p_luma": None,
               "37x51": (1, 37, 51), "3x40x52": (3, 40, 52),
               "1x1": (1, 1, 1)}
@@ -1864,10 +1984,17 @@ def _enh_planes(dev, shape, seed):
 @pytest.mark.parametrize("shape", list(K10_SHAPES))
 def test_k10_matches_twin(dev, shape):
     """K10 equals its twin run on the card (torch.equal) at 1080p (a gray
-    plane, a frame's three YCrCb planes) and on planes smaller than its
-    21-pixel window, in one launch."""
+    plane, a frame's three YCrCb planes), on planes smaller than its
+    21-pixel window and its 7-pixel template, at the edges of its tiles
+    and runs, and on a 0/255 checkerboard, in one launch."""
     dims, h2 = K10_SHAPES[shape]
-    x = _enh_planes(dev, dims, SEED + 80)
+    if shape.startswith("checker"):
+        y, x_ = torch.meshgrid(torch.arange(dims[1], device=dev),
+                               torch.arange(dims[2], device=dev),
+                               indexing="ij")
+        x = (((y + x_) % 2) * 255).to(torch.uint8).expand(dims).contiguous()
+    else:
+        x = _enh_planes(dev, dims, SEED + 80)
     h2 = torch.tensor(h2, device=dev)
     n0 = enhance_cuda.nlm_planes.launches
     got = enhance_cuda.nlm_planes(x, h2)
@@ -1880,7 +2007,9 @@ def test_k10_matches_twin(dev, shape):
 @pytest.mark.parametrize("h2", [9.0, 49.0])
 def test_k10_weights_are_torch_exp(dev, h2):
     """K10's weight function equals the twin's torch.exp(−((n/49)/h²)) on
-    the card for every window sum n in [0, 49 · 255²]."""
+    the card for every window sum n in [0, 49 · 255²]; the weights are
+    non-increasing in n and +0.0 from the first zero D0 on, so K10's skip
+    past its cutoff (the bisection's D0) adds only zeros."""
     n = enhance_cuda.MAX_WINDOW_SUM + 1
     h2t = torch.full((), h2, device=dev)
     got = enhance_cuda.nlm_weights(n, h2t)
@@ -1888,6 +2017,28 @@ def test_k10_weights_are_torch_exp(dev, h2):
         torch.arange(n, dtype=torch.float32, device=dev), h2t)
     bad = int((got != ref).sum())
     assert bad == 0 and float(got[0]) == 1.0 and float(got[-1]) == 0.0
+    assert bool((got[1:] <= got[:-1]).all())
+    d0 = int(torch.nonzero(got == 0)[0])
+    assert not bool(got[d0:].any()) and float(got[d0 - 1]) > 0.0
+
+
+# h² other than the chains' 9 and 49: significands of all ones or near
+# them, a power of two, and far from 1
+K10_OTHER_H2 = [float.fromhex("0x1.fffffep0"), float.fromhex("0x1.fffffep4"),
+                float.fromhex("0x1.000002p3"), 12.25, 0.5, 1e-3, 1e20,
+                1e-35, 1e35]
+
+
+@pytest.mark.parametrize("h2", K10_OTHER_H2, ids=str)
+def test_k10_weights_equal_the_twin_at_other_h2(dev, h2):
+    """At other h² too K10's weights equal the twin's for every window
+    sum (two IEEE divisions and libdevice's expf, as torch's)."""
+    n = enhance_cuda.MAX_WINDOW_SUM + 1
+    h2t = torch.full((), h2, device=dev)
+    got = enhance_cuda.nlm_weights(n, h2t)
+    ref = e_ops.nlm_weights_plain(
+        torch.arange(n, dtype=torch.float32, device=dev), h2t)
+    assert int((got != ref).sum()) == 0
 
 
 @pytest.mark.parametrize("shape", list(K11_SHAPES))
