@@ -29,12 +29,18 @@
                                             # 1080p, and K10 and K9 alone
                                             # (copied into an older tree,
                                             # that tree's)
+    python3 chip_smoke.py --resync-times    # only detect resync's chunk
+                                            # split and search times at
+                                            # 1080p, with K12 and K13 and
+                                            # with their twins (copied into
+                                            # an older tree, that tree's)
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the eighteen hand-written kernels (K1,
+an H100, ``sm_90a``). It builds the twenty hand-written kernels (K1,
 K2, K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6
 and K7, the detect statistic K9, the enhancement chain's NLM K10 and
-CLAHE K11, and the probes' copy_f32, cols_view, fma_chain and
+CLAHE K11, detect resync's roll stack K12 and counter-rotation K13, and
+the probes' copy_f32, cols_view, fma_chain and
 spectrum_probe; K2, K3, K5 and K9 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
@@ -89,8 +95,14 @@ the library's SASS), its twin and the eager form it replaced; and
 against the CPU on a small plane; text and
 JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
-stego, with K1's launches on each search and K1 held to its twin on one
-chunk of 64 rolled frames and one of 64 rolled luma planes. Then
+stego: K12 (the roll stack) on one chunk of 64 rolled frames and one of
+64 rolled luma planes, and K13 (the counter-rotation) on the rotated
+frame, a luma plane and a 2160x3840 plane, each equal to its twin and
+timed beside its bound, its twin and one PyTorch call; K1 held to its
+twin on both chunks; the chunk's split and each search's time before
+(the eager forms, a host read a chunk) and after, with the same result;
+K1's, K9's and K12's launches once a chunk, K13's once a nonzero angle,
+and one host read of scores a scan. Then
 ``parallel/``: the batch entry points on the 1080p batch of 32 through a
 one-card mesh, four shards of the card (``[cuda:0] * 4``) and one frame
 a shard, each held to the unsharded call (stego, sc and the recovered
@@ -130,7 +142,8 @@ the bench;
 K6's and K7's on the gray slice, the resync and parity phases,
 ``plane_8k`` and the bench; K10's and K11's on the enhance phase's
 chains, the CLI's enhanced extract (counted in its process) and the
-bench's robustness extracts.
+bench's robustness extracts; K12's and K13's on the resync searches and
+the bench's geometric config.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -3518,28 +3531,131 @@ def phase_payload(dev, cover_np):
     return launches, parity["text"]["card"][0] == "recovered"
 
 
-def phase_resync(dev, cover_np, wm_u8, blk, intra):
-    """detect resync at 1080p on blocked stegos: a color and a gray stego
-    rolled by (3, −5) px (the translation search, and detect_paths(resync=
-    True) on the color one), and the color stego rotated 0.3° with cv2 (the
-    rotation search at rot_range 0.5). K1's launch counter is set to 0 just
-    before each search and read just after, so the aligned detects lie
-    outside the windows; each count must equal the chunks the search
-    scans. Before that, K1 is held to its twin, bit for bit, on the first
-    chunk of 64 rolls of each search's input, gathered as the search
-    gathers it: u8 color frames [64, H, W, 3] and f32 luma planes
-    [64, H, W]. K6's and K7's counters are set to 0 just before the gray
-    search and read just after (it launches luma_f32 once, and no other).
-    Returns (K1's launches on each search, K6's and K7's on the gray
-    search)."""
+# ---------------------------------------------------------------------------
+# Detect resync: K12 (the roll stack) and K13 (the counter-rotation)
+# ---------------------------------------------------------------------------
+
+RESYNC_CHUNK = 64         # the searches' default chunk of rolls
+RESYNC_STEP = 0.05        # the rotation search's step (deg) ...
+RESYNC_ROT = 0.5          # ... and range
+RESYNC_ANGLE = 0.3        # the attacker's rotation
+H4K, W4K = 2160, 3840     # the bench geometric config's frame
+RESYNC_SEED = 20261026
+# f32 operations of K13 a pixel (xx, yy; src_x, src_y 4 each; 2 floors, 2
+# upper weights, 2 lower ones, 4 tap weights) and a channel (4 products,
+# 3 sums; u8 adds the rounding and the clamp's 2)
+ROT_OPS_PIXEL = 18
+ROT_OPS_CHANNEL = 7
+ROT_OPS_U8 = 3
+
+
+def resync_wrappers():
+    from dctsvd_tpu_torch.ops import resync_cuda
+    return {"roll_stack": resync_cuda.roll_stack,
+            "derotate": resync_cuda.derotate}
+
+
+def resync_ops():
+    """(roll stack, counter-rotation) as the search calls them now:
+    resync_cuda's names (the kernels, or their twins inside
+    :func:`resync_forms`), or an older tree's eager blocked._roll_stack and
+    blocked._derotate."""
+    from dctsvd_tpu_torch.models import blocked
+    try:
+        from dctsvd_tpu_torch.ops import resync_cuda as rc
+    except ImportError:
+        return blocked._roll_stack, blocked._derotate
+    return rc.roll_stack, rc.derotate
+
+
+@contextlib.contextmanager
+def resync_forms(eager: bool):
+    """With ``eager``, K12's and K13's twins (the eager forms they replaced)
+    in the kernels' places for every caller; an older tree, which has no
+    kernels, runs its own eager forms either way."""
+    try:
+        from dctsvd_tpu_torch.ops import resync_cuda as rc
+    except ImportError:
+        yield
+        return
+    saved = rc.roll_stack, rc.derotate
+    if eager:
+        rc.roll_stack, rc.derotate = rc.roll_stack_plain, rc.derotate_plain
+    try:
+        yield
+    finally:
+        rc.roll_stack, rc.derotate = saved
+
+
+@contextlib.contextmanager
+def counted_reads():
+    """The search's host reads of scores (blocked._read_scores), one entry
+    a read with its chunks; None in an older tree, which reads each
+    chunk's scores as the chunk ends."""
+    from dctsvd_tpu_torch.models import blocked
+    real = getattr(blocked, "_read_scores", None)
+    if real is None:
+        yield None
+        return
+    reads = []
+    blocked._read_scores = lambda parts: reads.append(len(parts)) or real(
+        parts)
+    try:
+        yield reads
+    finally:
+        blocked._read_scores = real
+
+
+def per_chunk_resync(img, sc, sw, alpha, *, window=8, chunk=RESYNC_CHUNK,
+                     color_frames, rot_range=0.0, rot_step=RESYNC_STEP):
+    """The search as it ran before the one-read scan, copied here: each
+    chunk's scores read to the host as the chunk ends, through the roll
+    stack and counter-rotation of :func:`resync_ops`."""
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    _, derotate = resync_ops()
+    shifts = np.asarray(blocked._resync_shifts(window, 0), np.int64)
+    pad = (-len(shifts)) % chunk
+    if pad:
+        shifts = np.concatenate([shifts, np.zeros((pad, 2), np.int64)])
+    shifts_t = torch.as_tensor(shifts, device=img.device)
+    best_score, best_shift, best_angle = -np.inf, (0, 0), 0.0
+
+    def scan(angles):
+        nonlocal best_score, best_shift, best_angle
+        for a in angles:
+            cand = img if a == 0.0 else derotate(img, a,
+                                                 color_frames=color_frames)
+            for i in range(0, len(shifts), chunk):
+                scores = blocked._detect_shift_chunk(
+                    cand, sc, sw, alpha, shifts_t[i:i + chunk],
+                    sweeps=SWEEPS, color_frames=color_frames).cpu().numpy()
+                j = int(np.argmax(scores))
+                if float(scores[j]) > best_score:
+                    best_score = float(scores[j])
+                    best_shift, best_angle = tuple(shifts[i + j]), a
+
+    scan(blocked._resync_angles(rot_range, rot_step))
+    if rot_range > 0.0 and best_angle != 0.0:
+        fine = rot_step / 5.0
+        scan([best_angle + k * fine for k in (-4, -3, -2, -1, 1, 2, 3, 4)])
+    return (best_score, (-int(best_shift[0]), -int(best_shift[1])),
+            float(best_angle))
+
+
+def resync_inputs(dev, cover_np, wm_u8, blk, intra) -> dict:
+    """The searches' 1080p inputs: a blocked color and gray stego of
+    ``cover_np`` rolled by (3, −5) px, the color stego rotated 0.3° with
+    cv2, the gray one's luma plane, their sc and sw, the color meta, and a
+    seeded 2160×3840 f32 plane (the bench geometric config's size)."""
     import cv2
     import numpy as np
     import torch
     from dctsvd_tpu_torch.io import meta as metaio
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import color, detect_cuda, wm_cuda
+    from dctsvd_tpu_torch.ops import color
 
-    chunk, step, rot_range = 64, 0.05, 0.5
     cover = torch.as_tensor(cover_np, device=dev)
     res = blocked.embed_color(cover, wm_u8, blk, intra, ALPHA)
     gres = blocked.embed_gray(cover, color.bgr_to_gray(wm_u8), blk, intra,
@@ -3550,103 +3666,358 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                        digest=None, arrays={"Sc": res.sc.cpu().numpy(),
                                             "Sw": res.sw.cpu().numpy()},
                        sweeps=1, sweeps_xpairs=7)
-    sc, sw = res.sc, res.sw
-    rolled = torch.as_tensor(np.roll(stego, (3, -5), axis=(0, 1)),
-                             device=dev)
     grolled = torch.roll(gres.stego_bgr, (3, -5), dims=(0, 1))
-    m = cv2.getRotationMatrix2D((W / 2, H / 2), 0.3, 1.0)
-    rotated = torch.as_tensor(cv2.warpAffine(
-        stego, m, (W, H), borderMode=cv2.BORDER_REPLICATE), device=dev)
+    m = cv2.getRotationMatrix2D((W / 2, H / 2), RESYNC_ANGLE, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(RESYNC_SEED)
+    return dict(
+        stego=res.stego_bgr, meta=meta, sc=res.sc, sw=res.sw,
+        rolled=torch.as_tensor(np.roll(stego, (3, -5), axis=(0, 1)),
+                               device=dev),
+        rotated=torch.as_tensor(cv2.warpAffine(
+            stego, m, (W, H), borderMode=cv2.BORDER_REPLICATE), device=dev),
+        gstego=gres.stego_bgr, grolled=grolled, gsc=gres.sc, gsw=gres.sw,
+        luma=color.luma_f32(grolled),
+        plane_4k=torch.rand((H4K, W4K), generator=gen, device=dev) * 255)
 
-    # K1 against its twin at the searches' shapes
+
+def resync_split(dev, inp) -> dict:
+    """How a 1080p search chunk's time splits (ms), through the roll stack
+    and counter-rotation the search calls now (:func:`resync_ops`): the
+    roll stack of 64 u8 color frames and of 64 f32 luma planes and K1 + K9
+    on each stack (CUDA events, 5 calls after a warm-up); a whole chunk
+    (roll, K1, K9) on the host clock over 8 chunks, once with no read and
+    once with each chunk's scores read to the host as it ends: the read's
+    cost is the difference; one counter-rotation of the rotated color
+    frame, of the gray stego's luma plane and of the 2160×3840 f32 plane
+    (CUDA events, 5 calls)."""
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+
+    roll, derotate = resync_ops()
+    shifts = torch.as_tensor(np.asarray(blocked._resync_shifts(
+        blocked.BLOCK, 0)[:RESYNC_CHUNK], np.int64), device=dev)
+    out = {}
+    for name, img, sc, sw, cl in (
+            ("color", inp["rolled"], inp["sc"], inp["sw"], True),
+            ("gray", inp["luma"], inp["gsc"], inp["gsw"], False)):
+        spectrum = (blocked._frames_spectrum if cl
+                    else blocked._plane_spectrum)
+        stack = roll(img, shifts)
+
+        def k1_k9(stack=stack, sc=sc, sw=sw, spectrum=spectrum):
+            return blocked._detect_scores(spectrum(stack, SWEEPS), sc, sw,
+                                          ALPHA, 0.6, H, W)
+
+        def chunk(img=img, sc=sc, sw=sw, cl=cl):
+            return blocked._detect_shift_chunk(img, sc, sw, ALPHA, shifts,
+                                               sweeps=SWEEPS, color_frames=cl)
+
+        out[f"roll_{name}_ms"] = cuda_time(lambda: roll(img, shifts), 5)
+        out[f"k1_k9_{name}_ms"] = cuda_time(k1_k9, 5)
+        del stack
+        chunk()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            chunk()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(8):
+            chunk().cpu()
+        t2 = time.perf_counter()
+        out[f"chunk_{name}_ms"] = (t1 - t0) / 8 * 1e3
+        out[f"chunk_{name}_read_each_ms"] = (t2 - t1) / 8 * 1e3
+        out[f"read_{name}_ms"] = (out[f"chunk_{name}_read_each_ms"]
+                                  - out[f"chunk_{name}_ms"])
+    for name, img, cl in (("color", inp["rotated"], True),
+                          ("gray", inp["luma"], False),
+                          ("gray_4k", inp["plane_4k"], False)):
+        out[f"derotate_{name}_ms"] = cuda_time(
+            lambda: derotate(img, RESYNC_ANGLE, color_frames=cl), 5)
+    return out
+
+
+def resync_searches(inp) -> dict:
+    """The phase's three searches at 1080p: the color and gray translation
+    searches on the rolled stegos and the color rotation search (±0.5° at
+    0.05°, refined at 0.01°) on the rotated one."""
+    from dctsvd_tpu_torch.models import blocked
+    return {
+        "shift_color": lambda: blocked.detect_color_resync(
+            inp["rolled"], inp["sc"], inp["sw"], ALPHA, sweeps=SWEEPS),
+        "shift_gray": lambda: blocked.detect_gray_resync(
+            inp["grolled"], inp["gsc"], inp["gsw"], ALPHA, sweeps=SWEEPS),
+        "rotation_color": lambda: blocked.detect_color_resync(
+            inp["rotated"], inp["sc"], inp["sw"], ALPHA, sweeps=SWEEPS,
+            rot_range=RESYNC_ROT, rot_step=RESYNC_STEP)}
+
+
+def timed_search(fn) -> tuple:
+    """(fn(), host seconds, the host reads of scores it made), the card
+    synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    with counted_reads() as reads:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return out, dt, reads
+
+
+def resync_times(dev, cover_np, wm_u8, blk, intra) -> dict:
+    """The search and its chunks' parts at 1080p through this tree's
+    package (copied into an older tree, that tree's): :func:`resync_split`
+    and each of :func:`resync_searches` twice (host clock, with its host
+    reads), with the kernels (``kernel``, where the tree has them) and with
+    their twins in their places (``eager``)."""
+    inp = resync_inputs(dev, cover_np, wm_u8, blk, intra)
+    try:
+        resync_wrappers()
+        forms = (("kernel", False), ("eager", True))
+    except ImportError:
+        forms = (("eager", True),)
+    out = {}
+    for form, eager in forms:
+        with resync_forms(eager):
+            split = resync_split(dev, inp)
+            runs = {}
+            for name, fn in resync_searches(inp).items():
+                runs[name] = []
+                for _ in range(2):
+                    (score, shift, angle), dt, reads = timed_search(fn)
+                    runs[name].append(dict(s=dt, reads=reads, score=score,
+                                           shift=list(shift), angle=angle))
+        out[form] = dict(split=split, searches=runs)
+    return dict(tree=REPO, **out)
+
+
+def phase_resync(dev, cover_np, wm_u8, blk, intra):
+    """detect resync at 1080p on blocked stegos (:func:`resync_inputs`):
+    the color and gray translation searches of a stego rolled by (3, −5)
+    px, detect_paths(resync=True) on the color one, and the rotation
+    search (rot_range 0.5) of the color stego rotated 0.3°.
+
+    First K12 and K13 against their twins run on the card, torch.equal: K12
+    on the first chunk of 64 rolls of each search's input (u8 color frames
+    [64, H, W, 3], f32 luma planes [64, H, W]), K13 on the rotated color
+    frame, the luma plane and a 2160×3840 f32 plane at 0.3°; K1 is held to
+    its twin bit for bit on both stacks. Each is timed (CUDA events
+    around the wrapper, and the kernel's device time from torch.profiler)
+    beside its bound, its twin (the eager form it replaced) and one
+    PyTorch call computing
+    the same function (K12: the advanced-indexing gather with its indices
+    made beforehand; K13: grid_sample on the frame as f32, bilinear, zeros
+    outside). Then the chunk's split (:func:`resync_split`) and each search
+    (host clock) before, with the eager forms in the kernels' places and
+    each chunk's scores read as it ends (:func:`per_chunk_resync`), and
+    after, through the port; each search finds the same score, shift and
+    angle both ways.
+
+    The counters of K1, K9, K12 and K13 are set to 0 just before each
+    search and read just after: K1, K9 and K12 launch once a chunk (and
+    K1, K9 once more for detect_paths' aligned detect), K13 once a
+    nonzero angle; the search reads its scores to the host once a scan
+    (twice for the rotation search). K6's and K7's counters are set to 0
+    just before the gray search and read just after (it launches luma_f32
+    once, and no other). Returns (K1's launches on each search, K6's and
+    K7's on the gray search, K9's on each search, K12's and K13's on each
+    search, the kernel rows)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import detect_cuda, resync_cuda, wm_cuda
+
+    inp = resync_inputs(dev, cover_np, wm_u8, blk, intra)
     shifts = blocked._resync_shifts(blocked.BLOCK, 0)
-    n_chunks = -(-len(shifts) // chunk)
-    first = torch.as_tensor(np.asarray(shifts[:chunk], np.int64), device=dev)
+    n_chunks = -(-len(shifts) // RESYNC_CHUNK)
+    first = torch.as_tensor(np.asarray(shifts[:RESYNC_CHUNK], np.int64),
+                            device=dev)
     sched = blocked.replay_sweeps(SWEEPS)
-    twin = {}
-    for name, stack, kw in (
-            ("frames_u8", blocked._roll_stack(rolled, first),
-             dict(channels_last=True)),
-            ("luma_f32", blocked._roll_stack(color.luma_f32(grolled), first),
-             {})):
+
+    # K12 and K13 against their twins, timed; K1 on K12's stacks
+    rows, twin = {}, {}
+    for name, img, kw in (("roll_stack", inp["rolled"],
+                           dict(channels_last=True)),
+                          ("roll_stack_gray", inp["luma"], {})):
+        stack = resync_cuda.roll_stack(img, first)
+        ref = resync_cuda.roll_stack_plain(img, first)
+        require(torch.equal(stack.view(torch.uint8), ref.view(torch.uint8)),
+                f"K12 {name} {list(stack.shape)}: not equal to its twin")
+        del ref
         got = wm_cuda.spectrum_blocks(stack, sweeps=sched, **kw)
         ref = wm_cuda.spectrum_blocks_plain(stack, sweeps=sched, **kw)
         err = float((got - ref).abs().max())
         require(torch.equal(got, ref),
-                f"K1 on a resync chunk {name} {list(stack.shape)} vs twin: "
+                f"K1 on a resync chunk {list(stack.shape)} vs twin: "
                 f"not bit-equal ({err})")
         twin[name] = dict(shape=list(stack.shape), max_abs_err=err,
                           equals_twin=True)
-        del stack, got, ref
+        del got, ref
+        h, w = img.shape[0], img.shape[1]
+        ridx = torch.remainder(torch.arange(h, device=dev)[None, :]
+                               - first[:, :1], h)[:, :, None]
+        cidx = torch.remainder(torch.arange(w, device=dev)[None, :]
+                               - first[:, 1:], w)[:, None, :]
+        plain_ms = cuda_time(lambda: resync_cuda.roll_stack_plain(img, first),
+                             5)
+        rows[name] = dict(
+            shape=list(stack.shape), max_abs_err=0.0, equals_twin=True,
+            ms=cuda_time(lambda: resync_cuda.roll_stack(img, first), 5),
+            device_ms=device_ms(lambda: resync_cuda.roll_stack(img, first),
+                                5, "roll_rows"),
+            plain_ms=plain_ms, eager_ms=plain_ms,
+            library_ms=cuda_time(lambda: img[ridx, cidx], 5),
+            **bound(1, 0, nbytes(img, stack)))
+        del stack, ridx, cidx
+    for name, img, cl in (("derotate", inp["rotated"], True),
+                          ("derotate_gray", inp["luma"], False),
+                          ("derotate_gray_4k", inp["plane_4k"], False)):
+        got = resync_cuda.derotate(img, RESYNC_ANGLE, color_frames=cl)
+        ref = resync_cuda.derotate_plain(img, RESYNC_ANGLE, cl)
+        err = float((got.to(torch.float64) - ref.to(torch.float64))
+                    .abs().max())
+        require(torch.equal(got, ref), f"K13 {name} {list(img.shape)}: not "
+                f"equal to its twin ({err})")
+        require(torch.equal(resync_cuda.derotate(img, 0.0, color_frames=cl),
+                            img), f"K13 {name} at 0°: not the input")
+        h, w = got.shape[0], got.shape[1]
+        c = img.shape[-1] if cl else 1
+        planes = (torch.movedim(img, -1, 0) if cl else img[None]).to(
+            torch.float32)[None]
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing="ij")
+        cs = resync_cuda.rotation_cs(RESYNC_ANGLE, dev)
+        xx, yy = xs - w * 0.5, ys - h * 0.5
+        grid = torch.stack([(cs[0] * xx + cs[1] * yy + w * 0.5) / (w - 1),
+                            (-cs[1] * xx + cs[0] * yy + h * 0.5) / (h - 1)],
+                           dim=-1)[None] * 2 - 1
+        plain_ms = cuda_time(lambda: resync_cuda.derotate_plain(
+            img, RESYNC_ANGLE, cl), 5)
+        ops = (ROT_OPS_PIXEL + c * (ROT_OPS_CHANNEL + ROT_OPS_U8
+                                    * (img.dtype == torch.uint8)))
+        rows[name] = dict(
+            shape=list(img.shape), max_abs_err=err, equals_twin=True,
+            ms=cuda_time(lambda: resync_cuda.derotate(
+                img, RESYNC_ANGLE, color_frames=cl), 5),
+            device_ms=device_ms(lambda: resync_cuda.derotate(
+                img, RESYNC_ANGLE, color_frames=cl), 20, "derotate_kernel"),
+            plain_ms=plain_ms, eager_ms=plain_ms,
+            library_ms=cuda_time(lambda: F.grid_sample(
+                planes, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 5),
+            **bound(h * w, ops, nbytes(img, got)))
+        del got, ref, planes, grid
+    for name, r in rows.items():
+        kernel = "K13" if name.startswith("derotate") else "K12"
+        emit({"phase": "kernel_vs_plain", "kernel": f"{kernel} {name}", **r})
+    k4 = rows.pop("derotate_gray_4k")
+    rows["derotate_gray"].update({f"{k}_4k": k4[k] for k in
+                                  ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms")})
 
-    k9 = {}
+    # before (the eager forms, a read a chunk) and after, split and searches
+    with resync_forms(eager=True):
+        split_before = resync_split(dev, inp)
+        before = {}
+        for name, kw in (("shift_color", dict(img=inp["rolled"],
+                                              color_frames=True)),
+                         ("shift_gray", dict(img=inp["luma"],
+                                             color_frames=False)),
+                         ("rotation_color", dict(
+                             img=inp["rotated"], color_frames=True,
+                             rot_range=RESYNC_ROT))):
+            sc, sw = ((inp["sc"], inp["sw"]) if kw["color_frames"]
+                      else (inp["gsc"], inp["gsw"]))
+            img = kw.pop("img")
+            before[name] = timed_search(lambda: per_chunk_resync(
+                img, sc, sw, ALPHA, **kw))[:2]
+    split_after = resync_split(dev, inp)
+    emit({"phase": "resync_split", "before": split_before,
+          "after": split_after,
+          "search_s": {"before": {n: b[1] for n, b in before.items()}},
+          "card": smi_line()})
 
-    def counted(fn, name):
-        torch.cuda.synchronize()
-        wm_cuda.spectrum_blocks.launches = 0
-        detect_cuda.band_scores.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        k9[name] = detect_cuda.band_scores.launches
-        return out, time.perf_counter() - t0, wm_cuda.spectrum_blocks.launches
+    counters = dict(K1=wm_cuda.spectrum_blocks, K9=detect_cuda.band_scores,
+                    K12=resync_cuda.roll_stack, K13=resync_cuda.derotate)
 
-    plain = float(blocked.detect_color(rolled, sc, sw, ALPHA, sweeps=SWEEPS))
-    (score, shift, angle), shift_s, n_shift = counted(
-        lambda: blocked.detect_color_resync(rolled, sc, sw, ALPHA,
-                                            sweeps=SWEEPS),
-        "resync_shift_color")
-    (found, path_score), path_s, n_path = counted(
-        lambda: blocked.detect_paths(rolled.cpu().numpy(), meta,
-                                     DETECT_THRESH, resync=True, device=dev),
-        "detect_paths_resync")
-    gplain = float(blocked.detect_gray(grolled, gres.sc, gres.sw, ALPHA,
-                                       sweeps=SWEEPS))
-    zero_color_counts()
-    (gscore, gshift, _), gray_s, n_gray = counted(
-        lambda: blocked.detect_gray_resync(grolled, gres.sc, gres.sw, ALPHA,
-                                           sweeps=SWEEPS),
-        "resync_shift_gray")
-    n_color = color_counts()
-    rot_plain = float(blocked.detect_color(rotated, sc, sw, ALPHA,
-                                           sweeps=SWEEPS))
-    (rscore, rshift, rangle), rot_s, n_rot = counted(
-        lambda: blocked.detect_color_resync(
-            rotated, sc, sw, ALPHA, sweeps=SWEEPS, rot_range=rot_range,
-            rot_step=step), "resync_rotation_color")
-    angles = len(blocked._resync_angles(rot_range, step))
-    angles += 8 if rangle != 0.0 else 0          # the step/5 refinement
-    launches = {"resync_shift_color": n_shift,
-                "detect_paths_resync": n_path,
-                "resync_shift_gray": n_gray,
-                "resync_rotation_color": n_rot}
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out, dt, reads = timed_search(fn)
+        return out, dt, reads, {k: c.launches for k, c in counters.items()}
+
+    searches = resync_searches(inp)
+    after = {}
+    for name in ("shift_color", "shift_gray", "rotation_color"):
+        if name == "shift_gray":
+            zero_color_counts()
+        after[name] = counted(searches[name])
+        if name == "shift_gray":
+            n_color = color_counts()
+    path = counted(lambda: blocked.detect_paths(
+        inp["rolled"].cpu().numpy(), inp["meta"], DETECT_THRESH,
+        resync=True, device=dev))
+    plain = {name: float(fn(img, sc, sw, ALPHA, sweeps=SWEEPS))
+             for name, fn, img, sc, sw in (
+                 ("shift_color", blocked.detect_color, inp["rolled"],
+                  inp["sc"], inp["sw"]),
+                 ("shift_gray", blocked.detect_gray, inp["grolled"],
+                  inp["gsc"], inp["gsw"]),
+                 ("rotation_color", blocked.detect_color, inp["rotated"],
+                  inp["sc"], inp["sw"]))}
+
+    (score, shift, _), _, _, _ = after["shift_color"]
+    (gscore, gshift, _), _, _, _ = after["shift_gray"]
+    (rscore, rshift, rangle), _, _, _ = after["rotation_color"]
+    (found, path_score), _, path_reads, _ = path
+    angles = len(blocked._resync_angles(RESYNC_ROT, RESYNC_STEP))
+    refined = 8 if rangle != 0.0 else 0         # the step/5 refinement
+    chunks = {"shift_color": n_chunks, "shift_gray": n_chunks,
+              "rotation_color": n_chunks * (angles + refined),
+              "detect_paths_resync": n_chunks}
+    launches = {name: after[name][3] for name in after}
+    launches["detect_paths_resync"] = path[3]
     require(shift == (3, -5), f"resync shift {shift} != (3, -5)")
     require(score >= DETECT_THRESH and found and path_score >= score - 1e-6,
             f"resync scores {score}, {path_score} (found {found})")
     require(gshift == (3, -5) and gscore >= DETECT_THRESH,
             f"gray resync shift {gshift}, score {gscore}")
-    require(abs(rangle - 0.3) <= step / 5 + 1e-6,
-            f"rotation resync angle {rangle} vs 0.3")
+    require(abs(rangle - RESYNC_ANGLE) <= RESYNC_STEP / 5 + 1e-6,
+            f"rotation resync angle {rangle} vs {RESYNC_ANGLE}")
     require(rscore >= DETECT_THRESH, f"rotation resync score {rscore}")
-    require(n_shift == n_chunks and n_gray == n_chunks
-            and n_path == n_chunks + 1 and n_rot == n_chunks * angles,
-            f"K1 launches on the resync searches {launches}, expected "
-            f"{n_chunks} a scan of {len(shifts)} shifts")
-    require(k9 == launches, f"K9 launches on the resync searches {k9}, "
-            f"K1's {launches}: one each a chunk and an aligned detect")
-    emit({"phase": "resync_1080p", "spectrum_blocks_launches": launches,
-          "band_scores_launches": k9,
-          "color_launches": n_color,
-          "k1_chunk_vs_twin": twin,
-          "shift_color": dict(plain=plain, score=score, found=list(shift),
-                              angle=angle, search_s=shift_s),
-          "detect_paths": dict(score=path_score, found=found, s=path_s),
-          "shift_gray": dict(plain=gplain, score=gscore, found=list(gshift),
-                             search_s=gray_s),
-          "rotation_color": dict(plain=rot_plain, score=rscore, angle=rangle,
-                                 shift=list(rshift), search_s=rot_s),
+    for name, n in launches.items():
+        aligned = name == "detect_paths_resync"     # + its aligned detect
+        rot = name == "rotation_color"
+        want = dict(K1=chunks[name] + aligned, K9=chunks[name] + aligned,
+                    K12=chunks[name],
+                    K13=angles - 1 + refined if rot else 0)
+        require(n == want, f"launches on the {name} search {n}, expected "
+                f"{want} ({n_chunks} chunks a scan of {len(shifts)} shifts)")
+    reads = {name: after[name][2] for name in after}
+    reads["detect_paths_resync"] = path_reads
+    want_reads = {name: [chunks[name]] for name in reads}
+    want_reads["rotation_color"] = [n_chunks * angles, n_chunks * refined]
+    require(reads == want_reads, f"host reads of the searches {reads}, "
+            f"expected {want_reads}: one a scan")
+    for name, (out_before, _) in before.items():
+        require(out_before == after[name][0],
+                f"{name}: {after[name][0]} through the kernels, "
+                f"{out_before} through the eager forms")
+    emit({"phase": "resync_1080p", "launches": launches, "host_reads": reads,
+          "color_launches": n_color, "k1_chunk_vs_twin": twin,
+          "plain_detect": plain,
+          "searches": {name: dict(score=out[0], found=list(out[1]),
+                                  angle=out[2], search_s=dt,
+                                  search_s_before=before[name][1])
+                       for name, (out, dt, _, _) in after.items()},
+          "detect_paths": dict(score=path_score, found=found, s=path[1]),
           "card": smi_line()})
-    return launches, n_color, k9
+    per_kernel = {k: {name: n[k] for name, n in launches.items()}
+                  for k in counters}
+    return per_kernel, n_color, rows
 
 
 # ---------------------------------------------------------------------------
@@ -4182,25 +4553,28 @@ def _signature(value):
 
 
 def twinned_wrappers():
-    """K1..K4's, K5f's, K8's, K9's, K6's, K7's, K10's and K11's wrappers and
-    cols_view's (T2b, the bench budget's view row): {name: wrapper}, the
+    """K1..K4's, K5f's, K8's, K9's, K6's, K7's, K10's, K11's, K12's and K13's
+    wrappers and cols_view's (T2b, the bench budget's view row): {name:
+    wrapper}, the
     calls :func:`recorded_calls` notes."""
     from dctsvd_tpu_torch.ops import probe_cuda
     return dict(parallel_wrappers(), cols_view=probe_cuda.cols_view,
-                **color_wrappers(), **enhance_wrappers())
+                **color_wrappers(), **enhance_wrappers(),
+                **resync_wrappers())
 
 
 @contextlib.contextmanager
 def recorded_calls():
     """Records the first call of K1..K4's, K5f's, K8's, K9's, K6's, K7's,
-    K10's, K11's and cols_view's wrappers at each signature (shapes, dtypes, strides and the other arguments)
-    made inside the block: {(name, signature): (args, kwargs)}. The wrappers
+    K10's, K11's, K12's, K13's and cols_view's wrappers at each signature
+    (shapes, dtypes, strides and the other arguments) made inside the
+    block: {(name, signature): (args, kwargs)}. The wrappers
     stay the ones that launch and count: a recorder only notes the
     inputs, then calls the wrapper (whose count, kept on the module's
     name, is the recorder's while it stands in for it)."""
     from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, enhance_cuda,
-                                      probe_cuda, svd, svd_cuda, tail_cuda,
-                                      wm_cuda)
+                                      probe_cuda, resync_cuda, svd, svd_cuda,
+                                      tail_cuda, wm_cuda)
     calls = {}
     patched = []
     for name, orig in twinned_wrappers().items():
@@ -4211,7 +4585,7 @@ def recorded_calls():
             return _orig(*args, **kw)
         recorder.launches = orig.launches
         for mod in (wm_cuda, svd_cuda, svd, probe_cuda, tail_cuda,
-                    color_cuda, detect_cuda, enhance_cuda):
+                    color_cuda, detect_cuda, enhance_cuda, resync_cuda):
             if getattr(mod, name, None) is orig:
                 patched.append((mod, name, orig))
                 setattr(mod, name, recorder)
@@ -4223,16 +4597,16 @@ def recorded_calls():
 
 
 def recorded_vs_twin(calls: dict) -> list:
-    """Each recorded call of K1..K4, K5f, K8, K9, K6, K7, K10, K11 and
-    cols_view again,
+    """Each recorded call of K1..K4, K5f, K8, K9, K6, K7, K10, K11, K12, K13
+    and cols_view again,
     through its kernel and through its plain twin on the same inputs on
     the card: bit-equal, or the run fails. One row a call: its input shapes, max
     |kernel - twin|, and the kernel's and the twin's ms (CUDA events, 3
     and 1 calls)."""
     import torch
     from dctsvd_tpu_torch.ops import (color_cuda, detect_cuda, enhance_cuda,
-                                      probe_cuda, svd_cuda, tail_cuda,
-                                      wm_cuda)
+                                      probe_cuda, resync_cuda, svd_cuda,
+                                      tail_cuda, wm_cuda)
     twins = {"spectrum_blocks": wm_cuda.spectrum_blocks_plain,
              "embed_blocks": wm_cuda.embed_blocks_plain,
              "roundtrip_frames_blocks":
@@ -4245,7 +4619,9 @@ def recorded_vs_twin(calls: dict) -> list:
              **{name: getattr(color_cuda, f"{name}_plain")
                 for name in COLOR_KERNELS},
              **{name: getattr(enhance_cuda, f"{name}_plain")
-                for name in ENHANCE_KERNELS}}
+                for name in ENHANCE_KERNELS},
+             "roll_stack": resync_cuda.roll_stack_plain,
+             "derotate": resync_cuda.derotate_plain}
     kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
@@ -4921,8 +5297,8 @@ def phase_bench(dev):
     gives bench.py's JSON line (``bench.result_line``) with its keys and
     finite values, and passes bench.py's own checks (the 8K score and the
     mesh's lowest score above 0.5, inside the functions). The launches of
-    :func:`twinned_wrappers` (K1-K4, K5f, K8, K9, K6, K7, K10, K11 and
-    cols_view, the budget's T2b row) are counted for each
+    :func:`twinned_wrappers` (K1-K4, K5f, K8, K9, K6, K7, K10, K11, K12,
+    K13 and cols_view, the budget's T2b row) are counted for each
     config, set to 0 just before it runs and read just after, and summed
     over the phase. Every call of those kernels in a config, at each
     signature the config gave it and not checked in an earlier config,
@@ -5073,6 +5449,12 @@ def main(argv) -> int:
         emit({"phase": "recon_forms", "forms": recon_forms(dev),
               "card": card})
         return 0
+    if argv == ["--resync-times"]:
+        emit({"phase": "resync_times",
+              **resync_times(dev, covers[0].cpu().numpy(), wm_u8, blk,
+                             intra),
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"], "card": card})
+        return 0
     if argv == ["--enhance-times"]:
         emit({"phase": "enhance_times", **enhance_times(dev),
               "nvcc_seconds": kernels.BUILD_INFO["seconds"], "card": card})
@@ -5130,8 +5512,9 @@ def main(argv) -> int:
     payload_launches, parity_text_recovered = phase_payload(dev, smooth)
     # resync on a noise cover: on smooth content neighbouring shifts and
     # angles score within the statistic's noise of the true one
-    resync_launches, resync_color, resync_k9 = phase_resync(
+    resync_launches, resync_color, resync_rows = phase_resync(
         dev, covers[0].cpu().numpy(), wm_u8, blk, intra)
+    results.update(resync_rows)
     par_launches = phase_parallel(dev, covers, wm_u8, blk, intra)
     plane_launches = phase_plane(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as gtd:
@@ -5217,6 +5600,14 @@ def main(argv) -> int:
                        "dctsvd_tpu/ops/enhance.py:92"),
         "clahe_apply": ("dctsvd_tpu_torch/csrc/enhance.cu",
                         "dctsvd_tpu/ops/enhance.py:92"),
+        "roll_stack": ("dctsvd_tpu_torch/csrc/resync.cu",
+                       "dctsvd_tpu/models/blocked.py:1381"),
+        "roll_stack_gray": ("dctsvd_tpu_torch/csrc/resync.cu",
+                            "dctsvd_tpu/models/blocked.py:1381"),
+        "derotate": ("dctsvd_tpu_torch/csrc/resync.cu",
+                     "dctsvd_tpu/models/blocked.py:1310"),
+        "derotate_gray": ("dctsvd_tpu_torch/csrc/resync.cu",
+                          "dctsvd_tpu/models/blocked.py:1310"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
@@ -5227,7 +5618,8 @@ def main(argv) -> int:
                     "payload": payload_launches[name],
                     "video": video_launches[name]}
              for name in payload_launches}
-    paths["spectrum_blocks"].update(resync_launches)
+    paths["spectrum_blocks"].update(
+        {f"resync_{n}": v for n, v in resync_launches["K1"].items()})
     paths["roundtrip_frames_blocks"] = {
         "serve": launches["roundtrip_frames_blocks"]}
     for name, by_path in paths.items():
@@ -5259,7 +5651,7 @@ def main(argv) -> int:
         launches[name] = sum(paths[name].values())
     # K9: the slice's detects, the serve steps' scores, the detect phase,
     # the resync searches, parallel/ (batch, serve and plane) and the bench
-    k9_paths.update(resync=sum(resync_k9.values()),
+    k9_paths.update(resync=sum(resync_launches["K9"].values()),
                     parallel=par_launches["band_scores"]
                     + plane_launches["band_scores"],
                     bench=bench_launches["band_scores"])
@@ -5309,6 +5701,22 @@ def main(argv) -> int:
         idle = [p for p, n in paths[name].items() if n == 0]
         require(not idle, f"{name} was not launched on the paths {idle}")
         launches[name] = sum(paths[name].values())
+    # K12 (u8 color frames: the color searches and detect_paths; f32 planes:
+    # the gray search and the bench's geometric config) and K13 (color: the
+    # rotation search; f32 planes: the bench's rotation rows)
+    k12, k13 = resync_launches["K12"], resync_launches["K13"]
+    paths["roll_stack"] = {"resync": k12["shift_color"]
+                           + k12["rotation_color"]
+                           + k12["detect_paths_resync"]}
+    paths["roll_stack_gray"] = {"resync": k12["shift_gray"],
+                                "bench": bench_launches["roll_stack"]}
+    paths["derotate"] = {"resync": k13["rotation_color"]}
+    paths["derotate_gray"] = {"bench": bench_launches["derotate"]}
+    for name in ("roll_stack", "roll_stack_gray", "derotate",
+                 "derotate_gray"):
+        idle = [p for p, n in paths[name].items() if n == 0]
+        require(not idle, f"{name} was not launched on the paths {idle}")
+        launches[name] = sum(paths[name].values())
     table = []
     for name, (src, repl) in sources.items():
         r = results[name]
@@ -5316,7 +5724,9 @@ def main(argv) -> int:
         for key in ("eager_ms", "front_ms", "issue_bound_ms", "ms_128",
                     "plain_ms_128", "two_pass_bound_ms", "eager_ms_128",
                     "bound_ms_128", "detect_ms_32", "detect_ms_128",
-                    "detect_ms_eager_32", "detect_ms_eager_128"):
+                    "detect_ms_eager_32", "detect_ms_eager_128", "ms_4k",
+                    "plain_ms_4k", "library_ms_4k", "bound_ms_4k",
+                    "device_ms", "device_ms_4k"):
             if key in r:
                 extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,

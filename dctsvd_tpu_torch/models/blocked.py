@@ -37,7 +37,8 @@ import torch
 
 from dctsvd_tpu_torch.io import image_io, meta as metaio
 from dctsvd_tpu_torch.ops import (color, dct, detect_cuda, enhance, metrics,
-                                  permute, svd, tail_cuda, wm_cuda)
+                                  permute, resync_cuda, svd, tail_cuda,
+                                  wm_cuda)
 from dctsvd_tpu_torch.utils import crypto
 from dctsvd_tpu_torch.utils.config import BLOCK, K_FRAC_DEFAULT
 
@@ -785,53 +786,10 @@ def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
 # so rotation is one more search axis (candidate angle × candidate shift).
 # The angle grid must be fine (a residual dθ misaligns a block at radius r
 # by ~r·dθ px), and the 0.0 candidate is always in it (derotation by 0 is
-# exact). Each chunk of rolls is one spectrum launch (K1 on the GPU).
-
-def _derotate(img: torch.Tensor, angle_deg: float,
-              color_frames: bool = False) -> torch.Tensor:
-    """Inverse-rotate ``img`` ([H, W] plane, or [H, W, C] frames with
-    ``color_frames``) about its center by ``angle_deg`` degrees: the
-    realignment candidate for a stego rotated with
-    ``cv2.getRotationMatrix2D((w/2, h/2), angle_deg, 1.0)`` + warpAffine.
-    Integer-tap bilinear sampling with zeros outside the frame
-    (``map_coordinates(order=1, mode='constant')``), so
-    ``_derotate(x, 0.0)`` is exactly x; integer inputs are rounded half
-    to even and clipped to [0, 255]."""
-    x = torch.movedim(img, -1, 0) if color_frames else img
-    h, w = x.shape[-2], x.shape[-1]
-    dev = x.device
-    # cv2 convention: center (w/2, h/2), y-down; the inverse map samples
-    # src = R(+a)·(dst − c) + c with R = [[cos, sin], [−sin, cos]]
-    th = torch.deg2rad(torch.tensor(angle_deg, dtype=torch.float32,
-                                    device=dev))
-    c, s = torch.cos(th), torch.sin(th)
-    cy, cx = h * 0.5, w * 0.5
-    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - cy
-    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx
-    src_x = c * xx + s * yy + cx
-    src_y = -s * xx + c * yy + cy
-
-    def taps(coord):
-        lower = torch.floor(coord)
-        upper_w = coord - lower
-        i0 = lower.to(torch.int64)
-        return [(i0, 1 - upper_w), (i0 + 1, upper_w)]
-
-    planes = x.to(torch.float32).reshape(-1, h * w)
-    out = None
-    for iy, wy in taps(src_y):
-        for ix, wx in taps(src_x):
-            valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-            flat = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(-1)
-            val = planes.index_select(-1, flat).reshape(-1, h, w)
-            term = (wy * wx) * torch.where(valid, val, 0.0)
-            out = term if out is None else out + term
-    out = out.reshape(x.shape)
-    if not img.dtype.is_floating_point:
-        out = torch.round(out).clamp(0, 255)
-    out = out.to(img.dtype)
-    return torch.movedim(out, 0, -1) if color_frames else out
-
+# exact). On the card each candidate angle is one K13 launch
+# (ops/resync_cuda.derotate), each chunk of rolls one K12 launch
+# (resync_cuda.roll_stack), one K1 and one K9, and a scan's scores reach
+# the host in one read.
 
 def _resync_angles(rot_range: float, rot_step: float):
     """Candidate attacker angles: 0 first (lossless identity), then the
@@ -855,18 +813,6 @@ def _resync_shifts(window: int, block_radius: int):
             for dx in range(-r, r + 1)]
 
 
-def _roll_stack(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """The rolls of ONE image ([H, W] or [H, W, C]) by each of an [S, 2]
-    tensor of offsets (``torch.roll`` semantics), stacked on a leading
-    axis [S, H, W(, C)] by one indexing op."""
-    h, w = img.shape[0], img.shape[1]
-    rows = torch.remainder(
-        torch.arange(h, device=img.device)[None, :] - shifts[:, :1], h)
-    cols = torch.remainder(
-        torch.arange(w, device=img.device)[None, :] - shifts[:, 1:], w)
-    return img[rows[:, :, None], cols[:, None, :]]
-
-
 def _detect_shift_chunk(img: torch.Tensor, sc: torch.Tensor,
                         sw: torch.Tensor, alpha, shifts: torch.Tensor,
                         kfrac: float = K_FRAC_DEFAULT, sweeps=None,
@@ -875,10 +821,32 @@ def _detect_shift_chunk(img: torch.Tensor, sc: torch.Tensor,
     ([H, W] luma plane, or [H, W, 3] u8 BGR with ``color_frames``): the
     rolls stack on a leading batch axis, whose spectrum is one launch."""
     h, w = img.shape[0], img.shape[1]
-    stack = _roll_stack(img, shifts)
+    stack = resync_cuda.roll_stack(img, shifts)
     s_cw = (_frames_spectrum(stack, sweeps) if color_frames
             else _plane_spectrum(stack, sweeps))
     return _detect_scores(s_cw, sc, sw, alpha, kfrac, h, w)
+
+
+def _read_scores(parts) -> np.ndarray:
+    """A scan's chunk scores, left on the device in chunk order, read to
+    the host at once: [chunks, chunk]. The search's only host read."""
+    return torch.stack(parts).cpu().numpy()
+
+
+def _scan_best(scores: np.ndarray, cands, best):
+    """The search's choice over one scan, chunk by chunk in scan order:
+    ``scores`` [chunks, chunk], ``cands`` the (shifts [chunk, 2], angle)
+    of each chunk, ``best`` the (score, shift, angle) so far. The first
+    best of a chunk wins it (``np.argmax``: the first maximum, or the
+    first NaN); a chunk replaces ``best`` only with a strictly greater
+    score."""
+    best_score, best_shift, best_angle = best
+    for part, (shifts, a) in zip(scores, cands):
+        j = int(np.argmax(part))                # first best wins
+        if float(part[j]) > best_score:
+            best_score = float(part[j])
+            best_shift, best_angle = tuple(shifts[j]), a
+    return best_score, best_shift, best_angle
 
 
 def _detect_resync(img, sc, sw, alpha, *, kfrac, sweeps, window,
@@ -891,28 +859,31 @@ def _detect_resync(img, sc, sw, alpha, *, kfrac, sweeps, window,
     if pad:
         shifts = np.concatenate([shifts, np.zeros((pad, 2), np.int64)])
     shifts_t = torch.as_tensor(shifts, device=img.device)
-    best_score, best_shift, best_angle = -np.inf, (0, 0), 0.0
+    best = (-np.inf, (0, 0), 0.0)
 
-    def scan(angles):
-        nonlocal best_score, best_shift, best_angle
+    def scan(angles, best):
+        # every chunk's scores stay on the device until the scan ends: one
+        # host read a scan, so the host never waits on the card between
+        # chunks
+        parts, cands = [], []
         for a in angles:
-            cand = img if a == 0.0 else _derotate(img, a,
-                                                  color_frames=color_frames)
+            cand = img if a == 0.0 else resync_cuda.derotate(
+                img, a, color_frames=color_frames)
             for i in range(0, len(shifts), chunk):
-                scores = _detect_shift_chunk(
+                parts.append(_detect_shift_chunk(
                     cand, sc, sw, alpha, shifts_t[i:i + chunk], kfrac=kfrac,
-                    sweeps=sweeps, color_frames=color_frames).cpu().numpy()
-                j = int(np.argmax(scores))          # first best wins
-                if float(scores[j]) > best_score:
-                    best_score = float(scores[j])
-                    best_shift, best_angle = tuple(shifts[i + j]), a
+                    sweeps=sweeps, color_frames=color_frames))
+                cands.append((shifts[i:i + chunk], a))
+        return _scan_best(_read_scores(parts), cands, best)
 
-    scan(_resync_angles(rot_range, rot_step))
-    if rot_range > 0.0 and best_angle != 0.0:
+    best = scan(_resync_angles(rot_range, rot_step), best)
+    if rot_range > 0.0 and best[2] != 0.0:
         # refine around the coarse argmax at step/5: an angle off the
         # coarse grid leaves a residual of up to step/2
         fine = rot_step / 5.0
-        scan([best_angle + k * fine for k in (-4, -3, -2, -1, 1, 2, 3, 4)])
+        best = scan([best[2] + k * fine
+                     for k in (-4, -3, -2, -1, 1, 2, 3, 4)], best)
+    best_score, best_shift, best_angle = best
     # the roll that realigned is the INVERSE of the attacker translation;
     # the angle grid is already in attacker units
     return (best_score, (-int(best_shift[0]), -int(best_shift[1])),

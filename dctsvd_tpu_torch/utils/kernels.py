@@ -6,7 +6,8 @@ K5f, its default form's normaliser K8 and its recompute form K5
 (``extract_tail.cu``), the gray scheme's
 color conversions K6 and K7 (``color.cu``), the detect statistic K9
 (``detect.cu``), the enhancement chain's NLM K10 and CLAHE K11
-(``enhance.cu``), and the tools probes
+(``enhance.cu``), detect resync's roll stack K12 and counter-rotation K13
+(``resync.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
 At first use :func:`load` compiles every ``dctsvd_tpu_torch/csrc/*.cu``
@@ -88,6 +89,8 @@ _SIGNATURES = {
     "dctsvd_nlm_weights": [_P, _P, _I, _P],
     "dctsvd_clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dctsvd_roll_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dctsvd_derotate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

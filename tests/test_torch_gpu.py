@@ -12,7 +12,10 @@ tail's normaliser) against its twin run on the card in every layout, on
 1 to 128 1080p frames and through the default extract, K6 and K7 (the
 gray scheme's color conversions) against their twins run on the card on
 every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
-with the gray paths' bytes the same with either, K9 (the detect
+with the gray paths' bytes the same with either, K12 and K13 (detect
+resync's roll stack and counter-rotation) against their twins run on the
+card from 1×1 to 2160×3840 frames and a rotation search on the card
+against the CPU, K9 (the detect
 statistic) against its twin run on the card on 1 to 128 1080p frames, at
 small and tiny block grids, at grid 4 and 2, with a shared sc, on a clean
 host, at every k and over the scale damp's range, and the detect paths
@@ -38,8 +41,8 @@ from dctsvd_tpu_torch.models import blocked as tb
 from dctsvd_tpu_torch.models import enhance as tenh
 from dctsvd_tpu_torch.models import image as timg
 from dctsvd_tpu_torch.ops import (color, color_cuda, dct, detect_cuda,
-                                  probe_cuda, svd, svd_cuda, tail_cuda,
-                                  wm_cuda)
+                                  probe_cuda, resync_cuda, svd, svd_cuda,
+                                  tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.ops import enhance_cuda
 from dctsvd_tpu_torch.utils import crypto
@@ -674,7 +677,7 @@ def test_enhance_on_gpu_matches_cpu(dev):
 
 def test_resync_on_gpu_matches_cpu(dev):
     """Resync on the card: one K1 launch a chunk, chunk scores within 1e-3
-    of the CPU's, the same recovered shift, and _derotate within 1
+    of the CPU's, the same recovered shift, and derotate (K13) within 1
     quantum of the CPU and exact at 0°."""
     h, w = 64, 80
     cover = _frames((h, w, 3), SEED + 13)
@@ -695,9 +698,10 @@ def test_resync_on_gpu_matches_cpu(dev):
         launched = wm_cuda.spectrum_blocks.launches - n0
         found = tb.detect_color_resync(rolled, res.sc, res.sw, ALPHA,
                                        window=4, chunk=16)
-        rot = tb._derotate(res.stego_bgr, 0.7, color_frames=True)
-        assert torch.equal(tb._derotate(res.stego_bgr, 0.0,
-                                        color_frames=True), res.stego_bgr)
+        rot = resync_cuda.derotate(res.stego_bgr, 0.7, color_frames=True)
+        assert torch.equal(resync_cuda.derotate(res.stego_bgr, 0.0,
+                                                color_frames=True),
+                           res.stego_bgr)
         got[str(d)] = (chunk.cpu(), found, rot.cpu(), launched)
     (c_c, f_c, r_c, n_c), (c_g, f_g, r_g, n_g) = got.values()
     assert n_c == 0 and n_g == 1
@@ -716,11 +720,149 @@ def test_spectrum_on_a_resync_chunk_equals_twin(dev, layout):
     if layout == "luma_f32":
         img = color.luma_f32(img)
     shifts = torch.as_tensor(tb._resync_shifts(tb.BLOCK, 0)[:64], device=dev)
-    stack = tb._roll_stack(img, shifts)
+    stack = resync_cuda.roll_stack(img, shifts)
     kw = dict(channels_last=True) if layout == "frames_u8" else {}
     got = wm_cuda.spectrum_blocks(stack, sweeps=1.25, **kw)
     assert torch.equal(got, wm_cuda.spectrum_blocks_plain(stack, sweeps=1.25,
                                                           **kw))
+
+
+# K12 and K13: frames from 1×1 to 2160×3840 in the three layouts
+RESYNC_SHAPES = [(1, 1), (2, 3), (37, 51), (129, 95), (1080, 1920),
+                 (2160, 3840)]
+RESYNC_LAYOUTS = ["u8 frames", "u8 plane", "f32 plane"]
+RESYNC_ANGLES = [0.05, -0.3, 0.3, 7.5, 90.0, 180.0]
+
+
+def _resync_frame(dev, shape, layout, seed=SEED + 21):
+    """A seeded frame on the card: u8 BGR [H, W, 3], a u8 plane [H, W] or
+    an f32 plane of both signs [H, W]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "f32 plane":
+        return torch.randn(shape, generator=gen, device=dev) * 60
+    x = torch.randint(0, 256, (*shape, 3), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    return x if layout == "u8 frames" else x[..., 0].contiguous()
+
+
+def _roll_shifts(h, w):
+    """Offsets with zero, both signs, |d| >= H and W, and the search's."""
+    return [(0, 0), (3, -5), (-7, 7), (1, 0), (0, -1), (h, w),
+            (-h - 1, 2 * w + 3), (5 * h + 2, -3 * w - 1)]
+
+
+@pytest.mark.parametrize("shape", RESYNC_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in RESYNC_SHAPES])
+@pytest.mark.parametrize("layout", RESYNC_LAYOUTS)
+def test_k12_roll_stack_equals_twin(dev, layout, shape):
+    """K12 equals its twin run on the card byte for byte, for 8 offsets
+    and for one (S = 1), with one launch each."""
+    x = _resync_frame(dev, shape, layout)
+    for sh in (_roll_shifts(*shape), [(-4, 9)]):
+        shifts = torch.as_tensor(sh, device=dev)
+        n0 = resync_cuda.roll_stack.launches
+        got = resync_cuda.roll_stack(x, shifts)
+        torch.cuda.synchronize()
+        assert resync_cuda.roll_stack.launches == n0 + 1
+        ref = resync_cuda.roll_stack_plain(x, shifts)
+        assert got.shape == ref.shape and torch.equal(
+            got.view(torch.uint8), ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("layout", RESYNC_LAYOUTS)
+@pytest.mark.parametrize("instance", ["vector", "scalar"])
+def test_k12_on_a_search_chunk_equals_twin(dev, layout, instance):
+    """K12 on the first chunk of 64 of the 15×15 search at 1080p equals its
+    twin; an input 1 element off its 16-byte boundary takes the scalar
+    instance and equals it too."""
+    x = _resync_frame(dev, (1080, 1920), layout)
+    if instance == "scalar":
+        base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        x = base[1:].view(x.shape).copy_(x)
+    shifts = torch.as_tensor(tb._resync_shifts(tb.BLOCK, 0)[:64], device=dev)
+    out = torch.empty((64, *x.shape), dtype=x.dtype, device=dev)
+    row = x.shape[1] * (x.shape[2] if x.ndim == 3 else 1) * x.element_size()
+    assert resync_cuda.roll_plan(row, x.data_ptr(), out.data_ptr()) == (
+        instance == "vector")
+    got = resync_cuda.roll_stack(x, shifts)
+    assert torch.equal(got.view(torch.uint8), resync_cuda.roll_stack_plain(
+        x, shifts).view(torch.uint8))
+
+
+@pytest.mark.parametrize("angle", RESYNC_ANGLES)
+@pytest.mark.parametrize("shape", RESYNC_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in RESYNC_SHAPES])
+@pytest.mark.parametrize("layout", RESYNC_LAYOUTS)
+def test_k13_derotate_equals_twin(dev, layout, shape, angle):
+    """K13 equals its twin run on the card (torch.equal), one launch."""
+    x = _resync_frame(dev, shape, layout)
+    cl = layout == "u8 frames"
+    n0 = resync_cuda.derotate.launches
+    got = resync_cuda.derotate(x, angle, color_frames=cl)
+    torch.cuda.synchronize()
+    assert resync_cuda.derotate.launches == n0 + 1
+    ref = resync_cuda.derotate_plain(x, angle, cl)
+    assert got.dtype == x.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", RESYNC_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in RESYNC_SHAPES])
+@pytest.mark.parametrize("layout", RESYNC_LAYOUTS)
+def test_k13_at_angle_zero_is_the_input(dev, layout, shape):
+    x = _resync_frame(dev, shape, layout)
+    got = resync_cuda.derotate(x, 0.0, color_frames=layout == "u8 frames")
+    assert torch.equal(got, x)
+
+
+def test_k13_on_a_batch_of_planes_and_four_channels(dev):
+    """K13 on a batch of f32 planes [3, H, W] and on u8 frames with 4
+    channels equals its twin."""
+    planes = torch.randn((3, 37, 51), device=dev) * 60
+    assert torch.equal(resync_cuda.derotate(planes, 0.3),
+                       resync_cuda.derotate_plain(planes, 0.3))
+    frames = torch.randint(0, 256, (2, 37, 51, 4), device=dev,
+                           dtype=torch.uint8)
+    assert torch.equal(resync_cuda.derotate(frames, -7.5, color_frames=True),
+                       resync_cuda.derotate_plain(frames, -7.5, True))
+
+
+def test_rotation_search_on_gpu_matches_cpu(dev):
+    """A rotation search on the card (K12 a chunk, K13 a nonzero angle, two
+    host reads) finds the shift and angle the same search finds on the
+    CPU, its score within 1e-3."""
+    import cv2
+    h, w = 96, 128
+    # a σ1-blurred cover: a noise cover's mark does not survive the
+    # attacker's bilinear rotation at this size
+    cover = cv2.GaussianBlur(_frames((h, w, 3), SEED + 22), (0, 0), 1.0)
+    wm = _frames((h, w, 3), SEED + 23)
+    key = crypto.derive_key("gpu", bytes(8))
+    blk, intra = crypto.block_permutation_indices(key, tb.n_blocks_of(h, w))
+    res = tb.embed_color(torch.as_tensor(cover), torch.as_tensor(wm),
+                         torch.as_tensor(blk), torch.as_tensor(intra), ALPHA)
+    rot = cv2.warpAffine(res.stego_bgr.numpy(), cv2.getRotationMatrix2D(
+        (w / 2, h / 2), 2.4, 1.0), (w, h), borderMode=cv2.BORDER_REPLICATE)
+    kw = dict(window=2, chunk=4, rot_range=3.0, rot_step=1.0)
+    found, reads = {}, []
+    real_read = tb._read_scores
+    tb._read_scores = lambda parts: reads.append(len(parts)) or real_read(
+        parts)
+    try:
+        for d in ("cpu", dev):
+            n12 = resync_cuda.roll_stack.launches
+            n13 = resync_cuda.derotate.launches
+            found[str(d)] = tb.detect_color_resync(
+                torch.as_tensor(rot, device=d), res.sc.to(d), res.sw.to(d),
+                ALPHA, **kw)
+            launched = (resync_cuda.roll_stack.launches - n12,
+                        resync_cuda.derotate.launches - n13)
+    finally:
+        tb._read_scores = real_read
+    (s_c, t_c, a_c), (s_g, t_g, a_g) = found.values()
+    assert (t_g, a_g) == (t_c, a_c) and abs(s_g - s_c) <= 1e-3
+    assert abs(a_g - 2.4) <= 0.2 + 1e-6
+    assert reads == [7 * 3, 8 * 3] * 2
+    assert launched == (15 * 3, 14)
 
 
 def _video_chunk(k=4, h=96, w=128, seed=SEED + 16):
