@@ -49,11 +49,13 @@ path gives it (all seven bit for bit), with the time of one PyTorch
 library call that computes the same function where there is one (and K5,
 in color frames and in gray planes, on the stego and on it with three
 quadrants zeroed, whose flagged blocks it repaints, beside the eager tail it can
-replace; and K8, the default tail's normaliser, against its twin, the
-eager form, in color frames and gray planes on the stego, without sw,
-with three quadrants zeroed, with every block flagged, without normalize,
-with f32 output, on 1, 4, 32, 33 and 128 frames, a frame alone, in a
-shard and in the batch); holds K2
+replace; and K8, the default tail's normaliser, in each of its two
+instances (resident and two-pass, each forced by its plan) against its
+twin, the eager form, in color frames and gray planes on the stego,
+without sw, with three quadrants zeroed, with every block flagged,
+without normalize, with f32 output, on 1, 4, 32, 33 and 128 frames, a
+frame alone, in a shard and in the batch, and the two-pass instance on
+the bench's 4k batch); holds K2
 and K3 against their twins at every k = 1..8; drives the blocked color
 path (prepare -> embed -> extract -> detect) and the three serve steps on
 a batch of 32 1080p frames (with the set-up time of prepare and the
@@ -135,7 +137,9 @@ times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
 K2r, K1g, K5f, K5, K8, K6 and K7 are held to their twins run on the card
 bit for bit; K8's launches are counted on the slice, the serve steps,
-the tail phase's default extracts, ``parallel/`` and the bench; K9's on
+the tail phase's default extracts, ``parallel/`` and the bench, by
+instance (the resident one on every path, the two-pass one on the
+bench's 4k and 512gray configs); K9's on
 the slice, the serve steps, ``detect_1080p``, the resync searches,
 ``parallel/`` (``plane_8k``'s detect calls no eager band function) and
 the bench;
@@ -157,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import math
 import os
@@ -512,12 +517,19 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
               **results[name]})
 
     # K8 on the 1080p batch of 32: the default extract tail's normaliser
-    # over the materialised product, color frames and gray planes
+    # over the materialised product, color frames and gray planes, each
+    # instance (the resident one is the 1080p plan's; the two-pass one
+    # the 4k batch's)
     for name, gray in (("normalize_blocks", False),
                        ("normalize_blocks_gray", True)):
-        results[name] = tail_k8_row(dev, frames_u8, wm_u8, blk, intra, gray)
-        emit({"phase": "kernel_vs_plain", "kernel": f"K8 {name}",
-              **results[name]})
+        res, two = tail_k8_row(dev, frames_u8, wm_u8, blk, intra, gray)
+        results[name] = res
+        emit({"phase": "kernel_vs_plain", "kernel": f"K8 {name}", **res})
+        emit({"phase": "kernel_vs_plain", "kernel": f"K8 {name} two-pass",
+              **two})
+        if not gray:
+            two.update(k8_two_pass_4k(dev))
+            results["normalize_blocks_two_pass"] = two
 
     # K2 on smoothed (natural-like) frames: no bound, reported only. Near-
     # degenerate blocks are far from converged at s1.25, so ulp-level
@@ -724,6 +736,30 @@ def phase_paint_k_sweep(dev, covers):
           "times_8_frames": paint_k_times(dev, covers), "card": smi_line()})
 
 
+class K8Instance:
+    """The launches of one of K8's instances (tail_cuda.INSTANCE_LAUNCHES),
+    set to 0 and read as a wrapper's ``.launches``, under the name of its
+    counter on the paths: ``normalize_blocks_resident`` or
+    ``normalize_blocks_two_pass``."""
+
+    def __init__(self, instance: str):
+        self.instance = instance
+        self.__name__ = f"normalize_blocks_{instance}"
+
+    @property
+    def launches(self) -> int:
+        from dctsvd_tpu_torch.ops import tail_cuda
+        return tail_cuda.INSTANCE_LAUNCHES[self.instance]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from dctsvd_tpu_torch.ops import tail_cuda
+        tail_cuda.INSTANCE_LAUNCHES[self.instance] = n
+
+
+K8_INSTANCES = (K8Instance("resident"), K8Instance("two_pass"))
+
+
 def phase_slice(dev, covers, wm_u8, blk, intra):
     """The 1080p color slice, batch 32, with the launch counters."""
     import torch
@@ -733,7 +769,8 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
 
     wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
                 wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks, detect_cuda.band_scores]
+                tail_cuda.normalize_blocks, detect_cuda.band_scores,
+                *K8_INSTANCES]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -754,7 +791,8 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
     for name, n in launches.items():
-        require(n >= 1, f"{name} was not launched on the main path")
+        require(n >= 1 or name == "normalize_blocks_two_pass",
+                f"{name} was not launched on the main path")
     prepare_ms = [start.elapsed_time(stop)]
 
     require(stego.shape == covers.shape and stego.dtype == torch.uint8,
@@ -832,7 +870,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
 
     wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
                 wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks, detect_cuda.band_scores]
+                tail_cuda.normalize_blocks, detect_cuda.band_scores,
+                *K8_INSTANCES]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -902,7 +941,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     emit(out)
     return {name: launches[name] for name in (
         "roundtrip_frames_blocks", "tail_front", "normalize_blocks",
-        "band_scores")}
+        "band_scores", "normalize_blocks_resident",
+        "normalize_blocks_two_pass")}
 
 
 def phase_variants(dev, covers):
@@ -1168,19 +1208,50 @@ def k8_inputs(dev, covers, wm_u8, blk, intra, gray: bool):
     return x, xz, x_nosw, eb.reshape(*eb.shape[:-2], 64)
 
 
-def tail_k8_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
-    """K8 against its plain twin (the eager form) run on the card
-    (torch.equal) on models/blocked._recon's product of the main path's
-    estimates (k8_inputs), in one layout (color channels-last frames, or
-    gray planes): the stego (with sw, no block flagged), without sw,
-    with three quadrants zeroed (flagged blocks, the repaint), every
-    block flagged, without normalize and with f32 output, at the batch of
-    32 and of 1, 4, 33 and 128 frames (the zeroed stego repeated); a
-    frame's bytes the same alone, in a shard of 4 and in the batch. ms:
-    K8 on the stego at 32 frames; plain_ms: the twin; ms_128 and
-    plain_ms_128 at 128. bound_ms counts the reconstruction's frames, the
-    flags (4 bytes a block) and the output once; two_pass_bound_ms the
-    reconstruction read in each pass."""
+def k8_plans(dev, frames: int, chans: int):
+    """K8's two instances at the 1080p shape: {"resident": the plan the
+    card gives (norm_plan), "two_pass": the two-pass plan}."""
+    from dctsvd_tpu_torch.ops import tail_cuda
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    res = tail_cuda.norm_plan(frames, chans, (H // 8) * (W // 8), True, sms,
+                              smem if coop else 0)
+    require(res.instance == "resident", f"1080p takes {res}")
+    return {"resident": res, "two_pass": tail_cuda.NormPlan("two_pass")}
+
+
+def k8_ptxas(instance: str, gray: bool) -> dict:
+    """Registers and spills of K8's kernels in one instance (nvcc's
+    -Xptxas -v): the resident kernel of the layout (planes for gray,
+    channels-last frames of 3 for color) with u8 out, or the two-pass
+    window and paint kernels."""
+    from dctsvd_tpu_torch.utils import kernels
+    rep = kernels.ptxas_report(kernels.BUILD_INFO["ptxas"])
+    if instance == "resident":
+        tag = "ILi1ELb0EhE" if gray else "ILi3ELb1EhE"
+        keys = [n for n in rep if "norm_resident_kernel" + tag in n]
+    else:
+        c = "1" if gray else "3"
+        keys = [n for n in rep if f"norm_window_kernelILi{c}E" in n
+                or f"norm_paint_kernelILi{c}EhE" in n]
+    return {n: rep[n] for n in keys}
+
+
+def tail_k8_row(dev, covers, wm_u8, blk, intra, gray: bool) -> tuple:
+    """K8's two instances against their plain twin (the eager form) run on
+    the card (torch.equal) on models/blocked._recon's product of the main
+    path's estimates (k8_inputs), in one layout (color channels-last
+    frames, or gray planes): the stego (with sw, no block flagged),
+    without sw, with three quadrants zeroed (flagged blocks, the repaint),
+    every block flagged, without normalize and with f32 output, at the
+    batch of 32 and of 1, 4, 33 and 128 frames (the zeroed stego
+    repeated), each instance forced by its plan; a frame's bytes the same
+    alone, in a shard of 4 and in the batch (the default plan). Returns
+    (the resident instance's row, the two-pass instance's row). ms: the
+    instance on the stego at 32 frames; plain_ms: the twin; ms_128 and
+    plain_ms_128 at 128; registers and shared memory a CTA (the resident
+    plan's); bound_ms counts the reconstruction's frames, the flags (4
+    bytes a block) and the output once, two_pass_bound_ms the
+    reconstruction and flags read in each pass."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import tail_cuda
@@ -1188,68 +1259,139 @@ def tail_k8_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
     x, xz, x_nosw, eb64 = k8_inputs(dev, covers, wm_u8, blk, intra, gray)
     frames = not gray
     name = "gray" if gray else "color"
+    chans = 1 if gray else 3
     every = xz.clone()
     every[..., K] = 1.0
 
-    def calls(xi, **kw):
+    def calls(xi, plan=None, **kw):
         blocks = blocked._recon(xi[..., :K], eb64)
+        if plan is None:
+            plan = k8_plans(dev, xi.shape[0], chans)["resident"]
         return (lambda: tail_cuda.normalize_blocks(
-                    blocks, xi, K, H, W, to_frames=frames, **kw),
+                    blocks, xi, K, H, W, to_frames=frames, plan=plan, **kw),
                 lambda: tail_cuda.normalize_blocks_plain(
                     blocks, xi, K, H, W, to_frames=frames, **kw))
 
     def check(case, xi, **kw):
-        k8, plain = calls(xi, **kw)
-        y = k8()
-        require(torch.equal(y, k8()), f"K8 {name} {case}: two runs differ")
-        py = plain()
-        d = (y.to(torch.float32) - py.to(torch.float32)).abs()
-        require(torch.equal(y, py), f"K8 {name} {case} vs twin: |d| max "
-                f"{float(d.max())} on {float((d > 0).float().mean())}")
-        return y, dict(max_abs_err=float(d.max()), equals_twin=True,
-                       frames=int(xi.shape[0]), dtype=str(y.dtype),
-                       flagged_share=float((xi[..., K] > 0.5).float().mean())
-                       if xi.shape[-1] > K else 0.0)
+        rows = {}
+        for inst, plan in k8_plans(dev, xi.shape[0], chans).items():
+            k8, plain = calls(xi, plan, **kw)
+            n0 = tail_cuda.INSTANCE_LAUNCHES[inst]
+            y = k8()
+            require(tail_cuda.INSTANCE_LAUNCHES[inst] == n0 + 1,
+                    f"K8 {name} {case}: the {inst} instance not launched")
+            require(torch.equal(y, k8()),
+                    f"K8 {inst} {name} {case}: two runs differ")
+            py = plain()
+            d = (y.to(torch.float32) - py.to(torch.float32)).abs()
+            require(torch.equal(y, py), f"K8 {inst} {name} {case} vs twin: "
+                    f"|d| max {float(d.max())} on "
+                    f"{float((d > 0).float().mean())}")
+            rows[inst] = (y, dict(
+                max_abs_err=float(d.max()), equals_twin=True,
+                frames=int(xi.shape[0]), dtype=str(y.dtype),
+                flagged_share=float((xi[..., K] > 0.5).float().mean())
+                if xi.shape[-1] > K else 0.0))
+        return rows
 
-    checks = {}
-    y32, checks["stego"] = check("stego", x)
-    _, checks["no_sw"] = check("no_sw", x_nosw)
-    yz, checks["three_quadrants_zeroed"] = check("zeroed", xz)
-    _, checks["all_flagged"] = check("all_flagged", every)
-    _, checks["no_normalize"] = check("no_normalize", xz, normalize=False)
-    _, checks["f32_out"] = check("f32_out", xz, out_u8=False)
-    require(checks["stego"]["flagged_share"] == 0.0
-            and 0 < checks["three_quadrants_zeroed"]["flagged_share"] < 1,
-            f"K8 {name}: the cases miss their paths {checks}")
+    checks = {"resident": {}, "two_pass": {}}
+
+    def run(key, case, xi, **kw):
+        rows = check(case, xi, **kw)
+        for inst, (y, row) in rows.items():
+            checks[inst][key] = row
+        return rows["resident"][0]
+
+    y32 = run("stego", "stego", x)
+    run("no_sw", "no_sw", x_nosw)
+    yz = run("three_quadrants_zeroed", "zeroed", xz)
+    run("all_flagged", "all_flagged", every)
+    run("no_normalize", "no_normalize", xz, normalize=False)
+    run("f32_out", "f32_out", xz, out_u8=False)
+    res = checks["resident"]
+    require(res["stego"]["flagged_share"] == 0.0
+            and 0 < res["three_quadrants_zeroed"]["flagged_share"] < 1,
+            f"K8 {name}: the cases miss their paths {res}")
     for n in K8_BATCHES:
         xb = xz.repeat(-(-n // xz.shape[0]), *[1] * (xz.ndim - 1))[:n]
-        _, checks[f"batch_{n}"] = check(f"batch {n}", xb)
+        run(f"batch_{n}", f"batch {n}", xb)
     for a, b in ((0, 1), (BATCH - 1, BATCH), (4, 8)):
         require(torch.equal(calls(xz[a:b])[0](), yz[a:b]),
                 f"K8 {name}: frames {a}:{b} differ alone or in a shard "
                 "from the batch")
-    k8, plain = calls(x)
     x128 = x.repeat(4, *[1] * (x.ndim - 1))
-    k8_128, plain_128 = calls(x128)
     recon_bytes = x[..., 0].numel() * 64 * 4
     flag_bytes = x[..., 0].numel() * 4
     once = recon_bytes + flag_bytes + nbytes(y32)
-    out = dict(
-        layout="frames" if frames else "planes",
-        shape=list(x.shape[:-1]) + [64], out_shape=list(y32.shape),
-        checks=checks, max_abs_err=max(c["max_abs_err"]
-                                       for c in checks.values()),
-        equals_twin=True, batch_invariant=True,
-        ms=cuda_time(k8, 20), plain_ms=cuda_time(plain, 3),
-        ms_128=cuda_time(k8_128, 20), plain_ms_128=cuda_time(plain_128, 2),
-        library_ms=None,
-        two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y32),
-        # a pixel: the min and max compares, the difference and the product
-        **bound(y32.numel(), 4, once))
-    out["eager_ms"] = out["plain_ms"]
-    out["two_pass_bound_ms"] = out["two_pass_bytes"] / PEAK_BYTES * 1e3
-    out["two_pass_bound_ms_128"] = 4 * out["two_pass_bound_ms"]
-    return out
+    plain_ms = cuda_time(calls(x)[1], 3)
+    plain_ms_128 = cuda_time(calls(x128)[1], 2)
+    out = {}
+    for inst, plan in k8_plans(dev, BATCH, chans).items():
+        plan128 = k8_plans(dev, 4 * BATCH, chans)[inst]
+        out[inst] = dict(
+            instance=inst, plan=str(plan),
+            smem_bytes=plan.smem, ptxas=k8_ptxas(inst, gray),
+            layout="frames" if frames else "planes",
+            shape=list(x.shape[:-1]) + [64], out_shape=list(y32.shape),
+            checks=checks[inst],
+            max_abs_err=max(c["max_abs_err"]
+                            for c in checks[inst].values()),
+            equals_twin=True, batch_invariant=True,
+            ms=cuda_time(calls(x, plan)[0], 20), plain_ms=plain_ms,
+            ms_128=cuda_time(calls(x128, plan128)[0], 20),
+            plain_ms_128=plain_ms_128, library_ms=None,
+            two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y32),
+            # a pixel: the min and max compares, the difference and the
+            # product
+            **bound(y32.numel(), 4, once))
+        out[inst]["eager_ms"] = plain_ms
+        out[inst]["bound_ms_128"] = 4 * out[inst]["bound_ms"]
+        out[inst]["two_pass_bound_ms"] = (out[inst]["two_pass_bytes"]
+                                          / PEAK_BYTES * 1e3)
+        out[inst]["two_pass_bound_ms_128"] = 4 * out[inst][
+            "two_pass_bound_ms"]
+    res, two = out["resident"], out["two_pass"]
+    res.update(two_pass_ms=two["ms"], two_pass_ms_128=two["ms_128"])
+    return res, two
+
+
+def k8_two_pass_4k(dev) -> dict:
+    """K8's two-pass instance where the plan takes it on the main path:
+    the bench's 4k batch (2 color frames of 2160x3840, 129,600 blocks a
+    plane), on models/blocked._recon's product of seeded estimates (a
+    block in five flagged), held to the twin (torch.equal) and timed
+    beside its one-read bound."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    h, w = 2160, 3840
+    n = (h // 8) * (w // 8)
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    require(tail_cuda.norm_plan(2, 3, n, True, sms, smem if coop else 0)
+            .instance == "two_pass", "a 4k frame does not take the two-pass "
+            "instance")
+    gen = torch.Generator(device=dev).manual_seed(20261021)
+    x = torch.randn((2, 3, n, 8), generator=gen, device=dev)
+    x[..., K] = (torch.rand((2, 3, n), generator=gen, device=dev)
+                 < 0.2).float()
+    x = x[..., :K + 1]
+    eb64 = torch.randn((3, n, K, 64), generator=gen, device=dev)
+    blocks = blocked._recon(x[..., :K], eb64)
+
+    def k8():
+        return tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=True)
+
+    def plain():
+        return tail_cuda.normalize_blocks_plain(blocks, x, K, h, w,
+                                                to_frames=True)
+    n0 = tail_cuda.INSTANCE_LAUNCHES["two_pass"]
+    y = k8()
+    require(tail_cuda.INSTANCE_LAUNCHES["two_pass"] == n0 + 1,
+            "K8 at 4k: the two-pass instance not launched")
+    require(torch.equal(y, plain()), "K8 two-pass at 4k vs twin")
+    once = x[..., 0].numel() * (64 + 1) * 4 + nbytes(y)
+    return dict(ms_4k=cuda_time(k8, 20), plain_ms_4k=cuda_time(plain, 3),
+                bound_ms_4k=bound(y.numel(), 4, once)["bound_ms"])
 
 
 @contextlib.contextmanager
@@ -1382,7 +1524,7 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
                 covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk)[2])
 
     # the default form on the card: K8 on each path, no eager normaliser
-    k8 = {}
+    k8, k8_inst = {}, {}
     with eager_normaliser_calls() as eager_calls:
         for name, fn in (
                 ("color", lambda: color_x(st, sc)),
@@ -1390,17 +1532,25 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
                 ("serve_verify", lambda: blocked.serve_verify_color_prepared(
                     covers, pwc.sw, ALPHA, pwc.ebasis, pwc.inv_blk))):
             torch.cuda.synchronize()
-            tail_cuda.normalize_blocks.launches = 0
+            for c in (tail_cuda.normalize_blocks, *K8_INSTANCES):
+                c.launches = 0
             fn()
             torch.cuda.synchronize()
             k8[name] = tail_cuda.normalize_blocks.launches
+            k8_inst[name] = {c.__name__: c.launches for c in K8_INSTANCES}
     require(min(k8.values()) >= 1 and not any(eager_calls.values()),
             f"the default aligned extract: K8 launches {k8}, eager "
             f"normaliser calls {eager_calls}")
     row["default_form"] = dict(normalize_blocks_launches=k8,
+                               instance_launches=k8_inst,
                                eager_normaliser_calls=eager_calls)
-    row["launches"].update(normalize_blocks=k8["color"] + k8["serve_verify"],
-                           normalize_blocks_gray=k8["gray"])
+    row["launches"].update(
+        normalize_blocks=k8["color"] + k8["serve_verify"],
+        normalize_blocks_gray=k8["gray"],
+        **{c.__name__: k8_inst["color"][c.__name__]
+           + k8_inst["serve_verify"][c.__name__] for c in K8_INSTANCES},
+        **{c.__name__ + "_gray": k8_inst["gray"][c.__name__]
+           for c in K8_INSTANCES})
     default_color, default_gray = color_x(st, sc), gray_x(stg, scg)
     for name, fn, stego, sc_, whole in (
             ("color", color_x, st, sc, default_color),
@@ -2502,13 +2652,14 @@ def cli_video(dev, td: str, clip: str, wm_png: str) -> dict:
 
 def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
                 clip, wm_png):
-    """The CLI on 1080p PNGs: the blocked embed -> extract -> detect and a
-    wrong password; then the default parity embed (color) -> extract with
+    """The CLI on 1080p PNGs (every embed with phase_payload's first nonce,
+    ``cli.main`` run with the embed nonce pinned): the blocked embed ->
+    extract -> detect and a wrong password; then the default parity embed
+    (color) -> extract with
     the enhancement chain -> detect and its wrong password; and a payload
     through embed-payload -> extract-payload with each method: blocked at
     1080p, recovered exactly; the parity default on phase_payload's
-    360×640 crop with its first nonce (``cli.main`` run with the embed
-    nonce pinned), recovered exactly if the API recovered it
+    360×640 crop, recovered exactly if the API recovered it
     (``parity_text_recovered``) and not recovered if it did not. Then the
     video subcommands on the 1080p clip: video-info; video-embed --scheme
     blocked --color (under --profile DIR, which must leave a non-empty
@@ -2532,9 +2683,12 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
         def cli(*args, check=True, nonce=None):
             return cli_call(dev, *args, check=check, nonce=nonce)
 
+        # the embeds' nonce seeded, so that their scores and metrics are the
+        # same in every run
+        nonce = seeded_nonces(1)[0]
         emb = json.loads(cli("embed", cp, wp, "--out", stego, "--method",
-                             "blocked", "--color", "--password",
-                             PASSWORD).stdout)
+                             "blocked", "--color", "--password", PASSWORD,
+                             nonce=nonce).stdout)
         meta = emb["meta"]
         ext = json.loads(cli("extract", stego, meta, "--out",
                              os.path.join(td, "wm_out.png"), "--no-enhance",
@@ -2552,7 +2706,7 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
         t0 = time.perf_counter()
         full = os.path.join(td, "full.png")
         emb_f = json.loads(cli("embed", sp, wp, "--out", full, "--color",
-                               "--password", PASSWORD).stdout)
+                               "--password", PASSWORD, nonce=nonce).stdout)
         meta_f = emb_f["meta"]
         proc = cli_call(dev, "extract", full, meta_f, "--out",
                         os.path.join(td, "full_wm.png"), "--password",
@@ -2586,7 +2740,7 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
             pay = os.path.join(td, f"pay{i}.png")
             emb_p = json.loads(cli("embed-payload", src, text, "--out", pay,
                                    "--password", PASSWORD, *extra,
-                                   nonce=seeded_nonces(1)[0]).stdout)
+                                   nonce=nonce).stdout)
             ext_p = cli("extract-payload", pay, emb_p["meta"], "--password",
                         PASSWORD, check=False)
             if expect:
@@ -4541,7 +4695,8 @@ def parallel_wrappers():
     from dctsvd_tpu_torch.ops import detect_cuda, wm_cuda
     return dict(video_wrappers(),
                 roundtrip_frames_blocks=wm_cuda.roundtrip_frames_blocks,
-                band_scores=detect_cuda.band_scores)
+                band_scores=detect_cuda.band_scores,
+                **{c.__name__: c for c in K8_INSTANCES})
 
 
 def _signature(value):
@@ -4759,12 +4914,25 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
                         blocked._engaged(raw, pw.sw))
                 steps[f"k5f_{name}"] = (
                     lambda a=args: tail_cuda.tail_front(*a))
-            # K8 alone on the product of the same estimates
+            # K8 alone on the product of the same estimates; where the
+            # tree has its two instances, each, and the resident one
+            # without normalize (no fold, no grid barrier)
             if hasattr(tail_cuda, "normalize_blocks"):
                 blocks = blocked._recon(x[..., :k], eb64)
                 steps[f"k8_{name}"] = (
                     lambda b=blocks, x=x, fr=frames:
                     tail_cuda.normalize_blocks(b, x, k, H, W, to_frames=fr))
+            if hasattr(tail_cuda, "NormPlan"):
+                plans = k8_plans(x.device, x.shape[0], 3 if frames else 1)
+                for inst, kw in (("two_pass", {}), ("resident", {}),
+                                 ("resident_no_normalize",
+                                  {"normalize": False})):
+                    steps[f"k8_{name}_{inst}"] = (
+                        lambda b=blocks, x=x, fr=frames, kw=kw,
+                        p=plans[inst.split("_no_")[0]]:
+                        tail_cuda.normalize_blocks(b, x, k, H, W,
+                                                   to_frames=fr, plan=p,
+                                                   **kw))
     out = {name: [cuda_time(fn, 10) for _ in range(2)]
            for name, fn in steps.items()}
     # the bench's batch of 128: the 32 frames four times
@@ -4815,8 +4983,42 @@ def k8_at_128(st128, sc128, stg128, scg128, pwc, pwg, k) -> dict:
         blocks, x, k, H, W, to_frames=True), 10) for _ in range(2)]
     out["k8_color_128_two_pass_bound_ms"] = (
         (2 * x[..., 0].numel() * (64 + 1) * 4 + y.numel()) / PEAK_BYTES * 1e3)
+    out["k8_color_128_bound_ms"] = (
+        (x[..., 0].numel() * (64 + 1) * 4 + y.numel()) / PEAK_BYTES * 1e3)
+    if hasattr(tail_cuda, "NormPlan"):
+        # the two-pass instance at the same batch, held to the twin first
+        two = tail_cuda.NormPlan("two_pass")
+        require(torch.equal(y, tail_cuda.normalize_blocks(
+            blocks, x, k, H, W, to_frames=True, plan=two)),
+            "K8 two-pass at batch 128 vs twin")
+        out["k8_color_128_two_pass"] = [cuda_time(
+            lambda: tail_cuda.normalize_blocks(blocks, x, k, H, W,
+                                               to_frames=True, plan=two),
+            10) for _ in range(2)]
     del x, blocks, y
     s_cw = blocked._plane_spectrum(color.luma_f32(stg128), SWEEPS)
+    if hasattr(tail_cuda, "normalize_blocks"):
+        # K8 on the gray product at 128 (each instance where the tree has
+        # two), held to the twin first
+        xg = blocked._tail_front(s_cw, scg128, pwg.inv_blk, ALPHA, k,
+                                 pwg.sw)
+        eb = pwg.ebasis[..., :k, :, :]
+        bg = blocked._recon(xg[..., :k], eb.reshape(*eb.shape[:-2], 64))
+        yg = tail_cuda.normalize_blocks_plain(bg, xg, k, H, W)
+        variants = {"": {}}
+        if hasattr(tail_cuda, "NormPlan"):
+            variants["_two_pass"] = {"plan": tail_cuda.NormPlan("two_pass")}
+        for suffix, kw in variants.items():
+            require(torch.equal(yg, tail_cuda.normalize_blocks(
+                bg, xg, k, H, W, **kw)), f"K8{suffix} gray at 128 vs twin")
+            out["k8_gray_128" + suffix] = [cuda_time(
+                lambda kw=kw: tail_cuda.normalize_blocks(bg, xg, k, H, W,
+                                                         **kw), 10)
+                for _ in range(2)]
+        out["k8_gray_128_bound_ms"] = (
+            (xg[..., 0].numel() * (64 + 1) * 4 + yg.numel()) / PEAK_BYTES
+            * 1e3)
+        del xg, bg, yg
     raw = blocked._raw_estimate(s_cw, scg128, ALPHA)
     args = (s_cw, scg128, pwg.inv_blk, blocked._alpha(ALPHA, s_cw.device), k,
             pwg.sw, blocked._sw_scale(pwg.sw), blocked._engaged(raw, pwg.sw))
@@ -5194,7 +5396,9 @@ def phase_plane(dev):
 
 def phase_gui(dev, td: str, cover_np, wm_np):
     """The GUI's handlers on a 1080p PNG on the card, blocked and parity:
-    embed, detect (scored above the meta's threshold) and extract."""
+    embed (its nonce seeded, so that the stego, whose SHA-256 it prints,
+    and its PSNR and SSIM are the same in every run), detect (scored above
+    the meta's threshold) and extract."""
     import cv2
     from dctsvd_tpu_torch import gui
     from dctsvd_tpu_torch.utils.config import (DETECT_THRESH_BLOCKED,
@@ -5203,12 +5407,14 @@ def phase_gui(dev, td: str, cover_np, wm_np):
     cv2.imwrite(cp, cover_np)
     cv2.imwrite(wp, wm_np)
     rows = {}
+    nonce = seeded_nonces(1)[0]
     for method, blocked_ in (("blocked", True), ("parity", False)):
         out = os.path.join(td, f"gui_{method}.png")
         meta = os.path.join(td, f"gui_{method}_meta.npz")
         t0 = time.perf_counter()
-        e = gui.handle_embed(cp, wp, out, PASSWORD, ALPHA, False, blocked_,
-                             device=dev)
+        with pinned_nonce(nonce):
+            e = gui.handle_embed(cp, wp, out, PASSWORD, ALPHA, False,
+                                 blocked_, device=dev)
         t1 = time.perf_counter()
         d = gui.handle_detect(out, meta, device=dev)
         t2 = time.perf_counter()
@@ -5224,9 +5430,12 @@ def phase_gui(dev, td: str, cover_np, wm_np):
                 f"gui {method} detect: {d.message}")
         require(cv2.imread(x.preview_path) is not None,
                 f"gui {method}: no extracted watermark")
+        with open(out, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
         rows[method] = dict(score=score, embed_s=t1 - t0, detect_s=t2 - t1,
                             extract_s=t3 - t2,
-                            embed_message=e.message.splitlines()[-1])
+                            embed_message=e.message.splitlines()[-1],
+                            stego_sha256=digest)
     emit({"phase": "gui_handlers", "shape": list(cover_np.shape), **rows,
           "card": smi_line()})
 
@@ -5480,22 +5689,33 @@ def main(argv) -> int:
     # K5f's launches on each path (one counter for both layouts; the gray
     # row's are the gray recompute extract's)
     front_paths = {"slice": launches.pop("tail_front")}
-    # K8's likewise (the gray row's: the gray default extract's)
-    k8_paths = {"slice": launches.pop("normalize_blocks")}
+    # K8's likewise, in all and by instance (the gray rows': the gray
+    # default extract's)
+    k8_all = {"slice": launches.pop("normalize_blocks")}
+    k8_paths = {"slice": launches.pop("normalize_blocks_resident")}
+    k8_two = {"slice": launches.pop("normalize_blocks_two_pass")}
     # K9's likewise (both layouts; the color row's: the detect phase's
     # color calls)
     k9_paths = {"slice": launches.pop("band_scores")}
     serve = phase_serve(dev, covers, wm_u8, blk, intra)
     front_paths["serve"] = serve.pop("tail_front")
-    k8_paths["serve"] = serve.pop("normalize_blocks")
+    k8_all["serve"] = serve.pop("normalize_blocks")
+    k8_paths["serve"] = serve.pop("normalize_blocks_resident")
+    k8_two["serve"] = serve.pop("normalize_blocks_two_pass")
     k9_paths["serve"] = serve.pop("band_scores")
     launches.update(serve)
     launches.update(phase_variants(dev, covers))
     tail = phase_tail_recompute(dev, covers, wm_u8, blk, intra)
     front_paths["tail_recompute"] = tail.pop("tail_front")
     front_gray = {"tail_recompute": tail.pop("tail_front_gray")}
-    k8_paths["tail_default"] = tail.pop("normalize_blocks")
-    k8_gray = {"tail_default": tail.pop("normalize_blocks_gray")}
+    k8_all["tail_default"] = tail.pop("normalize_blocks")
+    k8_paths["tail_default"] = tail.pop("normalize_blocks_resident")
+    k8_two["tail_default"] = tail.pop("normalize_blocks_two_pass")
+    k8_gray = {"tail_default": tail.pop("normalize_blocks_resident_gray")}
+    require(tail.pop("normalize_blocks_gray") == k8_gray["tail_default"]
+            and tail.pop("normalize_blocks_two_pass_gray") == 0,
+            "the gray default extract at 1080p: K8's launches not all the "
+            "resident instance's")
     launches.update(tail)
     detect_results, k9_paths["detect_1080p"], k9_color = phase_detect(
         dev, covers, wm_u8, blk, intra)
@@ -5574,6 +5794,9 @@ def main(argv) -> int:
                              "dctsvd_tpu/models/blocked.py:869"),
         "normalize_blocks_gray": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
                                   "dctsvd_tpu/models/blocked.py:869"),
+        "normalize_blocks_two_pass": (
+            "dctsvd_tpu_torch/csrc/extract_tail.cu",
+            "dctsvd_tpu/models/blocked.py:869"),
         "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
                      "tools/profile_transpose.py:45"),
         "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
@@ -5638,16 +5861,27 @@ def main(argv) -> int:
     paths["tail_front"], paths["tail_front_gray"] = front_paths, front_gray
     # K8: the default tail on the slice, the serve steps, the tail phase's
     # default extracts, parallel/ and the bench (video's blocked extract
-    # averages the raw estimates and normalises nothing)
-    k8_paths.update(parallel=par_launches["normalize_blocks"]
-                    + plane_launches["normalize_blocks"],
-                    bench=bench_launches["normalize_blocks"])
+    # averages the raw estimates and normalises nothing), by instance: the
+    # resident one on every path (1080p), the two-pass one where a frame
+    # does not fit or is small (the bench's 4k and 512gray configs)
+    for by_path, key in ((k8_all, "normalize_blocks"),
+                         (k8_paths, "normalize_blocks_resident"),
+                         (k8_two, "normalize_blocks_two_pass")):
+        by_path.update(parallel=par_launches[key] + plane_launches[key],
+                       bench=bench_launches[key])
+    require(all(k8_all[p] == k8_paths[p] + k8_two[p] for p in k8_all),
+            f"K8's launches {k8_all} are not its instances' {k8_paths} "
+            f"{k8_two}")
     idle = [p for p, n in k8_paths.items() if n == 0]
-    require(not idle, f"K8 was not launched on the paths {idle}")
+    require(not idle, f"K8's resident instance was not launched on the "
+            f"paths {idle}")
+    require(k8_two["bench"] >= 1, f"K8's two-pass instance was not "
+            f"launched by the bench: {k8_two}")
     paths["normalize_blocks"], paths["normalize_blocks_gray"] = (k8_paths,
                                                                  k8_gray)
+    paths["normalize_blocks_two_pass"] = k8_two
     for name in ("tail_front", "tail_front_gray", "normalize_blocks",
-                 "normalize_blocks_gray"):
+                 "normalize_blocks_gray", "normalize_blocks_two_pass"):
         launches[name] = sum(paths[name].values())
     # K9: the slice's detects, the serve steps' scores, the detect phase,
     # the resync searches, parallel/ (batch, serve and plane) and the bench
@@ -5721,7 +5955,9 @@ def main(argv) -> int:
     for name, (src, repl) in sources.items():
         r = results[name]
         extra = {"launches_by_path": paths[name]} if name in paths else {}
-        for key in ("eager_ms", "front_ms", "issue_bound_ms", "ms_128",
+        for key in ("instance", "smem_bytes", "two_pass_ms",
+                    "two_pass_ms_128", "two_pass_bound_ms_128",
+                    "eager_ms", "front_ms", "issue_bound_ms", "ms_128",
                     "plain_ms_128", "two_pass_bound_ms", "eager_ms_128",
                     "bound_ms_128", "detect_ms_32", "detect_ms_128",
                     "detect_ms_eager_32", "detect_ms_eager_128", "ms_4k",

@@ -105,30 +105,86 @@
 // pl.pallas_call. Plain twin: dctsvd_tpu_torch/ops/tail_cuda.py::
 // normalize_blocks_plain.
 //
-// What it computes: K5's two passes, with each block's 64 pixels read
-// from the reconstruction that the caller's batched product materialised
-// (models/blocked.py::_recon) instead of rebuilt from the estimates; the
-// erasure flag from column k of K5f's rows. The window's fold and slots,
-// the params kernel (one IEEE division for the scale), the repaint, the
-// cast and the stores are K5's, so the bytes are the eager form's.
+// What it computes: per plane (frame, channel) the min and max over all
+// its pixels and over those of unflagged blocks (the erasure flag from
+// column k of K5f's rows), each plane's (lo, scale, fill) as K5's (one
+// IEEE division), and K5's repaint, cast and stores; each block's 64
+// pixels read from the reconstruction that the caller's batched product
+// materialised (models/blocked.py::_recon, [m, Fp, 64]: a block's frames
+// 256 bytes apart, blocks Fp x 256 bytes apart) instead of rebuilt from
+// the estimates. Min and max are exact in any order and the paint is per
+// pixel, so both instances give the twin's bytes, a frame the same alone,
+// in a shard or in any batch.
 //
-// What bounds it on the H100: bytes. The reconstruction is read in each
-// pass (at 1080p color, batch 32: 2 x 796 MB, which the 50 MB L2 cannot
-// keep between them) and the u8 frames written once (199 MB): 0.535 ms at
+// Two instances; tail_cuda.norm_plan picks one on the host by shape.
+//
+// The resident instance (norm_resident_kernel; the 1080p batches, color
+// and gray). What bounds it on the H100: bytes, each input read once (at
+// 1080p color, batch 32: the reconstruction's 796 MB, the flags' 12 MB
+// and the u8 frames' 199 MB, 0.3008 ms at 3.35 TB/s), but not at that
+// rate: a frame of the product is a gather of 256-byte pieces 8 KB apart,
+// and the instance without normalize (no window, no barrier) moves it at
+// about 2.2 TB/s, 0.44-0.45 ms (chip_smoke.py --tail-times,
+// k8_color_resident_no_normalize). A frame is 24.9 MB color, 8.3 MB gray;
+// the 132 SMs' shared memory holds 30 MB, so a persistent grid of one CTA
+// an SM (a cooperative launch: every CTA co-resident, or the launch is
+// refused and the wrapper raises) keeps an equal share of each frame's
+// blocks (245 or 246 of a 1080p plane's 32,400, every plane of the frame)
+// in shared memory from its load to its paint, with a grid barrier a frame
+// (a counter a frame in the win scratch) between the window and the paint.
+// What the design does about it:
+//   - Staging by 16-byte cp.async from all 512 threads, each 8-row block
+//     padded to 68 floats so that a quarter-warp's float4 reads of 8
+//     neighbouring blocks hit 8 bank groups. 1-D bulk copies (the TMA's)
+//     of the same 256-byte pieces were slower.
+//   - A ring of chunk slots (norm_plan): where two or three shares fit
+//     (gray 1080p: 3 slots of a frame's share), the next frame is folded
+//     and arrives at its barrier before this one's is waited on, so the
+//     barrier's latency hides behind a fold; where one fits (color 1080p:
+//     2 slots of half a share), the next frame's halves load into the
+//     slots as this one's paint frees them, and TMA bulk prefetches bring
+//     the next frame into L2 once this one has landed, so device memory
+//     streams through the fold, the barrier and the paint. A frame whose
+//     share fits four times (512x512 gray) takes the two-pass instance.
+//   - The fold: the warps split among the planes, each lane folds its
+//     (block, pixel row) items with row_window in registers, one shuffle
+//     reduction a plane and chunk, and a CTA takes one atomic a slot and
+//     plane (K5's order-preserving keys and slots).
+//   - After the barrier each CTA decodes its planes' (lo, scale, fill)
+//     from the slots itself (plane_params, the params kernel's
+//     arithmetic), so no params launch.
+//   - The paint: a lane a (block, pixel row), neighbouring lanes on
+//     neighbouring blocks, all planes of a pixel row together, so a
+//     channels-last row is 24 contiguous elements: three 8-byte (u8) or
+//     six 16-byte (f32) streaming stores, each whole.
+//   - What the window and the barrier cost is the gap to the instance
+//     without normalize (--tail-times, NVIDIA H100 80GB HBM3, 700 W): at
+//     32 color frames 0.589-0.599 ms against 0.444-0.458, at 32 gray
+//     0.253-0.254 against 0.141-0.144. One color frame fills the shared
+//     memory, so its fold, barrier and paint do not overlap the next
+//     frame's load into shared memory.
+//
+// The two-pass instance (norm_window_kernel, norm_paint_kernel; a frame
+// whose share does not fit one CTA's shared memory, as a 4K color frame
+// or an 8K band, a small frame whose share fits four times, as 512x512
+// gray, and calls without normalize, where the paint pass alone reads
+// once). What bounds it: the reconstruction read in each pass (at
+// 1080p color, batch 32: 2 x 796 MB, which the 50 MB L2 cannot keep
+// between them) and the u8 frames written once (199 MB): 0.535 ms at
 // 3.35 TB/s. What the design does about it: K5's grid, lanes, fold and
 // stores (shared inline helpers), in a window and a paint kernel of its
-// own (norm_window_kernel, norm_paint_kernel; sharing K5's kernels through
-// a source policy cost K5 5 % of its time): each lane loads its
-// 32-byte row of its block for all the chunk's 8 frames before it uses
-// one, so a lane has 256 bytes in flight; the 8 warps of a CTA read the
-// 8 rows of each block, and a block's frames lie next to each other in
-// the product's layout, so a CTA's reads of a chunk are 2 KB runs. Pass 1
-// loads through L2 (a batch that fits is read again from there), pass 2
-// as evict-first; no basis in registers, so no stage of estimates: the
-// flags come as one 4-byte load a lane and frame.
+// own (sharing K5's kernels through a source policy cost K5 5 % of its
+// time): each lane loads its 32-byte row of its block for all the chunk's
+// 8 frames before it uses one, so a lane has 256 bytes in flight; the 8
+// warps of a CTA read the 8 rows of each block, and a block's frames lie
+// next to each other in the product's layout, so a CTA's reads of a chunk
+// are 2 KB runs. Pass 1 loads through L2 (a batch that fits is read again
+// from there), pass 2 as evict-first; the flags come as one 4-byte load a
+// lane and frame; a tiny kernel turns the window into (lo, scale, fill).
 //
-// chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and,
-// with --tail-times, its SASS by class.
+// chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and
+// the resident plan's shared memory; --tail-times times both instances
+// and the resident one without normalize.
 
 #include <cuda_runtime.h>
 
@@ -427,9 +483,13 @@ __device__ __forceinline__ uint32_t* win_slot(uint32_t* slots, int64_t p,
   return slots + (p * 4 + s) * kWinStride;
 }
 
-__global__ void tail_init_kernel(uint32_t* __restrict__ slots, int n) {
+// Fills the slots with the keys of (+inf, -inf); zeroes the resident
+// instance's nbar grid barriers bar (none for the two-pass kernels).
+__global__ void tail_init_kernel(uint32_t* __restrict__ slots, int n,
+                                 unsigned* __restrict__ bar, int nbar) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n) *win_slot(slots, t >> 2, t & 3) = (t & 1) ? kHiInit : kLoInit;
+  if (t < nbar) bar[t] = 0u;
 }
 
 // Pass 1's fold, both sources: warp r folds frame f0 + r of the chunk in
@@ -613,18 +673,17 @@ __global__ void __launch_bounds__(kTailThreads, 2)
   }
 }
 
-// Between the passes: each plane's window keys -> prm[p] = (lo, scale,
-// fill, 0).
-__global__ void tail_params_kernel(uint32_t* __restrict__ slots,
-                                   float4* __restrict__ prm, int planes,
-                                   int flagged) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= planes) return;
-  float lo = float_of(*win_slot(slots, p, 2));
-  float hi = float_of(*win_slot(slots, p, 3));
+// Plane p's window keys -> (lo, scale, fill, 0): the unflagged window, or
+// the whole one where that is not finite; one IEEE division. The slots
+// are read from L2 (the resident instance reads them after its grid
+// barrier).
+__device__ __forceinline__ float4 plane_params(uint32_t* __restrict__ slots,
+                                               int64_t p, int flagged) {
+  float lo = float_of(__ldcg(win_slot(slots, p, 2)));
+  float hi = float_of(__ldcg(win_slot(slots, p, 3)));
   if (flagged) {
-    const float glo = float_of(*win_slot(slots, p, 0));
-    const float ghi = float_of(*win_slot(slots, p, 1));
+    const float glo = float_of(__ldcg(win_slot(slots, p, 0)));
+    const float ghi = float_of(__ldcg(win_slot(slots, p, 1)));
     if (isfinite(glo) && isfinite(ghi)) {
       lo = glo;
       hi = ghi;
@@ -632,7 +691,16 @@ __global__ void tail_params_kernel(uint32_t* __restrict__ slots,
   }
   const float scale = __fdiv_rn(255.0f, max_nan(__fsub_rn(hi, lo), 1e-12f));
   const float fill = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-  prm[p] = make_float4(lo, scale, fill, 0.0f);
+  return make_float4(lo, scale, fill, 0.0f);
+}
+
+// Between the passes: each plane's window keys -> prm[p].
+__global__ void tail_params_kernel(uint32_t* __restrict__ slots,
+                                   float4* __restrict__ prm, int planes,
+                                   int flagged) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= planes) return;
+  prm[p] = plane_params(slots, p, flagged);
 }
 
 // u8: truncate toward zero and saturate to [0, 255], NaN to 0 (the twin's
@@ -807,6 +875,347 @@ __global__ void __launch_bounds__(kTailThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8's resident instance: a persistent grid of one CTA an SM, launched
+// cooperatively (every CTA co-resident, or the launch is refused). CTA b
+// holds blocks [b N / ctas, (b + 1) N / ctas) of every plane of a frame in
+// shared memory from their load to their paint, in chunks of `chunk`
+// blocks, each on a ring slot of its own.
+// ---------------------------------------------------------------------------
+
+constexpr int kResThreads = 512;
+constexpr int kResWarps = kResThreads / 32;
+// floats a staged block row set: its 64 pixels and 4 of padding, so that
+// the 8 lanes of a quarter-warp, on 8 neighbouring blocks, read 8 bank
+// groups
+constexpr int kResRow = kB * kB + 4;
+constexpr int kResMaxSlots = 3;             // ring slots
+
+// Bytes a ring slot takes: a chunk of `chunk` blocks (a multiple of 4) of
+// each of a frame's `chans` planes, then their flags (a float each).
+__host__ __device__ constexpr int64_t res_slot_bytes(int chans, int chunk) {
+  return int64_t{4} * chans * chunk * (kResRow + 1);
+}
+
+// The instance's dynamic shared memory: a frame's planes' (lo, scale,
+// fill) and their warps' windows, then the ring (tail_cuda.resident_smem
+// computes the same).
+__host__ __device__ constexpr int64_t res_smem(int chans, int chunk,
+                                               int slots) {
+  return int64_t{16} * chans * (kResWarps + 1) +
+         slots * res_slot_bytes(chans, chunk);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Waits until at most n (0 .. kResMaxSlots - 1) of this thread's newest
+// cp.async groups are still in flight (wait_group takes an immediate).
+template <int N = 0>
+__device__ __forceinline__ void cp_async_wait_newest(int n) {
+  if constexpr (N < kResMaxSlots - 1) {
+    if (n > N) return cp_async_wait_newest<N + 1>(n);
+  }
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A bulk prefetch (the TMA unit's) of `bytes` at p into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 window_merge(float4 v, float4 u) {
+  return make_float4(min_nan(v.x, u.x), max_nan(v.y, u.y), min_nan(v.z, u.z),
+                     max_nan(v.w, u.w));
+}
+
+struct ResArgs {
+  RecSrc s;
+  void* out;
+  uint32_t* slots;     // the window slots (with normalize)
+  unsigned* bar;       // frame f's grid barrier: bar[f] (with normalize)
+  int frames, n_blk, wb, ring, chunk, normalize;
+};
+
+// Paints the 8 pixels at y with a plane's (lo, scale, fill): the twin's
+// (y or fill - lo) * scale, each step rounded once.
+__device__ __forceinline__ void paint_row(const float* y, bool bad,
+                                          float4 pr, float (&v)[kB]) {
+  const float4 a = reinterpret_cast<const float4*>(y)[0];
+  const float4 b = reinterpret_cast<const float4*>(y)[1];
+  const float u[kB] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < kB; ++i)
+    v[i] = __fmul_rn(__fsub_rn(bad ? pr.z : u[i], pr.x), pr.y);
+}
+
+// Stores a pixel row of one plane: 8 values as one 8-byte (u8) or two
+// 16-byte (f32) streaming stores.
+template <typename Out>
+__device__ __forceinline__ void store_plane_row(Out* o, const float (&v)[kB]) {
+  if constexpr (std::is_same<Out, uint8_t>::value) {
+    __stcs(reinterpret_cast<uint2*>(o),
+           make_uint2(pack4(sat_u8(v[0]), sat_u8(v[1]), sat_u8(v[2]),
+                            sat_u8(v[3])),
+                      pack4(sat_u8(v[4]), sat_u8(v[5]), sat_u8(v[6]),
+                            sat_u8(v[7]))));
+  } else {
+    float4* q = reinterpret_cast<float4*>(o);
+    __stcs(q, make_float4(v[0], v[1], v[2], v[3]));
+    __stcs(q + 1, make_float4(v[4], v[5], v[6], v[7]));
+  }
+}
+
+// Stores a channels-last pixel row of 3 planes: 24 elements interleaved
+// (8-byte aligned for u8, 16 for f32), as three 8-byte or six 16-byte
+// streaming stores.
+template <typename Out>
+__device__ __forceinline__ void store_pixel_row3(Out* o,
+                                                 const float (&v)[3][kB]) {
+  if constexpr (std::is_same<Out, uint8_t>::value) {
+    uint32_t wd[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      uint32_t e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = sat_u8(v[(4 * q + j) % 3][(4 * q + j) / 3]);
+      wd[q] = pack4(e[0], e[1], e[2], e[3]);
+    }
+    uint2* q = reinterpret_cast<uint2*>(o);
+    __stcs(q, make_uint2(wd[0], wd[1]));
+    __stcs(q + 1, make_uint2(wd[2], wd[3]));
+    __stcs(q + 2, make_uint2(wd[4], wd[5]));
+  } else {
+    float4* q = reinterpret_cast<float4*>(o);
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+      __stcs(q + j, make_float4(v[(4 * j) % 3][(4 * j) / 3],
+                                v[(4 * j + 1) % 3][(4 * j + 1) / 3],
+                                v[(4 * j + 2) % 3][(4 * j + 2) / 3],
+                                v[(4 * j + 3) % 3][(4 * j + 3) / 3]));
+  }
+}
+
+// The resident instance: kC planes a frame (1, or 3 as channels-last
+// frames with kFrames3, else as planes). The CTA's share of a frame is J
+// chunks; chunk s = f J + j sits in ring slot s % ring, loaded by 16-byte
+// cp.async copies (its flags by 4-byte ones) as soon as the slot is free.
+// A frame: fold the window of each plane chunk by chunk as the chunks land
+// (the warps split among the planes, a lane its items: block, pixel row;
+// shuffles, then a warp's window in shared memory), one atomic a slot and
+// plane, arrive at the frame's grid barrier; wait for it; each plane's
+// (lo, scale, fill) from its slots; paint chunk by chunk, each freed slot
+// loading the chunk `ring` ahead. Where the ring holds two frames, frame
+// f + 1 is folded and arrives before frame f's wait, so the barrier's
+// latency hides behind a fold; where it holds one (a color 1080p frame),
+// frame f + 1 is prefetched into L2 (TMA bulk prefetches) once frame f
+// has landed, so device memory streams through the fold, the barrier and
+// the paint.
+template <int kC, bool kFrames3, typename Out>
+__global__ void __launch_bounds__(kResThreads, 1)
+    norm_resident_kernel(ResArgs a) {
+  extern __shared__ __align__(16) unsigned char res_smem_[];
+  const int S = a.ring, CB = a.chunk;
+  float4* prm = reinterpret_cast<float4*>(res_smem_);
+  float4* red = prm + kC;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(red + kC * kResWarps);
+  const int64_t slot_bytes = res_slot_bytes(kC, CB);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned ctas = gridDim.x;
+  const int b0 = static_cast<int>(int64_t{blockIdx.x} * a.n_blk / ctas);
+  const int share =
+      static_cast<int>(int64_t{blockIdx.x + 1} * a.n_blk / ctas) - b0;
+  const int cap = static_cast<int>((a.n_blk + ctas - 1) / ctas);
+  const int J = (cap + CB - 1) / CB;                  // chunks a frame
+  const int T = a.frames * J;                         // chunks
+  const bool flagged = a.s.x != nullptr;
+  const bool ahead = S >= 2 * J;
+  const float inf = __int_as_float(0x7f800000);
+  const int w = a.wb * kB;
+  const int64_t plane_px = int64_t{a.n_blk} * kB * kB;
+
+  // chunk s: its slot's rows and flags (plane c, block i of the chunk),
+  // its blocks
+  auto row = [&](int s, int c, int i) {
+    return reinterpret_cast<float*>(ring + (s % S) * slot_bytes) +
+           (c * CB + i) * kResRow;
+  };
+  auto flag = [&](int s, int c, int i) {
+    return reinterpret_cast<float*>(ring + (s % S) * slot_bytes) +
+           kC * CB * kResRow + c * CB + i;
+  };
+  auto blocks_of = [&](int j) {
+    return max(0, min(CB, share - j * CB));
+  };
+
+  // chunk s's copies into its slot, 16 bytes (a flag: 4) a cp.async,
+  // every thread taking a share, then this thread's group (empty past the
+  // last chunk): with `issued` groups so far, chunk s has landed once the
+  // issued - 1 - s newest are all that may still be in flight
+  int issued = 0;
+  auto issue = [&](int s) {
+    if (s < T) {
+      const int f = s / J, j = s - f * J, nb = blocks_of(j);
+      for (int p = tid; p < kC * nb * 16; p += kResThreads) {
+        const int q = p & 15, ci = p >> 4, c = ci / nb, i = ci - c * nb;
+        const int n = b0 + j * CB + i;
+        cp_async16(row(s, c, i) + 4 * q,
+                   a.s.rec + (int64_t{c} * a.n_blk + n) * a.s.bstride +
+                       int64_t{f} * a.s.fstride + 4 * q);
+      }
+      if (flagged)
+        for (int p = tid; p < kC * nb; p += kResThreads) {
+          const int c = p / nb, i = p - c * nb;
+          cp_async4(flag(s, c, i),
+                    a.s.x + ((int64_t{f} * kC + c) * a.n_blk + b0 + j * CB +
+                             i) * a.s.xrow +
+                        a.s.xflag);
+        }
+    }
+    cp_async_commit();
+    ++issued;
+  };
+  auto landed = [&](int s) {
+    cp_async_wait_newest(issued - 1 - s);
+    __syncthreads();
+  };
+
+  auto prefetch = [&](int f) {
+    if (f >= a.frames) return;
+    for (int p = tid; p < kC * share; p += kResThreads) {
+      const int c = p / share, i = p - c * share;
+      prefetch_l2(a.s.rec + (int64_t{c} * a.n_blk + b0 + i) * a.s.bstride +
+                      int64_t{f} * a.s.fstride,
+                  kB * kB * 4);
+    }
+  };
+
+  // frame f's window: each plane's over the CTA's blocks into its slots,
+  // then the arrival at bar[f]
+  auto fold = [&](int f) {
+    if (lane == 0)
+      for (int c = 0; c < kC; ++c)
+        red[c * kResWarps + warp] = make_float4(inf, -inf, inf, -inf);
+    // the warps split among the planes, kResWarps / kC a plane
+    constexpr int wpp = kResWarps / kC;
+    const int c = warp / wpp;
+    for (int j = 0; j < J; ++j) {
+      const int s = f * J + j, nb = blocks_of(j);
+      landed(s);
+      if (j == J - 1 && S < 2 * J) prefetch(f + 1);
+      if (c >= kC) continue;
+      float4 v = make_float4(inf, -inf, inf, -inf);
+      for (int it = (warp % wpp) * 32 + lane; it < nb * kB; it += wpp * 32) {
+        const int rr = it / nb, i = it - rr * nb;
+        const float4* y4 =
+            reinterpret_cast<const float4*>(row(s, c, i) + rr * kB);
+        const float4 p0 = y4[0], p1 = y4[1];
+        const float y[kB] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        v = window_merge(v, row_window(y, flagged && *flag(s, c, i) > 0.5f));
+      }
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        v = window_merge(v, make_float4(__shfl_xor_sync(~0u, v.x, o),
+                                        __shfl_xor_sync(~0u, v.y, o),
+                                        __shfl_xor_sync(~0u, v.z, o),
+                                        __shfl_xor_sync(~0u, v.w, o)));
+      if (lane == 0)
+        red[c * kResWarps + warp] = window_merge(red[c * kResWarps + warp], v);
+    }
+    __syncthreads();
+    if (tid < kC) {
+      float4 v = red[tid * kResWarps];
+      for (int o = 1; o < kResWarps; ++o)
+        v = window_merge(v, red[tid * kResWarps + o]);
+      const int64_t p = int64_t{f} * kC + tid;
+      if (flagged) {
+        atomicMin(win_slot(a.slots, p, 0), key_lo(v.z));
+        atomicMax(win_slot(a.slots, p, 1), key_hi(v.w));
+      }
+      atomicMin(win_slot(a.slots, p, 2), key_lo(v.x));
+      atomicMax(win_slot(a.slots, p, 3), key_hi(v.y));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(&a.bar[f], 1u);
+    }
+  };
+
+  // frame f's grid barrier, then its planes' params
+  auto settle = [&](int f) {
+    if (tid == 0) {
+      unsigned seen;
+      do {
+        asm volatile("ld.global.acquire.gpu.b32 %0, [%1];"
+                     : "=r"(seen)
+                     : "l"(&a.bar[f])
+                     : "memory");
+      } while (seen < ctas);
+      __threadfence();
+    }
+    __syncthreads();
+    if (tid < kC)
+      prm[tid] = plane_params(a.slots, int64_t{f} * kC + tid, flagged);
+    __syncthreads();
+  };
+
+  auto paint = [&](int f) {
+    Out* out = static_cast<Out*>(a.out);
+    for (int j = 0; j < J; ++j) {
+      const int s = f * J + j, nb = blocks_of(j);
+      if (!a.normalize) landed(s);
+      for (int it = tid; it < nb * kB; it += kResThreads) {
+        const int rr = it / nb, i = it - rr * nb;
+        const int n = b0 + j * CB + i, by = n / a.wb,
+                  bx = n - by * a.wb;
+        const int px = (by * kB + rr) * w + bx * kB;
+        float v[kC][kB];
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          paint_row(row(s, c, i) + rr * kB,
+                    flagged && *flag(s, c, i) > 0.5f,
+                    a.normalize ? prm[c]
+                                : make_float4(0.0f, 1.0f, 0.0f, 0.0f),
+                    v[c]);
+        if constexpr (kFrames3) {
+          store_pixel_row3(out + (int64_t{f} * plane_px + px) * 3, v);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kC; ++c)
+            store_plane_row(out + (int64_t{f} * kC + c) * plane_px + px,
+                            v[c]);
+        }
+      }
+      __syncthreads();               // slot s is free
+      issue(s + S);
+    }
+  };
+
+  for (int s = 0; s < S; ++s) issue(s);
+  if (a.normalize && ahead) fold(0);
+  for (int f = 0; f < a.frames; ++f) {
+    if (a.normalize) {
+      if (!ahead) {
+        fold(f);
+      } else if (f + 1 < a.frames) {
+        fold(f + 1);
+      }
+      settle(f);
+    } else if (S < 2 * J) {
+      prefetch(f + 1);
+    }
+    paint(f);
+  }
+}
+
 // Calls f(std::integral_constant<int, k>) for k in 1..8; false otherwise.
 template <typename F>
 bool tail_with_k(int k, F&& f) {
@@ -882,8 +1291,8 @@ cudaError_t launch_tail(const TailArgs& a, int per_sm, Window&& window,
     const int planes = a.frames * a.chans;
     float4* params = reinterpret_cast<float4*>(a.win);
     uint32_t* slots = a.win + static_cast<int64_t>(planes) * 4;
-    tail_init_kernel<<<(planes * 4 + 255) / 256, 256, 0, a.st>>>(slots,
-                                                                 planes * 4);
+    tail_init_kernel<<<(planes * 4 + 255) / 256, 256, 0, a.st>>>(
+        slots, planes * 4, nullptr, 0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = window(grid, splits, fper, slots);
@@ -949,6 +1358,82 @@ cudaError_t launch_rec(const TailArgs& a, const RecSrc& s) {
     return cudaGetLastError();
   };
   return launch_tail(a, per_sm, window, paint);
+}
+
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+template <int kC, bool kFrames3, typename Out>
+cudaError_t launch_resident_as(const ResArgs& ra, int ctas, int smem,
+                               cudaStream_t st) {
+  auto kern = norm_resident_kernel<kC, kFrames3, Out>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  ResArgs arg = ra;
+  void* args[] = {&arg};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                     dim3(ctas), dim3(kResThreads), args,
+                                     smem, st);
+}
+
+template <int kC, bool kFrames3>
+cudaError_t launch_resident_out(const ResArgs& ra, bool out_u8, int ctas,
+                                int smem, cudaStream_t st) {
+  return out_u8 ? launch_resident_as<kC, kFrames3, uint8_t>(ra, ctas, smem,
+                                                            st)
+                : launch_resident_as<kC, kFrames3, float>(ra, ctas, smem, st);
+}
+
+// K8's resident instance: the init kernel (with normalize), then the
+// cooperative launch of `ctas` CTAs, a ring of `ring` slots of `chunk`
+// blocks. cudaErrorInvalidValue for a plan
+// outside the instance's bounds (planes a frame other than 1 or 3, a
+// chunk not a multiple of 4, fewer slots than a frame's chunks, shared
+// memory above the device's limit a CTA); the
+// launch's error (cudaErrorCooperativeLaunchTooLarge where the CTAs
+// cannot all be resident) is cleared from the runtime's last error and
+// returned.
+cudaError_t launch_resident(const TailArgs& a, const RecSrc& s, int kc,
+                            int ctas, int ring, int chunk) {
+  const int n_blk = a.hb * a.wb;
+  if (ctas < 1 || ring > kResMaxSlots || chunk < 4 ||
+      chunk % 4 || (a.chans != 1 && a.chans != 3))
+    return cudaErrorInvalidValue;
+  const int cap = (n_blk + ctas - 1) / ctas;
+  const int64_t smem = res_smem(a.chans, chunk, ring);
+  if (ring < (cap + chunk - 1) / chunk ||
+      smem > device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin) ||
+      !device_attr(cudaDevAttrCooperativeLaunch))
+    return cudaErrorInvalidValue;
+  ResArgs ra{s,    a.out, nullptr, nullptr, a.frames,
+             n_blk, a.wb, ring,    chunk,   a.normalize};
+  if (a.normalize) {
+    // win: the frames' barriers where the two-pass instance keeps the
+    // planes' params, then the planes' window slots
+    const int planes = a.frames * a.chans;
+    ra.bar = a.win;
+    ra.slots = a.win + static_cast<int64_t>(planes) * 4;
+    tail_init_kernel<<<(planes * 4 + 255) / 256, 256, 0, a.st>>>(
+        ra.slots, planes * 4, ra.bar, a.frames);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int bytes = static_cast<int>(smem);
+  const cudaError_t err =
+      a.chans == 1 ? launch_resident_out<1, false>(ra, a.out_u8, ctas, bytes,
+                                                   a.st)
+      : kc == 3    ? launch_resident_out<3, true>(ra, a.out_u8, ctas, bytes,
+                                                  a.st)
+                   : launch_resident_out<3, false>(ra, a.out_u8, ctas, bytes,
+                                                   a.st);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 // The checks and the grid both entry points share: fills a's geometry and
@@ -1076,16 +1561,21 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
 // fstride, 16-byte aligned (bstride and fstride multiples of 4); x: null
 // (no flags) or f32 rows, the erasure flag of block (f, c, n) at
 // x[((f * chans + c) * N + n) * xrow + xflag] (flagged when > 0.5); out,
-// win and the rest as dctsvd_extract_tail's. Launches K8's init, window
-// and params kernels (with normalize) and its paint kernel on `stream`;
-// returns the first launch's error, or cudaErrorInvalidValue, launching
-// nothing, for an input outside these bounds.
+// win and the rest as dctsvd_extract_tail's. ctas 0: launches the two-pass
+// instance (the init, window and params kernels with normalize, then the
+// paint kernel); ctas > 0: the resident instance (the init kernel with
+// normalize, then ctas co-resident CTAs cooperatively, a ring of `ring`
+// slots of `chunk` blocks; tail_cuda.norm_plan
+// picks them), all on `stream`. Returns the first launch's error, or
+// cudaErrorInvalidValue, launching nothing, for an input or plan outside
+// these bounds.
 extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
                                        long long fstride, const void* x,
                                        long long xrow, int xflag, void* out,
                                        int out_is_u8, void* win, int frames,
                                        int chans, int frames_layout, int h,
-                                       int w, int normalize, void* stream) {
+                                       int w, int normalize, int ctas,
+                                       int ring, int chunk, void* stream) {
   using namespace dctsvd;
   const int kc = frames_layout ? chans : 1;
   TailArgs a{};
@@ -1101,6 +1591,23 @@ extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
                    static_cast<const float*>(x), bstride, fstride,
                    x ? xrow : 0, xflag};
   a.flagged = x != nullptr;
+  if (ctas > 0)
+    return static_cast<int>(
+        launch_resident(a, src, kc, ctas, ring, chunk));
   return static_cast<int>(kc == 1 ? launch_rec<1>(a, src)
                                   : launch_rec<3>(a, src));
+}
+
+// out: int[3], the device's SMs, the shared memory a CTA may opt into
+// (bytes) and whether it takes cooperative launches (K8's plan reads
+// them). Returns the first query's error.
+extern "C" int dctsvd_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[3] = {cudaDevAttrMultiProcessorCount,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                   cudaDevAttrCooperativeLaunch};
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = cudaDeviceGetAttribute(&out[i], attrs[i], dev);
+  return static_cast<int>(err);
 }

@@ -36,10 +36,24 @@ or f32 channels-last frames [..., H, W, C] or planes [..., (C,) H, W].
 K8 ``normalize_blocks`` replaces the XLA fusion of the default form,
 ``dctsvd_tpu/models/blocked.py::_normalize_blocks`` with the clip, cast
 and unblockify after it (``_extract_tail_prepared(recompute=False)`` at
-block-aligned sizes; no ``pl.pallas_call``): K5's two passes and stores,
-with each block's 64 pixels read from the materialised reconstruction
-``blocks`` [..., (C,) N, 64] (models/blocked.py::_recon's strided view)
-and the erasure flags from column k of ``x``. Its twin is the eager form.
+block-aligned sizes; no ``pl.pallas_call``): K5's window, repaint and
+stores, with each block's 64 pixels read from the materialised
+reconstruction ``blocks`` [..., (C,) N, 64] (models/blocked.py::_recon's
+strided view) and the erasure flags from column k of ``x``. Its twin is
+the eager form. Two instances, chosen on the host by :func:`norm_plan`
+from the shape and the card's SMs and shared memory:
+
+- resident (the 1080p batches): one CTA an SM, launched cooperatively,
+  holds an equal share of each frame's blocks (:func:`block_shares`) in
+  shared memory from its load to its paint, with a grid barrier a frame
+  between the window and the paint, so the reconstruction is read from
+  device memory once; each CTA decodes its planes' (lo, scale, fill)
+  itself. A plan whose CTAs cannot all be resident is refused by the
+  launch and raises :class:`~dctsvd_tpu_torch.utils.kernels.KernelError`.
+- two-pass (a frame whose share does not fit, as a 4K color frame or an 8K
+  band; a small frame whose share fits four times, as 512x512 gray; calls
+  without normalize): a window kernel, a tiny params kernel and a paint
+  kernel, the reconstruction read in each pass.
 
 The scale is one IEEE division, ``255 / max(hi - lo, 1e-12)``, as the JAX
 package's ``255.0 / x``: torch's ``255.0 / t`` is ``t.reciprocal() * 255``,
@@ -53,6 +67,8 @@ launches its kernel or raises. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -64,7 +80,9 @@ from dctsvd_tpu_torch.utils.config import BLOCK
 __all__ = ["tail_front", "tail_front_plain", "shrink_estimate",
            "recon_normalize", "recon_normalize_plain", "block_window",
            "scale_255", "minmax_blocks", "normalize_blocks_recompute",
-           "normalize_blocks", "normalize_blocks_plain"]
+           "normalize_blocks", "normalize_blocks_plain", "NormPlan",
+           "norm_plan", "block_shares", "resident_slot_bytes",
+           "resident_smem", "device_limits"]
 
 K_MAX = BLOCK            # K5f and K5 are compiled for k = 1..8
 FRAME_CHANNELS = (1, 3)  # channels of a channels-last frame on the card
@@ -498,15 +516,119 @@ def _blocks_strides(blocks: torch.Tensor, to_frames: bool) -> tuple:
     return bstride, fstride, nlead
 
 
+#: threads a CTA of K8's resident instance (kResThreads)
+RES_THREADS = 512
+#: ring slots at most (kResMaxSlots)
+RES_MAX_SLOTS = 3
+
+
+@dataclass(frozen=True)
+class NormPlan:
+    """K8's instance for one call: ``"two_pass"``, or ``"resident"`` with
+    ``ctas`` co-resident CTAs, a ring of ``ring`` slots of ``chunk``
+    blocks and ``smem`` bytes of shared memory a CTA."""
+    instance: str
+    ctas: int = 0
+    ring: int = 0
+    chunk: int = 0
+    smem: int = 0
+
+
+def block_shares(n_blk: int, ctas: int) -> list:
+    """Blocks of a plane each resident CTA holds: CTA b takes blocks
+    b·N // ctas .. (b + 1)·N // ctas − 1, so no two shares differ by more
+    than one block."""
+    return [(b + 1) * n_blk // ctas - b * n_blk // ctas for b in range(ctas)]
+
+
+def resident_slot_bytes(chans: int, chunk: int) -> int:
+    """Bytes of a resident ring slot (extract_tail.cu::res_slot_bytes): a
+    chunk of ``chunk`` blocks of each of a frame's ``chans`` planes (64
+    floats and 4 of padding a block), then their flags (a float each)."""
+    return 4 * chans * chunk * (_PIXELS + 5)
+
+
+def resident_smem(chans: int, chunk: int, ring: int) -> int:
+    """Bytes of shared memory a resident CTA takes (extract_tail.cu::
+    res_smem): a frame's planes' params and warp windows, then ``ring``
+    slots."""
+    return (16 * chans * (RES_THREADS // 32 + 1)
+            + ring * resident_slot_bytes(chans, chunk))
+
+
+def norm_plan(frames: int, chans: int, n_blk: int, normalize: bool,
+              sms: int, smem_limit: int) -> NormPlan:
+    """K8's instance for ``frames`` frames of ``chans`` planes of ``n_blk``
+    blocks on a card of ``sms`` SMs whose CTA may take ``smem_limit``
+    bytes of shared memory (0 where it takes no cooperative launch).
+
+    A CTA an SM, each an equal share of the blocks (block_shares). With
+    normalize and 1 or 3 planes a frame, where one frame's share fits one
+    CTA's shared memory but four do not, the resident instance reads the
+    reconstruction once, at a grid barrier a frame. Where two or three
+    shares fit (gray 1080p), a share is one chunk and the ring as many
+    slots as fit: the next frame folds while this one waits at its
+    barrier. Where only one fits (color 1080p), a frame is two chunks, so
+    that the next frame's first half loads while the second half paints.
+    Otherwise the two-pass instance: a frame whose share does not fit (a
+    4K color frame, an 8K band), a small one whose share fits four times
+    or more (512x512 gray, whose frames would each pay a grid barrier for
+    little to read), no normalize (the paint pass alone reads once), or
+    another count of planes."""
+    if (not normalize or frames < 1 or n_blk < 1 or sms < 1
+            or chans not in (1, 3)):
+        return NormPlan("two_pass")
+    ctas = min(sms, n_blk)
+    cap = -(-n_blk // ctas)
+
+    def slots(chunk):
+        room = smem_limit - resident_smem(chans, chunk, 0)
+        return room // resident_slot_bytes(chans, chunk)
+
+    chunk = (cap + 3) // 4 * 4
+    ring = slots(chunk)
+    if ring > RES_MAX_SLOTS:
+        return NormPlan("two_pass")
+    if ring < 2:
+        half = (-(-cap // 2) + 3) // 4 * 4
+        if slots(half) >= 2:
+            chunk, ring = half, min(RES_MAX_SLOTS, slots(half))
+        elif ring < 1:
+            return NormPlan("two_pass")
+    return NormPlan("resident", ctas, ring, chunk,
+                    resident_smem(chans, chunk, ring))
+
+
+_LIMITS: dict = {}
+
+
+def device_limits(device) -> tuple:
+    """(SMs, shared memory a CTA may opt into in bytes, whether it takes
+    cooperative launches) of a CUDA device, read once."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _LIMITS:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(idx):
+            kernels.check(kernels.load().dctsvd_device_limits(
+                ctypes.cast(out, ctypes.c_void_p)), "dctsvd_device_limits")
+        _LIMITS[idx] = tuple(out)
+    return _LIMITS[idx]
+
+
 def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                      w: int, normalize: bool = True, out_u8: bool = True,
-                     to_frames: bool = False) -> torch.Tensor:
+                     to_frames: bool = False,
+                     plan: Optional[NormPlan] = None) -> torch.Tensor:
     """Normalise, cast and unblockify the materialised reconstruction (see
     the module docstring): K8 on CUDA tensors, its plain twin on CPU
     tensors. ``blocks`` [..., (C,) N, 64] f32, ``x`` [..., (C,) N, k or
     k + 1] f32 (column k, when there, the erasure flag); returns u8
     (``out_u8``) or f32 frames [..., H, W, C] (``to_frames``) or planes
-    [..., (C,) H, W]."""
+    [..., (C,) H, W]. ``plan`` forces an instance (default: norm_plan's
+    for the device); each launch counts in ``.launches`` and in
+    ``INSTANCE_LAUNCHES``."""
     flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
     if wm_cuda._device_ok("normalize_blocks", blocks, x):
         return normalize_blocks_plain(blocks, x, k, h, w, normalize, out_u8,
@@ -537,12 +659,20 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                        4 + 4 * WIN_STRIDE), dtype=torch.int32,
                       device=blocks.device)
     if frames and out.numel():
+        if plan is None:
+            sms, smem, coop = device_limits(blocks.device)
+            plan = norm_plan(frames, chans, (h // BLOCK) * (w // BLOCK),
+                             normalize, sms, smem if coop else 0)
         kernels.launch("dctsvd_normalize_blocks", blocks.device, blocks,
                        bstride, fstride, x if flagged else None, xrow, k,
                        out, int(out_u8), win, frames, chans, int(to_frames),
-                       h, w, int(normalize))
+                       h, w, int(normalize), plan.ctas, plan.ring,
+                       plan.chunk)
         normalize_blocks.launches += 1
+        INSTANCE_LAUNCHES[plan.instance] += 1
     return out
 
 
 normalize_blocks.launches = 0
+#: K8's launches by instance (normalize_blocks counts both)
+INSTANCE_LAUNCHES = {"resident": 0, "two_pass": 0}

@@ -80,7 +80,8 @@ _SIGNATURES = {
     "dctsvd_tail_front": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
     "dctsvd_normalize_blocks": [_P, _LL, _LL, _P, _LL, _I, _P, _I, _P, _I,
-                                _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dctsvd_device_limits": [_P],
     "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dctsvd_band_scores": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,

@@ -45,7 +45,7 @@ from dctsvd_tpu_torch.ops import (color, color_cuda, dct, detect_cuda,
                                   tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
 from dctsvd_tpu_torch.ops import enhance_cuda
-from dctsvd_tpu_torch.utils import crypto
+from dctsvd_tpu_torch.utils import crypto, kernels
 
 torch.set_num_threads(2)
 
@@ -1499,22 +1499,54 @@ def _k8_inputs(dev, layout, flags, frames=2, seed=SEED + 50):
     return tb._recon(x[..., :4], eb64), x, eb64, h, w
 
 
+def _k8_plan(dev, instance, frames, chans, n_blk):
+    """K8's plan forcing ``instance``: the two-pass one, or the resident
+    one: norm_plan's with normalize where it takes it (the 1080p batches),
+    else a whole share a slot in a ring of RES_MAX_SLOTS (the small test
+    frames, which norm_plan gives the two-pass instance)."""
+    if instance == "two_pass":
+        return tail_cuda.NormPlan("two_pass")
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    assert coop
+    plan = tail_cuda.norm_plan(frames, chans, n_blk, True, sms, smem)
+    if plan.instance == "resident":
+        return plan
+    ctas = min(sms, n_blk)
+    chunk = (-(-n_blk // ctas) + 3) // 4 * 4
+    ring = tail_cuda.RES_MAX_SLOTS
+    need = tail_cuda.resident_smem(chans, chunk, ring)
+    assert need <= smem
+    return tail_cuda.NormPlan("resident", ctas, ring, chunk, need)
+
+
+def _k8_counted(instance, fn):
+    """fn()'s result, holding that it launched K8 once, as ``instance``."""
+    n0 = tail_cuda.normalize_blocks.launches
+    i0 = tail_cuda.INSTANCE_LAUNCHES[instance]
+    got = fn()
+    torch.cuda.synchronize()
+    assert tail_cuda.normalize_blocks.launches == n0 + 1
+    assert tail_cuda.INSTANCE_LAUNCHES[instance] == i0 + 1
+    return got
+
+
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
 @pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
 @pytest.mark.parametrize("normalize", [True, False],
                          ids=["normalize", "raw"])
 @pytest.mark.parametrize("flags", [True, False], ids=["flags", "no_flags"])
 @pytest.mark.parametrize("layout", ["frames", "planes", "color_planes"])
-def test_k8_matches_twin(dev, layout, flags, normalize, out_u8):
+def test_k8_matches_twin(dev, layout, flags, normalize, out_u8, instance):
     """K8 equals its twin, the eager form, run on the card (torch.equal)
     in each layout: color channels-last frames, gray planes, color
-    planes."""
+    planes; each instance."""
     blocks, x, _, h, w = _k8_inputs(dev, layout, flags)
     cl = layout == "frames"
-    n0 = tail_cuda.normalize_blocks.launches
-    got = tail_cuda.normalize_blocks(blocks, x, 4, h, w, normalize=normalize,
-                                     out_u8=out_u8, to_frames=cl)
-    torch.cuda.synchronize()
-    assert tail_cuda.normalize_blocks.launches == n0 + 1
+    plan = _k8_plan(dev, instance, 2, 1 if layout == "planes" else 3,
+                    blocks.shape[-2])
+    got = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, normalize=normalize, out_u8=out_u8,
+        to_frames=cl, plan=plan))
     ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w,
                                            normalize=normalize,
                                            out_u8=out_u8, to_frames=cl)
@@ -1523,40 +1555,49 @@ def test_k8_matches_twin(dev, layout, flags, normalize, out_u8):
         (got.to(torch.float64) - ref.to(torch.float64)).abs().max())
 
 
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
 @pytest.mark.parametrize("frames", [8, 70])
 @pytest.mark.parametrize("layout", ["frames", "planes"])
-def test_k8_is_batch_invariant(dev, layout, frames):
+def test_k8_is_batch_invariant(dev, layout, frames, instance):
     """A frame's bytes are the same alone, in a shard of 4 and in the
     batch (70 frames: partial chunks of 8, frame splits, and a product of
-    three RECON_FRAMES slices), and the whole batch equals the twin."""
+    three RECON_FRAMES slices), and the whole batch equals the twin; each
+    instance."""
     blocks, x, eb64, h, w = _k8_inputs(dev, layout, True, frames=frames)
     cl = layout == "frames"
-    whole = tail_cuda.normalize_blocks(blocks, x, 4, h, w, to_frames=cl)
+    plan = _k8_plan(dev, instance, frames, 3 if cl else 1,
+                    blocks.shape[-2])
+    whole = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, to_frames=cl, plan=plan))
     assert torch.equal(whole, tail_cuda.normalize_blocks_plain(
         blocks, x, 4, h, w, to_frames=cl))
 
     def alone(a, b):
         xs = x[a:b]
-        return tail_cuda.normalize_blocks(tb._recon(xs[..., :4], eb64), xs,
-                                          4, h, w, to_frames=cl)
+        return _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+            tb._recon(xs[..., :4], eb64), xs, 4, h, w, to_frames=cl,
+            plan=plan))
     for i in (0, 5, frames - 1):
         assert torch.equal(alone(i, i + 1), whole[i:i + 1])
     for a in sorted({4, min(30, frames - 4), frames - 6}):
         assert torch.equal(alone(a, a + 4), whole[a:a + 4])
 
 
-def test_k8_all_flagged_and_nan(dev):
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
+def test_k8_all_flagged_and_nan(dev, instance):
     """Every block of a plane flagged flattens it; a NaN in an unflagged
     block of another plane propagates through its window (f32 out,
-    compared with NaN equal), as the twin's amin and amax let it."""
+    compared with NaN equal), as the twin's amin and amax let it; each
+    instance."""
     blocks, x, _, h, w = _k8_inputs(dev, "frames", True)
     x[0, 1, :, 4] = 1.0
     blocks = blocks.clone()
     blocks[1, 2, 7, 5] = float("nan")
     x[1, 2, 7, 4] = 0.0
+    plan = _k8_plan(dev, instance, 2, 3, blocks.shape[-2])
     for out_u8 in (True, False):
-        got = tail_cuda.normalize_blocks(blocks, x, 4, h, w, out_u8=out_u8,
-                                         to_frames=True)
+        got = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+            blocks, x, 4, h, w, out_u8=out_u8, to_frames=True, plan=plan))
         ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w,
                                                out_u8=out_u8, to_frames=True)
         plane = got[0, ..., 1]
@@ -1594,6 +1635,91 @@ def test_k8_wrapper_never_runs_the_twin_on_the_card(dev, monkeypatch):
     with pytest.raises(ValueError, match="rows"):
         tail_cuda.normalize_blocks(blocks, x.transpose(0, 1).contiguous()
                                    .transpose(0, 1), 4, h, w, to_frames=True)
+
+
+@pytest.mark.parametrize("frames", [1, 4, 32, 33, 128])
+@pytest.mark.parametrize("path", ["color", "gray"])
+def test_k8_instances_match_twin_at_1080p(dev, path, frames):
+    """Each K8 instance equals the twin run on the card (torch.equal) on
+    the main path's product (models/blocked._recon's strided view of K5f's
+    1080p estimates) at 1, 4, 32, 33 and 128 frames: the stego with three
+    quadrants zeroed (flagged blocks) and without sw (no flag column),
+    with and without normalize, u8 and f32 out."""
+    st = _front_state(dev, path)
+    pw, cl = st["pw"], path == "color"
+    k = tb.k_of_block(tb.K_FRAC_DEFAULT)
+    eb = pw.ebasis[..., :k, :, :]
+    eb64 = eb.reshape(*eb.shape[:-2], 64)
+    for case, sw in (("zeroed", pw.sw), ("no_sw", None)):
+        x = tb._tail_front(st["s_cw"][case][:frames], st["sc"][:frames],
+                           pw.inv_blk, ALPHA, k, sw)
+        if sw is not None:
+            assert 0 < float((x[..., k] > 0.5).float().mean()) < 1
+        blocks = tb._recon(x[..., :k], eb64)
+        assert not blocks.is_contiguous()
+        for instance in ("resident", "two_pass"):
+            plan = _k8_plan(dev, instance, frames, 3 if cl else 1,
+                            blocks.shape[-2])
+            for normalize in (True, False):
+                for out_u8 in (True, False):
+                    kw = dict(normalize=normalize, out_u8=out_u8,
+                              to_frames=cl)
+                    got = _k8_counted(instance,
+                                      lambda: tail_cuda.normalize_blocks(
+                                          blocks, x, k, 1080, 1920,
+                                          plan=plan, **kw))
+                    ref = tail_cuda.normalize_blocks_plain(
+                        blocks, x, k, 1080, 1920, **kw)
+                    assert torch.equal(got, ref), (case, instance, kw)
+
+
+def test_k8_plan_takes_the_instance_by_shape(dev):
+    """On the card the 1080p batches (color and gray) take the resident
+    instance and a 4K color frame the two-pass one, each launched once
+    by the default plan and equal to the twin."""
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    assert coop and sms >= 1 and smem > 0
+    for chans in (3, 1):
+        assert tail_cuda.norm_plan(32, chans, 32400, True, sms,
+                                   smem).instance == "resident"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    for (h, w), instance in (((1080, 1920), "resident"),
+                             ((2160, 3840), "two_pass")):
+        n = (h // 8) * (w // 8)
+        blocks = torch.randn((2, 3, n, 64), generator=gen, device=dev)
+        x = torch.randn((2, 3, n, 5), generator=gen, device=dev)
+        x[..., 4] = (x[..., 4] > 1.0).float()
+        got = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+            blocks, x, 4, h, w, to_frames=True))
+        assert torch.equal(got, tail_cuda.normalize_blocks_plain(
+            blocks, x, 4, h, w, to_frames=True))
+
+
+def test_k8_resident_plan_beyond_the_card_raises(dev):
+    """A resident plan whose CTAs cannot all be resident (twice the SMs,
+    each above half an SM's shared memory) is refused by the cooperative
+    launch and raises KernelError without hanging, as does one above a
+    CTA's shared memory; no launch is counted, and the next call runs."""
+    blocks, x, _, h, w = _k8_inputs(dev, "frames", True)
+    sms, smem, _ = tail_cuda.device_limits(dev)
+    ctas = min(2 * sms, blocks.shape[-2])    # a share of 1 or 2 blocks
+    chunk = 4
+    while tail_cuda.resident_smem(3, chunk + 4, 1) <= smem:
+        chunk += 4
+    assert tail_cuda.resident_smem(3, chunk, 1) > smem // 2
+    n0 = tail_cuda.normalize_blocks.launches
+    for plan in (tail_cuda.NormPlan("resident", ctas, 1, chunk),
+                 tail_cuda.NormPlan("resident", sms, 1, chunk + 4)):
+        with pytest.raises(kernels.KernelError):
+            tail_cuda.normalize_blocks(blocks, x, 4, h, w, to_frames=True,
+                                       plan=plan)
+        torch.cuda.synchronize()
+    assert tail_cuda.normalize_blocks.launches == n0
+    plan = _k8_plan(dev, "resident", 2, 3, blocks.shape[-2])
+    got = _k8_counted("resident", lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, to_frames=True, plan=plan))
+    assert torch.equal(got, tail_cuda.normalize_blocks_plain(
+        blocks, x, 4, h, w, to_frames=True))
 
 
 @pytest.mark.parametrize("case", ["stego", "zeroed", "black", "no_sw"])

@@ -3,7 +3,9 @@ recompute form (``recompute=True``: the plain twin of K5,
 ops/tail_cuda.py) against the JAX package's ``recompute=True`` and the
 port's own materialising form; the front (K5f's twin); the min–max
 normalisers' one-division scale; the default form's normaliser (K8's
-twin) and the default extract; each wrapper's refusals.
+twin, also on planes holding NaN, ±inf and every block flagged) and the
+default extract; K8's plan (which instance a shape takes, each CTA's
+share); each wrapper's refusals.
 
 Inputs are uniform u8 noise from a seeded numpy generator, 64×80 (and an
 unaligned 65×83), batch 2, α 0.15; both packages read the same watermark
@@ -647,6 +649,123 @@ def test_k8_wrapper_refuses_bad_input(bad):
         match = "unsupported device"
     with pytest.raises(ValueError, match=match):
         tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=cl)
+
+
+# Inputs that leave the plain path: a NaN in an unflagged block, ±inf
+# (+inf unflagged, -inf in a block the repaint covers), a plane with every
+# block flagged beside unflagged ones; on 1, 4 and 33 frames at the card
+# tests' 64×280 (35 blocks a row). Compared in f32 (a NaN window makes
+# the plane NaN, whose u8 cast neither package defines) and, where every
+# value is finite, in u8 too.
+K8_SPECIAL = ["nan", "inf", "all_flagged_beside_unflagged"]
+
+
+def _k8_special(layout, case, frames):
+    blocks, x = _k8_case(layout, frames=frames, w=280, seed=SEED + 62)
+    cl = layout == "frames"
+    last = frames - 1
+    if case == "nan":
+        at = (0, 1, 7) if cl else (0, 7)
+        blocks[at + (5,)] = float("nan")
+        x[at + (K,)] = 0.0
+    elif case == "inf":
+        up, down = ((0, 1, 9), (last, 2, 11)) if cl else ((0, 9), (last, 11))
+        blocks[up + (3,)] = float("inf")
+        x[up + (K,)] = 0.0
+        blocks[down + (0,)] = -float("inf")
+        x[down + (K,)] = 1.0
+    else:
+        x[(0, 1) if cl else (0,)][..., K] = 1.0
+        if not cl and frames > 1:
+            x[1, :, K] = 0.0
+    return blocks, x
+
+
+@pytest.mark.parametrize("frames", [1, 4, 33])
+@pytest.mark.parametrize("case", K8_SPECIAL)
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_k8_twin_equals_jax_on_special_planes(layout, case, frames):
+    blocks, x = _k8_special(layout, case, frames)
+    cl = layout == "frames"
+    kinds = [False] + ([True] if case == "all_flagged_beside_unflagged"
+                       else [])
+    for out_u8 in kinds:
+        got = tail_cuda.normalize_blocks(blocks, x, K, 64, 280,
+                                         out_u8=out_u8, to_frames=cl)
+        ref = _jax_default(blocks, x, 64, 280, True, out_u8, cl)
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got.numpy(), ref)
+    if case == "nan":
+        nan_plane = got[0, ..., 1] if cl else got[0]
+        assert bool(torch.isnan(nan_plane).all())
+    elif case == "all_flagged_beside_unflagged":
+        flat = got[0, ..., 1] if cl else got[0]
+        assert torch.equal(flat, flat[:1, :1].expand_as(flat))
+        if cl:                       # its unflagged neighbour spans [0, 255]
+            assert float(got[0, ..., 0].max()) == 255.0
+
+
+# K8's plan (tail_cuda.norm_plan): which instance a batch takes, with the
+# SM count and shared memory of an H100 (132 SMs, 232,448 bytes a CTA)
+# unless a case says otherwise. 1080p is 32,400 blocks a plane, 4K
+# 129,600, an 8K band of 1080 rows 129,600, 512x512 4,096.
+H100 = (132, 232448)
+_AT_LIMIT = tail_cuda.resident_smem(3, 200, 1)
+_FOUR_GRAY = tail_cuda.resident_smem(1, 200, 4)
+K8_PLANS = {
+    # id: (frames, chans, n_blk, (sms, smem), instance, (ring, chunk))
+    "1080p_color_32": (32, 3, 32400, H100, "resident", (2, 124)),
+    "1080p_color_128": (128, 3, 32400, H100, "resident", (2, 124)),
+    "1080p_gray_32": (32, 1, 32400, H100, "resident", (3, 248)),
+    "1080p_gray_128": (128, 1, 32400, H100, "resident", (3, 248)),
+    "one_frame": (1, 3, 32400, H100, "resident", (2, 124)),
+    "512gray_128": (128, 1, 4096, H100, "two_pass", None),
+    "4k_color": (2, 3, 129600, H100, "two_pass", None),
+    "4k_gray": (2, 1, 129600, H100, "two_pass", None),
+    "8k_band": (1, 1, 129600, H100, "two_pass", None),
+    "8k_plane": (1, 1, 518400, H100, "two_pass", None),
+    "at_the_limit": (8, 3, 132 * 200, (132, _AT_LIMIT), "resident",
+                     (2, 100)),
+    "a_block_over": (8, 3, 132 * 200 + 1, (132, _AT_LIMIT), "two_pass",
+                     None),
+    "three_gray_shares": (8, 1, 132 * 200, (132, _FOUR_GRAY - 1),
+                          "resident", (3, 200)),
+    "four_gray_shares": (8, 1, 132 * 200, (132, _FOUR_GRAY), "two_pass",
+                         None),
+    "114_sms_color": (32, 3, 32400, (114, 232448), "two_pass", None),
+    "114_sms_gray": (32, 1, 32400, (114, 232448), "resident", (2, 288)),
+    "no_cooperative_launch": (32, 3, 32400, (132, 0), "two_pass", None),
+    "2_planes": (32, 2, 32400, H100, "two_pass", None),
+    "tiny_frame": (2, 3, 40, H100, "two_pass", None),
+}
+
+
+@pytest.mark.parametrize("case", list(K8_PLANS))
+def test_k8_plan_by_shape(case):
+    frames, chans, n_blk, (sms, smem), instance, want = K8_PLANS[case]
+    plan = tail_cuda.norm_plan(frames, chans, n_blk, True, sms, smem)
+    assert plan.instance == instance, plan
+    assert tail_cuda.norm_plan(frames, chans, n_blk, False, sms,
+                               smem).instance == "two_pass"
+    if instance == "two_pass":
+        assert plan == tail_cuda.NormPlan("two_pass")
+        return
+    assert (plan.ring, plan.chunk) == want
+    assert plan.ctas == min(sms, n_blk)
+    shares = tail_cuda.block_shares(n_blk, plan.ctas)
+    assert len(shares) == plan.ctas and sum(shares) == n_blk
+    assert max(shares) - min(shares) <= 1 and min(shares) >= 1
+    assert plan.chunk % 4 == 0
+    chunks = -(-max(shares) // plan.chunk)            # a frame's chunks
+    assert plan.ring >= chunks
+    assert plan.smem == tail_cuda.resident_smem(chans, plan.chunk,
+                                                plan.ring)
+    assert plan.smem <= smem
+    # the ring takes every slot that fits, and a frame's whole share does
+    # not fit four times
+    assert tail_cuda.resident_smem(chans, plan.chunk, plan.ring + 1) > smem
+    assert tail_cuda.resident_smem(chans, (max(shares) + 3) // 4 * 4,
+                                   4) > smem
 
 
 def test_k8_layout_of_the_product():
