@@ -27,8 +27,14 @@
     python3 chip_smoke.py --enhance-times   # only the enhancement
                                             # stages' and chains' times at
                                             # 1080p, and K10 and K9 alone
-                                            # (copied into an older tree,
-                                            # that tree's)
+                                            # (copied into an older tree
+                                            # that has K14-K17, that
+                                            # tree's)
+    python3 chip_smoke.py --metrics-times   # only SSIM's, PSNR's and the
+                                            # embed's times with and
+                                            # without its metrics at 1080p,
+                                            # batch 32, eager against
+                                            # kernel in turns
     python3 chip_smoke.py --resync-times    # only detect resync's chunk
                                             # split and search times at
                                             # 1080p, with K12 and K13 and
@@ -36,11 +42,12 @@
                                             # an older tree, that tree's)
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the twenty hand-written kernels (K1,
+an H100, ``sm_90a``). It builds the twenty-four hand-written kernels (K1,
 K2, K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6
-and K7, the detect statistic K9, the enhancement chain's NLM K10 and
-CLAHE K11, detect resync's roll stack K12 and counter-rotation K13, and
-the probes' copy_f32, cols_view, fma_chain and
+and K7, the detect statistic K9, the enhancement chain's NLM K10, CLAHE
+K11 and unsharp K14, detect resync's roll stack K12 and counter-rotation
+K13, the embed metrics' SSIM K15 and PSNR sums K16, the color NLM's
+YCrCb pair K17, and the probes' copy_f32, cols_view, fma_chain and
 spectrum_probe; K2, K3, K5 and K9 in one instance per k) from
 ``dctsvd_tpu_torch/csrc/``, one nvcc per source, all started together, and
 prints each instance's registers and spills; holds each of the seven
@@ -75,7 +82,13 @@ their twins on every BGR triple, seeded Y' with its edge values, the
 batch of 32 and the scalar path's frames, timed beside their byte and
 issue bounds, and the gray slice (prepare -> embed -> extract -> detect)
 on the batch of 32 through them, byte-equal with their twins in their
-places (``color_1080p``); and the recon-embed and Gram-spectrum entries
+places (``color_1080p``); the slice's gray and color embeds with their
+metrics on the batch of 32, each launching K15 (SSIM) and K16 (PSNR's
+exact sums) once and no eager blur, K15 on both pairs (u8 with the
+marked f32 Y, u8 with u8) and K16 bit-equal to their twins at 1080p, on
+a 4K frame, 3x5, 37x51 and a view off its 16-byte alignment, timed beside
+their bounds, the eager forms and one F.conv2d of SSIM's five blurs
+(``metrics_1080p``); and the recon-embed and Gram-spectrum entries
 on 8 frames, each with its launch
 counters set to 0 just before and read just after; checks the scores;
 runs the CLI on PNG files; runs the T1-T6 probes (``dctsvd_tpu_torch.
@@ -87,11 +100,15 @@ rest of the image API at 1080p: the parity path gray and color (its
 gates, ``svd_full``'s bit stability, the exact cancellation of Sc,
 CUDA-event times) and, on a small frame, against the CPU; the
 enhancement chains (any degradation fails the run) with each stage's
-time, each chain launching K10 (NLM) and both K11 kernels (CLAHE's LUTs
-and interpolation) once, and each chain's time with the eager NLM and
-CLAHE in their places; K10 bit-equal to its twin on the 1080p extracted
+time, each chain launching K10 (NLM), both K11 kernels (CLAHE's LUTs
+and interpolation) and K14 (unsharp) once, the color chain K17 once each
+way, neither the eager blur nor the channels-last YCrCb pair, and each
+chain's time with the eager NLM, CLAHE, unsharp and YCrCb pair in their
+places; K10 bit-equal to its twin on the 1080p extracted
 gray plane, the color frame's three YCrCb planes and planes smaller than
-its window, and K11 on the gray and luma planes and small ones, each
+its window, K11 on the gray and luma planes and small ones, and K14 (gray
+plane, channels-last frame) and K17 (both ways) at 1080p, 4K, 3x5, 37x51
+and off alignment, each
 timed beside its bound (K10 also beside its weight's issue bound, from
 the library's SASS), its twin and the eager form it replaced; and
 against the CPU on a small plane; text and
@@ -109,7 +126,8 @@ and one host read of scores a scan. Then
 one-card mesh, four shards of the card (``[cuda:0] * 4``) and one frame
 a shard, each held to the unsharded call (stego, sc and the recovered
 watermark byte-equal, scores within 1e-5), with K1-K4's launches and
-frames/s, and no host sync; the parity batch detect against the
+frames/s, batch_embed_blocked's metrics through K15 and K16, and no host
+sync; the parity batch detect against the
 per-image detect; an 8K frame (4320x7680) in one and in four bands,
 equal to the whole-frame embed; the GUI's handlers on a 1080p PNG
 (blocked and parity); and the graft entry points (``entry()``,
@@ -147,7 +165,11 @@ K6's and K7's on the gray slice, the resync and parity phases,
 ``plane_8k`` and the bench; K10's and K11's on the enhance phase's
 chains, the CLI's enhanced extract (counted in its process) and the
 bench's robustness extracts; K12's and K13's on the resync searches and
-the bench's geometric config.
+the bench's geometric config; K14's on the chains, the CLI's enhanced
+extract and the bench's robustness extracts; K15's and K16's on the
+slice's embeds, batch_embed_blocked, the GUI's and the CLI's embeds (each
+CLI call counts in its own process, ``CLI_CHILD``); K17's on the color
+chain and the CLI's enhanced color extract.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase
 raises, so the exit code is non-zero and no result line is printed.
 Without a GPU, or outside a checkout of the repository, it exits non-zero
@@ -2579,33 +2601,44 @@ def phase_reference(dev):
           "psnr_gpu": ps_g})
 
 
-def cli_call(dev, *args, check=True, nonce=None, enhance_launches=False):
+# The CLI's child process: cli.main under launch_counts (the embed nonce
+# pinned first where ``--nonce HEX`` leads the arguments); the counts are
+# the last line of its standard error.
+CLI_CHILD = """import json, sys
+if sys.argv[1:2] == ["--nonce"]:
+    from dctsvd_tpu_torch.utils import crypto
+    nonce = bytes.fromhex(sys.argv[2])
+    del sys.argv[1:3]
+    crypto.make_nonce = lambda: nonce
+import chip_smoke
+from dctsvd_tpu_torch import cli
+with chip_smoke.launch_counts() as got:
+    rc = cli.main(sys.argv[1:])
+print(json.dumps(got), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def cli_call(dev, *args, check=True, nonce=None):
     """``python -m dctsvd_tpu_torch.cli --device DEV ARGS`` in a child
-    process (with the embed nonce pinned to ``nonce`` if given; with
-    ``enhance_launches``, ``cli.main`` run so that the child prints K10's
-    and K11's launches as a JSON line after it, the last of its standard
-    error); raises on a non-zero exit when ``check``."""
-    entry = ["-m", "dctsvd_tpu_torch.cli"]
-    if enhance_launches:
-        entry = ["-c", "import json, sys; from dctsvd_tpu_torch import cli; "
-                 "from dctsvd_tpu_torch.ops import enhance_cuda as e; "
-                 "rc = cli.main(sys.argv[1:]); "
-                 f"print(json.dumps({{n: getattr(e, n).launches for n in "
-                 f"{ENHANCE_KERNELS!r}}}), file=sys.stderr); sys.exit(rc)"]
-    if nonce is not None:
-        entry = ["-c", "import sys; from dctsvd_tpu_torch.utils "
-                 "import crypto; n = bytes.fromhex(sys.argv.pop(1)); "
-                 "crypto.make_nonce = lambda: n; "
-                 "from dctsvd_tpu_torch import cli; "
-                 "sys.exit(cli.main(sys.argv[1:]))", nonce.hex()]
+    process (:data:`CLI_CHILD`: with the embed nonce pinned to ``nonce`` if
+    given, and the launches of K10, K11, K14, K15, K16 and K17 and the
+    eager forms' calls in its process printed after ``cli.main`` returns,
+    :func:`child_counts`); raises on a non-zero exit when ``check``."""
+    pin = ["--nonce", nonce.hex()] if nonce is not None else []
     proc = subprocess.run(
-        [sys.executable, *entry, "--device", str(dev), *args],
+        [sys.executable, "-c", CLI_CHILD, *pin, "--device", str(dev), *args],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True)
     if check and proc.returncode != 0:
         raise SmokeFailure(f"cli {args[0]} failed "
                            f"({proc.returncode}): {proc.stderr}")
     return proc
+
+
+def child_counts(proc) -> dict:
+    """The launch counts a :func:`cli_call` child printed."""
+    return json.loads(proc.stderr.strip().splitlines()[-1])
 
 
 def cli_video(dev, td: str, clip: str, wm_png: str) -> dict:
@@ -2653,7 +2686,9 @@ def cli_video(dev, td: str, clip: str, wm_png: str) -> dict:
 def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
                 clip, wm_png):
     """The CLI on 1080p PNGs (every embed with phase_payload's first nonce,
-    ``cli.main`` run with the embed nonce pinned): the blocked embed ->
+    ``cli.main`` run with the embed nonce pinned; the embeds launching K15
+    and K16 once, the enhanced extract K10, K11, K14 and K17, none an
+    eager form, each in its process): the blocked embed ->
     extract -> detect and a wrong password; then the default parity embed
     (color) -> extract with
     the enhancement chain -> detect and its wrong password; and a payload
@@ -2686,9 +2721,11 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
         # the embeds' nonce seeded, so that their scores and metrics are the
         # same in every run
         nonce = seeded_nonces(1)[0]
-        emb = json.loads(cli("embed", cp, wp, "--out", stego, "--method",
-                             "blocked", "--color", "--password", PASSWORD,
-                             nonce=nonce).stdout)
+        counts = {}
+        proc = cli("embed", cp, wp, "--out", stego, "--method", "blocked",
+                   "--color", "--password", PASSWORD, nonce=nonce)
+        emb, counts["embed_blocked"] = (json.loads(proc.stdout),
+                                        child_counts(proc))
         meta = emb["meta"]
         ext = json.loads(cli("extract", stego, meta, "--out",
                              os.path.join(td, "wm_out.png"), "--no-enhance",
@@ -2705,19 +2742,27 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
 
         t0 = time.perf_counter()
         full = os.path.join(td, "full.png")
-        emb_f = json.loads(cli("embed", sp, wp, "--out", full, "--color",
-                               "--password", PASSWORD, nonce=nonce).stdout)
+        proc = cli("embed", sp, wp, "--out", full, "--color", "--password",
+                   PASSWORD, nonce=nonce)
+        emb_f, counts["embed_parity"] = (json.loads(proc.stdout),
+                                         child_counts(proc))
         meta_f = emb_f["meta"]
-        proc = cli_call(dev, "extract", full, meta_f, "--out",
-                        os.path.join(td, "full_wm.png"), "--password",
-                        PASSWORD, enhance_launches=True)
+        proc = cli("extract", full, meta_f, "--out",
+                   os.path.join(td, "full_wm.png"), "--password", PASSWORD)
         ext_f = json.loads(proc.stdout)
-        # K10's and K11's launches in the enhanced extract's process: each
-        # counter is 0 at its start and read after cli.main returned
-        enhanced = json.loads(proc.stderr.strip().splitlines()[-1])
-        require(enhanced == dict.fromkeys(ENHANCE_KERNELS, 1),
-                f"the CLI's enhanced extract: K10 and K11 launches "
-                f"{enhanced}")
+        # the launches in each child process: each counter is 0 at its
+        # start and read after cli.main returned. The embeds (color) launch
+        # K15 and K16 once; the enhanced color extract K10, both K11
+        # kernels, K14 and K17 once each way; none calls an eager form
+        enhanced = counts["extract_enhanced"] = child_counts(proc)
+        for what, n in counts.items():
+            want = (dict.fromkeys((*ENHANCE_KERNELS, *YCRCB_KERNELS), 1)
+                    if what == "extract_enhanced"
+                    else dict.fromkeys(METRIC_KERNELS, 1))
+            require(all(n[k] == want.get(k, 0) for k in
+                        (*ENHANCE_KERNELS, *YCRCB_KERNELS, *METRIC_KERNELS))
+                    and not any(n["eager"].values()),
+                    f"the CLI's {what}: launches and eager calls {n}")
         got = image_io.read_bgr(ext_f["watermark"])
         require(got.shape == (H, W, 3), f"parity extracted shape {got.shape}")
         det_f = json.loads(cli("detect", full, meta_f).stdout)
@@ -2762,11 +2807,11 @@ def phase_files(dev, covers, wm_u8, smooth_np, parity_text_recovered,
               "detect": det, "wrong_password": "refused",
               "parity_color": {"psnr": emb_f["psnr"], "ssim": emb_f["ssim"],
                                "detect": det_f, "enhanced_extract": True,
-                               "enhance_launches": enhanced,
+                               "launches": counts,
                                "wrong_password": "refused"},
               "payload": payload, "video": video_cli,
               "parity_calls_s": t1 - t0})
-    return enhanced
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3028,15 +3073,99 @@ NLM_OPS = 12
 CLAHE_LUT_OPS_PIXEL = 1      # a histogram increment
 CLAHE_LUT_OPS_BIN = 12       # clip, excess, redistribution, scan, LUT
 CLAHE_APPLY_OPS = 11         # 1 - wx, 1 - wy, 6 products, 3 sums
-ENHANCE_KERNELS = ("nlm_planes", "clahe_luts", "clahe_apply")
+# K14 a pixel and channel: each pass's 7 products and 7 sums, then two
+# products, a sum, the round and the clamp
+UNSHARP_OPS = 2 * 7 * 2 + 5
+# K15 a pixel, in the least-work form: x x, y y, x y (3); each pass's 11
+# products and 11 sums for five inputs (2 x 110); the map (18: three
+# products, three differences, num's 2 products and 2 sums and product,
+# den's 3 sums and product and sum, the division); the mean's sum (1)
+SSIM_OPS = 3 + 2 * 110 + 18 + 1
+PSNR_OPS = 3                 # a byte: the difference, its square, the sum
+# the 1080p checks' other shapes: a 4K frame, planes smaller than the
+# blur's pad, a border-heavy one (a view off its 16-byte alignment is
+# the fifth case)
+METRIC_SHAPES = {"4k": (2160, 3840), "3x5": (3, 5), "37x51": (37, 51)}
+ENHANCE_KERNELS = ("nlm_planes", "clahe_luts", "clahe_apply", "unsharp")
+YCRCB_KERNELS = ("bgr_to_ycrcb_planes", "ycrcb_planes_to_bgr")
+METRIC_KERNELS = ("ssim", "psnr")
 # the K10 planes smaller than its 21-pixel window and a border-heavy one
 NLM_BORDER_SHAPES = ((1, 1), (7, 9), (12, 11), (37, 51))
 CLAHE_SMALL_SHAPES = ((1, 37, 51), (3, 40, 52))
 
 
 def enhance_wrappers():
+    """K10's, K11's and K14's wrappers."""
     from dctsvd_tpu_torch.ops import enhance_cuda
     return {name: getattr(enhance_cuda, name) for name in ENHANCE_KERNELS}
+
+
+def ycrcb_wrappers() -> dict:
+    """K17's wrappers."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return {name: getattr(color_cuda, name) for name in YCRCB_KERNELS}
+
+
+def slice_wrappers() -> dict:
+    """The wrappers of this slice's kernels and of the chains' K10 and K11:
+    K10, K11, K14 (enhance_cuda), K15, K16 (metrics_cuda), K17
+    (color_cuda)."""
+    return dict(enhance_wrappers(), **metrics_wrappers(), **ycrcb_wrappers())
+
+
+def eager_form_calls():
+    """:func:`counted_calls` of the eager forms K14-K17 replaced: the
+    shift-and-add blur (the twins' unsharp and the SSIM map call it), the
+    SSIM map, PSNR's twin, the channels-last YCrCb pair."""
+    from dctsvd_tpu_torch.ops import color, metrics_cuda
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    return counted_calls(((e_ops, "gaussian_blur"), (metrics_cuda, "ssim_map"),
+                          (metrics_cuda, "psnr_plain"),
+                          (color, "bgr_to_ycrcb"), (color, "ycrcb_to_bgr")))
+
+
+@contextlib.contextmanager
+def launch_counts():
+    """The launches of :func:`slice_wrappers` in the block, each counter set
+    to 0 at its start and read at its end (after a synchronise), and the
+    calls of the eager forms (:func:`eager_form_calls`): {name: launches,
+    ..., "eager": {name: calls}}, filled when the block ends."""
+    import torch
+    wrappers = slice_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    out = {}
+    with eager_form_calls() as eager:
+        yield out
+    torch.cuda.synchronize()
+    out.update({n: w.launches for n, w in wrappers.items()}, eager=eager)
+
+
+def offset_view(x):
+    """x's values in a view that starts one element past a 16-byte
+    boundary (the kernels' scalar paths)."""
+    import torch
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = flat[1:1 + x.numel()]
+    view.copy_(x.reshape(-1))
+    return view.view(x.shape)
+
+
+def conv_yardstick(planes, sigma: float, ksize: int):
+    """One F.conv2d call that blurs f32 planes [N, C, H, W] as the
+    separable Gaussian does (the outer product of the taps, groups C) on
+    their reflect-padded copy, made beforehand: K14's and K15's library
+    yardstick (TF32 off), used nowhere in the port. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+    from dctsvd_tpu_torch.ops.enhance import _gauss1d
+    c, r = planes.shape[1], ksize // 2
+    k = torch.as_tensor(_gauss1d(ksize, sigma), dtype=torch.float32,
+                        device=planes.device)
+    weight = torch.outer(k, k).expand(c, 1, ksize, ksize).contiguous()
+    padded = F.pad(planes, (r, r, r, r), mode="reflect")
+    return lambda: F.conv2d(padded, weight, groups=c)
 
 
 def eager_box_filter(x, r: int):
@@ -3136,18 +3265,25 @@ def eager_clahe(img_u8, tiles: int = 8, clip_limit: float = 2.0):
 
 @contextlib.contextmanager
 def eager_enhance():
-    """The eager NLM and CLAHE in the kernels' places (the chain as it ran
-    before K10 and K11; the color chain's CLAHE keeps K6 and K7)."""
+    """The eager NLM, CLAHE, unsharp and YCrCb pair in the kernels' places
+    (the chain as it ran before K10, K11, K14 and K17; the color chain's
+    CLAHE keeps K6 and K7)."""
+    from dctsvd_tpu_torch.ops import color_cuda, enhance_cuda
     from dctsvd_tpu_torch.ops import enhance as e_ops
-    from dctsvd_tpu_torch.ops import enhance_cuda
-    saved = enhance_cuda.nlm_planes, e_ops.clahe_u8
+    saved = (enhance_cuda.nlm_planes, e_ops.clahe_u8, enhance_cuda.unsharp,
+             color_cuda.bgr_to_ycrcb_planes, color_cuda.ycrcb_planes_to_bgr)
     enhance_cuda.nlm_planes = lambda planes, h2, t=7, s=21: eager_nlm(
         planes, h2, t, s)
     e_ops.clahe_u8 = eager_clahe
+    enhance_cuda.unsharp = enhance_cuda.unsharp_plain
+    color_cuda.bgr_to_ycrcb_planes = color_cuda.bgr_to_ycrcb_planes_plain
+    color_cuda.ycrcb_planes_to_bgr = color_cuda.ycrcb_planes_to_bgr_plain
     try:
         yield
     finally:
-        enhance_cuda.nlm_planes, e_ops.clahe_u8 = saved
+        (enhance_cuda.nlm_planes, e_ops.clahe_u8, enhance_cuda.unsharp,
+         color_cuda.bgr_to_ycrcb_planes,
+         color_cuda.ycrcb_planes_to_bgr) = saved
 
 
 def nlm_bound(planes) -> dict:
@@ -3206,12 +3342,7 @@ def enhance_rows(dev, gray, frames) -> dict:
         return torch.round(torch.nn.functional.avg_pool2d(
             x[None], 3, 1, 1, count_include_pad=False)[0]).to(torch.uint8)
 
-    def equal(name, case, got, ref):
-        d = float((got.to(torch.float32) - ref.to(torch.float32)).abs()
-                  .max()) if got.numel() else 0.0
-        require(torch.equal(got, ref), f"{name} on {case} "
-                f"{list(got.shape)}: not bit-equal to its twin ({d})")
-        return dict(shape=list(got.shape), max_abs_err=d, equals_twin=True)
+    equal = held_equal
 
     g_planes = gray.reshape(1, *gray.shape[-2:]).contiguous()
     ycc = torch.movedim(color.bgr_to_ycrcb(frames), -1, -3)
@@ -3251,6 +3382,7 @@ def enhance_rows(dev, gray, frames) -> dict:
         checks_l[case] = equal("clahe_luts", case, ec.clahe_luts(x), ref)
         checks_a[case] = equal("clahe_apply", case, ec.clahe_apply(x, ref),
                                e_ops.clahe_apply_plain(x, ref))
+    rows.update(k14_k17_rows(dev, gray, frames, smooth, equal))
     luts = ec.clahe_luts(g_planes)
     eager_ms = cuda_time(lambda: eager_clahe(g_planes), 5)
     for name, checks, kern, plain, lut in (
@@ -3267,11 +3399,85 @@ def enhance_rows(dev, gray, frames) -> dict:
     return rows
 
 
+def ycrcb_pair(frames):
+    """The color NLM's conversions around K10 on BGR frames: K17's pair
+    (planar YCrCb and back)."""
+    from dctsvd_tpu_torch.ops import color
+    return color.ycrcb_planes_to_bgr(color.bgr_to_ycrcb_planes(frames))
+
+
+def k14_k17_rows(dev, gray, frames, smooth, equal) -> dict:
+    """K14 on the 1080p gray plane (the gray chain's weights) and on the
+    BGR frame channels-last (the color chain's), K17 on the frame both
+    ways, each against its twin run on the card (``equal``: torch.equal)
+    there, on a 4K plane or frame, planes smaller than the blur's pad, a
+    border-heavy one and a view off its 16-byte alignment; then each
+    timed (and its device time alone, from torch.profiler) beside its
+    twin (which is the eager form it replaced), its
+    bound and, for K14, one F.conv2d of the same blur
+    (:func:`conv_yardstick`)."""
+    import torch
+    from dctsvd_tpu_torch.ops import color, color_cuda
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda as ec
+
+    big = torch.randint(0, 256, (*METRIC_SHAPES["4k"], 3), device=dev,
+                        dtype=torch.uint8,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            20261027))
+    rows = {}
+    for name, x, cl, aw in (("unsharp", gray, False, (1.25, -0.25)),
+                            ("unsharp_color", frames, True, (1.15, -0.15))):
+        cases = {"1080p": x, "4k": big if cl else big[..., 0].contiguous(),
+                 **{k: smooth((*shp, 3) if cl else shp)
+                    for k, shp in METRIC_SHAPES.items() if k != "4k"},
+                 "offset": offset_view(x)}
+        checks = {case: equal(name, case, ec.unsharp(xi, *aw, 1.0, cl),
+                              e_ops.unsharp_plain(xi, *aw, 1.0, cl))
+                  for case, xi in cases.items()}
+        h, w = x.shape[-3:-1] if cl else x.shape[-2:]
+        planes = (torch.movedim(x.reshape(-1, h, w, 3), -1, -3) if cl
+                  else x.reshape(-1, 1, h, w)).to(torch.float32)
+        plain_ms = cuda_time(lambda: e_ops.unsharp_plain(x, *aw, 1.0, cl), 5)
+        rows[name] = dict(
+            shape=list(x.shape), checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+            ms=cuda_time(lambda: ec.unsharp(x, *aw, 1.0, cl), 20),
+            device_ms=device_ms(lambda: ec.unsharp(x, *aw, 1.0, cl), 20,
+                                "unsharp_kernel"),
+            plain_ms=plain_ms, eager_ms=plain_ms,
+            library_ms=cuda_time(conv_yardstick(planes, 1.0, 7), 20),
+            **bound(x.numel(), UNSHARP_OPS, 2 * x.numel()))
+    planes_c = color_cuda.bgr_to_ycrcb_planes(frames)
+    for name, x, inverse in (("bgr_to_ycrcb_planes", frames, False),
+                             ("ycrcb_planes_to_bgr", planes_c, True)):
+        kern = getattr(color_cuda, name)
+        twin = getattr(color, f"{name}_plain")
+        cases = {"1080p": x}
+        for k, shp in (("4k", METRIC_SHAPES["4k"]),
+                       *((k, v) for k, v in METRIC_SHAPES.items()
+                         if k != "4k")):
+            bgr = big if k == "4k" else smooth((*shp, 3))
+            cases[k] = color_cuda.bgr_to_ycrcb_planes(bgr) if inverse \
+                else bgr
+        cases["offset"] = offset_view(x)
+        checks = {case: equal(name, case, kern(xi), twin(xi))
+                  for case, xi in cases.items()}
+        plain_ms = cuda_time(lambda: twin(x).contiguous(), 5)
+        rows[name] = dict(
+            shape=list(x.shape), checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+            ms=cuda_time(lambda: kern(x), 20),
+            device_ms=device_ms(lambda: kern(x), 20,
+                                "ycrcb_bgr" if inverse else "ycrcb_planes"),
+            plain_ms=plain_ms, eager_ms=plain_ms, library_ms=None,
+            **bound(x.numel(), 0, 2 * x.numel()))
+    return rows
+
+
 def enhance_stages(gray, frames) -> dict:
     """{name: call} of each enhancement stage and chain on a u8 gray plane
-    and a u8 BGR frame, through the package's public functions (in any
-    tree, so an older one's too)."""
-    import torch
+    and a u8 BGR frame, through the package's public functions."""
     from dctsvd_tpu_torch.models import enhance
     from dctsvd_tpu_torch.ops import color
     from dctsvd_tpu_torch.ops import enhance as e_ops
@@ -3283,18 +3489,21 @@ def enhance_stages(gray, frames) -> dict:
         "chain_gray": lambda: enhance.enhance_gray_u8(gray),
         "nlm_color": lambda: e_ops.nlm_color_u8(frames, 3.0, 3.0),
         "clahe_luma": lambda: e_ops.clahe_u8(ycc),
-        "unsharp_color": lambda: e_ops.unsharp_u8(
-            torch.movedim(frames, -1, -3), 1.15, -0.15),
+        "unsharp_color": lambda: e_ops.unsharp_u8(frames, 1.15, -0.15,
+                                                  channels_last=True),
+        "ycrcb_pair": lambda: ycrcb_pair(frames),
         "chain_color": lambda: enhance.enhance_color_u8(frames),
     }
 
 
 def phase_enhance(dev, extracted):
     """The enhancement chains on the 1080p extracted watermarks, with any
-    degradation warning an error: K10's and K11's counters set to 0 just
-    before each chain and read just after (each launches each kernel
-    once); each stage's time, and each chain's with the eager NLM
-    and CLAHE in the kernels' places; K10 and K11 against their twins
+    degradation warning an error: K10's, K11's, K14's and K17's counters
+    set to 0 just before each chain and read just after (each launches
+    K10, both K11 kernels and K14 once, the color chain K17 once each way,
+    neither the eager blur nor the channels-last YCrCb pair); each stage's
+    time, and each chain's with the eager NLM, CLAHE, unsharp and YCrCb
+    pair in the kernels' places; K10, K11, K14 and K17 against their twins
     (:func:`enhance_rows`); and every stage on the card against the CPU
     on a small plane (unsharp and CLAHE within 1 quantum, NLM within 1 on
     >= 99 % of pixels, the chains' mean |Δ| < 0.5). Returns (the kernel
@@ -3314,16 +3523,16 @@ def phase_enhance(dev, extracted):
         for chain, fn, x in (("chain_gray", enhance.enhance_gray_u8, gray),
                              ("chain_color", enhance.enhance_color_u8,
                               frames)):
-            torch.cuda.synchronize()
-            for w in enhance_wrappers().values():
-                w.launches = 0
-            outs[chain] = fn(x)
-            torch.cuda.synchronize()
-            launches[chain] = {n: w.launches
-                               for n, w in enhance_wrappers().items()}
-        require(all(n == dict.fromkeys(ENHANCE_KERNELS, 1)
-                    for n in launches.values()),
-                f"the chains' K10 and K11 launches {launches}")
+            with launch_counts() as launches[chain]:
+                outs[chain] = fn(x)
+        for chain, n in launches.items():
+            ycc = int(chain == "chain_color")
+            require(all(n[k] == 1 for k in ENHANCE_KERNELS)
+                    and all(n[k] == ycc for k in YCRCB_KERNELS)
+                    and not any(n["eager"].values())
+                    and not any(n[k] for k in METRIC_KERNELS),
+                    f"{chain}: K10's, K11's, K14's and K17's launches and "
+                    f"the eager forms' calls {n}")
         out_g, out_c = outs["chain_gray"], outs["chain_color"]
         ms = {name: cuda_time(fn, 2) for name, fn in stages.items()}
         with eager_enhance():
@@ -3337,8 +3546,9 @@ def phase_enhance(dev, extracted):
                 "chain_color": differ(out_c, eager_c)}
     rows = enhance_rows(dev, gray, frames)
     for name, row in rows.items():
-        emit({"phase": "kernel_vs_plain",
-              "kernel": f"{'K10' if 'nlm' in name else 'K11'} {name}",
+        kern = ("K10" if "nlm" in name else "K14" if "unsharp" in name
+                else "K17" if "ycrcb" in name else "K11")
+        emit({"phase": "kernel_vs_plain", "kernel": f"{kern} {name}",
               **row})
 
     rng = np.random.default_rng(13)
@@ -3383,19 +3593,17 @@ def phase_enhance(dev, extracted):
 def enhance_times(dev) -> dict:
     """The enhancement stages' and chains' ms (CUDA events, a warm-up and 3
     calls) on a seeded 1080p watermark, gray and color, through this
-    tree's package, with K10's and K11's launches in one chain each where
-    the tree has them, and K10 and K9 alone (:func:`kernel_times`): run
-    in a parent tree and this one in turns."""
+    tree's package (the stages: NLM, CLAHE, unsharp, the color NLM's YCrCb
+    pair), with K10's, K11's, K14's and K17's launches in one chain each,
+    and K10 and K9 alone (:func:`kernel_times`): run in an older tree that
+    has them and this one in turns."""
     import torch
     from dctsvd_tpu_torch.ops import color
 
     frames = torch.as_tensor(smooth_frame(20261019), device=dev)
     stages = enhance_stages(color.bgr_to_gray(frames), frames)
     ms = {name: cuda_time(fn, 3) for name, fn in stages.items()}
-    try:
-        wrappers = enhance_wrappers()
-    except ImportError:
-        wrappers = {}
+    wrappers = slice_wrappers()
     launches = {}
     for chain in ("chain_gray", "chain_color"):
         torch.cuda.synchronize()
@@ -3408,6 +3616,260 @@ def enhance_times(dev) -> dict:
                 outputs={name: list(stages[name]().shape)
                          for name in ("chain_gray", "chain_color")},
                 kernels=kernel_times(dev, frames))
+
+
+# ---------------------------------------------------------------------------
+# K14-K17: the embed metrics (SSIM, PSNR), unsharp and the color NLM's
+# YCrCb pair
+# ---------------------------------------------------------------------------
+
+def eager_ssim(img1, img2):
+    """The eager SSIM K15 replaced (ops/metrics.py::ssim at commit effe12c):
+    the twin's map of five shift-and-add blurs, then torch.mean."""
+    import torch
+    from dctsvd_tpu_torch.ops.metrics_cuda import ssim_map
+    return torch.mean(ssim_map(img1, img2), dim=(-2, -1))
+
+
+def eager_psnr(a, b, image_ndim=None):
+    """The eager PSNR K16 replaced (ops/metrics.py::psnr at commit effe12c):
+    the f32 mean of squared differences an image."""
+    import torch
+    from dctsvd_tpu_torch.ops.metrics_cuda import psnr_of_mse
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    if image_ndim is None:
+        image_ndim = 3 if (a.ndim >= 3 and a.shape[-1] <= 4) else 2
+    dims = tuple(range(a.ndim - min(image_ndim, a.ndim), a.ndim))
+    return psnr_of_mse(torch.mean((a - b) ** 2, dim=dims))
+
+
+@contextlib.contextmanager
+def eager_metrics():
+    """The eager PSNR and SSIM in the kernels' places (every caller reads
+    them from ops/metrics.py at each call)."""
+    from dctsvd_tpu_torch.ops import metrics
+    saved = metrics.psnr, metrics.ssim
+    metrics.psnr, metrics.ssim = eager_psnr, eager_ssim
+    try:
+        yield
+    finally:
+        metrics.psnr, metrics.ssim = saved
+
+
+def metrics_wrappers() -> dict:
+    """K15's and K16's wrappers."""
+    from dctsvd_tpu_torch.ops import metrics_cuda
+    return {"ssim": metrics_cuda.ssim, "psnr": metrics_cuda.psnr}
+
+
+def metrics_inputs(covers, wm_u8, blk, intra) -> dict:
+    """The embed metrics' inputs on the batch of frames: the prepared gray
+    and color watermarks (``pwg``, ``pwc``), the color embed's stego
+    (``stego_c``), the gray embed's marked Y planes (``y_marked``, f32,
+    unclipped: its SSIM's second input), the covers' and the color stego's
+    u8 gray planes (``gray``, ``gray_s``)."""
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color
+    pwg = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
+    pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
+    stego_c = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
+                                           with_metrics=False)[0]
+    y_marked = blocked._embed_planes(color.luma_f32(covers), pwg.sw, ALPHA,
+                                     blocked.K_FRAC_DEFAULT)[0]
+    return dict(pwg=pwg, pwc=pwc, stego_c=stego_c, y_marked=y_marked,
+                gray=color.bgr_to_gray(covers),
+                gray_s=color.bgr_to_gray(stego_c))
+
+
+def held_equal(name, case, got, ref) -> dict:
+    """A kernel's output against its twin's on the card: torch.equal, or
+    the run fails."""
+    import torch
+    d = float((got.to(torch.float64) - ref.to(torch.float64)).abs()
+              .max()) if got.numel() else 0.0
+    require(torch.equal(got, ref), f"{name} on {case} {list(got.shape)}: "
+            f"not bit-equal to its twin ({d})")
+    return dict(shape=list(got.shape), max_abs_err=d, equals_twin=True)
+
+
+def metric_rows(dev, covers, inp) -> dict:
+    """K15 on the gray embed's pair (the covers' u8 gray planes, the marked
+    f32 Y: ``ssim``) and on the color embed's (u8, u8: ``ssim_u8``), K16 on
+    the covers and the color stego (``psnr``), at the batch of 32 1080p
+    frames: each torch.equal to its twin run on the card there, on a 4K
+    plane or frame pair, 3x5 and 37x51 ones and a view off its 16-byte
+    alignment; timed (CUDA events; the kernels' device time alone from
+    torch.profiler) beside the twin, the eager form it
+    replaced (:func:`eager_ssim`, :func:`eager_psnr`), its bound (K15 also
+    its issue bound at the SM clock read while it runs) and, for K15, one
+    F.conv2d of its five blurs on their reflect-padded stack
+    (:func:`conv_yardstick`; psnr has no one PyTorch call)."""
+    import torch
+    from dctsvd_tpu_torch.ops import metrics_cuda as mc
+
+    gen = torch.Generator(device=dev).manual_seed(20261028)
+
+    def pair(shape, f32: bool):
+        x = torch.randint(0, 256, shape, generator=gen, device=dev,
+                          dtype=torch.uint8)
+        y = x + 4 * torch.randn(shape, generator=gen, device=dev)
+        return x, (y if f32 else y.round().clamp(0, 255).to(torch.uint8))
+
+    rows = {}
+    for name, x, y in (("ssim", inp["gray"], inp["y_marked"]),
+                       ("ssim_u8", inp["gray"], inp["gray_s"])):
+        f32 = y.dtype == torch.float32
+        cases = {"1080p": (x, y),
+                 **{k: pair((1, *shp), f32)
+                    for k, shp in METRIC_SHAPES.items()},
+                 "offset": (offset_view(x[:2]), offset_view(y[:2]))}
+        checks = {case: held_equal(name, case, mc.ssim(*xy),
+                                   mc.ssim_plain(*xy))
+                  for case, xy in cases.items()}
+        ms, clocks = clocked_ms(lambda: mc.ssim(x, y), 10)
+        xf, yf = x.to(torch.float32), y.to(torch.float32)
+        stack = torch.stack([xf, yf, xf * xf, yf * yf, xf * yf], 1)
+        del xf, yf
+        rows[name] = dict(
+            shape=list(x.shape), dtypes=[str(x.dtype), str(y.dtype)],
+            checks=checks,
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+            ms=ms, device_ms=device_ms(lambda: mc.ssim(x, y), 5, "ssim_"),
+            plain_ms=cuda_time(lambda: mc.ssim_plain(x, y), 2),
+            eager_ms=cuda_time(lambda: eager_ssim(x, y), 2),
+            library_ms=cuda_time(conv_yardstick(stack, 1.5, 11), 3),
+            **bound(x.numel(), SSIM_OPS, nbytes(x, y) + 4 * x.shape[0]),
+            issue_bound_ms=insn_bound_ms(SSIM_OPS * x.numel(),
+                                         clocks["sm_mhz"]),
+            issue_clocks=clocks)
+        del stack
+    a, b = covers, inp["stego_c"]
+    cases = {"1080p": (a, b),
+             **{k: pair((1, *shp, 3), False)
+                for k, shp in METRIC_SHAPES.items()},
+             "offset": (offset_view(a[:2]), offset_view(b[:2]))}
+    checks = {case: held_equal("psnr", case, mc.psnr(*ab), mc.psnr_plain(*ab))
+              for case, ab in cases.items()}
+    rows["psnr"] = dict(
+        shape=list(a.shape), checks=checks,
+        max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        ms=cuda_time(lambda: mc.psnr(a, b), 20),
+        device_ms=device_ms(lambda: mc.psnr(a, b), 20, "sq_diff"),
+        plain_ms=cuda_time(lambda: mc.psnr_plain(a, b), 3),
+        eager_ms=cuda_time(lambda: eager_psnr(a, b), 3), library_ms=None,
+        **bound(a.numel(), PSNR_OPS, 2 * a.numel() + 4 * a.shape[0]))
+    return rows
+
+
+def phase_metrics(dev, covers, wm_u8, blk, intra):
+    """The slice's embeds with metrics on the batch of 32 1080p frames,
+    gray and color: each launches K15 and K16 once and no eager form
+    (:func:`launch_counts`), its PSNR and SSIM equal to the twins' run on
+    the card, PSNR > 20 dB, SSIM in (0, 1]; K15 and K16 against their
+    twins (:func:`metric_rows`; the embeds' times are ``--metrics-times``'s).
+    Returns (the kernel rows, the embeds' launches)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import metrics_cuda as mc
+
+    inp = metrics_inputs(covers, wm_u8, blk, intra)
+    launches, values = {}, {}
+    for scheme, embed, pw, second in (
+            ("gray", blocked.embed_gray_prepared, inp["pwg"],
+             inp["y_marked"]),
+            ("color", blocked.embed_color_prepared, inp["pwc"],
+             inp["gray_s"])):
+        with launch_counts() as n:
+            stego, _, ps, ss = embed(covers, pw.sw, ALPHA)
+        launches[scheme] = n
+        require(all(n[k] == 1 for k in METRIC_KERNELS)
+                and not any(n["eager"].values())
+                and not any(n[k] for k in (*ENHANCE_KERNELS,
+                                           *YCRCB_KERNELS)),
+                f"embed_{scheme}_prepared: K15's and K16's launches and "
+                f"the eager forms' calls {n}")
+        require(torch.equal(ps, mc.psnr_plain(covers, stego))
+                and torch.equal(ss, mc.ssim_plain(inp["gray"], second)),
+                f"embed_{scheme}_prepared: its metrics differ from the "
+                f"twins' run on the card")
+        require(bool(torch.isfinite(ps).all()) and float(ps.min()) > 20.0
+                and float(ss.min()) > 0.0 and float(ss.max()) <= 1.0,
+                f"embed_{scheme}_prepared: psnr {ps.tolist()} ssim "
+                f"{ss.tolist()}")
+        values[scheme] = dict(psnr_min=float(ps.min()),
+                              ssim_min=float(ss.min()))
+    rows = metric_rows(dev, covers, inp)
+    for name, row in rows.items():
+        emit({"phase": "kernel_vs_plain",
+              "kernel": f"{'K16' if name == 'psnr' else 'K15'} {name}",
+              **row})
+    emit({"phase": "metrics_1080p", "batch": BATCH, "launches": launches,
+          "values": values, "card": smi_line()})
+    return rows, launches
+
+
+def metrics_times(dev, covers, wm_u8, blk, intra) -> dict:
+    """SSIM, PSNR and the embed with and without its metrics on the batch
+    of 32 1080p frames, gray and color, through this tree's package, each
+    beside the eager form (:func:`eager_ssim`, :func:`eager_psnr`; the
+    embeds under :func:`eager_metrics`) in turns: kernel, eager, eager,
+    kernel (CUDA events, a warm-up and 3 calls a reading). The gray SSIM
+    takes the gray embed's own pair (the covers' u8 gray planes and the
+    marked f32 Y planes), the color SSIM the gray planes of cover and
+    stego (u8, u8), PSNR the BGR frames. With each pair's values beside
+    the eager form's, and K15's and K16's launches in one embed with
+    metrics where the tree has them."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import metrics
+
+    inp = metrics_inputs(covers, wm_u8, blk, intra)
+    pwg, pwc, stego_c = inp["pwg"], inp["pwc"], inp["stego_c"]
+    gray, gray_s, y_marked = inp["gray"], inp["gray_s"], inp["y_marked"]
+    pairs = {
+        "ssim_gray": (lambda: metrics.ssim(gray, y_marked),
+                      lambda: eager_ssim(gray, y_marked)),
+        "ssim_color": (lambda: metrics.ssim(gray, gray_s),
+                       lambda: eager_ssim(gray, gray_s)),
+        "psnr_color": (lambda: metrics.psnr(covers, stego_c),
+                       lambda: eager_psnr(covers, stego_c)),
+    }
+    for scheme, embed, pw in (("gray", blocked.embed_gray_prepared, pwg),
+                              ("color", blocked.embed_color_prepared, pwc)):
+        def with_metrics(embed=embed, pw=pw):
+            return embed(covers, pw.sw, ALPHA)
+
+        def eager_with_metrics(embed=embed, pw=pw):
+            with eager_metrics():
+                return embed(covers, pw.sw, ALPHA)
+
+        pairs[f"embed_{scheme}_metrics"] = (with_metrics, eager_with_metrics)
+        pairs[f"embed_{scheme}"] = (
+            lambda embed=embed, pw=pw: embed(covers, pw.sw, ALPHA,
+                                             with_metrics=False),) * 2
+    ms, values = {}, {}
+    for name, (fn, eager) in pairs.items():
+        ms[name] = [cuda_time(fn, 3), cuda_time(eager, 3),
+                    cuda_time(eager, 3), cuda_time(fn, 3)]
+        if not name.startswith("embed"):
+            got, ref = fn(), eager()
+            values[name] = dict(min=float(got.min()), max=float(got.max()),
+                                vs_eager=float((got.to(torch.float64)
+                                                - ref.to(torch.float64))
+                                               .abs().max()))
+    launches = {}
+    for scheme, embed, pw in (("gray", blocked.embed_gray_prepared, pwg),
+                              ("color", blocked.embed_color_prepared, pwc)):
+        torch.cuda.synchronize()
+        for w in metrics_wrappers().values():
+            w.launches = 0
+        embed(covers, pw.sw, ALPHA)
+        torch.cuda.synchronize()
+        launches[scheme] = {n: w.launches
+                            for n, w in metrics_wrappers().items()}
+    return dict(tree=REPO, batch=int(covers.shape[0]), ms=ms, values=values,
+                launches=launches)
 
 
 # the SASS opcodes of nlm_weight_kernel that are not the weight: the
@@ -5220,7 +5682,8 @@ def phase_parallel(dev, covers, wm_u8, blk, intra):
     and its plain twin on the same inputs: bit-equal.
     Then batch_detect_full on four σ3-blurred frames, against the
     per-image parity detect, with the batched SVD's difference beside
-    it. Returns the launches on the meshes."""
+    it. batch_embed_blocked's metrics launch K15 and K16 and no eager
+    form. Returns the launches on the meshes."""
     import torch
     from dctsvd_tpu_torch.models import blocked, image
     from dctsvd_tpu_torch.ops import color, dct, svd
@@ -5270,8 +5733,14 @@ def phase_parallel(dev, covers, wm_u8, blk, intra):
               "frame_shards": pmesh.make_mesh(devices=[dev] * BATCH)}
     require(meshes["one_card"].devices == (dev,), "one-card mesh")
     rows, launches = {}, {n: 0 for n in parallel_wrappers()}
-    with recorded_calls() as path_calls:
+    with recorded_calls() as path_calls, launch_counts() as metric_calls:
         parallel_meshes(calls, ref, meshes, rows, launches, st, sc, sharded)
+    # batch_embed_blocked's embeds with metrics: K15 and K16, no eager form
+    require(all(metric_calls[k] >= 1 for k in METRIC_KERNELS)
+            and not any(metric_calls["eager"].values()),
+            f"parallel: K15's and K16's launches and the eager forms' calls "
+            f"{metric_calls}")
+    launches.update({k: metric_calls[k] for k in METRIC_KERNELS})
     twin_rows = recorded_vs_twin(path_calls)
     own = ref["serve"][3]
     require(float(own.min()) > 0.8, f"own serve score {float(own.min())}")
@@ -5397,8 +5866,9 @@ def phase_plane(dev):
 def phase_gui(dev, td: str, cover_np, wm_np):
     """The GUI's handlers on a 1080p PNG on the card, blocked and parity:
     embed (its nonce seeded, so that the stego, whose SHA-256 it prints,
-    and its PSNR and SSIM are the same in every run), detect (scored above
-    the meta's threshold) and extract."""
+    and its PSNR and SSIM are the same in every run; its metrics through
+    K15 and K16, once each, no eager form), detect (scored above the
+    meta's threshold) and extract. Returns K15's and K16's launches."""
     import cv2
     from dctsvd_tpu_torch import gui
     from dctsvd_tpu_torch.utils.config import (DETECT_THRESH_BLOCKED,
@@ -5406,16 +5876,21 @@ def phase_gui(dev, td: str, cover_np, wm_np):
     cp, wp = os.path.join(td, "gui_host.png"), os.path.join(td, "gui_wm.png")
     cv2.imwrite(cp, cover_np)
     cv2.imwrite(wp, wm_np)
-    rows = {}
+    rows, launches = {}, {}
     nonce = seeded_nonces(1)[0]
     for method, blocked_ in (("blocked", True), ("parity", False)):
         out = os.path.join(td, f"gui_{method}.png")
         meta = os.path.join(td, f"gui_{method}_meta.npz")
         t0 = time.perf_counter()
-        with pinned_nonce(nonce):
+        with pinned_nonce(nonce), launch_counts() as n:
             e = gui.handle_embed(cp, wp, out, PASSWORD, ALPHA, False,
                                  blocked_, device=dev)
         t1 = time.perf_counter()
+        require(all(n[k] == 1 for k in METRIC_KERNELS)
+                and not any(n["eager"].values()),
+                f"gui {method} embed: K15's and K16's launches and the "
+                f"eager forms' calls {n}")
+        launches[method] = n
         d = gui.handle_detect(out, meta, device=dev)
         t2 = time.perf_counter()
         x = gui.handle_extract(out, meta, os.path.join(td, f"gui_{method}_"
@@ -5437,7 +5912,8 @@ def phase_gui(dev, td: str, cover_np, wm_np):
                             embed_message=e.message.splitlines()[-1],
                             stego_sha256=digest)
     emit({"phase": "gui_handlers", "shape": list(cover_np.shape), **rows,
-          "card": smi_line()})
+          "launches": launches, "card": smi_line()})
+    return {k: sum(n[k] for n in launches.values()) for k in METRIC_KERNELS}
 
 
 def phase_graft(dev):
@@ -5668,6 +6144,11 @@ def main(argv) -> int:
         emit({"phase": "enhance_times", **enhance_times(dev),
               "nvcc_seconds": kernels.BUILD_INFO["seconds"], "card": card})
         return 0
+    if argv == ["--metrics-times"]:
+        emit({"phase": "metrics_times",
+              **metrics_times(dev, covers, wm_u8, blk, intra),
+              "nvcc_seconds": kernels.BUILD_INFO["seconds"], "card": card})
+        return 0
     if argv == ["--copy-times"]:
         emit({"phase": "copy_times",
               "nvcc_seconds": kernels.BUILD_INFO["seconds"],
@@ -5722,6 +6203,9 @@ def main(argv) -> int:
     results.update(detect_results)
     color_results, color_slice = phase_color(dev, covers, wm_u8, blk, intra)
     results.update(color_results)
+    metric_results, metric_launches = phase_metrics(dev, covers, wm_u8, blk,
+                                                    intra)
+    results.update(metric_results)
     phase_reference(dev)
     smooth = smooth_frame(20261017)
     wm_np = wm_u8[::8, ::8].cpu().numpy()          # a 135x240 watermark
@@ -5738,7 +6222,7 @@ def main(argv) -> int:
     par_launches = phase_parallel(dev, covers, wm_u8, blk, intra)
     plane_launches = phase_plane(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as gtd:
-        phase_gui(dev, gtd, smooth, wm_np)
+        gui_launches = phase_gui(dev, gtd, smooth, wm_np)
     phase_graft(dev)
     bench_launches = phase_bench(dev)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as vtd:
@@ -5749,7 +6233,7 @@ def main(argv) -> int:
         phase_video_resume(dev, vtd, clip, wm_png)
         phase_video_audio(dev, vtd, clip, wm_png)
         phase_video_reference(dev, vtd)
-        cli_enhance = phase_files(dev, covers, wm_u8, smooth,
+        cli_counts = phase_files(dev, covers, wm_u8, smooth,
                                   parity_text_recovered, clip, wm_png)
     probe_launches, probe_results, t3, clocks = phase_probes(dev, covers)
     launches.update(probe_launches)
@@ -5831,6 +6315,20 @@ def main(argv) -> int:
                      "dctsvd_tpu/models/blocked.py:1310"),
         "derotate_gray": ("dctsvd_tpu_torch/csrc/resync.cu",
                           "dctsvd_tpu/models/blocked.py:1310"),
+        "unsharp": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                    "dctsvd_tpu/ops/enhance.py:76"),
+        "unsharp_color": ("dctsvd_tpu_torch/csrc/enhance.cu",
+                          "dctsvd_tpu/ops/enhance.py:76"),
+        "ssim": ("dctsvd_tpu_torch/csrc/metrics.cu",
+                 "dctsvd_tpu/ops/metrics.py:52"),
+        "ssim_u8": ("dctsvd_tpu_torch/csrc/metrics.cu",
+                    "dctsvd_tpu/ops/metrics.py:52"),
+        "psnr": ("dctsvd_tpu_torch/csrc/metrics.cu",
+                 "dctsvd_tpu/ops/metrics.py:23"),
+        "bgr_to_ycrcb_planes": ("dctsvd_tpu_torch/csrc/color.cu",
+                                "dctsvd_tpu/ops/color.py:31"),
+        "ycrcb_planes_to_bgr": ("dctsvd_tpu_torch/csrc/color.cu",
+                                "dctsvd_tpu/ops/color.py:42"),
     }
     # launches of K1, K2 and K4 on each path that drives them: the slice's,
     # the blocked payloads', the video runs', (K1) each resync search's;
@@ -5922,6 +6420,7 @@ def main(argv) -> int:
     paths["nlm_planes"] = {
         "enhance": enhance_launches["chain_gray"]["nlm_planes"],
         "bench": bench_launches["nlm_planes"]}
+    cli_enhance = cli_counts["extract_enhanced"]
     paths["nlm_planes_color"] = {
         "enhance": enhance_launches["chain_color"]["nlm_planes"],
         "cli_files": cli_enhance["nlm_planes"]}
@@ -5930,8 +6429,36 @@ def main(argv) -> int:
                                       enhance_launches.values()),
                        "cli_files": cli_enhance[name],
                        "bench": bench_launches[name]}
+    # K14 (one counter; the gray row's: the gray chain and the bench's
+    # robustness extracts, the color row's: the color chain and the CLI's
+    # enhanced color extract) and K17 (the color chain and that extract)
+    paths["unsharp"] = {
+        "enhance": enhance_launches["chain_gray"]["unsharp"],
+        "bench": bench_launches["unsharp"]}
+    paths["unsharp_color"] = {
+        "enhance": enhance_launches["chain_color"]["unsharp"],
+        "cli_files": cli_enhance["unsharp"]}
+    for name in YCRCB_KERNELS:
+        paths[name] = {"enhance": enhance_launches["chain_color"][name],
+                       "cli_files": cli_enhance[name]}
+    # K15 (the gray row's: the (u8, f32) pairs of the gray embeds, the
+    # slice's, batch_embed_blocked's and the GUI's; the u8 row's: the color
+    # embeds', the slice's and the CLI's) and K16 (every one of them)
+    cli_embeds = {k: cli_counts["embed_blocked"][k]
+                  + cli_counts["embed_parity"][k] for k in METRIC_KERNELS}
+    paths["ssim"] = {"metrics": metric_launches["gray"]["ssim"],
+                     "parallel": par_launches["ssim"],
+                     "gui": gui_launches["ssim"]}
+    paths["ssim_u8"] = {"metrics": metric_launches["color"]["ssim"],
+                        "cli_files": cli_embeds["ssim"]}
+    paths["psnr"] = {"metrics": sum(n["psnr"]
+                                    for n in metric_launches.values()),
+                     "parallel": par_launches["psnr"],
+                     "gui": gui_launches["psnr"],
+                     "cli_files": cli_embeds["psnr"]}
     for name in ("nlm_planes", "nlm_planes_color", "clahe_luts",
-                 "clahe_apply"):
+                 "clahe_apply", "unsharp", "unsharp_color", *YCRCB_KERNELS,
+                 "ssim", "ssim_u8", "psnr"):
         idle = [p for p, n in paths[name].items() if n == 0]
         require(not idle, f"{name} was not launched on the paths {idle}")
         launches[name] = sum(paths[name].values())

@@ -1,14 +1,15 @@
-// K10 and K11: the extraction enhancement chain's non-local means and CLAHE
-// on the card.
+// K10, K11 and K14: the extraction enhancement chain's non-local means,
+// CLAHE and unsharp mask on the card.
 //
-// They replace no pl.pallas_call: in the JAX package both are XLA graphs,
-// nlm_gray_u8 (dctsvd_tpu/ops/enhance.py:189, one jitted lax.scan over the
-// 441 offsets of the search window), nlm_color_u8 (:234, three such planes
-// of YCrCb) and clahe_u8 (:92). The port ran them as eager op chains (about
-// 7,000 launches a plane for NLM). Plain twins: dctsvd_tpu_torch/ops/
-// enhance.py::nlm_planes_plain, clahe_luts_plain and clahe_apply_plain,
-// which follow this file's order of operations step for step; the wrappers
-// are dctsvd_tpu_torch/ops/enhance_cuda.py.
+// They replace no pl.pallas_call: in the JAX package all three are XLA
+// graphs, nlm_gray_u8 (dctsvd_tpu/ops/enhance.py:189, one jitted lax.scan
+// over the 441 offsets of the search window), nlm_color_u8 (:234, three
+// such planes of YCrCb), clahe_u8 (:92) and unsharp_u8 (:76, over
+// gaussian_blur :45). The port ran them as eager op chains (about 7,000
+// launches a plane for NLM, 30 for unsharp). Plain twins: dctsvd_tpu_torch/
+// ops/enhance.py::nlm_planes_plain, clahe_luts_plain, clahe_apply_plain and
+// unsharp_plain, which follow this file's order of operations step for
+// step; the wrappers are dctsvd_tpu_torch/ops/enhance_cuda.py.
 //
 // K10 nlm_kernel: u8 planes [P, H, W] and an h^2 a plane (gray: h 7, h^2
 // 49; color: the Y, Cr and Cb planes of a frame, h^2 9 each) -> u8 planes.
@@ -47,6 +48,14 @@
 // __fsub_rn, __fdiv_rn: never contracted, never a product by a
 // reciprocal), so each kernel is bit-equal to its twin run on the card.
 //
+// K14 unsharp_kernel<C>: u8 planes [P, H, W] (C 1) or channels-last
+// frames [P, H, W, 3] (C 3, each channel blurred as its own plane) -> u8:
+// round(amount * e + weight * B(e)) clamped to [0, 255], B the separable
+// Gaussian of csrc/blur.cuh at sigma 1 (7 taps, both chains' blur),
+// byte for byte gaussian_blur's shift-and-add; amount * e, weight * B and
+// their sum each one f32 rounding (torch computes the Python scalars as
+// f32), rintf as torch.round (half to even).
+//
 // What bounds them on the H100. K10: the work, not the bytes (one u8 read
 // and one u8 write a pixel: 1.2 us for a 1080p plane). The least-work form
 // (sliding column and row sums of the squared differences) does about 12
@@ -55,7 +64,10 @@
 // SFU's 16 results a clock an SM. The weight itself, two IEEE divisions
 // and libdevice's expf, is about 30 SASS instructions, so issue binds
 // before the SFU does. K11: bytes and launches (a 1080p plane is 2 MB;
-// the LUTs 16 KB a plane).
+// the LUTs 16 KB a plane). K14: bytes (a u8 read and a u8 write a pixel
+// and channel: 12.4 MB, 0.0037 ms, for a 1080p color frame) before its
+// 33 f32 operations a pixel and channel; a 1080p frame is one launch of a
+// few microseconds.
 //
 // What the design does about it. K10 forms each offset's window sums by
 // separable sliding sums, each squared difference once a cell, where the
@@ -88,11 +100,18 @@
 // (pass 1 on warps of its own) measured no faster (PERF.md section 6).
 // K11 takes the histogram a tile per CTA (64 CTAs a plane), and the
 // interpolation a row segment of 256 pixels per CTA, its LUTs read
-// through the L1 cache.
+// through the L1 cache. K14 takes a 32 x 32 tile of a plane or frame a
+// CTA: its halo (tile + R a side, through the twin's reflect tables) read
+// once into shared memory as f32, the vertical pass over the halo's width
+// into shared memory, the horizontal pass and the epilogue a pixel a
+// thread; the eager form wrote and read 2 x 7 f32 temporaries of the
+// padded plane, and the color chain two channels-last copies.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "blur.cuh"
 
 namespace dctsvd {
 namespace {
@@ -130,6 +149,13 @@ static_assert(kNlmTileW % kNlmRowRun == 0 && kNlmTileH % kNlmRun == 0,
               "K10's runs must tile its tile");
 static_assert(kRowItems <= kNlmThreads, "a pass-1 item a thread at most");
 static_assert(kNlmThreads % 32 == 0, "whole warps");
+
+// K14's tile: a CTA of kUnsharpThreads threads takes kUnsharpTile x
+// kUnsharpTile output pixels of one plane or frame, all of its channels.
+constexpr int kUnsharpTile = 32;
+constexpr int kUnsharpThreads = 256;
+// Its blur's radius: sigma 1, 7 taps (the only sigma either chain takes).
+constexpr int kUnsharpR = 3;
 
 constexpr int kBins = 256;
 constexpr int kClaheThreads = 256;           // a bin a thread
@@ -309,6 +335,63 @@ __global__ void __launch_bounds__(kNlmThreads, kNlmMinBlocks)
   }
 }
 
+// K14. Grid (column tiles, row tiles, planes of this launch); plane or
+// frame plane0 + blockIdx.z of x [P, H, W, kC] u8 (kC 1: planes), out the
+// same. rows [H + 2 kR] and cols [W + 2 kR]: the twin's reflect tables
+// (kR = kUnsharpR, sigma 1's 7 taps).
+// The halo (tile + kR on each side) as f32 in shared memory, the vertical
+// pass over its full width into shared memory, then the horizontal pass and
+// the epilogue a pixel a thread: round(amount * e + weight * blur) as
+// rintf (torch.round: half to even), clamped to [0, 255], u8. Each channel
+// of a channels-last frame is blurred as its own plane.
+template <int kC>
+__global__ void __launch_bounds__(kUnsharpThreads)
+    unsharp_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+                   const int* __restrict__ rows, const int* __restrict__ cols,
+                   int h, int w, BlurTaps taps, float amount, float weight,
+                   int plane0) {
+  constexpr int kR = kUnsharpR, kTaps = 2 * kR + 1;
+  constexpr int kHalo = kUnsharpTile + 2 * kR;
+  __shared__ float xs[kC][kHalo][kHalo];
+  __shared__ float vs[kC][kUnsharpTile][kHalo];
+  const int tid = threadIdx.x;
+  const int64_t plane = plane0 + static_cast<int64_t>(blockIdx.z);
+  const int64_t base = plane * h * static_cast<int64_t>(w) * kC;
+  const int ty0 = blockIdx.y * kUnsharpTile, tx0 = blockIdx.x * kUnsharpTile;
+  const int nr = h + 2 * kR, nc = w + 2 * kR;
+  for (int i = tid; i < kHalo * kHalo * kC; i += kUnsharpThreads) {
+    const int ch = i % kC, p = i / kC;
+    const int r = p / kHalo, c = p - r * kHalo;
+    const int64_t src =
+        static_cast<int64_t>(blur_src(rows, ty0 + r, nr)) * w +
+        blur_src(cols, tx0 + c, nc);
+    xs[ch][r][c] = static_cast<float>(__ldg(x + base + src * kC + ch));
+  }
+  __syncthreads();
+  for (int i = tid; i < kC * kUnsharpTile * kHalo; i += kUnsharpThreads) {
+    const int ch = i / (kUnsharpTile * kHalo);
+    const int rem = i - ch * (kUnsharpTile * kHalo);
+    const int r = rem / kHalo, j = rem - r * kHalo;
+    vs[ch][r][j] =
+        blur_taps<kTaps>(taps, [&](int t) { return xs[ch][r + t][j]; });
+  }
+  __syncthreads();
+  for (int i = tid; i < kUnsharpTile * kUnsharpTile; i += kUnsharpThreads) {
+    const int r = i / kUnsharpTile, c = i - r * kUnsharpTile;
+    const int py = ty0 + r, px = tx0 + c;
+    if (py >= h || px >= w) continue;
+    uint8_t* o = out + base + (static_cast<int64_t>(py) * w + px) * kC;
+#pragma unroll
+    for (int ch = 0; ch < kC; ++ch) {
+      const float b =
+          blur_taps<kTaps>(taps, [&](int t) { return vs[ch][r][c + t]; });
+      const float e = xs[ch][r + kR][c + kR];
+      o[ch] = to_u8(rintf(__fadd_rn(__fmul_rn(amount, e),
+                                    __fmul_rn(weight, b))));
+    }
+  }
+}
+
 // nlm_weight for n = 0 .. count - 1 at one h^2 (the tests' and the smoke's
 // exhaustive check of the exp against torch's).
 __global__ void nlm_weight_kernel(const float* __restrict__ h2,
@@ -484,6 +567,37 @@ extern "C" int dctsvd_clahe_apply(const void* x, const void* luts, void* out,
     clahe_apply_kernel<<<grid, kClaheThreads, 0, st>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(luts),
         static_cast<uint8_t*>(out), h, w, tiles, th, tw, p0);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14. x, out: u8 [planes, h, w, channels] (channels 1 or 3); rows [h +
+// 6], cols [w + 6]: int32 reflect tables on the device; taps: sigma 1's 7
+// f32 in host memory. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue, and no launch, for another shape).
+extern "C" int dctsvd_unsharp(const void* x, void* out, const void* rows,
+                              const void* cols, const void* taps,
+                              float amount, float weight, int planes, int h,
+                              int w, int channels, void* stream) {
+  if (planes <= 0 || h <= 0 || w <= 0 || ceil_div(h, kUnsharpTile) > kMaxGrid
+      || (channels != 1 && channels != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BlurTaps t =
+      blur_taps_of(static_cast<const float*>(taps), 2 * kUnsharpR + 1);
+  const auto* xi = static_cast<const uint8_t*>(x);
+  auto* xo = static_cast<uint8_t*>(out);
+  const auto* ri = static_cast<const int*>(rows);
+  const auto* ci = static_cast<const int*>(cols);
+  for (int p0 = 0; p0 < planes; p0 += kMaxGrid) {
+    const dim3 grid(ceil_div(w, kUnsharpTile), ceil_div(h, kUnsharpTile),
+                    planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
+    if (channels == 1)
+      unsharp_kernel<1><<<grid, kUnsharpThreads, 0, st>>>(
+          xi, xo, ri, ci, h, w, t, amount, weight, p0);
+    else
+      unsharp_kernel<3><<<grid, kUnsharpThreads, 0, st>>>(
+          xi, xo, ri, ci, h, w, t, amount, weight, p0);
   }
   return static_cast<int>(cudaGetLastError());
 }

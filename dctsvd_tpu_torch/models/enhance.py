@@ -77,10 +77,8 @@ def enhance_color_u8(x: torch.Tensor, denoise: bool = True) -> torch.Tensor:
         x = _stage("NLM", lambda v: e_ops.nlm_color_u8(
             v, h_luma=3.0, h_chroma=3.0, template=7, search=21), x)
     x = _stage("CLAHE", _clahe_luma, x)
-    # channel-first for the unsharp: gaussian_blur convolves the last two
-    # axes
-    x = e_ops.unsharp_u8(torch.movedim(x, -1, -3), 1.15, -0.15, sigma=1.0)
-    return torch.movedim(x, -3, -1)
+    # each channel blurred as its own plane, in the frames' own layout
+    return e_ops.unsharp_u8(x, 1.15, -0.15, sigma=1.0, channels_last=True)
 
 
 def enhance_gray_np(img_u8: np.ndarray, denoise: bool = True,

@@ -9,12 +9,14 @@ same, so results are byte-equal to cv2 and to the JAX package:
   BGR→GRAY  (15-bit):  g = (R·9798 + G·19235 + B·3735 + 2^14) >> 15
 
 All functions take/return channel-last uint8 tensors with any leading
-batch dims. ``luma_f32`` and ``bgr_to_gray`` (K6) and ``replace_luma``
-(K7), the gray scheme's conversions, call the wrappers of the same names in
+batch dims, but for the planar YCrCb pair ([..., 3, H, W] planes).
+``luma_f32`` and ``bgr_to_gray`` (K6), ``replace_luma`` (K7), the gray
+scheme's conversions, and ``bgr_to_ycrcb_planes`` / ``ycrcb_planes_to_bgr``
+(K17, the color NLM's pair) call the wrappers of the same names in
 ``ops/color_cuda.py``, which launch the hand-written kernels on CUDA tensors
 and run the plain twins here (``*_plain``) on CPU tensors; that module is
 where a caller's call lands, so it is the one name to patch.
-``bgr_to_ycrcb`` and ``ycrcb_to_bgr`` are plain torch.
+``bgr_to_ycrcb`` and ``ycrcb_to_bgr`` (channels-last) are plain torch.
 """
 
 from __future__ import annotations
@@ -80,6 +82,18 @@ def replace_luma_plain(y_f32: torch.Tensor,
     return ycrcb_to_bgr(ycc)
 
 
+def bgr_to_ycrcb_planes_plain(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K17's forward: uint8 [..., H, W, 3] BGR -> uint8
+    [..., 3, H, W] planar YCrCb (a view of bgr_to_ycrcb)."""
+    return torch.movedim(bgr_to_ycrcb(bgr_u8), -1, -3)
+
+
+def ycrcb_planes_to_bgr_plain(ycc_u8: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K17's inverse: uint8 [..., 3, H, W] planar YCrCb ->
+    uint8 [..., H, W, 3] BGR."""
+    return ycrcb_to_bgr(torch.movedim(ycc_u8, -3, -1))
+
+
 # The public names call the wrappers, found at each call: ops/color_cuda.py
 # imports the twins above from this module.
 
@@ -103,3 +117,17 @@ def replace_luma(y_f32: torch.Tensor, bgr_ref_u8: torch.Tensor) -> torch.Tensor:
     (K7)."""
     from dctsvd_tpu_torch.ops import color_cuda
     return color_cuda.replace_luma(y_f32, bgr_ref_u8)
+
+
+def bgr_to_ycrcb_planes(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., H, W, 3] BGR -> uint8 [..., 3, H, W] planar YCrCb,
+    bit-exact with cv2: ``color_cuda.bgr_to_ycrcb_planes`` (K17)."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return color_cuda.bgr_to_ycrcb_planes(bgr_u8)
+
+
+def ycrcb_planes_to_bgr(ycc_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., 3, H, W] planar YCrCb -> uint8 [..., H, W, 3] BGR,
+    bit-exact with cv2: ``color_cuda.ycrcb_planes_to_bgr`` (K17)."""
+    from dctsvd_tpu_torch.ops import color_cuda
+    return color_cuda.ycrcb_planes_to_bgr(ycc_u8)

@@ -5,8 +5,10 @@ XLA graphs, not Pallas kernels):
 
   - unsharp: separable 7×7 σ=1 Gaussian (cv2's auto kernel size for σ=1 on
     u8) + addWeighted, reflect-101 borders, shift-and-add in f32 (never
-    ``conv2d``: cuDNN runs f32 convolutions in TF32 by default), in plain
-    tensor ops;
+    ``conv2d``: cuDNN runs f32 convolutions in TF32 by default): K14
+    (``csrc/enhance.cu`` over the blur of ``csrc/blur.cuh``), whose plain
+    twin is ``unsharp_plain``; ``gaussian_blur`` is the twins' blur (K14's
+    and, in ``ops/metrics_cuda.py``, SSIM's K15);
   - CLAHE: per-tile 256-bin histograms, cv2-style clip and stepped
     redistribution, per-tile LUTs, bilinear interpolation of the four
     neighbouring tiles' LUTs: K11 (``csrc/enhance.cu``, two kernels);
@@ -14,13 +16,14 @@ XLA graphs, not Pallas kernels):
     sum of squared differences (exact integers) and an exp weight,
     accumulated over the 441 offsets in order: K10.
 
-The public CLAHE and NLM functions call the wrappers of
+The public unsharp, CLAHE and NLM functions call the wrappers of
 ``ops/enhance_cuda.py``, found at each call (so patching
 ``enhance_cuda.<name>`` reaches every caller); the wrappers run the plain
-twins here (``clahe_luts_plain``, ``clahe_apply_plain``,
-``nlm_planes_plain``) for CPU tensors and launch the kernels for CUDA
-tensors. Every division in the twins is one IEEE division (``torch.div``
-of two tensors), so each kernel is bit-equal to its twin run on the card.
+twins here (``unsharp_plain``, ``clahe_luts_plain``,
+``clahe_apply_plain``, ``nlm_planes_plain``) for CPU tensors and launch
+the kernels for CUDA tensors. Every division in the twins is one IEEE
+division (``torch.div`` of two tensors), so each kernel is bit-equal to
+its twin run on the card.
 
 All stages take and return uint8 and handle any leading batch dims.
 """
@@ -46,6 +49,18 @@ def reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
     period = 2 * (n - 1)
     m = torch.remainder(idx, period)
     return torch.where(m < n, m, period - m)
+
+
+@functools.lru_cache(maxsize=64)
+def _reflect_np(n: int, pad: int) -> np.ndarray:
+    return reflect_index(n, pad, pad, "cpu").numpy()
+
+
+def reflect_table(n: int, pad: int, device) -> torch.Tensor:
+    """``reflect_index(n, pad, pad)`` as int32 on ``device``, made once on
+    the host: the halo rows or columns the blur kernels (K14, K15) read."""
+    return host_constant(_reflect_np, n, pad, device=device,
+                         dtype=torch.int32)
 
 
 def _pad_reflect(x: torch.Tensor, top: int, bottom: int, left: int,
@@ -87,16 +102,31 @@ def gaussian_blur(x: torch.Tensor, sigma: float = 1.0,
     return z
 
 
-def unsharp_u8(img_u8: torch.Tensor, amount: float, blur_weight: float,
-               sigma: float = 1.0) -> torch.Tensor:
-    """cv2.addWeighted(e, amount, GaussianBlur(e, σ), blur_weight, 0) with
-    a saturating round half to even (ref: app_dct_svd_single.py:94-96,
-    108-110)."""
+def unsharp_plain(img_u8: torch.Tensor, amount: float, blur_weight: float,
+                  sigma: float = 1.0,
+                  channels_last: bool = False) -> torch.Tensor:
+    """Plain twin of K14: cv2.addWeighted(e, amount, GaussianBlur(e, σ),
+    blur_weight, 0) with a saturating round half to even (ref:
+    app_dct_svd_single.py:94-96, 108-110) on u8 planes [..., H, W], or on
+    each channel of u8 frames [..., H, W, C] as its own plane."""
+    if channels_last:
+        planes = torch.movedim(img_u8, -1, -3)
+        return torch.movedim(unsharp_plain(planes, amount, blur_weight,
+                                           sigma), -3, -1)
     e = img_u8.to(torch.float32)
     sharp = amount * e + blur_weight * gaussian_blur(e, sigma)
     return torch.round(sharp).clamp(0, 255).to(torch.uint8)
 
 
+def unsharp_u8(img_u8: torch.Tensor, amount: float, blur_weight: float,
+               sigma: float = 1.0,
+               channels_last: bool = False) -> torch.Tensor:
+    """The unsharp mask of u8 planes [..., H, W] (or of each channel of
+    frames [..., H, W, C] with ``channels_last``): ``enhance_cuda.unsharp``
+    (K14)."""
+    from dctsvd_tpu_torch.ops import enhance_cuda
+    return enhance_cuda.unsharp(img_u8, amount, blur_weight, sigma,
+                                channels_last)
 
 
 # ---------------------------------------------------------------------------
@@ -295,12 +325,13 @@ def nlm_color_u8(img_bgr_u8: torch.Tensor, h_luma: float = 3.0,
     """Colored NLM following cv2.fastNlMeansDenoisingColored's structure:
     the luma and chroma planes denoised apart, in YCrCb (the JAX package's
     documented deviation from cv2's CIELAB). The frames' three planes run
-    as one batch through K10 with a per-plane h²."""
+    as one batch through K10 with a per-plane h², between K17's forward
+    (BGR frames to planar YCrCb) and inverse."""
     h, w = img_bgr_u8.shape[-3:-1]
-    ycc = torch.movedim(c_ops.bgr_to_ycrcb(img_bgr_u8), -1, -3)
+    ycc = c_ops.bgr_to_ycrcb_planes(img_bgr_u8)
     planes = ycc.reshape(-1, h, w)
     h2 = torch.tensor([h_luma * h_luma, h_chroma * h_chroma,
                        h_chroma * h_chroma], dtype=torch.float32,
                       device=img_bgr_u8.device).repeat(planes.shape[0] // 3)
     out = _nlm(planes, h2, template, search).reshape(ycc.shape)
-    return c_ops.ycrcb_to_bgr(torch.movedim(out, -3, -1))
+    return c_ops.ycrcb_planes_to_bgr(out)

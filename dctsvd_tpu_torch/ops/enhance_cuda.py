@@ -1,11 +1,13 @@
-"""The extraction enhancement chain's NLM and CLAHE: the wrappers of K10 and
-K11 (``csrc/enhance.cu``); their plain twins are ``ops/enhance.py``'s
-``nlm_planes_plain``, ``clahe_luts_plain`` and ``clahe_apply_plain``.
+"""The extraction enhancement chain's NLM, CLAHE and unsharp: the wrappers
+of K10, K11 and K14 (``csrc/enhance.cu``); their plain twins are
+``ops/enhance.py``'s ``nlm_planes_plain``, ``clahe_luts_plain``,
+``clahe_apply_plain`` and ``unsharp_plain``.
 
 The JAX package has no ``pl.pallas_call`` for these: ``nlm_gray_u8``
 (``dctsvd_tpu/ops/enhance.py:189``, a jitted ``lax.scan`` over the 441
-offsets of the search window), ``nlm_color_u8`` (``:234``) and
-``clahe_u8`` (``:92``) are XLA graphs.
+offsets of the search window), ``nlm_color_u8`` (``:234``), ``clahe_u8``
+(``:92``) and ``unsharp_u8`` (``:76``, over ``gaussian_blur`` ``:45``) are
+XLA graphs.
 
   - K10 ``nlm_planes`` (``nlm_kernel``): u8 planes [P, H, W] and h² [P]
     (f32) -> u8 planes: NLM with a 7×7 template and a 21×21 search window
@@ -14,6 +16,11 @@ offsets of the search window), ``nlm_color_u8`` (``:234``) and
   - K11 ``clahe_luts`` (``clahe_lut_kernel``): u8 planes [P, H, W] -> the
     tiles' u8 LUTs [P, tiles², 256]; ``clahe_apply``
     (``clahe_apply_kernel``): the planes and their LUTs -> u8 planes.
+  - K14 ``unsharp`` (``unsharp_kernel<C>``): u8 planes [..., H, W], or
+    BGR frames [..., H, W, 3] each channel blurred as its own plane, ->
+    u8: round(amount·e + weight·blur_σ(e)) saturated, the blur
+    ``gaussian_blur``'s bytes (``csrc/blur.cuh``) at σ 1 (7 taps), the
+    only σ either chain takes.
 
 What each computes, in which order, what bounds it and what its design
 does about that: ``csrc/enhance.cu``'s header. The window sums are exact
@@ -29,18 +36,22 @@ launches its kernel or raises. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from dctsvd_tpu_torch.ops.enhance import (clahe_apply_plain,
+from dctsvd_tpu_torch.ops.dct import host_constant
+from dctsvd_tpu_torch.ops.enhance import (_gauss1d, clahe_apply_plain,
                                           clahe_luts_plain, clahe_params,
                                           nlm_planes_plain,
-                                          nlm_weights_plain)
+                                          nlm_weights_plain, reflect_table,
+                                          unsharp_plain)
 from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
 from dctsvd_tpu_torch.utils import kernels
 
 __all__ = ["nlm_planes", "clahe_luts", "clahe_apply", "nlm_weights",
-           "nlm_planes_plain", "clahe_luts_plain", "clahe_apply_plain",
-           "nlm_weights_plain", "TEMPLATE", "SEARCH", "MAX_WINDOW_SUM"]
+           "unsharp", "nlm_planes_plain", "clahe_luts_plain",
+           "clahe_apply_plain", "nlm_weights_plain", "unsharp_plain",
+           "TEMPLATE", "SEARCH", "MAX_WINDOW_SUM", "UNSHARP_SIGMA"]
 
 TEMPLATE, SEARCH = 7, 21   # the kernel's template and search window
 #: The largest 7×7 window sum of squared u8 differences.
@@ -52,6 +63,8 @@ NLM_TILE = (32, 64)
 NLM_RUN = 16
 NLM_ROW_RUN = 32
 MAX_GRID = 65535           # rows a CLAHE launch takes (grid y)
+UNSHARP_SIGMA = 1.0        # K14's blur: σ 1, 7 taps
+UNSHARP_TILE = 32          # K14's output tile (kUnsharpTile)
 
 
 def _check_planes(name: str, planes: torch.Tensor) -> tuple:
@@ -153,8 +166,49 @@ def nlm_weights(n: int, h2: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def unsharp(img_u8: torch.Tensor, amount: float, blur_weight: float,
+            sigma: float = 1.0, channels_last: bool = False) -> torch.Tensor:
+    """The unsharp mask of u8 planes [..., H, W], or of each channel of u8
+    frames [..., H, W, C] with ``channels_last``: K14 on a CUDA tensor
+    (σ 1; C 1 or 3), its twin on a CPU tensor."""
+    if img_u8.dtype != torch.uint8 or img_u8.ndim < (3 if channels_last
+                                                     else 2):
+        raise ValueError(f"unsharp: takes u8 planes [..., H, W] or frames "
+                         f"[..., H, W, C], got {img_u8.dtype} "
+                         f"{tuple(img_u8.shape)}")
+    if _device_ok("unsharp", img_u8):
+        return unsharp_plain(img_u8, amount, blur_weight, sigma,
+                             channels_last)
+    c = img_u8.shape[-1] if channels_last else 1
+    if c not in (1, 3):
+        raise ValueError(f"unsharp: the kernel takes 1 or 3 channels, got "
+                         f"{c}")
+    if sigma != UNSHARP_SIGMA:
+        raise ValueError(f"unsharp: the kernel takes sigma "
+                         f"{UNSHARP_SIGMA}, got {sigma}")
+    ksize = int(round(sigma * 6 + 1)) | 1
+    h, w = img_u8.shape[-3:-1] if channels_last else img_u8.shape[-2:]
+    if -(-h // UNSHARP_TILE) > MAX_GRID:
+        raise ValueError(f"unsharp: {h} rows, the kernel takes at most "
+                         f"{MAX_GRID * UNSHARP_TILE}")
+    x = img_u8.contiguous()
+    out = torch.empty_like(x)
+    if out.numel():
+        r = ksize // 2
+        kernels.launch("dctsvd_unsharp", x.device, x, out,
+                       reflect_table(h, r, x.device),
+                       reflect_table(w, r, x.device),
+                       host_constant(_gauss1d, ksize, sigma, device="cpu"),
+                       float(np.float32(amount)),
+                       float(np.float32(blur_weight)),
+                       x.numel() // (h * w * c), h, w, c)
+        unsharp.launches += 1
+    return out
+
+
 nlm_planes.launches = 0
 clahe_luts.launches = 0
 clahe_apply.launches = 0
 nlm_weights.launches = 0
+unsharp.launches = 0
 

@@ -4,9 +4,11 @@ of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
 K5f, its default form's normaliser K8 and its recompute form K5
 (``extract_tail.cu``), the gray scheme's
-color conversions K6 and K7 (``color.cu``), the detect statistic K9
-(``detect.cu``), the enhancement chain's NLM K10 and CLAHE K11
-(``enhance.cu``), detect resync's roll stack K12 and counter-rotation K13
+color conversions K6 and K7 and the color NLM's YCrCb pair K17
+(``color.cu``), the detect statistic K9 (``detect.cu``), the enhancement
+chain's NLM K10, CLAHE K11 and unsharp K14 (``enhance.cu``), the embed
+metrics SSIM K15 and PSNR K16 (``metrics.cu``; K14 and K15 share the blur
+of ``blur.cuh``), detect resync's roll stack K12 and counter-rotation K13
 (``resync.cu``), and the tools probes
 copy_f32, cols_view, fma_chain and spectrum_probe (``probes.cu``).
 
@@ -60,6 +62,7 @@ _LIB: list = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "dctsvd_spectrum_blocks": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_embed_blocks": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -90,6 +93,10 @@ _SIGNATURES = {
     "dctsvd_nlm_weights": [_P, _P, _I, _P],
     "dctsvd_clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "dctsvd_unsharp": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P],
+    "dctsvd_ssim": [_P, _P, _I, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P],
+    "dctsvd_sq_diff": [_P, _P, _LL, _I, _P, _I, _P],
+    "dctsvd_ycrcb": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_roll_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_derotate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -219,3 +219,69 @@ def test_color_plan(kind, pix, offs, plan):
 def test_color_plan_counts_its_pointers():
     with pytest.raises(ValueError):
         color_cuda.color_plan("replace_luma", 16, 0, 0)
+
+
+# K17: the color NLM's planar YCrCb pair
+YCRCB = ["bgr_to_ycrcb_planes", "ycrcb_planes_to_bgr"]
+
+
+def test_ycrcb_planes_all_triples_byte_equal():
+    """K17's twins, both ways, byte-equal to the JAX package's
+    bgr_to_ycrcb and ycrcb_to_bgr (planar) on every BGR triple, and the
+    inverse on every YCrCb triple."""
+    x = all_triples()
+    planes = color.bgr_to_ycrcb_planes(torch.from_numpy(x))
+    ref = np.moveaxis(np.asarray(jcolor.bgr_to_ycrcb(jnp.asarray(x))), -1, -3)
+    assert planes.shape == (3, 4096, 4096)
+    np.testing.assert_array_equal(planes.numpy(), ref)
+    ycc = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, -3)))
+    got = color.ycrcb_planes_to_bgr(ycc)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jcolor.ycrcb_to_bgr(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("fn", YCRCB)
+def test_ycrcb_public_names_call_the_wrappers(fn, monkeypatch):
+    seen = []
+    monkeypatch.setattr(color_cuda, fn, lambda *a: seen.append(a) or "w")
+    x = _frames((3, 8, 8))
+    assert getattr(color, fn)(x) == "w" and seen[0][0] is x
+
+
+@pytest.mark.parametrize("fn", YCRCB)
+def test_ycrcb_cpu_tensors_take_the_twin(fn, monkeypatch):
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached a kernel")
+
+    monkeypatch.setattr(kernels, "launch", no_launch)
+    wrapper = getattr(color_cuda, fn)
+    n0 = wrapper.launches
+    x = _frames((2, 24, 40, 3)) if fn == YCRCB[0] else _frames((2, 3, 24, 40))
+    got = wrapper(x)
+    assert torch.equal(got, getattr(color, f"{fn}_plain")(x))
+    assert wrapper.launches == n0
+
+
+def test_ycrcb_planes_round_trip_and_bad_inputs():
+    """The planar pair inverts as the channels-last pair does; a frame
+    without 3 channels or planes without 3 raise."""
+    x = _frames((2, 24, 40, 3))
+    ref = color.ycrcb_to_bgr(color.bgr_to_ycrcb(x))
+    assert torch.equal(
+        color.ycrcb_planes_to_bgr(color.bgr_to_ycrcb_planes(x)), ref)
+    with pytest.raises(ValueError):
+        color_cuda.bgr_to_ycrcb_planes(_frames((2, 8, 8, 4)))
+    with pytest.raises(ValueError):
+        color_cuda.ycrcb_planes_to_bgr(_frames((2, 4, 8, 8)))
+    with pytest.raises(ValueError):
+        color_cuda.bgr_to_ycrcb_planes(_frames((8, 3)))
+
+
+@pytest.mark.parametrize("kind, offs, plan", [
+    ("bgr_to_ycrcb_planes", (0, 0), (True, 2025)),
+    ("ycrcb_planes_to_bgr", (0, 0), (True, 2025)),
+    ("bgr_to_ycrcb_planes", (3, 0), (False, 8100)),
+    ("ycrcb_planes_to_bgr", (0, 1), (False, 8100))])
+def test_ycrcb_plan(kind, offs, plan):
+    assert color_cuda.color_plan(kind, 1080 * 1920,
+                                 *((1 << 20) + o for o in offs)) == plan

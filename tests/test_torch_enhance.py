@@ -459,3 +459,65 @@ def test_kernel_errors_are_not_skipped(monkeypatch, kind):
         with pytest.raises(KernelError, match="nvcc failed"):
             chain(x)
     assert issubclass(KernelError, RuntimeError)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 3), (37, 51, 3), (2, 40, 52, 3),
+                                   (16, 24, 4)], ids=str)
+def test_unsharp_channels_last_twin(shape):
+    """K14's channels-last twin is byte-equal to the planar form (each
+    channel its own plane) and within 1 quantum of the JAX package on each
+    channel."""
+    img = np.stack([_plane(shape[-3:], seed=SEED + 20 + i, sigma=1.0)
+                    for i in range(int(np.prod(shape[:-3])))])
+    img = img.reshape(shape)
+    x = torch.as_tensor(img)
+    got = te.unsharp_u8(x, 1.15, -0.15, channels_last=True)
+    planar = te.unsharp_plain(torch.movedim(x, -1, -3).contiguous(), 1.15,
+                              -0.15)
+    assert torch.equal(got, torch.movedim(planar, -3, -1))
+    assert torch.equal(got, te.unsharp_plain(x, 1.15, -0.15,
+                                             channels_last=True))
+    ref = np.moveaxis(np.asarray(je.unsharp_u8(
+        jnp.asarray(np.moveaxis(img, -1, -3)), 1.15, -0.15)), -3, -1)
+    assert _diff(got, ref).max() <= 1
+
+
+def test_unsharp_wrapper_takes_the_twin_on_the_cpu(monkeypatch):
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached a kernel")
+
+    monkeypatch.setattr(tec.kernels, "launch", no_launch)
+    n0 = tec.unsharp.launches
+    x = torch.as_tensor(_plane((37, 51), seed=SEED + 21))
+    assert torch.equal(tec.unsharp(x, 1.25, -0.25),
+                       te.unsharp_plain(x, 1.25, -0.25))
+    assert tec.unsharp.launches == n0
+    with pytest.raises(ValueError):
+        tec.unsharp(x.float(), 1.25, -0.25)
+
+
+@pytest.mark.parametrize("sigma,shape,channels_last", [
+    (1.5, (37, 51), False), (1.0, (16, 24, 4), True)], ids=["sigma", "c4"])
+def test_unsharp_wrapper_raises_where_the_kernel_would_not_take(
+        monkeypatch, sigma, shape, channels_last):
+    """Where the kernel would run (``_device_ok`` false: a CUDA tensor), σ
+    other than 1 and channel counts other than 1 or 3 raise ValueError
+    before any launch; a CPU tensor takes the twin for both."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("the kernel launched")
+
+    x = torch.as_tensor(_plane(shape, seed=SEED + 23))
+    assert torch.equal(tec.unsharp(x, 1.25, -0.25, sigma, channels_last),
+                       te.unsharp_plain(x, 1.25, -0.25, sigma, channels_last))
+    monkeypatch.setattr(tec, "_device_ok", lambda *a: False)
+    monkeypatch.setattr(tec.kernels, "launch", no_launch)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tec.unsharp(x, 1.25, -0.25, sigma, channels_last)
+
+
+def test_public_unsharp_calls_the_wrapper(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tec, "unsharp", lambda *a: seen.append(a) or "w")
+    x = torch.as_tensor(_plane((8, 8, 3), seed=SEED + 22))
+    assert te.unsharp_u8(x, 1.15, -0.15, channels_last=True) == "w"
+    assert seen[0][1:] == (1.15, -0.15, 1.0, True)

@@ -22,8 +22,12 @@ host, at every k and over the scale damp's range, and the detect paths
 through it, K10 (NLM) and both K11 kernels (CLAHE's LUTs and
 interpolation) against their twins run on the card at 1080p and on
 planes smaller than NLM's window, K10's exp against torch's at every
-window sum, the 1080p extracts launching each once, and the parity path,
-the enhancement stages and detect resync on the card against the CPU.
+window sum, the 1080p extracts launching each once, K14 (unsharp), K15
+(SSIM), K16 (PSNR's sums) and K17 (the color NLM's YCrCb pair) against
+their twins run on the card from 1×1 to 2160×3840 and on a view off its
+16-byte alignment, the embeds launching K15 and K16 and the chains K14
+and K17 (and never the eager blur), and the parity path, the enhancement
+stages and detect resync on the card against the CPU.
 
 Marked ``cuda``: every test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a GPU machine without jax it runs as
@@ -44,7 +48,7 @@ from dctsvd_tpu_torch.ops import (color, color_cuda, dct, detect_cuda,
                                   probe_cuda, resync_cuda, svd, svd_cuda,
                                   tail_cuda, wm_cuda)
 from dctsvd_tpu_torch.ops import enhance as e_ops
-from dctsvd_tpu_torch.ops import enhance_cuda
+from dctsvd_tpu_torch.ops import enhance_cuda, metrics, metrics_cuda
 from dctsvd_tpu_torch.utils import crypto, kernels
 
 torch.set_num_threads(2)
@@ -2383,3 +2387,229 @@ def test_extract_at_1080p_launches_k10_and_k11_once(dev, tmp_path, color_):
     assert [k.launches for k in kernels_] == [1, 1, 1]
     got = cv2.imread(wm, cv2.IMREAD_UNCHANGED)
     assert got.shape[:2] == (1080, 1920)
+
+
+# K14-K17: unsharp, SSIM, PSNR's sums and the color NLM's YCrCb pair
+METRIC_SHAPES = {"1080p": (1080, 1920), "4k": (2160, 3840), "3x5": (3, 5),
+                 "37x51": (37, 51), "1x1": (1, 1)}
+
+
+def _offset(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a view that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = flat[1:1 + x.numel()]
+    view.copy_(x.reshape(-1))
+    return view.view(x.shape)
+
+
+def _bgr(shape, dev, seed):
+    return torch.from_numpy(_frames(shape, seed)).to(dev)
+
+
+def _launched(wrapper, fn):
+    """fn()'s result, asserting that it launched ``wrapper`` once."""
+    n0 = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("layout", ["planes", "frames"])
+@pytest.mark.parametrize("shape", list(METRIC_SHAPES) + ["offset"])
+def test_k14_matches_twin(dev, shape, layout):
+    """K14 equals its twin run on the card (torch.equal): u8 planes and BGR
+    frames channels-last (each channel its own plane), at both chains'
+    weights."""
+    h, w = METRIC_SHAPES.get(shape, (37, 51))
+    dims = {"planes": (2, h, w), "frames": (h, w, 3)}[layout]
+    x = _enh_planes(dev, dims, SEED + 90) if layout == "planes" else \
+        _bgr(dims, dev, SEED + 90)
+    if shape == "offset":
+        x = _offset(x)
+    cl = layout != "planes"
+    for amount, weight in ((1.25, -0.25), (1.15, -0.15)):
+        got = _launched(enhance_cuda.unsharp, lambda: enhance_cuda.unsharp(
+            x, amount, weight, 1.0, cl))
+        assert torch.equal(got, e_ops.unsharp_plain(x, amount, weight, 1.0,
+                                                    cl))
+
+
+@pytest.mark.parametrize("call", ["unsharp_sigma", "unsharp_channels",
+                                  "ssim", "psnr"])
+def test_kernels_raise_for_what_they_do_not_take(dev, call):
+    """A CUDA tensor the kernel does not take raises ValueError and
+    launches nothing, never a plain form on the card: K14 at another σ or
+    channel count, K15 and K16 on other dtypes."""
+    x = _enh_planes(dev, (2, 37, 51), SEED + 99)
+    f = x.to(torch.float32)
+    wrapper, fn = {
+        "unsharp_sigma": (enhance_cuda.unsharp, lambda: enhance_cuda.unsharp(
+            x, 1.25, -0.25, 1.5)),
+        "unsharp_channels": (enhance_cuda.unsharp,
+                             lambda: enhance_cuda.unsharp(
+                                 _bgr((37, 51, 4), dev, SEED + 99), 1.15,
+                                 -0.15, 1.0, True)),
+        "ssim": (metrics_cuda.ssim, lambda: metrics_cuda.ssim(f, f)),
+        "psnr": (metrics_cuda.psnr, lambda: metrics_cuda.psnr(f, x)),
+    }[call]
+    n0 = wrapper.launches
+    with pytest.raises(ValueError, match="the kernel takes"):
+        fn()
+    assert wrapper.launches == n0
+
+
+@pytest.mark.parametrize("pair", ["u8", "f32"])
+@pytest.mark.parametrize("shape", list(METRIC_SHAPES) + ["offset", "batch"])
+def test_k15_matches_twin(dev, shape, pair):
+    """K15 equals its twin run on the card (torch.equal): the map's f32 ops
+    and the fixed-order mean, (u8, u8) and (u8, f32), in one launch for a
+    batch of 32 1080p planes."""
+    h, w = METRIC_SHAPES.get(shape, (1080, 1920))
+    p = 32 if shape == "batch" else 2
+    x = _enh_planes(dev, (p, h, w), SEED + 91)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    noise = torch.randn((p, h, w), generator=gen, device=dev) * 4
+    y = x.to(torch.float32) + noise
+    if pair == "u8":
+        y = torch.round(y).clamp(0, 255).to(torch.uint8)
+    if shape == "offset":
+        x, y = _offset(x), _offset(y)
+    got = _launched(metrics_cuda.ssim, lambda: metrics_cuda.ssim(x, y))
+    assert torch.equal(got, metrics_cuda.ssim_plain(x, y))
+    assert bool(((got > 0.5) & (got <= 1.0)).all())
+
+
+@pytest.mark.parametrize("shape", list(METRIC_SHAPES) + ["offset", "batch",
+                                                         "planes"])
+def test_k16_matches_twin(dev, shape):
+    """K16's exact sums equal the twin's f64 sums on the card (torch.equal
+    of the PSNR), on 16-byte loads and on the byte path, and equal frames
+    give 99.0."""
+    h, w = METRIC_SHAPES.get(shape, (1080, 1920))
+    dims = {"batch": (32, h, w, 3), "planes": (4, h, w)}.get(shape,
+                                                            (2, h, w, 3))
+    a, b = _bgr(dims, dev, SEED + 93), _bgr(dims, dev, SEED + 94)
+    if shape == "offset":
+        a, b = _offset(a), _offset(b)
+        assert not metrics_cuda.psnr_plan(a[0].numel(), a.data_ptr(),
+                                          b.data_ptr())
+    got = _launched(metrics_cuda.psnr, lambda: metrics_cuda.psnr(a, b))
+    assert torch.equal(got, metrics_cuda.psnr_plain(a, b))
+    assert bool((metrics_cuda.psnr(a, a) == 99.0).all())
+
+
+@pytest.mark.parametrize("shape", list(METRIC_SHAPES) + ["offset", "triples"])
+def test_k17_matches_twin(dev, shape):
+    """K17 equals its twins run on the card (torch.equal) both ways: every
+    BGR triple, 1080p and 4K frames, planes of a pixel count not a multiple
+    of 4 and a view off its alignment (the scalar path)."""
+    if shape == "triples":
+        v = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+        x = torch.stack([v & 255, (v >> 8) & 255, v >> 16], -1).to(
+            torch.uint8).reshape(4096, 4096, 3)
+    else:
+        x = _bgr((2, *METRIC_SHAPES.get(shape, (37, 51)), 3), dev,
+                 SEED + 95)
+        if shape == "offset":
+            x = _offset(x)
+    planes = _launched(color_cuda.bgr_to_ycrcb_planes,
+                       lambda: color_cuda.bgr_to_ycrcb_planes(x))
+    assert torch.equal(planes, color.bgr_to_ycrcb_planes_plain(x))
+    if shape == "offset":
+        planes = _offset(planes)
+    back = _launched(color_cuda.ycrcb_planes_to_bgr,
+                     lambda: color_cuda.ycrcb_planes_to_bgr(planes))
+    assert torch.equal(back, color.ycrcb_planes_to_bgr_plain(planes))
+
+
+def _no_eager_blur(monkeypatch):
+    """Make the eager blur and the twins' maps raise: a kernel path that
+    reached them fails."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the eager blur ran for a CUDA tensor")
+    for mod, name in ((e_ops, "gaussian_blur"), (metrics_cuda, "ssim_map"),
+                      (e_ops, "unsharp_plain"),
+                      (enhance_cuda, "unsharp_plain"),
+                      (color, "bgr_to_ycrcb"), (color, "ycrcb_to_bgr")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("scheme", ["gray", "color"])
+def test_embed_with_metrics_launches_k15_and_k16(dev, scheme, monkeypatch):
+    """An embed with metrics on 1080p frames launches K15 and K16 once each
+    and never the eager blur; its PSNR and SSIM equal the twins' on the
+    card."""
+    frames = _bgr((2, 1080, 1920, 3), dev, SEED + 96)
+    wm = _bgr((1080, 1920, 3), dev, SEED + 97)
+    key = crypto.derive_key("pw", bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(
+                      key, tb.n_blocks_of(1080, 1920)))
+    if scheme == "gray":
+        pw = tb.prepare_wm_gray(color.bgr_to_gray(wm), blk, intra)
+        embed = tb.embed_gray_prepared
+    else:
+        pw = tb.prepare_wm_color(wm, blk, intra)
+        embed = tb.embed_color_prepared
+    stego, _, ps_ref, ss_ref = embed(frames, pw.sw, ALPHA)
+    _no_eager_blur(monkeypatch)
+    torch.cuda.synchronize()
+    for k in (metrics_cuda.ssim, metrics_cuda.psnr):
+        k.launches = 0
+    stego2, _, ps, ss = embed(frames, pw.sw, ALPHA)
+    torch.cuda.synchronize()
+    assert (metrics_cuda.ssim.launches, metrics_cuda.psnr.launches) == (1, 1)
+    assert torch.equal(stego, stego2)
+    assert torch.equal(ps, ps_ref) and torch.equal(ss, ss_ref)
+    monkeypatch.undo()
+    assert torch.equal(ps, metrics_cuda.psnr_plain(frames, stego))
+    assert bool((ps > 20).all()) and bool((ss > 0.5).all())
+
+
+@pytest.mark.parametrize("color_", [False, True], ids=["gray", "color"])
+def test_chains_launch_k14_and_k17(dev, color_, monkeypatch):
+    """Each enhancement chain on a 1080p watermark launches K14 once (and
+    the color chain K17 once each way), never the eager blur or YCrCb
+    chain, and gives the bytes of the chain with those stages' twins."""
+    x = _bgr((1080, 1920, 3), dev, SEED + 98)
+    if not color_:
+        x = color.bgr_to_gray(x)
+    chain = tenh.enhance_color_u8 if color_ else tenh.enhance_gray_u8
+    kern = (enhance_cuda.unsharp, color_cuda.bgr_to_ycrcb_planes,
+            color_cuda.ycrcb_planes_to_bgr)
+    for k in kern:
+        k.launches = 0
+    saved = {n: getattr(color_cuda, n) for n in ("bgr_to_ycrcb_planes",
+                                                 "ycrcb_planes_to_bgr")}
+    with monkeypatch.context() as m:
+        _no_eager_blur(m)
+        got = chain(x)
+        torch.cuda.synchronize()
+    assert [k.launches for k in kern] == [1] + [int(color_)] * 2
+    with monkeypatch.context() as m:
+        m.setattr(enhance_cuda, "unsharp", lambda *a: e_ops.unsharp_plain(*a))
+        for n, fn in saved.items():
+            m.setattr(color_cuda, n, getattr(color, f"{n}_plain"))
+        twins = chain(x)
+    assert torch.equal(got, twins)
+
+
+@pytest.mark.parametrize("method", ["blocked", "full"])
+def test_api_embed_launches_k15_and_k16(dev, tmp_path, method):
+    """api.embed (blocked and parity) computes its metrics through K15
+    and K16, once each."""
+    from dctsvd_tpu_torch import api
+    from dctsvd_tpu_torch.io import image_io
+    cp, wp = str(tmp_path / "cover.png"), str(tmp_path / "wm.png")
+    image_io.write_png(cp, _frames((256, 320, 3), SEED + 99))
+    image_io.write_png(wp, _frames((64, 80, 3), SEED + 100))
+    for k in (metrics_cuda.ssim, metrics_cuda.psnr):
+        k.launches = 0
+    _, _, ps, ss = api.embed(cp, wp, str(tmp_path / "s.png"),
+                             str(tmp_path / "m.npz"), alpha=ALPHA,
+                             password="pw", method=method, device=dev)
+    torch.cuda.synchronize()
+    assert (metrics_cuda.ssim.launches, metrics_cuda.psnr.launches) == (1, 1)
+    assert ps > 15 and 0 < ss <= 1

@@ -316,13 +316,14 @@ def test_sass_mix_counts_every_loop():
     assert mix["sweep"] == mix["loops"][1]
 
 
-_C_TYPES = {"int": kernels._I, "long long": kernels._LL}
+_C_TYPES = {"int": kernels._I, "long long": kernels._LL,
+            "float": kernels._F}
 
 
 def _c_entries() -> dict:
     """{name: [ctypes type of each parameter]} of every ``extern "C"``
-    entry point in csrc/: pointers as c_void_p, int and long long as
-    theirs."""
+    entry point in csrc/: pointers as c_void_p, int, long long and float
+    as theirs."""
     import re
     out = {}
     for f in sorted(kernels._CSRC.glob("*.cu*")):
