@@ -116,11 +116,13 @@ JSON payloads with both methods, with the blocked method's K1, K2 and K4
 launches; detect resync (color and gray) of a rolled and of a rotated
 stego: K12 (the roll stack) on one chunk of 64 rolled frames and one of
 64 rolled luma planes, and K13 (the counter-rotation) on the rotated
-frame, a luma plane and a 2160x3840 plane, each equal to its twin and
-timed beside its bound, its twin and one PyTorch call; K1 held to its
-twin on both chunks; the chunk's split and each search's time before
-(the eager forms, a host read a chunk) and after, with the same result;
-K1's, K9's and K12's launches once a chunk, K13's once a nonzero angle,
+frame, a luma plane and a 2160x3840 plane, at one angle and at a scan's
+20 in one launch, each equal to its twin and timed beside its bound, its
+twin and one PyTorch call; K1 held to its twin on both chunks; the
+chunk's split and each search's time before (the eager forms, a host
+read a chunk) and after, with the same result; K1's, K9's and K12's
+launches once a chunk, K13's and its cos and sin's once a scan with a
+nonzero angle, every candidate of the rotation search equal to its twin,
 and one host read of scores a scan. Then
 ``parallel/``: the batch entry points on the 1080p batch of 32 through a
 one-card mesh, four shards of the card (``[cuda:0] * 4``) and one frame
@@ -3081,6 +3083,68 @@ UNSHARP_OPS = 2 * 7 * 2 + 5
 # products, three differences, num's 2 products and 2 sums and product,
 # den's 3 sums and product and sum, the division); the mean's sum (1)
 SSIM_OPS = 3 + 2 * 110 + 18 + 1
+# K15's design (csrc/metrics.cu): a CTA walks a band of 32 rows across 8
+# blocks of 64 columns; a block's vertical pass 256 threads of 8 outputs
+# from 18 halo rows at its 64 new padded columns (the 10 before them
+# carried from the block before, made once a walk), the horizontal pass 8
+# outputs a thread from five 16-byte loads a plane
+SSIM_BLOCK_W, SSIM_CARRY_W = 64, 10   # a block's columns, those carried
+SSIM_BLOCK = 32 * SSIM_BLOCK_W    # pixels a block
+SSIM_HALO_ROWS = 42
+SSIM_WALK = 8                     # blocks a walk
+SSIM_V_ITEMS, SSIM_V_ROWS, SSIM_V_IN = 256, 8, 18
+SSIM_CARRY_ITEMS = 40             # a walk's first 10 columns x 4 runs
+SSIM_CARRY = 5 * 32 * SSIM_CARRY_W    # the planes' values carried a block
+SSIM_H_COLS, SSIM_H_IN = 8, 20
+SMEM_BYTES_PER_CLOCK = 128    # an SM's shared memory, bytes a clock
+
+
+def ssim_design() -> dict:
+    """K15's work a pixel as its design does it: the f32 instructions (the
+    vertical pass's 3 products a halo pixel and 5 x 11 products and sums an
+    output, the horizontal pass's 5 x 22, the map's 18, the masking select
+    and the sum's add) and the shared memory it loads and stores
+    (instructions and bytes): the block's new columns of x and y stored
+    once and read once by the vertical pass, its five planes stored, read
+    by five 16-byte loads a plane and 8 pixels, and their last 10 columns
+    copied to the first, the map stored and read once."""
+    runs = (SSIM_V_ITEMS + SSIM_CARRY_ITEMS / SSIM_WALK) / SSIM_BLOCK
+    f32 = (runs * (3 * SSIM_V_IN + 5 * SSIM_V_ROWS * 22)
+           + 5 * 22 + 18 + 1 + 1)
+    carry = SSIM_CARRY / SSIM_BLOCK
+    loads = {"vertical": runs * 2 * SSIM_V_IN,
+             "horizontal": 5 * (SSIM_H_IN // 4) / SSIM_H_COLS,
+             "map": 1.0, "carry": carry}
+    load_bytes = {"vertical": 4 * loads["vertical"],
+                  "horizontal": 5 * SSIM_H_IN * 4 / SSIM_H_COLS,
+                  "map": 4.0, "carry": 4 * carry}
+    stores = {"halo": 2 * SSIM_HALO_ROWS
+              * (SSIM_BLOCK_W + SSIM_CARRY_W / SSIM_WALK) / SSIM_BLOCK,
+              "vertical": 5 * runs * SSIM_V_ROWS, "map": 1.0,
+              "carry": carry}
+    return dict(f32_insn_per_pixel=f32,
+                smem_loads_per_pixel=sum(loads.values()),
+                smem_loads=loads,
+                smem_stores_per_pixel=sum(stores.values()),
+                smem_bytes_per_pixel=sum(load_bytes.values())
+                + 4 * sum(stores.values()))
+
+
+def ssim_bounds(pixels: int, sm_mhz: float) -> dict:
+    """K15's restated bound at the SM clock read in the run: the larger of
+    its f32 issue floor (:func:`ssim_design`'s instructions at one a lane
+    a clock) and its shared-memory floor (its bytes at 128 a clock an
+    SM)."""
+    import torch
+    d = ssim_design()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue = insn_bound_ms(d["f32_insn_per_pixel"] * pixels, sm_mhz)
+    smem = (d["smem_bytes_per_pixel"] * pixels
+            / (sms * SMEM_BYTES_PER_CLOCK * sm_mhz * 1e6) * 1e3)
+    return dict(d, f32_issue_bound_ms=issue, smem_bound_ms=smem,
+                restated_bound_ms=max(issue, smem),
+                restated_bound_by="f32 issue" if issue >= smem
+                else "shared memory")
 PSNR_OPS = 3                 # a byte: the difference, its square, the sum
 # the 1080p checks' other shapes: a 4K frame, planes smaller than the
 # blur's pad, a border-heavy one (a view off its 16-byte alignment is
@@ -3704,7 +3768,9 @@ def metric_rows(dev, covers, inp) -> dict:
     replaced (:func:`eager_ssim`, :func:`eager_psnr`), its bound (K15 also
     its issue bound at the SM clock read while it runs) and, for K15, one
     F.conv2d of its five blurs on their reflect-padded stack
-    (:func:`conv_yardstick`; psnr has no one PyTorch call)."""
+    (:func:`conv_yardstick`; psnr has no one PyTorch call); K15's rows
+    also its shared-memory loads and bytes a pixel and its restated bound
+    (:func:`ssim_bounds`)."""
     import torch
     from dctsvd_tpu_torch.ops import metrics_cuda as mc
 
@@ -3742,6 +3808,7 @@ def metric_rows(dev, covers, inp) -> dict:
             **bound(x.numel(), SSIM_OPS, nbytes(x, y) + 4 * x.shape[0]),
             issue_bound_ms=insn_bound_ms(SSIM_OPS * x.numel(),
                                          clocks["sm_mhz"]),
+            **ssim_bounds(x.numel(), clocks["sm_mhz"]),
             issue_clocks=clocks)
         del stack
     a, b = covers, inp["stego_c"]
@@ -3809,6 +3876,22 @@ def phase_metrics(dev, covers, wm_u8, blk, intra):
     return rows, launches
 
 
+def kernel_sass(stems) -> dict:
+    """The ptxas report (when this run built the library) and the SASS mix
+    by class (utils/kernels.py::sass_mix: the body once, and each loop's
+    body) of every kernel instance whose name holds one of ``stems``."""
+    from dctsvd_tpu_torch.utils import kernels
+
+    def ours(name):
+        return any(s in name for s in stems)
+    sass = kernels.sass_dump(kernels.BUILD_INFO["path"])
+    return dict(
+        ptxas={n: v for n, v in kernels.ptxas_report(
+            kernels.BUILD_INFO.get("ptxas", "")).items() if ours(n)},
+        sass={n: dict(main=m["main"], loops=m["loops"])
+              for n, m in kernels.sass_mix(sass, 2).items() if ours(n)})
+
+
 def metrics_times(dev, covers, wm_u8, blk, intra) -> dict:
     """SSIM, PSNR and the embed with and without its metrics on the batch
     of 32 1080p frames, gray and color, through this tree's package, each
@@ -3818,8 +3901,9 @@ def metrics_times(dev, covers, wm_u8, blk, intra) -> dict:
     takes the gray embed's own pair (the covers' u8 gray planes and the
     marked f32 Y planes), the color SSIM the gray planes of cover and
     stego (u8, u8), PSNR the BGR frames. With each pair's values beside
-    the eager form's, and K15's and K16's launches in one embed with
-    metrics where the tree has them."""
+    the eager form's, K15's device time on each SSIM pair, K15's and
+    K16's launches in one embed with metrics where the tree has them, and
+    K15's ptxas report and SASS mix (:func:`kernel_sass`)."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import metrics
@@ -3849,6 +3933,9 @@ def metrics_times(dev, covers, wm_u8, blk, intra) -> dict:
             lambda embed=embed, pw=pw: embed(covers, pw.sw, ALPHA,
                                              with_metrics=False),) * 2
     ms, values = {}, {}
+    # K15 alone: its device time (torch.profiler) on each pair
+    device = {name: device_ms(pairs[name][0], 5, "ssim_")
+              for name in ("ssim_gray", "ssim_color")}
     for name, (fn, eager) in pairs.items():
         ms[name] = [cuda_time(fn, 3), cuda_time(eager, 3),
                     cuda_time(eager, 3), cuda_time(fn, 3)]
@@ -3869,7 +3956,8 @@ def metrics_times(dev, covers, wm_u8, blk, intra) -> dict:
         launches[scheme] = {n: w.launches
                             for n, w in metrics_wrappers().items()}
     return dict(tree=REPO, batch=int(covers.shape[0]), ms=ms, values=values,
-                launches=launches)
+                device_ms=device, launches=launches,
+                k15=kernel_sass(("ssim_kernel",)))
 
 
 # the SASS opcodes of nlm_weight_kernel that are not the weight: the
@@ -4166,22 +4254,38 @@ ROT_OPS_U8 = 3
 
 
 def resync_wrappers():
+    """K12's wrapper and K13's as the search calls it (a scan's angles in
+    one launch)."""
     from dctsvd_tpu_torch.ops import resync_cuda
     return {"roll_stack": resync_cuda.roll_stack,
-            "derotate": resync_cuda.derotate}
+            "derotate_angles": resync_cuda.derotate_angles}
+
+
+# the rotation search's coarse scan: its 20 nonzero angles (±0.5° at 0.05°)
+SCAN_ANGLES = [k * s * RESYNC_STEP for k in range(1, 11) for s in (1, -1)]
 
 
 def resync_ops():
-    """(roll stack, counter-rotation) as the search calls them now:
-    resync_cuda's names (the kernels, or their twins inside
-    :func:`resync_forms`), or an older tree's eager blocked._roll_stack and
+    """(roll stack, counter-rotation, a scan's counter-rotations) as the
+    search calls them now: resync_cuda's names (the kernels, or their twins
+    inside :func:`resync_forms`; in a tree without derotate_angles, one
+    derotate an angle), or an older tree's eager blocked._roll_stack and
     blocked._derotate."""
+    import torch
     from dctsvd_tpu_torch.models import blocked
     try:
         from dctsvd_tpu_torch.ops import resync_cuda as rc
     except ImportError:
-        return blocked._roll_stack, blocked._derotate
-    return rc.roll_stack, rc.derotate
+        roll, derotate = blocked._roll_stack, blocked._derotate
+    else:
+        roll, derotate = rc.roll_stack, rc.derotate
+        if hasattr(rc, "derotate_angles"):
+            return roll, derotate, rc.derotate_angles
+
+    def each(img, angles, color_frames=False):
+        return torch.stack([derotate(img, a, color_frames=color_frames)
+                            for a in angles])
+    return roll, derotate, each
 
 
 @contextlib.contextmanager
@@ -4194,13 +4298,17 @@ def resync_forms(eager: bool):
     except ImportError:
         yield
         return
-    saved = rc.roll_stack, rc.derotate
+    names = [n for n in ("roll_stack", "derotate", "derotate_angles")
+             if hasattr(rc, n)]
+    saved = {n: getattr(rc, n) for n in names}
     if eager:
-        rc.roll_stack, rc.derotate = rc.roll_stack_plain, rc.derotate_plain
+        for n in names:
+            setattr(rc, n, getattr(rc, f"{n}_plain"))
     try:
         yield
     finally:
-        rc.roll_stack, rc.derotate = saved
+        for n, fn in saved.items():
+            setattr(rc, n, fn)
 
 
 @contextlib.contextmanager
@@ -4230,7 +4338,7 @@ def per_chunk_resync(img, sc, sw, alpha, *, window=8, chunk=RESYNC_CHUNK,
     import numpy as np
     import torch
     from dctsvd_tpu_torch.models import blocked
-    _, derotate = resync_ops()
+    _, derotate, _ = resync_ops()
     shifts = np.asarray(blocked._resync_shifts(window, 0), np.int64)
     pad = (-len(shifts)) % chunk
     if pad:
@@ -4304,13 +4412,14 @@ def resync_split(dev, inp) -> dict:
     (roll, K1, K9) on the host clock over 8 chunks, once with no read and
     once with each chunk's scores read to the host as it ends: the read's
     cost is the difference; one counter-rotation of the rotated color
-    frame, of the gray stego's luma plane and of the 2160×3840 f32 plane
-    (CUDA events, 5 calls)."""
+    frame, of the gray stego's luma plane and of the 2160×3840 f32 plane,
+    and a scan's 20 (SCAN_ANGLES) of each as the search makes them (CUDA
+    events, 5 calls)."""
     import numpy as np
     import torch
     from dctsvd_tpu_torch.models import blocked
 
-    roll, derotate = resync_ops()
+    roll, derotate, derotate_scan = resync_ops()
     shifts = torch.as_tensor(np.asarray(blocked._resync_shifts(
         blocked.BLOCK, 0)[:RESYNC_CHUNK], np.int64), device=dev)
     out = {}
@@ -4351,6 +4460,11 @@ def resync_split(dev, inp) -> dict:
                           ("gray_4k", inp["plane_4k"], False)):
         out[f"derotate_{name}_ms"] = cuda_time(
             lambda: derotate(img, RESYNC_ANGLE, color_frames=cl), 5)
+        out[f"derotate_scan_{name}_ms"] = cuda_time(
+            lambda: derotate_scan(img, SCAN_ANGLES, color_frames=cl), 5)
+        out[f"derotate_scan_{name}_device_ms"] = device_ms(
+            lambda: derotate_scan(img, SCAN_ANGLES, color_frames=cl), 5,
+            "derotate_kernel")
     return out
 
 
@@ -4387,10 +4501,11 @@ def resync_times(dev, cover_np, wm_u8, blk, intra) -> dict:
     package (copied into an older tree, that tree's): :func:`resync_split`
     and each of :func:`resync_searches` twice (host clock, with its host
     reads), with the kernels (``kernel``, where the tree has them) and with
-    their twins in their places (``eager``)."""
+    their twins in their places (``eager``); and K13's ptxas report and
+    SASS mix (:func:`kernel_sass`)."""
     inp = resync_inputs(dev, cover_np, wm_u8, blk, intra)
     try:
-        resync_wrappers()
+        from dctsvd_tpu_torch.ops import resync_cuda  # noqa: F401
         forms = (("kernel", False), ("eager", True))
     except ImportError:
         forms = (("eager", True),)
@@ -4406,7 +4521,7 @@ def resync_times(dev, cover_np, wm_u8, blk, intra) -> dict:
                     runs[name].append(dict(s=dt, reads=reads, score=score,
                                            shift=list(shift), angle=angle))
         out[form] = dict(split=split, searches=runs)
-    return dict(tree=REPO, **out)
+    return dict(tree=REPO, **out, k13=kernel_sass(("derotate_kernel",)))
 
 
 def phase_resync(dev, cover_np, wm_u8, blk, intra):
@@ -4418,24 +4533,29 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     First K12 and K13 against their twins run on the card, torch.equal: K12
     on the first chunk of 64 rolls of each search's input (u8 color frames
     [64, H, W, 3], f32 luma planes [64, H, W]), K13 on the rotated color
-    frame, the luma plane and a 2160×3840 f32 plane at 0.3°; K1 is held to
-    its twin bit for bit on both stacks. Each is timed (CUDA events
-    around the wrapper, and the kernel's device time from torch.profiler)
-    beside its bound, its twin (the eager form it replaced) and one
-    PyTorch call computing
-    the same function (K12: the advanced-indexing gather with its indices
-    made beforehand; K13: grid_sample on the frame as f32, bilinear, zeros
-    outside). Then the chunk's split (:func:`resync_split`) and each search
-    (host clock) before, with the eager forms in the kernels' places and
+    frame, the luma plane and a 2160×3840 f32 plane at 0.3° and at the
+    rotation search's 20 coarse angles in one launch (every slice); K1 is
+    held to its twin bit for bit on both stacks. Each is timed (CUDA events
+    around the wrapper, per scan and per angle for K13's scan, and the
+    kernel's device time from torch.profiler) beside its bound, its twin
+    (the eager form it replaced) and one PyTorch call computing the same
+    function (K12: the advanced-indexing gather with its indices made
+    beforehand; K13: grid_sample on the frame as f32, bilinear, zeros
+    outside, over the same angles with their grids made beforehand). Then
+    the chunk's split (:func:`resync_split`) and each search (host clock)
+    before, with the eager forms in the kernels' places and
     each chunk's scores read as it ends (:func:`per_chunk_resync`), and
     after, through the port; each search finds the same score, shift and
     angle both ways.
 
     The counters of K1, K9, K12 and K13 are set to 0 just before each
     search and read just after: K1, K9 and K12 launch once a chunk (and
-    K1, K9 once more for detect_paths' aligned detect), K13 once a
-    nonzero angle; the search reads its scores to the host once a scan
-    (twice for the rotation search). K6's and K7's counters are set to 0
+    K1, K9 once more for detect_paths' aligned detect), K13 (through
+    derotate_angles) and rotation_cs_batch's ops once a scan with a nonzero
+    angle, derotate and rotation_cs never; the search reads its scores to
+    the host once a scan (twice for the rotation search). The rotation
+    search runs once more with each scan's candidates held to
+    derotate_plain. K6's and K7's counters are set to 0
     just before the gray search and read just after (it launches luma_f32
     once, and no other). Returns (K1's launches on each search, K6's and
     K7's on the gray search, K9's on each search, K12's and K13's on each
@@ -4488,6 +4608,10 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
             library_ms=cuda_time(lambda: img[ridx, cidx], 5),
             **bound(1, 0, nbytes(img, stack)))
         del stack, ridx, cidx
+    require(SCAN_ANGLES == blocked._resync_angles(RESYNC_ROT,
+                                                   RESYNC_STEP)[1:],
+            "SCAN_ANGLES is not the rotation search's coarse scan")
+    n_angles = len(SCAN_ANGLES)
     for name, img, cl in (("derotate", inp["rotated"], True),
                           ("derotate_gray", inp["luma"], False),
                           ("derotate_gray_4k", inp["plane_4k"], False)):
@@ -4499,23 +4623,36 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                 f"equal to its twin ({err})")
         require(torch.equal(resync_cuda.derotate(img, 0.0, color_frames=cl),
                             img), f"K13 {name} at 0°: not the input")
+        del ref
+        # a scan's 20 angles in one launch, each slice against the twin
+        stack = resync_cuda.derotate_angles(img, SCAN_ANGLES,
+                                            color_frames=cl)
+        for k, a in enumerate(SCAN_ANGLES):
+            ref = resync_cuda.derotate_plain(img, a, cl)
+            err = max(err, float((stack[k].to(torch.float64)
+                                  - ref.to(torch.float64)).abs().max()))
+            require(torch.equal(stack[k], ref), f"K13 {name} "
+                    f"{list(img.shape)} at {a}° of a scan: not equal to "
+                    f"its twin ({err})")
+        del ref
         h, w = got.shape[0], got.shape[1]
         c = img.shape[-1] if cl else 1
         planes = (torch.movedim(img, -1, 0) if cl else img[None]).to(
             torch.float32)[None]
         ys, xs = torch.meshgrid(torch.arange(h, device=dev),
                                 torch.arange(w, device=dev), indexing="ij")
-        cs = resync_cuda.rotation_cs(RESYNC_ANGLE, dev)
         xx, yy = xs - w * 0.5, ys - h * 0.5
-        grid = torch.stack([(cs[0] * xx + cs[1] * yy + w * 0.5) / (w - 1),
-                            (-cs[1] * xx + cs[0] * yy + h * 0.5) / (h - 1)],
-                           dim=-1)[None] * 2 - 1
+
+        def grid_of(cs):
+            return torch.stack([(cs[0] * xx + cs[1] * yy + w * 0.5) / (w - 1),
+                                (-cs[1] * xx + cs[0] * yy + h * 0.5)
+                                / (h - 1)], dim=-1) * 2 - 1
+        grid = grid_of(resync_cuda.rotation_cs(RESYNC_ANGLE, dev))[None]
         plain_ms = cuda_time(lambda: resync_cuda.derotate_plain(
             img, RESYNC_ANGLE, cl), 5)
         ops = (ROT_OPS_PIXEL + c * (ROT_OPS_CHANNEL + ROT_OPS_U8
                                     * (img.dtype == torch.uint8)))
-        rows[name] = dict(
-            shape=list(img.shape), max_abs_err=err, equals_twin=True,
+        one = dict(
             ms=cuda_time(lambda: resync_cuda.derotate(
                 img, RESYNC_ANGLE, color_frames=cl), 5),
             device_ms=device_ms(lambda: resync_cuda.derotate(
@@ -4525,14 +4662,43 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                 planes, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True), 5),
             **bound(h * w, ops, nbytes(img, got)))
-        del got, ref, planes, grid
+        del got, grid
+        # the scan: the wrapper (its cos and sin, the launch) per scan and
+        # per angle, the kernel alone, the twin angle by angle, and one
+        # grid_sample over the same angles with its grids made beforehand
+        grids = torch.stack([grid_of(cs) for cs in
+                             resync_cuda.rotation_cs_batch(SCAN_ANGLES, dev)])
+        planes_a = planes.expand(n_angles, *planes.shape[1:])
+        scan_ms = cuda_time(lambda: resync_cuda.derotate_angles(
+            img, SCAN_ANGLES, color_frames=cl), 5)
+        scan_plain_ms = cuda_time(lambda: resync_cuda.derotate_angles_plain(
+            img, SCAN_ANGLES, cl), 1)
+        scan = dict(
+            angles=n_angles, ms=scan_ms, ms_per_angle=scan_ms / n_angles,
+            device_ms=device_ms(lambda: resync_cuda.derotate_angles(
+                img, SCAN_ANGLES, color_frames=cl), 10, "derotate_kernel"),
+            plain_ms=scan_plain_ms, eager_ms=scan_plain_ms,
+            library_ms=cuda_time(lambda: F.grid_sample(
+                planes_a, grids, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 3),
+            **bound(n_angles * h * w, ops, nbytes(img, stack)))
+        scan["library_ms_per_angle"] = scan["library_ms"] / n_angles
+        scan["device_share_of_bound"] = (scan["bound_ms"] / scan["device_ms"]
+                                         if scan["device_ms"] else None)
+        del stack, planes, planes_a, grids
+        # the main path runs the scan: its numbers lead, the one angle's
+        # are beside them
+        rows[name] = dict(shape=list(img.shape), max_abs_err=err,
+                          equals_twin=True, **scan,
+                          **{f"{k}_one": v for k, v in one.items()})
     for name, r in rows.items():
         kernel = "K13" if name.startswith("derotate") else "K12"
         emit({"phase": "kernel_vs_plain", "kernel": f"{kernel} {name}", **r})
     k4 = rows.pop("derotate_gray_4k")
     rows["derotate_gray"].update({f"{k}_4k": k4[k] for k in
                                   ("ms", "device_ms", "plain_ms",
-                                   "library_ms", "bound_ms")})
+                                   "library_ms", "bound_ms", "ms_one",
+                                   "device_ms_one", "library_ms_one")})
 
     # before (the eager forms, a read a chunk) and after, split and searches
     with resync_forms(eager=True):
@@ -4557,13 +4723,32 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
           "card": smi_line()})
 
     counters = dict(K1=wm_cuda.spectrum_blocks, K9=detect_cuda.band_scores,
-                    K12=resync_cuda.roll_stack, K13=resync_cuda.derotate)
+                    K12=resync_cuda.roll_stack,
+                    K13=resync_cuda.derotate_angles,
+                    K13_one_angle=resync_cuda.derotate)
 
     def counted(fn):
+        # and the calls of the cos and sin makers: rotation_cs_batch's ops
+        # once a scan with a nonzero angle, rotation_cs (one angle's) never
+        cs_calls = dict.fromkeys(("rotation_cs", "rotation_cs_batch"), 0)
+        real = {n: getattr(resync_cuda, n) for n in cs_calls}
+
+        def counting(name):
+            def call(*args, **kw):
+                cs_calls[name] += 1
+                return real[name](*args, **kw)
+            return call
         for c in counters.values():
             c.launches = 0
-        out, dt, reads = timed_search(fn)
-        return out, dt, reads, {k: c.launches for k, c in counters.items()}
+        for n in cs_calls:
+            setattr(resync_cuda, n, counting(n))
+        try:
+            out, dt, reads = timed_search(fn)
+        finally:
+            for n, f in real.items():
+                setattr(resync_cuda, n, f)
+        return out, dt, reads, {**{k: c.launches for k, c in
+                                   counters.items()}, **cs_calls}
 
     searches = resync_searches(inp)
     after = {}
@@ -4576,6 +4761,30 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     path = counted(lambda: blocked.detect_paths(
         inp["rolled"].cpu().numpy(), inp["meta"], DETECT_THRESH,
         resync=True, device=dev))
+    # the rotation search again, each scan's counter-rotated candidates
+    # held to derotate_plain at their angles (untimed)
+    real_angles, checked = resync_cuda.derotate_angles, []
+
+    def checked_angles(img, angles, color_frames=False):
+        out = real_angles(img, angles, color_frames=color_frames)
+        for k, a in enumerate(angles):
+            require(torch.equal(out[k], resync_cuda.derotate_plain(
+                img, a, color_frames)), f"the rotation search's candidate "
+                f"at {a}°: not equal to its twin")
+        checked.append(len(angles))
+        return out
+    checked_angles.launches = 0     # the wrapper counts on its module's name
+    resync_cuda.derotate_angles = checked_angles
+    try:
+        rechecked = searches["rotation_color"]()
+    finally:
+        resync_cuda.derotate_angles = real_angles
+    require(rechecked == after["rotation_color"][0],
+            f"the rotation search {rechecked} with its candidates checked, "
+            f"{after['rotation_color'][0]} without")
+    require(checked == [len(SCAN_ANGLES)] + (
+        [8] if after["rotation_color"][0][2] != 0.0 else []),
+        f"the rotation search's scans {checked}")
     plain = {name: float(fn(img, sc, sw, ALPHA, sweeps=SWEEPS))
              for name, fn, img, sc, sw in (
                  ("shift_color", blocked.detect_color, inp["rolled"],
@@ -4607,9 +4816,10 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
     for name, n in launches.items():
         aligned = name == "detect_paths_resync"     # + its aligned detect
         rot = name == "rotation_color"
+        scans = (1 + (refined > 0)) if rot else 0   # with a nonzero angle
         want = dict(K1=chunks[name] + aligned, K9=chunks[name] + aligned,
-                    K12=chunks[name],
-                    K13=angles - 1 + refined if rot else 0)
+                    K12=chunks[name], K13=scans, K13_one_angle=0,
+                    rotation_cs=0, rotation_cs_batch=scans)
         require(n == want, f"launches on the {name} search {n}, expected "
                 f"{want} ({n_chunks} chunks a scan of {len(shifts)} shifts)")
     reads = {name: after[name][2] for name in after}
@@ -4624,6 +4834,7 @@ def phase_resync(dev, cover_np, wm_u8, blk, intra):
                 f"{out_before} through the eager forms")
     emit({"phase": "resync_1080p", "launches": launches, "host_reads": reads,
           "color_launches": n_color, "k1_chunk_vs_twin": twin,
+          "rotation_candidates_vs_twin": checked,
           "plain_detect": plain,
           "searches": {name: dict(score=out[0], found=list(out[1]),
                                   angle=out[2], search_s=dt,
@@ -5162,10 +5373,13 @@ def parallel_wrappers():
 
 
 def _signature(value):
-    """A call argument's shape, dtype and layout, or the value itself."""
+    """A call argument's shape, dtype and layout, or the value itself (a
+    list, as of a scan's angles, as a tuple)."""
     import torch
     if isinstance(value, torch.Tensor):
         return (tuple(value.shape), str(value.dtype), value.stride())
+    if isinstance(value, list):
+        return tuple(value)
     return value
 
 
@@ -5238,7 +5452,7 @@ def recorded_vs_twin(calls: dict) -> list:
              **{name: getattr(enhance_cuda, f"{name}_plain")
                 for name in ENHANCE_KERNELS},
              "roll_stack": resync_cuda.roll_stack_plain,
-             "derotate": resync_cuda.derotate_plain}
+             "derotate_angles": resync_cuda.derotate_angles_plain}
     kernels_ = twinned_wrappers()
     rows = []
     for (name, _, _), (args, kw) in calls.items():
@@ -6463,8 +6677,9 @@ def main(argv) -> int:
         require(not idle, f"{name} was not launched on the paths {idle}")
         launches[name] = sum(paths[name].values())
     # K12 (u8 color frames: the color searches and detect_paths; f32 planes:
-    # the gray search and the bench's geometric config) and K13 (color: the
-    # rotation search; f32 planes: the bench's rotation rows)
+    # the gray search and the bench's geometric config) and K13, a launch a
+    # scan (color: the rotation search; f32 planes: the bench's rotation
+    # rows)
     k12, k13 = resync_launches["K12"], resync_launches["K13"]
     paths["roll_stack"] = {"resync": k12["shift_color"]
                            + k12["rotation_color"]
@@ -6472,7 +6687,7 @@ def main(argv) -> int:
     paths["roll_stack_gray"] = {"resync": k12["shift_gray"],
                                 "bench": bench_launches["roll_stack"]}
     paths["derotate"] = {"resync": k13["rotation_color"]}
-    paths["derotate_gray"] = {"bench": bench_launches["derotate"]}
+    paths["derotate_gray"] = {"bench": bench_launches["derotate_angles"]}
     for name in ("roll_stack", "roll_stack_gray", "derotate",
                  "derotate_gray"):
         idle = [p for p, n in paths[name].items() if n == 0]
@@ -6489,7 +6704,14 @@ def main(argv) -> int:
                     "bound_ms_128", "detect_ms_32", "detect_ms_128",
                     "detect_ms_eager_32", "detect_ms_eager_128", "ms_4k",
                     "plain_ms_4k", "library_ms_4k", "bound_ms_4k",
-                    "device_ms", "device_ms_4k"):
+                    "device_ms", "device_ms_4k", "angles", "ms_per_angle",
+                    "library_ms_per_angle", "device_share_of_bound",
+                    "ms_one", "device_ms_one", "plain_ms_one",
+                    "library_ms_one", "bound_ms_one", "ms_one_4k",
+                    "device_ms_one_4k", "library_ms_one_4k",
+                    "smem_loads_per_pixel", "smem_bytes_per_pixel",
+                    "f32_insn_per_pixel", "smem_bound_ms",
+                    "f32_issue_bound_ms", "restated_bound_ms"):
             if key in r:
                 extra[key] = r[key]
         table.append(dict(name=name, route="cuda", source=src,

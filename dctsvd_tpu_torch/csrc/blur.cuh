@@ -43,6 +43,18 @@ __device__ __forceinline__ float blur_taps(const BlurTaps& taps, F v) {
   return acc;
 }
 
+// The kOut = kN - kTaps + 1 outputs of one pass over kN inputs held in
+// registers (a thread's run down a column or along a row): out(o, value)
+// with value the blur_taps sum over v[o .. o + kTaps - 1]. Each input is
+// read from shared memory once for all the outputs that use it.
+template <int kTaps, int kN, typename F>
+__device__ __forceinline__ void blur_run(const BlurTaps& taps,
+                                         const float (&v)[kN], F out) {
+#pragma unroll
+  for (int o = 0; o + kTaps <= kN; ++o)
+    out(o, blur_taps<kTaps>(taps, [&](int t) { return v[o + t]; }));
+}
+
 // The source index of halo position p (0 .. n - 1 + ...) through a reflect
 // table of n entries, clamped into it.
 __device__ __forceinline__ int blur_src(const int* __restrict__ table, int p,

@@ -24,7 +24,7 @@
 //   den = ((mu1^2 + mu2^2) + c1)((s1 + s2) + c2) + 1e-12;
 //   map = num / den,
 // c1, c2 and 1e-12 the f32 values of torch's Python scalars (c1 =
-// f32((0.01 * 255)^2), c2 = f32((0.03 * 255)^2)). The sum: a CTA takes a
+// f32((0.01 * 255)^2), c2 = f32((0.03 * 255)^2)). The sum: each
 // kSsimTile x kSsimTile tile, thread (warp w, lane c) its column c at rows
 // w, w + 8, w + 16, w + 24 (from 0, in that order; 0 for pixels past the
 // plane), then a butterfly of shuffles over the 32 lanes (16, 8, 4, 2, 1),
@@ -41,24 +41,40 @@
 // in f64 and rounds to f32 (the twin's int64 torch ops do the same), then
 // runs the twin's sqrt, log10, 1e-12 floor and 99.0 cap on the [B] vector.
 //
-// What bounds them on the H100. K15: operations. Per pixel the vertical
-// pass does 11 taps of 5 products and 5 sums over 42/32 of the tile's
-// columns, plus 3 products a halo pixel a tap (x x, y y, x y formed in
-// the loop), the horizontal pass 11 taps of 5 and 5, the map about 20:
-// about 330 f32 instructions, so issue (132 SMs x 128 lanes at 1980 MHz)
-// binds before the 3 bytes to 5 a pixel it reads. K16: bytes (2 n u8 an
-// image, read once; 398 MB for 32 color 1080p frames, 0.119 ms).
+// What bounds them on the H100. K15: issue, its f32 instructions and the
+// shared-memory traffic that feeds them. Per pixel the vertical pass does
+// 11 taps of 5 products and 5 sums and 3 products a halo pixel, the
+// horizontal pass 11 taps of 5 and 5, the map about 20: about 250 f32
+// instructions, so issue (132 SMs x 128 lanes at 1980 MHz) binds before
+// the 3 bytes to 5 a pixel it reads from device memory, and the shared-
+// memory traffic (about 110 bytes a pixel at 128 B a clock an SM) comes
+// second. K16: bytes (2 n u8 an image, read once; 398 MB for 32 color
+// 1080p frames, 0.119 ms).
 //
-// What the design does about it. K15 reads each input pixel's halo once
-// into shared memory (a 42 x 42 halo of x and y as f32, 14 KB), forms the
-// five inputs there and keeps the vertical pass's five planes in shared
-// memory (5 x 32 x 42 f32, 27 KB; 41 KB a CTA in all, under the 48 KB of
-// static shared memory), so the five blurs of a tile cost one read of its
-// inputs, where the eager form wrote and read ten f32 temporaries of the
-// padded plane a blur. The whole batch is one launch (grid tiles x planes)
-// and the finish one more. K16 reads both inputs in 16-byte loads where n
-// is a multiple of 16 and both pointers 16-byte aligned (else a byte a
-// thread), kSqDiffPerCta bytes of an image a CTA.
+// What the design does about it. A CTA of 256 threads walks a band of 32
+// rows of a plane across kWalkBlocks blocks of 64 columns (two sum tiles
+// each). For each block it reads the 42 rows of x and y at the block's 64
+// new padded columns once into shared memory as f32 (21 KB). The vertical
+// pass: every thread (the block's 64 columns x 4 runs of 8 rows, so no
+// warp waits at the barrier and each scheduler has two) runs down one
+// column for 8 output rows, reads its 18 values of x and of y once into
+// registers, forms each product x x, y y, x y once a halo pixel, and sums
+// the 11 taps of each output from those registers into the five vertical
+// planes (5 x 32 rows x 76 floats, 49 KB); the 10 padded columns before
+// the block's new ones are the previous block's last 10, copied over, so
+// no column's vertical pass is made twice within a walk. The horizontal
+// pass: thread (warp g, lane r) takes row r's 8 outputs at columns 8 g ..
+// 8 g + 7 and reads the 20 values it needs from each plane as five
+// 16-byte loads (eight lanes' rows on eight distinct bank groups: 76
+// floats is 19 16-byte units), so a plane's value is loaded 2.5 times a
+// pixel where the one-pixel-a-thread form loaded it 11 times; the map of
+// its 8 pixels goes to a 32 x 65 shared tile (over x and y, no longer
+// read) and the fixed-order sum reads it back as thread (w, c) of each
+// 32 x 32 tile. 70 KB of dynamic shared memory a CTA (opted in), three
+// CTAs an SM. The whole batch is one launch (grid walks x row tiles x
+// planes) and the finish one more. K16 reads both inputs in 16-byte loads
+// where n is a multiple of 16 and both pointers 16-byte aligned (else a
+// byte a thread), kSqDiffPerCta bytes of an image a CTA.
 
 #include <cuda_runtime.h>
 
@@ -69,12 +85,47 @@
 namespace dctsvd {
 namespace {
 
-constexpr int kSsimTile = 32;
+constexpr int kSsimTile = 32;                   // a sum tile: one partial
 constexpr int kSsimR = 5;                       // 11 taps
 constexpr int kSsimTaps = 2 * kSsimR + 1;
-constexpr int kSsimHalo = kSsimTile + 2 * kSsimR;
 constexpr int kSsimThreads = 256;
 constexpr int kSsimWarps = kSsimThreads / 32;
+// A CTA walks a row band of kSsimTile rows across kWalkBlocks blocks of
+// kBlockW columns (two sum tiles); a block's vertical pass covers the
+// kBlockW + 2 R padded columns it needs, of which the last 2 R are the
+// next block's first: kept, not computed again.
+constexpr int kBlockW = 2 * kSsimTile;          // 64
+constexpr int kCarry = 2 * kSsimR;              // 10 columns carried over
+constexpr int kWalkBlocks = 8;
+constexpr int kHaloH = kSsimTile + 2 * kSsimR;  // 42
+// the vertical pass: a thread down one column for kVRows outputs
+constexpr int kVRows = 8;
+constexpr int kVIn = kVRows + kSsimTaps - 1;    // 18 inputs
+constexpr int kVItems = kBlockW * (kSsimTile / kVRows);  // 256: every warp
+constexpr int kVPitch = 76;     // a vertical plane's row: 19 16-byte units
+// the horizontal pass: a thread along a row for kHCols outputs
+constexpr int kHCols = 8;
+constexpr int kHIn = 20;        // kHCols + 10, rounded up to 16-byte loads
+constexpr int kMapPitch = 65;   // the staged map's row
+constexpr int kLoadRows = kSsimThreads / kBlockW;        // 4 row groups
+// dynamic shared memory (floats): xs, ys [kHaloH][kBlockW] (a block's new
+// columns of x and y; the map [kSsimTile][kMapPitch] over them once the
+// vertical pass has read them), vs [5][kSsimTile][kVPitch] (the vertical
+// planes at the block's kCarry + kBlockW padded columns), part
+// [2][kSsimWarps]
+constexpr int kHaloFloats = kHaloH * kBlockW;
+constexpr int kVsOffset = 2 * kHaloFloats;
+constexpr int kPartOffset = kVsOffset + 5 * kSsimTile * kVPitch;
+constexpr int kSsimSmemBytes = 4 * (kPartOffset + 2 * kSsimWarps);
+static_assert(kSsimThreads == kSsimWarps * kSsimTile, "a warp a row of 8");
+static_assert(kBlockW / kHCols * kSsimTile == kSsimThreads,
+              "the horizontal pass: a thread a row segment");
+static_assert(kVItems == kSsimThreads, "the vertical pass: every thread");
+static_assert(kVsOffset % 4 == 0 && kVPitch % 4 == 0 &&
+                  kHCols * (kBlockW / kHCols - 1) + kHIn <= kVPitch &&
+                  kCarry + kBlockW <= kVPitch,
+              "16-byte loads inside a plane's row");
+static_assert(kSsimTile * kMapPitch <= 2 * kHaloFloats, "the map's tile");
 constexpr int kFinishThreads = 256;
 constexpr int kMaxGrid = 65535;                 // planes a launch (grid z)
 constexpr unsigned kFull = 0xffffffffu;
@@ -134,70 +185,187 @@ __device__ __forceinline__ float warp_order_sum(float v, float* part) {
   return s;
 }
 
-// K15. Grid (column tiles, row tiles, planes of this launch); plane
-// blockIdx.z of x and y; partials [P, row tiles, column tiles].
+// One of the vertical pass's five inputs from a halo pixel's x and y: x,
+// y, x x, y y, x y.
+template <int kCh>
+__device__ __forceinline__ float vertical_input(float a, float b) {
+  if constexpr (kCh == 0) return a;
+  if constexpr (kCh == 1) return b;
+  if constexpr (kCh == 2) return __fmul_rn(a, a);
+  if constexpr (kCh == 3) return __fmul_rn(b, b);
+  return __fmul_rn(a, b);
+}
+
+// The vertical pass of input kCh for one thread's run down a column from
+// halo row r0: its kVIn values of x and y in registers -> plane kCh's rows
+// r0 .. r0 + kVRows - 1 at column vc; each product formed once a halo
+// pixel.
+template <int kCh>
+__device__ __forceinline__ void vertical_run(const BlurTaps& taps,
+                                             const float (&xv)[kVIn],
+                                             const float (&yv)[kVIn],
+                                             float* vs, int r0, int vc) {
+  float v[kVIn];
+#pragma unroll
+  for (int i = 0; i < kVIn; ++i) v[i] = vertical_input<kCh>(xv[i], yv[i]);
+  float* out = vs + (kCh * kSsimTile + r0) * kVPitch + vc;
+  blur_run<kSsimTaps>(taps, v,
+                      [&](int o, float s) { out[o * kVPitch] = s; });
+}
+
+// One thread's vertical runs of the five inputs: column j of xs, ys (x
+// and y read from shared memory once) from halo row r0 into column vc of
+// the planes.
+__device__ __forceinline__ void vertical_item(const BlurTaps& taps,
+                                              const float* xs,
+                                              const float* ys, float* vs,
+                                              int r0, int j, int vc) {
+  float xv[kVIn], yv[kVIn];
+#pragma unroll
+  for (int i = 0; i < kVIn; ++i) {
+    xv[i] = xs[(r0 + i) * kBlockW + j];
+    yv[i] = ys[(r0 + i) * kBlockW + j];
+  }
+  // x y first, while both are live; x's last use, then y's
+  vertical_run<4>(taps, xv, yv, vs, r0, vc);
+  vertical_run<2>(taps, xv, yv, vs, r0, vc);
+  vertical_run<0>(taps, xv, yv, vs, r0, vc);
+  vertical_run<3>(taps, xv, yv, vs, r0, vc);
+  vertical_run<1>(taps, xv, yv, vs, r0, vc);
+}
+
+// Columns p0 .. p0 + n - 1 of the padded plane's halo rows (row band ty0)
+// into xs, ys columns 0 .. n - 1: thread (group g, column q) its column at
+// rows g, g + kLoadRows, ..., every load issued before the first store.
 template <typename T2>
-__global__ void __launch_bounds__(kSsimThreads)
+__device__ __forceinline__ void load_columns(
+    const uint8_t* __restrict__ x, const T2* __restrict__ y,
+    const int* __restrict__ rows, const int* __restrict__ cols, int64_t base,
+    int w, int nr, int nc, int ty0, int p0, int n, float* xs, float* ys) {
+  const int q = threadIdx.x % kBlockW, g = threadIdx.x / kBlockW;
+  if (q >= n) return;
+  constexpr int kRows = (kHaloH + kLoadRows - 1) / kLoadRows;   // 11
+  const int sc = blur_src(cols, p0 + q, nc);
+  int64_t src[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int p = g + kLoadRows * i;
+    src[i] = base + static_cast<int64_t>(
+                        blur_src(rows, ty0 + (p < kHaloH ? p : 0), nr)) * w +
+             sc;
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int p = g + kLoadRows * i;
+    if (p < kHaloH) {
+      xs[p * kBlockW + q] = to_f32(__ldg(x + src[i]));
+      ys[p * kBlockW + q] = to_f32(__ldg(y + src[i]));
+    }
+  }
+}
+
+// K15. Grid (walks of kWalkBlocks blocks, row tiles, planes of this
+// launch); plane blockIdx.z of x and y; partials [P, row tiles, column
+// tiles] (tx column tiles); kSsimSmemBytes of dynamic shared memory.
+template <typename T2>
+__global__ void __launch_bounds__(kSsimThreads, 3)
     ssim_kernel(const uint8_t* __restrict__ x, const T2* __restrict__ y,
                 const int* __restrict__ rows, const int* __restrict__ cols,
-                int h, int w, BlurTaps taps, float c1, float c2,
+                int h, int w, int tx, BlurTaps taps, float c1, float c2,
                 float* __restrict__ partials) {
-  __shared__ float xs[kSsimHalo][kSsimHalo];
-  __shared__ float ys[kSsimHalo][kSsimHalo];
-  __shared__ float vs[5][kSsimTile][kSsimHalo];
-  __shared__ float part[kSsimWarps];
-  const int tid = threadIdx.x;
+  extern __shared__ float smem[];
+  float* xs = smem;
+  float* ys = smem + kHaloFloats;
+  float* vs = smem + kVsOffset;
+  float* part = smem + kPartOffset;
+  float* ms = smem;                     // the map, once xs, ys are read
+  const int tid = threadIdx.x, c = tid & 31, warp = tid >> 5;
   const int64_t plane = blockIdx.z;
   const int64_t base = plane * h * static_cast<int64_t>(w);
-  const int ty0 = blockIdx.y * kSsimTile, tx0 = blockIdx.x * kSsimTile;
+  const int ty0 = blockIdx.y * kSsimTile;
   const int nr = h + 2 * kSsimR, nc = w + 2 * kSsimR;
-  for (int i = tid; i < kSsimHalo * kSsimHalo; i += kSsimThreads) {
-    const int r = i / kSsimHalo, c = i - r * kSsimHalo;
-    const int64_t src =
-        base + static_cast<int64_t>(blur_src(rows, ty0 + r, nr)) * w +
-        blur_src(cols, tx0 + c, nc);
-    xs[r][c] = to_f32(__ldg(x + src));
-    ys[r][c] = to_f32(__ldg(y + src));
-  }
+  const int b0 = blockIdx.x * kWalkBlocks;
+  const int b1 = min(b0 + kWalkBlocks, (w + kBlockW - 1) / kBlockW);
+  // the first block's leading kCarry padded columns, into planes' 0 .. 9
+  load_columns(x, y, rows, cols, base, w, nr, nc, ty0, b0 * kBlockW, kCarry,
+               xs, ys);
   __syncthreads();
-  // the vertical pass of the five inputs over the halo's width
-  for (int i = tid; i < kSsimTile * kSsimHalo; i += kSsimThreads) {
-    const int r = i / kSsimHalo, j = i - r * kSsimHalo;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f, a4 = 0.0f;
+  if (tid < kCarry * (kSsimTile / kVRows))
+    vertical_item(taps, xs, ys, vs, (tid / kCarry) * kVRows, tid % kCarry,
+                  tid % kCarry);
+  __syncthreads();
+  for (int b = b0; b < b1; ++b) {
+    const int tx0 = b * kBlockW;
+    // the block's new padded columns tx0 + 10 .. tx0 + 73: planes' 10 .. 73
+    load_columns(x, y, rows, cols, base, w, nr, nc, ty0, tx0 + kCarry,
+                 kBlockW, xs, ys);
+    __syncthreads();
+    if (tid < kVItems)
+      vertical_item(taps, xs, ys, vs, (tid / kBlockW) * kVRows,
+                    tid % kBlockW, kCarry + tid % kBlockW);
+    __syncthreads();
+    // the horizontal pass and the map: row r (the lane), columns c0 .. c0+7
+    {
+      const int r = c, c0 = warp * kHCols;
+      float bl[5][kHCols];
 #pragma unroll
-    for (int t = 0; t < kSsimTaps; ++t) {
-      const float k = taps.k[t];
-      const float a = xs[r + t][j], b = ys[r + t][j];
-      a0 = __fadd_rn(a0, __fmul_rn(k, a));
-      a1 = __fadd_rn(a1, __fmul_rn(k, b));
-      a2 = __fadd_rn(a2, __fmul_rn(k, __fmul_rn(a, a)));
-      a3 = __fadd_rn(a3, __fmul_rn(k, __fmul_rn(b, b)));
-      a4 = __fadd_rn(a4, __fmul_rn(k, __fmul_rn(a, b)));
+      for (int ch = 0; ch < 5; ++ch) {
+        const float4* row = reinterpret_cast<const float4*>(
+            vs + (ch * kSsimTile + r) * kVPitch + c0);
+        float v[kHIn];
+#pragma unroll
+        for (int k = 0; k < kHIn / 4; ++k) {
+          const float4 q = row[k];
+          v[4 * k] = q.x;
+          v[4 * k + 1] = q.y;
+          v[4 * k + 2] = q.z;
+          v[4 * k + 3] = q.w;
+        }
+        float u[kHCols + kSsimTaps - 1];  // the 18 of the 20 that it uses
+#pragma unroll
+        for (int i = 0; i < kHCols + kSsimTaps - 1; ++i) u[i] = v[i];
+        blur_run<kSsimTaps>(taps, u,
+                            [&](int o, float s) { bl[ch][o] = s; });
+      }
+      const bool row_in = ty0 + r < h;
+#pragma unroll
+      for (int o = 0; o < kHCols; ++o) {
+        const float m = ssim_map(bl[0][o], bl[1][o], bl[2][o], bl[3][o],
+                                 bl[4][o], c1, c2);
+        ms[r * kMapPitch + c0 + o] = row_in && tx0 + c0 + o < w ? m : 0.0f;
+      }
     }
-    vs[0][r][j] = a0;
-    vs[1][r][j] = a1;
-    vs[2][r][j] = a2;
-    vs[3][r][j] = a3;
-    vs[4][r][j] = a4;
-  }
-  __syncthreads();
-  // the horizontal pass, the map and its sum: column c, rows w + 8 q
-  const int c = tid & 31, warp = tid >> 5;
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int q = 0; q < kSsimTile / kSsimWarps; ++q) {
-    const int r = warp + kSsimWarps * q;
-    float b[5];
+    __syncthreads();
+    // each 32 x 32 tile's sum: thread (warp w, lane c) column c, rows
+    // w + 8 q; and the last kCarry columns of the planes to their first
+    float acc[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int ch = 0; ch < 5; ++ch)
-      b[ch] = blur_taps<kSsimTaps>(taps,
-                                   [&](int t) { return vs[ch][r][c + t]; });
-    const float m = ssim_map(b[0], b[1], b[2], b[3], b[4], c1, c2);
-    acc = __fadd_rn(acc, (ty0 + r < h && tx0 + c < w) ? m : 0.0f);
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int q = 0; q < kSsimTile / kSsimWarps; ++q)
+        acc[t] = __fadd_rn(
+            acc[t],
+            ms[(warp + kSsimWarps * q) * kMapPitch + kSsimTile * t + c]);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float v = lane_tree(acc[t]);
+      if (c == 0) part[t * kSsimWarps + warp] = v;
+    }
+    for (int i = tid; i < 5 * kSsimTile * kCarry; i += kSsimThreads) {
+      const int row = i / kCarry, k = i - row * kCarry;
+      vs[row * kVPitch + k] = vs[row * kVPitch + kBlockW + k];
+    }
+    __syncthreads();
+    if (tid < 2) {
+      const int col_tile = 2 * b + tid;
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSsimWarps; ++k)
+        s = __fadd_rn(s, part[tid * kSsimWarps + k]);
+      if (col_tile < tx)
+        partials[(plane * gridDim.y + blockIdx.y) * tx + col_tile] = s;
+    }
   }
-  const float s = warp_order_sum(acc, part);
-  if (tid == 0)
-    partials[(plane * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
 }
 
 // K15's finish. Grid (planes); partials [P, n]; out [P] = the plane's sum
@@ -294,22 +462,33 @@ extern "C" int dctsvd_ssim(const void* x, const void* y, int y_f32,
   const BlurTaps t = blur_taps_of(static_cast<const float*>(taps),
                                   kSsimTaps);
   const int tx = ceil_div(w, kSsimTile), ty = ceil_div(h, kSsimTile);
+  const int walks = ceil_div(ceil_div(w, kBlockW), kWalkBlocks);
   const int64_t per_plane = static_cast<int64_t>(h) * w;
   auto* part = static_cast<float*>(partials);
+  // above 48 KB of shared memory a CTA only by the kernel's opt-in
+  const cudaError_t opt =
+      y_f32 ? cudaFuncSetAttribute(ssim_kernel<float>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSsimSmemBytes)
+            : cudaFuncSetAttribute(ssim_kernel<uint8_t>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSsimSmemBytes);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   for (int p0 = 0; p0 < planes; p0 += kMaxGrid) {
-    const dim3 grid(tx, ty, planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
+    const dim3 grid(walks, ty,
+                    planes - p0 < kMaxGrid ? planes - p0 : kMaxGrid);
     if (y_f32)
-      ssim_kernel<float><<<grid, kSsimThreads, 0, st>>>(
+      ssim_kernel<float><<<grid, kSsimThreads, kSsimSmemBytes, st>>>(
           static_cast<const uint8_t*>(x) + p0 * per_plane,
           static_cast<const float*>(y) + p0 * per_plane,
           static_cast<const int*>(rows), static_cast<const int*>(cols), h, w,
-          t, c1, c2, part + static_cast<int64_t>(p0) * tx * ty);
+          tx, t, c1, c2, part + static_cast<int64_t>(p0) * tx * ty);
     else
-      ssim_kernel<uint8_t><<<grid, kSsimThreads, 0, st>>>(
+      ssim_kernel<uint8_t><<<grid, kSsimThreads, kSsimSmemBytes, st>>>(
           static_cast<const uint8_t*>(x) + p0 * per_plane,
           static_cast<const uint8_t*>(y) + p0 * per_plane,
           static_cast<const int*>(rows), static_cast<const int*>(cols), h, w,
-          t, c1, c2, part + static_cast<int64_t>(p0) * tx * ty);
+          tx, t, c1, c2, part + static_cast<int64_t>(p0) * tx * ty);
   }
   ssim_finish_kernel<<<planes, kFinishThreads, 0, st>>>(
       part, tx * ty, static_cast<float>(per_plane),

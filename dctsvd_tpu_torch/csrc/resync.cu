@@ -42,19 +42,37 @@
 //   tap's weight 1 - u;
 //   out = ((t00 + t01) + t10) + t11, t_ab = (wy_a·wx_b)·(valid ? v : 0);
 //   integer inputs: rintf (half to even, torch.round), then [0, 255].
-// c and s are the twin's own (ops/resync_cuda.py::rotation_cs: deg2rad,
-// cos and sin of an f32 tensor on the device), read through a pointer:
-// the kernel does no trigonometry and the host never waits. At angle 0
+// One launch takes A angles of F frames: output slice z = a·F + f is frame
+// f counter-rotated by angle a, whose (cos, sin) is row a of an [A, 2]
+// tensor on the device, the twin's own values (ops/resync_cuda.py::
+// rotation_cs and rotation_cs_batch: deg2rad, cos and sin of f32 tensors),
+// so the kernel does no trigonometry and the host never waits. At angle 0
 // (c = 1, s = 0) every pixel is its own lower tap with weight 1, so
 // derotate(x, 0) is x.
-//   Bound: bytes, the frame read and written once: 12,441,600 B for a
-//   1080p u8 color frame (0.0037 ms), 16,588,800 B for a 1080p f32 plane
-//   (0.0050 ms), 66,355,200 B for a 2160×3840 f32 plane (0.0198 ms). At
-//   1080p a launch costs more than that: the kernel is launch-bound there.
-//   Design: a thread computes one output pixel, all C channels; a CTA is
-//   a 32 × 8 tile, so a warp's taps lie on one or two source rows for the
-//   small angles the search tries. Plain loads and stores: the source
-//   and the result (which the chunks' K12 reads next) fit in L2.
+//   Bound: bytes, the frame read once (it stays in the 50 MB L2 across the
+//   angles: 6.2 MB a u8 color 1080p frame, 8.3 MB an f32 plane, 33 MB at
+//   2160x3840) and the A slices written once: 20 color 1080p angles
+//   130,636,800 B (0.0390 ms at 3.35 TB/s), 20 f32 1080p planes
+//   174,182,400 B (0.0520 ms), 20 f32 2160x3840 planes 696,729,600 B
+//   (0.2080 ms). One angle at 1080p is smaller than a launch's cost: the
+//   resync search makes all of a scan's angles in one launch.
+//   Design: a thread computes kRotPix neighbouring output pixels of a row,
+//   all C channels (a CTA 32 x 8 threads, 128 x 8 pixels), with the row's
+//   products s·yy and c·yy formed once. A pixel whose four taps lie inside
+//   the frame (all but a border for the small angles the search tries)
+//   takes one address and no selects. u8 taps become f32 by a byte into
+//   2^23's mantissa and one exact subtraction, and u8 results leave as the
+//   low byte of clamp(v) + 2^23 (round half to even; equal to rintf then
+//   the clamp for every f32 v), both on the full-rate pipes instead of the
+//   quarter-rate conversions. The vector instance (W a multiple of
+//   kRotPix, the output 16-byte aligned: derotate_plan) stores a thread's
+//   4·C elements whole: a 4-byte word (u8 planes), three words (u8 BGR: 12
+//   bytes), 16 bytes (u8 with 4 channels) or C float4s (f32); the scalar
+//   instance stores element by element, guarded at the row's end. (Lanes
+//   on neighbouring pixels, 32 apart in a thread, with plain stores,
+//   measured the same on color frames, 7 % faster on 1080p f32 planes and
+//   8 % slower at 2160x3840; evict-first stores measured no faster.) Its
+//   share of the byte bound and its SASS are in PERF.md, section 6.
 
 #include <cuda_runtime.h>
 
@@ -64,9 +82,11 @@
 namespace dctsvd {
 
 constexpr int kRollThreads = 128;
-constexpr int kRotTileX = 32;
+constexpr int kRotTileX = 32;    // K13: threads along a row
 constexpr int kRotTileY = 8;
-constexpr int kMaxGridZ = 65535;  // frames a launch of K13
+constexpr int kRotPix = 4;       // output pixels a thread (ops/resync_cuda.py
+                                 // ROT_PIXELS)
+constexpr int kMaxGridZ = 65535;  // output slices a launch of K13
 
 // x mod m in [0, m) for any int64 x (m > 0).
 __device__ __forceinline__ int64_t mod_nonneg(int64_t x, int64_t m) {
@@ -143,83 +163,183 @@ __global__ void __launch_bounds__(kRollThreads)
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T to_out(float v);
+// An f32 tap from its element: u8 through 2^23's mantissa (exact).
+__device__ __forceinline__ float tap_f32(uint8_t v) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+__device__ __forceinline__ float tap_f32(float v) { return v; }
 
-template <>
-__device__ __forceinline__ float to_out<float>(float v) {
-  return v;
+// torch.round (half to even), clamp(0, 255), .to(uint8) as the low byte of
+// the result: for every f32 v, clamping first and rounding by the addition
+// of 2^23 (round to nearest even at ulp 1) gives rintf's then the clamp's
+// value (NaN and -0 go to 0 either way).
+__device__ __forceinline__ uint32_t u8_bits(float v) {
+  return __float_as_uint(
+      __fadd_rn(fminf(fmaxf(v, 0.0f), 255.0f), 8388608.0f));
 }
 
-// torch.round (half to even), clamp(0, 255), .to(uint8).
-template <>
-__device__ __forceinline__ uint8_t to_out<uint8_t>(float v) {
-  return static_cast<uint8_t>(fminf(fmaxf(rintf(v), 0.0f), 255.0f));
-}
-
-// K13. Frame blockIdx.z of [h, w, C] elements of T; cs = (cos, sin).
+// One output pixel of K13 at column col: acc[ch] in the twin's order.
+// s_yy = s·yy, c_yy = c·yy of the pixel's row; ns = -s.
 template <typename T, int C>
-__global__ void __launch_bounds__(kRotTileX* kRotTileY)
-    derotate_kernel(const T* __restrict__ img, const float* __restrict__ cs,
-                    T* __restrict__ out, int h, int w) {
-  const int col = blockIdx.x * kRotTileX + threadIdx.x;
-  const int row = blockIdx.y * kRotTileY + threadIdx.y;
-  if (col >= w || row >= h) return;
-  const int64_t frame = static_cast<int64_t>(h) * w * C;
-  img += blockIdx.z * frame;
-  out += blockIdx.z * frame;
-  const float c = __ldg(cs), s = __ldg(cs + 1);
-  const float cx = w * 0.5f, cy = h * 0.5f;
-  const float xx = static_cast<float>(col) - cx;
-  const float yy = static_cast<float>(row) - cy;
-  float src_x = c * xx;
-  src_x = src_x + s * yy;
-  src_x = src_x + cx;
-  float src_y = (-s) * xx;
-  src_y = src_y + c * yy;
-  src_y = src_y + cy;
+__device__ __forceinline__ void derotate_pixel(const T* __restrict__ img,
+                                               float c, float ns, float s_yy,
+                                               float c_yy, float cx, float cy,
+                                               int col, int h, int w,
+                                               float (&acc)[C]) {
+  const float xx = __fsub_rn(static_cast<float>(col), cx);
+  const float src_x = __fadd_rn(__fadd_rn(__fmul_rn(c, xx), s_yy), cx);
+  const float src_y = __fadd_rn(__fadd_rn(__fmul_rn(ns, xx), c_yy), cy);
   const float ly = floorf(src_y), lx = floorf(src_x);
-  const float uy = src_y - ly, ux = src_x - lx;
-  const float wy[2] = {1.0f - uy, uy};
-  const float wx[2] = {1.0f - ux, ux};
+  const float uy = __fsub_rn(src_y, ly), ux = __fsub_rn(src_x, lx);
+  const float wy[2] = {__fsub_rn(1.0f, uy), uy};
+  const float wx[2] = {__fsub_rn(1.0f, ux), ux};
   const int y0 = static_cast<int>(ly), x0 = static_cast<int>(lx);
-  float acc[C];
+  if (x0 >= 0 && x0 < w - 1 && y0 >= 0 && y0 < h - 1) {
+    // all four taps inside: one address, no selects
+    const T* p0 = img + (static_cast<int64_t>(y0) * w + x0) * C;
+    const T* p1 = p0 + static_cast<int64_t>(w) * C;
+    const float w00 = __fmul_rn(wy[0], wx[0]), w01 = __fmul_rn(wy[0], wx[1]);
+    const float w10 = __fmul_rn(wy[1], wx[0]), w11 = __fmul_rn(wy[1], wx[1]);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      float s = __fmul_rn(w00, tap_f32(__ldg(p0 + ch)));
+      s = __fadd_rn(s, __fmul_rn(w01, tap_f32(__ldg(p0 + C + ch))));
+      s = __fadd_rn(s, __fmul_rn(w10, tap_f32(__ldg(p1 + ch))));
+      acc[ch] = __fadd_rn(s, __fmul_rn(w11, tap_f32(__ldg(p1 + C + ch))));
+    }
+    return;
+  }
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const int iy = y0 + a, ix = x0 + b;
       const bool valid = iy >= 0 && iy < h && ix >= 0 && ix < w;
-      const float wgt = wy[a] * wx[b];
+      const float wgt = __fmul_rn(wy[a], wx[b]);
       const T* px = img + (static_cast<int64_t>(valid ? iy : 0) * w +
                            (valid ? ix : 0)) * C;
 #pragma unroll
       for (int ch = 0; ch < C; ++ch) {
-        const float v = valid ? static_cast<float>(__ldg(px + ch)) : 0.0f;
-        const float t = wgt * v;
-        acc[ch] = (a == 0 && b == 0) ? t : acc[ch] + t;
+        const float v = valid ? tap_f32(__ldg(px + ch)) : 0.0f;
+        const float t = __fmul_rn(wgt, v);
+        acc[ch] = (a == 0 && b == 0) ? t : __fadd_rn(acc[ch], t);
       }
     }
   }
-  T* po = out + (static_cast<int64_t>(row) * w + col) * C;
+}
+
+// A thread's kRotPix·C results to the output: whole (kVec) or element by
+// element up to the row's end (n pixels of the group lie in the row).
+template <int C, bool kVec>
+__device__ __forceinline__ void store_group(float* po,
+                                            const float (&acc)[kRotPix][C],
+                                            int n) {
+  if constexpr (kVec) {
+    const float* e = &acc[0][0];
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) po[ch] = to_out<T>(acc[ch]);
+    for (int i = 0; i < C; ++i)
+      reinterpret_cast<float4*>(po)[i] =
+          make_float4(e[4 * i], e[4 * i + 1], e[4 * i + 2], e[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRotPix; ++k)
+      if (k < n)
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) po[k * C + ch] = acc[k][ch];
+  }
+}
+
+template <int C, bool kVec>
+__device__ __forceinline__ void store_group(uint8_t* po,
+                                            const float (&acc)[kRotPix][C],
+                                            int n) {
+  uint32_t b[kRotPix * C];
+#pragma unroll
+  for (int k = 0; k < kRotPix; ++k)
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) b[k * C + ch] = u8_bits(acc[k][ch]);
+  if constexpr (kVec) {
+    // 4·C bytes: C words, each four results' low bytes
+    uint32_t word[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      word[i] = __byte_perm(__byte_perm(b[4 * i], b[4 * i + 1], 0x0040),
+                            __byte_perm(b[4 * i + 2], b[4 * i + 3], 0x0040),
+                            0x5410);
+    if constexpr (C == 4) {
+      *reinterpret_cast<uint4*>(po) =
+          make_uint4(word[0], word[1], word[2], word[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < C; ++i) reinterpret_cast<uint32_t*>(po)[i] = word[i];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRotPix; ++k)
+      if (k < n)
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+          po[k * C + ch] = static_cast<uint8_t>(b[k * C + ch] & 0xffu);
+  }
+}
+
+// K13. Output slice z = z0 + blockIdx.z of [h, w, C] elements of T is frame
+// z mod frames of img counter-rotated by angle z / frames; cs [A, 2] =
+// (cos, sin) of each angle.
+template <typename T, int C, bool kVec>
+__global__ void __launch_bounds__(kRotTileX* kRotTileY)
+    derotate_kernel(const T* __restrict__ img, const float* __restrict__ cs,
+                    T* __restrict__ out, int z0, int frames, int h, int w) {
+  const int col0 = (blockIdx.x * kRotTileX + threadIdx.x) * kRotPix;
+  const int row = blockIdx.y * kRotTileY + threadIdx.y;
+  if (col0 >= w || row >= h) return;
+  const int z = z0 + static_cast<int>(blockIdx.z);
+  const int angle = z / frames;
+  const int64_t frame = static_cast<int64_t>(h) * w * C;
+  img += (z - angle * frames) * frame;
+  out += z * frame;
+  const float c = __ldg(cs + 2 * angle), s = __ldg(cs + 2 * angle + 1);
+  const float cx = w * 0.5f, cy = h * 0.5f;
+  const float yy = __fsub_rn(static_cast<float>(row), cy);
+  const float s_yy = __fmul_rn(s, yy), c_yy = __fmul_rn(c, yy);
+  float acc[kRotPix][C];
+#pragma unroll
+  for (int k = 0; k < kRotPix; ++k)
+    derotate_pixel<T, C>(img, c, -s, s_yy, c_yy, cx, cy, col0 + k, h, w,
+                         acc[k]);
+  store_group<C, kVec>(out + (static_cast<int64_t>(row) * w + col0) * C, acc,
+                       w - col0);
 }
 
 template <typename T, int C>
 static void launch_derotate(const void* img, const void* cs, void* out,
-                            int frames, int h, int w, cudaStream_t st) {
-  const int64_t frame = static_cast<int64_t>(h) * w * C;
+                            int slices, int frames, int h, int w, bool vec,
+                            cudaStream_t st) {
   const dim3 block(kRotTileX, kRotTileY);
-  for (int f0 = 0; f0 < frames; f0 += kMaxGridZ) {
-    const dim3 grid((w + kRotTileX - 1) / kRotTileX,
+  const int per_cta = kRotTileX * kRotPix;
+  for (int z0 = 0; z0 < slices; z0 += kMaxGridZ) {
+    const dim3 grid((w + per_cta - 1) / per_cta,
                     (h + kRotTileY - 1) / kRotTileY,
-                    static_cast<unsigned>(std::min(frames - f0, kMaxGridZ)));
-    derotate_kernel<T, C><<<grid, block, 0, st>>>(
-        static_cast<const T*>(img) + f0 * frame,
-        static_cast<const float*>(cs), static_cast<T*>(out) + f0 * frame, h,
-        w);
+                    static_cast<unsigned>(std::min(slices - z0, kMaxGridZ)));
+    if (vec)
+      derotate_kernel<T, C, true><<<grid, block, 0, st>>>(
+          static_cast<const T*>(img), static_cast<const float*>(cs),
+          static_cast<T*>(out), z0, frames, h, w);
+    else
+      derotate_kernel<T, C, false><<<grid, block, 0, st>>>(
+          static_cast<const T*>(img), static_cast<const float*>(cs),
+          static_cast<T*>(out), z0, frames, h, w);
   }
+}
+
+template <typename T>
+static void launch_derotate_c(const void* img, const void* cs, void* out,
+                              int slices, int frames, int h, int w, int c,
+                              int vector, cudaStream_t st) {
+  const bool v = vector != 0;
+  if (c == 1) launch_derotate<T, 1>(img, cs, out, slices, frames, h, w, v, st);
+  if (c == 3) launch_derotate<T, 3>(img, cs, out, slices, frames, h, w, v, st);
+  if (c == 4) launch_derotate<T, 4>(img, cs, out, slices, frames, h, w, v, st);
 }
 
 }  // namespace dctsvd
@@ -259,26 +379,26 @@ extern "C" int dctsvd_roll_stack(const void* img, const void* shifts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// img, out: [frames, h, w, c] u8 (u8 1) or f32 (u8 0), c in {1, 3, 4};
-// cs: f32 (cos, sin) of the angle on the device. Returns the cudaError_t
+// img: [frames, h, w, c] u8 (u8 1) or f32 (u8 0), c in {1, 3, 4}; cs: f32
+// [angles, 2], (cos, sin) of each angle on the device; out: [angles,
+// frames, h, w, c]. vector: ops/resync_cuda.py::derotate_plan (w a
+// multiple of kRotPix, out on a 16-byte boundary). Returns the cudaError_t
 // of the launch (cudaErrorInvalidValue, and no launch, for another c or an
-// empty or oversized frame).
+// empty or oversized frame or batch).
 extern "C" int dctsvd_derotate(const void* img, const void* cs, void* out,
-                               int frames, int h, int w, int c, int u8,
-                               void* stream) {
-  if (frames <= 0 || h <= 0 || w <= 0 ||
+                               int angles, int frames, int h, int w, int c,
+                               int u8, int vector, void* stream) {
+  const int64_t slices = static_cast<int64_t>(angles) * frames;
+  if (angles <= 0 || frames <= 0 || h <= 0 || w <= 0 ||
       static_cast<int64_t>(h) * w * c >= (1ll << 31) ||
-      (c != 1 && c != 3 && c != 4))
+      slices >= (1ll << 31) || (c != 1 && c != 3 && c != 4) ||
+      (vector && w % kRotPix != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (u8) {
-    if (c == 1) launch_derotate<uint8_t, 1>(img, cs, out, frames, h, w, st);
-    if (c == 3) launch_derotate<uint8_t, 3>(img, cs, out, frames, h, w, st);
-    if (c == 4) launch_derotate<uint8_t, 4>(img, cs, out, frames, h, w, st);
-  } else {
-    if (c == 1) launch_derotate<float, 1>(img, cs, out, frames, h, w, st);
-    if (c == 3) launch_derotate<float, 3>(img, cs, out, frames, h, w, st);
-    if (c == 4) launch_derotate<float, 4>(img, cs, out, frames, h, w, st);
-  }
+  const int n = static_cast<int>(slices);
+  if (u8)
+    launch_derotate_c<uint8_t>(img, cs, out, n, frames, h, w, c, vector, st);
+  else
+    launch_derotate_c<float>(img, cs, out, n, frames, h, w, c, vector, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -786,10 +786,15 @@ def detect_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
 # so rotation is one more search axis (candidate angle × candidate shift).
 # The angle grid must be fine (a residual dθ misaligns a block at radius r
 # by ~r·dθ px), and the 0.0 candidate is always in it (derotation by 0 is
-# exact). On the card each candidate angle is one K13 launch
-# (ops/resync_cuda.derotate), each chunk of rolls one K12 launch
-# (resync_cuda.roll_stack), one K1 and one K9, and a scan's scores reach
-# the host in one read.
+# exact). On the card a scan's nonzero angles are one K13 launch
+# (ops/resync_cuda.derotate_angles; more only where the stack of
+# counter-rotated frames would pass DEROTATE_BUDGET bytes), each chunk of
+# rolls one K12 launch (resync_cuda.roll_stack), one K1 and one K9, and a
+# scan's scores reach the host in one read.
+
+#: Bytes of counter-rotated frames one K13 launch makes for a scan: 172
+#: color or 129 gray 1080p angles, 32 gray 2160x3840 ones.
+DEROTATE_BUDGET = 1 << 30
 
 def _resync_angles(rot_range: float, rot_step: float):
     """Candidate attacker angles: 0 first (lossless identity), then the
@@ -866,9 +871,21 @@ def _detect_resync(img, sc, sw, alpha, *, kfrac, sweeps, window,
         # host read a scan, so the host never waits on the card between
         # chunks
         parts, cands = [], []
+        nonzero = [a for a in angles if a != 0.0]
+        per = max(1, DEROTATE_BUDGET
+                  // max(1, img.numel() * img.element_size()))
+        groups = iter([nonzero[i:i + per]
+                       for i in range(0, len(nonzero), per)])
+        stack, k = [], 0
         for a in angles:
-            cand = img if a == 0.0 else resync_cuda.derotate(
-                img, a, color_frames=color_frames)
+            if a == 0.0:
+                cand = img
+            else:
+                if k == len(stack):
+                    # the next group of this scan's angles, in one launch
+                    stack, k = resync_cuda.derotate_angles(
+                        img, next(groups), color_frames=color_frames), 0
+                cand, k = stack[k], k + 1
             for i in range(0, len(shifts), chunk):
                 parts.append(_detect_shift_chunk(
                     cand, sc, sw, alpha, shifts_t[i:i + chunk], kfrac=kfrac,

@@ -13,17 +13,23 @@ The JAX package has no ``pl.pallas_call`` for these: the roll stack is the
     ``out[s, r, c] = img[(r - dy_s) mod H, (c - dx_s) mod W]``
     (``torch.roll``'s sense, any offsets). :func:`roll_plan` picks the
     instance.
-  - K13 ``derotate`` (``derotate_kernel``): planes [..., H, W] or, with
-    ``color_frames``, frames [..., H, W, C] (u8 or f32) and an angle in
-    degrees -> the frame counter-rotated about (W/2, H/2), bilinear with
-    zeros outside, integer inputs rounded half to even and clamped to
-    [0, 255].
+  - K13 ``derotate`` and ``derotate_angles`` (``derotate_kernel``):
+    planes [..., H, W] or, with ``color_frames``, frames [..., H, W, C]
+    (u8 or f32) and an angle in degrees -> the frame counter-rotated about
+    (W/2, H/2), bilinear with zeros outside, integer inputs rounded half to
+    even and clamped to [0, 255]; ``derotate_angles`` takes a list of A
+    angles and returns the A counter-rotations stacked [A, ...] from one
+    launch (the resync search's scan), ``derotate`` is its A = 1 case.
+    :func:`derotate_plan` picks the instance (a thread's ROT_PIXELS pixels
+    stored whole, or element by element).
 
 K12 copies and K13 repeats its twin's f32 operations one by one in the
 twin's order (``csrc/resync.cu``'s header), with the twin's own cos and
-sin (:func:`rotation_cs`): each is equal (``torch.equal``) to its twin
-run on the card. Neither makes the host wait: the offsets and the angle's
-cos and sin stay on the device.
+sin (:func:`rotation_cs`, or :func:`rotation_cs_batch` for a scan's
+angles in one pass of the same ops): each is equal (``torch.equal``) to
+its twin run on the card. None makes the host wait: the offsets and the
+angles' cos and sin stay on the device, and a scan's angles reach it by a
+non-blocking copy from pinned memory.
 
 Each wrapper runs its twin only for CPU tensors; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in ``.launches``.
@@ -39,10 +45,13 @@ from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
 from dctsvd_tpu_torch.utils import kernels
 
 __all__ = ["roll_stack", "roll_stack_plain", "roll_plan", "derotate",
-           "derotate_plain", "rotation_cs"]
+           "derotate_plain", "derotate_angles", "derotate_angles_plain",
+           "derotate_plan", "rotation_cs", "rotation_cs_batch"]
 
 DTYPES = (torch.uint8, torch.float32)
 DEROTATE_CHANNELS = (1, 3, 4)    # K13's instances
+ROT_PIXELS = 4                   # csrc/resync.cu kRotPix: pixels a thread
+VECTOR_ALIGN = 16
 
 
 def _check_dtype(name: str, x: torch.Tensor) -> None:
@@ -108,6 +117,26 @@ def rotation_cs(angle_deg: float, device) -> torch.Tensor:
     return torch.stack([torch.cos(th), torch.sin(th)])
 
 
+def rotation_cs_batch(angles, device) -> torch.Tensor:
+    """f32 [A, 2] (cos, sin) of each angle on ``device``: rotation_cs's
+    deg2rad, cos and sin once, on an [A] f32 tensor of the angles (each
+    the f32 value ``torch.full`` makes of it). On a card the angles reach
+    it by a non-blocking copy from pinned memory, so the host does not
+    wait for the card's queue."""
+    th = torch.tensor([float(a) for a in angles], dtype=torch.float32)
+    if torch.device(device).type == "cuda":
+        th = th.pin_memory().to(device, non_blocking=True)
+    th = torch.deg2rad(th)
+    return torch.stack([torch.cos(th), torch.sin(th)], dim=-1)
+
+
+def derotate_plan(w: int, *ptrs: int) -> bool:
+    """K13's instance: the vector one (a thread's ROT_PIXELS pixels stored
+    whole) when W is a multiple of ROT_PIXELS and every output pointer is
+    on a 16-byte boundary; else the scalar one."""
+    return w % ROT_PIXELS == 0 and all(p % VECTOR_ALIGN == 0 for p in ptrs)
+
+
 def derotate_plain(img: torch.Tensor, angle_deg: float,
                    color_frames: bool = False) -> torch.Tensor:
     """Inverse-rotate ``img`` ([H, W] plane, or [H, W, C] frames with
@@ -152,19 +181,32 @@ def derotate_plain(img: torch.Tensor, angle_deg: float,
     return torch.movedim(out, 0, -1) if color_frames else out
 
 
-def derotate(img: torch.Tensor, angle_deg: float,
-             color_frames: bool = False) -> torch.Tensor:
-    """The counter-rotation of :func:`derotate_plain`: K13 on a CUDA
-    tensor (planes [..., H, W], or frames [..., H, W, C] with C in
-    DEROTATE_CHANNELS), its twin on a CPU tensor."""
-    _check_dtype("derotate", img)
+def derotate_angles_plain(img: torch.Tensor, angles,
+                          color_frames: bool = False) -> torch.Tensor:
+    """Plain twin of :func:`derotate_angles`: :func:`derotate_plain` of
+    ``img`` at each angle, stacked [A, ...]."""
+    if not len(angles):
+        return img.new_empty((0, *img.shape))
+    return torch.stack([derotate_plain(img, a, color_frames)
+                        for a in angles])
+
+
+def _check_derotate(name: str, img: torch.Tensor, angles,
+                    color_frames: bool) -> None:
+    _check_dtype(name, img)
     if img.ndim < 2 + color_frames:
         layout = "[..., H, W, C]" if color_frames else "[..., H, W]"
-        raise ValueError(f"derotate takes {layout}, got {tuple(img.shape)}")
-    if not math.isfinite(angle_deg):
-        raise ValueError(f"derotate takes a finite angle, got {angle_deg}")
-    if _device_ok("derotate", img):
-        return derotate_plain(img, angle_deg, color_frames)
+        raise ValueError(f"{name} takes {layout}, got {tuple(img.shape)}")
+    bad = [a for a in angles if not math.isfinite(a)]
+    if bad:
+        raise ValueError(f"{name} takes finite angles, got {bad[0]}")
+
+
+def _derotate_launch(img: torch.Tensor, cs: torch.Tensor,
+                     color_frames: bool) -> torch.Tensor:
+    """K13 on a CUDA tensor for the A rows of ``cs`` ([A, 2] f32 on the
+    device) -> ([A, *img.shape], whether it launched: not for an empty
+    frame)."""
     c = img.shape[-1] if color_frames else 1
     h, w = ((img.shape[-3], img.shape[-2]) if color_frames
             else (img.shape[-2], img.shape[-1]))
@@ -172,14 +214,47 @@ def derotate(img: torch.Tensor, angle_deg: float,
         raise ValueError(f"derotate: the kernel takes {DEROTATE_CHANNELS} "
                          f"channels, got {c}")
     x = img.contiguous()
-    out = torch.empty_like(x)
-    if out.numel():
-        frames = x.numel() // (h * w * c)
-        cs = rotation_cs(angle_deg, img.device)
-        kernels.launch("dctsvd_derotate", img.device, x, cs, out, frames, h,
-                       w, c, int(img.dtype == torch.uint8))
-        derotate.launches += 1
+    out = torch.empty((cs.shape[0], *x.shape), dtype=x.dtype,
+                      device=x.device)
+    if not out.numel():
+        return out, False
+    frames = x.numel() // (h * w * c)
+    kernels.launch("dctsvd_derotate", img.device, x, cs, out, cs.shape[0],
+                   frames, h, w, c, int(img.dtype == torch.uint8),
+                   int(derotate_plan(w, out.data_ptr())))
+    return out, True
+
+
+def derotate_angles(img: torch.Tensor, angles,
+                    color_frames: bool = False) -> torch.Tensor:
+    """The counter-rotations of ``img`` by each of ``angles`` (degrees),
+    stacked [A, ...]: on a CUDA tensor one K13 launch for all A, their cos
+    and sin made in one pass (:func:`rotation_cs_batch`); on a CPU tensor
+    the twin, angle by angle."""
+    angles = [float(a) for a in angles]
+    _check_derotate("derotate_angles", img, angles, color_frames)
+    if _device_ok("derotate_angles", img) or not angles:
+        return derotate_angles_plain(img, angles, color_frames)
+    out, launched = _derotate_launch(
+        img, rotation_cs_batch(angles, img.device), color_frames)
+    derotate_angles.launches += launched
     return out
 
 
+def derotate(img: torch.Tensor, angle_deg: float,
+             color_frames: bool = False) -> torch.Tensor:
+    """The counter-rotation of :func:`derotate_plain`: K13 on a CUDA
+    tensor (planes [..., H, W], or frames [..., H, W, C] with C in
+    DEROTATE_CHANNELS; :func:`derotate_angles`' launch for one angle), its
+    twin on a CPU tensor."""
+    _check_derotate("derotate", img, [angle_deg], color_frames)
+    if _device_ok("derotate", img):
+        return derotate_plain(img, angle_deg, color_frames)
+    out, launched = _derotate_launch(
+        img, rotation_cs(angle_deg, img.device)[None], color_frames)
+    derotate.launches += launched
+    return out[0]
+
+
 derotate.launches = 0
+derotate_angles.launches = 0

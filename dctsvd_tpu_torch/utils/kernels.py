@@ -98,7 +98,7 @@ _SIGNATURES = {
     "dctsvd_sq_diff": [_P, _P, _LL, _I, _P, _I, _P],
     "dctsvd_ycrcb": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_roll_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dctsvd_derotate": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dctsvd_derotate": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

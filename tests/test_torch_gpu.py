@@ -13,9 +13,10 @@ tail's normaliser) against its twin run on the card in every layout, on
 gray scheme's color conversions) against their twins run on the card on
 every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
 with the gray paths' bytes the same with either, K12 and K13 (detect
-resync's roll stack and counter-rotation) against their twins run on the
-card from 1×1 to 2160×3840 frames and a rotation search on the card
-against the CPU, K9 (the detect
+resync's roll stack and counter-rotation, one angle and a scan's 20 in one
+launch) against their twins run on the card from 1×1 to 2160×3840 frames,
+the batched cos and sin against the per-angle ones, and a rotation search
+on the card against the CPU with one K13 launch a scan, K9 (the detect
 statistic) against its twin run on the card on 1 to 128 1080p frames, at
 small and tiny block grids, at grid 4 and 2, with a shared sc, on a clean
 host, at every k and over the scale damp's range, and the detect paths
@@ -830,10 +831,69 @@ def test_k13_on_a_batch_of_planes_and_four_channels(dev):
                        resync_cuda.derotate_plain(frames, -7.5, True))
 
 
+# K13 batched: the resync search's angles (±0.5° at 0.05°, 20 nonzero)
+SEARCH_ANGLES = [k * s * 0.05 for k in range(1, 11) for s in (1, -1)]
+DEROTATE_ANGLE_CASES = {
+    "1080p u8 frames": ((1080, 1920), "u8 frames"),
+    "1080p f32 plane": ((1080, 1920), "f32 plane"),
+    "2160x3840 f32 plane": ((2160, 3840), "f32 plane"),
+    **{f"{h}x{w} {layout}": ((h, w), layout) for h, w in ((3, 5), (37, 51))
+       for layout in RESYNC_LAYOUTS},
+    "offset u8 frames": ((37, 52), "u8 frames"),
+    "offset f32 plane": ((37, 52), "f32 plane"),
+}
+
+
+def test_rotation_cs_batch_equals_per_angle(dev):
+    """The scan's (cos, sin) pairs made in one pass of rotation_cs's ops
+    equal rotation_cs angle by angle (torch.equal): the search's grids,
+    its refinement, and angles of every size."""
+    rng = np.random.default_rng(SEED + 24)
+    lists = [SEARCH_ANGLES, [0.3 + k * 0.01 for k in (-4, -3, -2, -1, 1, 2,
+                                                       3, 4)],
+             RESYNC_ANGLES, list(rng.uniform(-360.0, 360.0, 257)),
+             [0.0, -0.0, 1e-7, 45.0, 720.5, -1e4]]
+    for angles in lists:
+        got = resync_cuda.rotation_cs_batch(angles, dev)
+        ref = torch.stack([resync_cuda.rotation_cs(a, dev) for a in angles])
+        assert got.shape == (len(angles), 2) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", list(DEROTATE_ANGLE_CASES))
+def test_k13_derotate_angles_equals_twin(dev, case):
+    """K13 on a scan's 20 angles in one launch: every slice equals
+    derotate_plain at its angle (torch.equal), in the vector instance and,
+    for widths not a multiple of 4 and a view off its 16-byte alignment,
+    the scalar one; derotate counts no launch."""
+    shape, layout = DEROTATE_ANGLE_CASES[case]
+    x = _resync_frame(dev, shape, layout)
+    if case.startswith("offset"):
+        x = _offset(x)
+    cl = layout == "u8 frames"
+    n0 = resync_cuda.derotate_angles.launches
+    n1 = resync_cuda.derotate.launches
+    got = resync_cuda.derotate_angles(x, SEARCH_ANGLES, color_frames=cl)
+    torch.cuda.synchronize()
+    assert resync_cuda.derotate_angles.launches == n0 + 1
+    assert resync_cuda.derotate.launches == n1
+    assert got.shape == (len(SEARCH_ANGLES), *x.shape)
+    for k, a in enumerate(SEARCH_ANGLES):
+        assert torch.equal(got[k], resync_cuda.derotate_plain(x, a, cl)), a
+
+
+def test_k13_derotate_plan_picks_the_instance(dev):
+    """derotate_plan: the vector instance for widths a multiple of 4 and an
+    aligned output, the scalar one otherwise."""
+    assert resync_cuda.derotate_plan(1920, 256)
+    assert not resync_cuda.derotate_plan(1918, 256)
+    assert not resync_cuda.derotate_plan(1920, 260)
+
+
 def test_rotation_search_on_gpu_matches_cpu(dev):
-    """A rotation search on the card (K12 a chunk, K13 a nonzero angle, two
+    """A rotation search on the card (K12 a chunk, K13 once a scan, two
     host reads) finds the shift and angle the same search finds on the
-    CPU, its score within 1e-3."""
+    CPU, its score within 1e-3; every counter-rotated candidate equals
+    derotate_plain at its angle."""
     import cv2
     h, w = 96, 128
     # a σ1-blurred cover: a noise cover's mark does not survive the
@@ -847,26 +907,40 @@ def test_rotation_search_on_gpu_matches_cpu(dev):
     rot = cv2.warpAffine(res.stego_bgr.numpy(), cv2.getRotationMatrix2D(
         (w / 2, h / 2), 2.4, 1.0), (w, h), borderMode=cv2.BORDER_REPLICATE)
     kw = dict(window=2, chunk=4, rot_range=3.0, rot_step=1.0)
-    found, reads = {}, []
-    real_read = tb._read_scores
+    found, reads, scans = {}, [], []
+    real_read, real_angles = tb._read_scores, resync_cuda.derotate_angles
+
+    def checked_angles(img, angles, color_frames=False):
+        out = real_angles(img, angles, color_frames=color_frames)
+        scans.append(len(angles))
+        for k, a in enumerate(angles):
+            assert torch.equal(out[k], resync_cuda.derotate_plain(
+                img, a, color_frames))
+        return out
+
     tb._read_scores = lambda parts: reads.append(len(parts)) or real_read(
         parts)
+    # the wrapper counts on its module's name, here the checking one
+    checked_angles.launches = 0
+    resync_cuda.derotate_angles = checked_angles
     try:
         for d in ("cpu", dev):
             n12 = resync_cuda.roll_stack.launches
-            n13 = resync_cuda.derotate.launches
+            n13 = checked_angles.launches
             found[str(d)] = tb.detect_color_resync(
                 torch.as_tensor(rot, device=d), res.sc.to(d), res.sw.to(d),
                 ALPHA, **kw)
             launched = (resync_cuda.roll_stack.launches - n12,
-                        resync_cuda.derotate.launches - n13)
+                        checked_angles.launches - n13)
     finally:
         tb._read_scores = real_read
+        resync_cuda.derotate_angles = real_angles
     (s_c, t_c, a_c), (s_g, t_g, a_g) = found.values()
     assert (t_g, a_g) == (t_c, a_c) and abs(s_g - s_c) <= 1e-3
     assert abs(a_g - 2.4) <= 0.2 + 1e-6
     assert reads == [7 * 3, 8 * 3] * 2
-    assert launched == (15 * 3, 14)
+    assert scans == [6, 8] * 2
+    assert launched == (15 * 3, 2)
 
 
 def _video_chunk(k=4, h=96, w=128, seed=SEED + 16):
@@ -2479,6 +2553,28 @@ def test_k15_matches_twin(dev, shape, pair):
     got = _launched(metrics_cuda.ssim, lambda: metrics_cuda.ssim(x, y))
     assert torch.equal(got, metrics_cuda.ssim_plain(x, y))
     assert bool(((got > 0.5) & (got <= 1.0)).all())
+
+
+# K15's CTA covers two 32-column sum tiles: widths of an odd tile count,
+# a CTA's last tile past the plane, planes narrower than a tile
+K15_EDGE_SHAPES = [(32, 64), (33, 65), (70, 33), (100, 7), (6, 200),
+                   (31, 97)]
+
+
+@pytest.mark.parametrize("pair", ["u8", "f32"])
+@pytest.mark.parametrize("shape", K15_EDGE_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in K15_EDGE_SHAPES])
+def test_k15_at_the_edges_of_its_tiles(dev, shape, pair):
+    """K15 equals its twin run on the card at the edges of its CTAs' two
+    sum tiles."""
+    x = _enh_planes(dev, (2, *shape), SEED + 96)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 97)
+    y = x.to(torch.float32) + torch.randn((2, *shape), generator=gen,
+                                          device=dev) * 4
+    if pair == "u8":
+        y = torch.round(y).clamp(0, 255).to(torch.uint8)
+    got = _launched(metrics_cuda.ssim, lambda: metrics_cuda.ssim(x, y))
+    assert torch.equal(got, metrics_cuda.ssim_plain(x, y))
 
 
 @pytest.mark.parametrize("shape", list(METRIC_SHAPES) + ["offset", "batch",

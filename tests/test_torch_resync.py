@@ -1,16 +1,17 @@
 """The port's detect resync (dctsvd_tpu_torch/models/blocked.py:
 _resync_angles/_resync_shifts, _detect_shift_chunk, _detect_resync and its
 one-read scan, detect_*_resync, detect_paths(resync=); ops/resync_cuda.py:
-the twins of K12 roll_stack and K13 derotate) and ``api.detect(resync=)``
-against the JAX package on the CPU.
+the twins of K12 roll_stack and K13 derotate and derotate_angles) and
+``api.detect(resync=)`` against the JAX package on the CPU.
 
 Stegos come from the port's blocked embed, whose metas record the fused
 s1.25 schedule; the JAX package's detect replays that schedule exactly on
 the CPU. Tolerances: the candidate lists identical; roll_stack_plain
-byte-equal to the JAX package's roll stack; derotate_plain within 1 u8
-quantum (1e-3 on f32 planes) and exact at 0°; per-chunk scores within
-1e-3; recovered shift and angle equal; the one-read scan's choice equal
-to the per-chunk loop's it replaced.
+byte-equal to the JAX package's roll stack; derotate_plain and each slice
+of derotate_angles_plain within 1 u8 quantum (1e-3 on f32 planes) and
+exact at 0°; per-chunk scores within 1e-3; recovered shift and angle
+equal; the one-read scan's choice, with a scan's angles counter-rotated
+by one derotate_angles call, equal to the per-chunk loop's it replaced.
 
 Every embed takes a nonce of a seeded sequence (``NONCES``), never one
 from os.urandom: the translation search's score at 64×80 depends on the
@@ -67,6 +68,34 @@ def test_derotate_matches_jax(layout, angle):
         assert np.array_equal(got, x)
 
 
+@pytest.mark.parametrize("layout", ["u8 frames", "u8 plane", "f32 plane"])
+def test_derotate_angles_plain_matches_jax(layout):
+    """K13's batched twin: each slice of derotate_angles_plain is
+    derotate_plain at its angle, within test_derotate_matches_jax's
+    tolerance of the JAX package's _derotate at that angle."""
+    rng = np.random.default_rng(SEED)
+    frames = cv2.GaussianBlur(rng.integers(0, 256, (37, 51, 3), np.uint8),
+                              (0, 0), 1.0)
+    x = {"u8 frames": frames, "u8 plane": frames[..., 0],
+         "f32 plane": frames[..., 1].astype(np.float32) + 0.25}[layout]
+    cl = layout == "u8 frames"
+    angles = (0.0, 0.3, -1.0, 7.5)
+    got = resync_cuda.derotate_angles_plain(torch.as_tensor(x), angles,
+                                            color_frames=cl)
+    assert got.dtype == torch.as_tensor(x).dtype
+    assert got.shape == (len(angles), *x.shape)
+    tol = 1e-3 if x.dtype == np.float32 else 1
+    for k, angle in enumerate(angles):
+        assert torch.equal(got[k], resync_cuda.derotate_plain(
+            torch.as_tensor(x), angle, cl))
+        ref = np.asarray(jb._derotate(jnp.asarray(x), jnp.float32(angle),
+                                      color_frames=cl))
+        assert np.abs(got[k].numpy().astype(np.float64) - ref).max() <= tol
+    assert np.array_equal(got[0].numpy(), x)
+    assert resync_cuda.derotate_angles_plain(torch.as_tensor(x), [],
+                                             cl).shape == (0, *x.shape)
+
+
 def _frame(layout):
     """A seeded 37×51 frame in one of K12's and K13's layouts."""
     rng = np.random.default_rng(SEED + 2)
@@ -110,18 +139,26 @@ def test_resync_wrappers_on_cpu_run_their_twins(layout):
     cl = layout == "u8 frames"
     shifts = torch.as_tensor(ROLL_SHIFTS["beyond"])
     n12, n13 = resync_cuda.roll_stack.launches, resync_cuda.derotate.launches
+    n13a = resync_cuda.derotate_angles.launches
     assert torch.equal(resync_cuda.roll_stack(x, shifts),
                        resync_cuda.roll_stack_plain(x, shifts))
     for angle in (0.0, 0.3, -7.5):
         assert torch.equal(resync_cuda.derotate(x, angle, color_frames=cl),
                            resync_cuda.derotate_plain(x, angle, cl))
+    angles = (0.3, 0.0, -7.5)
+    assert torch.equal(resync_cuda.derotate_angles(x, angles,
+                                                   color_frames=cl),
+                       resync_cuda.derotate_angles_plain(x, angles, cl))
     assert resync_cuda.roll_stack.launches == n12
     assert resync_cuda.derotate.launches == n13
+    assert resync_cuda.derotate_angles.launches == n13a
 
 
 @pytest.mark.parametrize("case", ["int16 frame", "4-d frame", "int32 shifts",
                                   "shifts [S, 3]", "inf angle",
-                                  "plane as frames"])
+                                  "plane as frames", "nan among angles",
+                                  "int16 frame of angles",
+                                  "plane as frames of angles"])
 def test_resync_wrappers_reject_what_the_kernels_do_not_take(case):
     x = torch.zeros((6, 7, 3), dtype=torch.uint8)
     sh = torch.zeros((2, 2), dtype=torch.int64)
@@ -134,6 +171,12 @@ def test_resync_wrappers_reject_what_the_kernels_do_not_take(case):
         "inf angle": lambda: resync_cuda.derotate(x, float("inf"), True),
         "plane as frames": lambda: resync_cuda.derotate(x[:, 0, 0], 0.3,
                                                         True),
+        "nan among angles": lambda: resync_cuda.derotate_angles(
+            x, [0.3, float("nan")], True),
+        "int16 frame of angles": lambda: resync_cuda.derotate_angles(
+            x.to(torch.int16), [0.3], True),
+        "plane as frames of angles": lambda: resync_cuda.derotate_angles(
+            x[:, 0, 0], [0.3], True),
     }
     with pytest.raises(ValueError):
         calls[case]()
@@ -216,16 +259,21 @@ def test_one_read_scan_chooses_as_the_per_chunk_loop(monkeypatch, case,
                         part[j] = v
         return torch.as_tensor(part)
 
-    reads = []
+    reads, derotations = [], []
     real_read = tb._read_scores
 
     def counted_read(parts):
         reads.append(len(parts))
         return real_read(parts)
 
+    def counted_angles(img, angles, color_frames=False):
+        derotations.append(list(angles))
+        return [("rot", a) for a in angles]
+
     monkeypatch.setattr(tb, "_detect_shift_chunk", fake_chunk)
     monkeypatch.setattr(resync_cuda, "derotate",
                         lambda img, a, color_frames=False: ("rot", a))
+    monkeypatch.setattr(resync_cuda, "derotate_angles", counted_angles)
     monkeypatch.setattr(tb, "_read_scores", counted_read)
     img = torch.zeros((16, 16, 3), dtype=torch.uint8)
     kw = dict(kfrac=0.6, sweeps=None, window=window, block_radius=0,
@@ -239,8 +287,53 @@ def test_one_read_scan_chooses_as_the_per_chunk_loop(monkeypatch, case,
     angles = len(tb._resync_angles(rot_range, 0.05))
     refined = rot_range > 0.0 and got[2] != 0.0
     assert reads == [chunks * angles] + ([chunks * 8] if refined else [])
+    # one derotate_angles call a scan with a nonzero angle, its angles in
+    # the scan's order (the per-chunk loop counter-rotated one at a time)
+    coarse = [a for a in tb._resync_angles(rot_range, 0.05) if a != 0.0]
+    assert derotations[:1] == ([coarse] if coarse else [])
+    assert len(derotations) == bool(coarse) + refined
+    if refined:    # about the coarse scan's best, a nonzero angle
+        assert any(derotations[1] == [c + k * 0.01 for k in
+                                      (-4, -3, -2, -1, 1, 2, 3, 4)]
+                   for c in coarse)
     if case == "all nan":
         assert got == (-np.inf, (0, 0), 0.0)
+
+
+@pytest.mark.parametrize("per", [1, 2, 5, 6])
+def test_scan_groups_its_angles_under_the_byte_budget(monkeypatch, per):
+    """A scan counter-rotates its nonzero angles in groups of as many
+    frames as DEROTATE_BUDGET bytes hold, in the scan's order, and
+    chooses as with one group: here a budget of ``per`` frames splits the
+    coarse scan's 6 nonzero angles (±0.15 at 0.05) into ceil(6 / per)
+    calls."""
+    img = torch.zeros((16, 16, 3), dtype=torch.uint8)
+    calls = []
+
+    def fake_chunk(cand, sc, sw, alpha, shifts, **kw):
+        a = 0.0 if isinstance(cand, torch.Tensor) else cand[1]
+        score = 1.0 - abs(a - 0.1) - 0.01 * float(shifts[:, 0].abs().sum())
+        return torch.full((len(shifts),), score, dtype=torch.float32)
+
+    def counted_angles(img, angles, color_frames=False):
+        calls.append(list(angles))
+        return [("rot", a) for a in angles]
+
+    monkeypatch.setattr(tb, "_detect_shift_chunk", fake_chunk)
+    monkeypatch.setattr(resync_cuda, "derotate_angles", counted_angles)
+    kw = dict(kfrac=0.6, sweeps=None, window=2, block_radius=0, chunk=4,
+              color_frames=True, rot_range=0.15, rot_step=0.05)
+    monkeypatch.setattr(tb, "DEROTATE_BUDGET", 10 ** 9)
+    whole = tb._detect_resync(img, None, None, 0.1, **kw)
+    assert [len(c) for c in calls] == [6, 8]
+    calls.clear()
+    monkeypatch.setattr(tb, "DEROTATE_BUDGET", per * img.numel())
+    assert tb._detect_resync(img, None, None, 0.1, **kw) == whole
+    coarse = [a for a in tb._resync_angles(0.15, 0.05) if a != 0.0]
+    fine = [0.1 + k * 0.01 for k in (-4, -3, -2, -1, 1, 2, 3, 4)]
+    want = [coarse[i:i + per] for i in range(0, 6, per)] + [
+        fine[i:i + per] for i in range(0, 8, per)]
+    assert calls == want and whole[2] == 0.1
 
 
 NONCE_SEED = 20261018     # chip_smoke.py's seeded nonce sequence
