@@ -26,9 +26,10 @@
                                             # from the library's SASS
     python3 chip_smoke.py --enhance-times   # only the enhancement
                                             # stages' and chains' times at
-                                            # 1080p, and K10 and K9 alone
-                                            # (copied into an older tree
-                                            # that has K14-K17, that
+                                            # 1080p (the chains' digests),
+                                            # and K10, K11, K14 and K9
+                                            # alone (copied into an older
+                                            # tree that has K14-K17, that
                                             # tree's)
     python3 chip_smoke.py --metrics-times   # only SSIM's, PSNR's and the
                                             # embed's times with and
@@ -106,9 +107,12 @@ way, neither the eager blur nor the channels-last YCrCb pair, and each
 chain's time with the eager NLM, CLAHE, unsharp and YCrCb pair in their
 places; K10 bit-equal to its twin on the 1080p extracted
 gray plane, the color frame's three YCrCb planes and planes smaller than
-its window, K11 on the gray and luma planes and small ones, and K14 (gray
-plane, channels-last frame) and K17 (both ways) at 1080p, 4K, 3x5, 37x51
-and off alignment, each
+its window, K11 (each stage alone and both in one call) on the gray and
+luma planes, a single-valued one, small ones, tiles past the plane's
+rows, a tile width not a multiple of 16, off alignment and 4K, and K14
+(gray plane, channels-last frame; also 1x1 and widths across its column
+walks) and K17 (both ways) at 1080p, 4K, 3x5, 37x51 and off alignment,
+each
 timed beside its bound (K10 also beside its weight's issue bound, from
 the library's SASS), its twin and the eager form it replaced; and
 against the CPU on a small plane; text and
@@ -3150,12 +3154,19 @@ PSNR_OPS = 3                 # a byte: the difference, its square, the sum
 # blur's pad, a border-heavy one (a view off its 16-byte alignment is
 # the fifth case)
 METRIC_SHAPES = {"4k": (2160, 3840), "3x5": (3, 5), "37x51": (37, 51)}
-ENHANCE_KERNELS = ("nlm_planes", "clahe_luts", "clahe_apply", "unsharp")
+# (``clahe``: K11's two kernels in one host call, which clahe_u8 makes;
+# its count is its calls, each also one launch of either K11 kernel)
+ENHANCE_KERNELS = ("nlm_planes", "clahe_luts", "clahe_apply", "clahe",
+                   "unsharp")
 YCRCB_KERNELS = ("bgr_to_ycrcb_planes", "ycrcb_planes_to_bgr")
 METRIC_KERNELS = ("ssim", "psnr")
 # the K10 planes smaller than its 21-pixel window and a border-heavy one
 NLM_BORDER_SHAPES = ((1, 1), (7, 9), (12, 11), (37, 51))
-CLAHE_SMALL_SHAPES = ((1, 37, 51), (3, 40, 52))
+CLAHE_SMALL_SHAPES = ((1, 37, 51), (3, 40, 52), (1, 1, 1), (1, 1081, 1920),
+                      (1, 1080, 1936))
+# K14's other shapes: a plane of one pixel, and widths across several
+# column blocks and walks that are not a multiple of the block
+UNSHARP_SHAPES = {"1x1": (1, 1), "37x1000": (37, 1000), "70x333": (70, 333)}
 
 
 def enhance_wrappers():
@@ -3389,10 +3400,16 @@ def enhance_rows(dev, gray, frames) -> dict:
     gray plane (h² 49) and on the color frame's three YCrCb planes (h² 9),
     and on planes smaller than its window and a border-heavy one
     (NLM_BORDER_SHAPES, two planes each, h² 49 and 9); the CLAHE LUTs and
-    interpolation on the gray plane, the color frame's luma plane and
-    CLAHE_SMALL_SHAPES. Each row: the kernel's ms, its twin's, the eager
-    form's (for the CLAHE rows the whole eager CLAHE, both stages), and its
-    bound."""
+    interpolation, each alone and both in one call (``ec.clahe``), on the
+    gray plane, the color frame's luma plane, a single-valued plane (every
+    count in one bin), CLAHE_SMALL_SHAPES (tiles of rows past the plane,
+    of a width not a multiple of 16, 1x1), a view off its 16-byte
+    alignment and a 4K plane, one after another. Each row: the kernel's ms
+    through its wrapper and its device time alone (torch.profiler), its
+    twin's, the eager form's (for the CLAHE rows the whole eager CLAHE,
+    both stages), and its bound; the LUT row also both stages through
+    ``ec.clahe`` (its ms and device time) and ``clahe_u8``, and
+    :func:`clahe_scratch_times`."""
     import torch
     from dctsvd_tpu_torch.ops import color
     from dctsvd_tpu_torch.ops import enhance as e_ops
@@ -3437,29 +3454,49 @@ def enhance_rows(dev, gray, frames) -> dict:
             library_ms=None, **nlm_bound(planes),
             **nlm_weight_issue(planes, lambda: ec.nlm_planes(planes, h2)))
     luma = color.luma_f32(frames).to(torch.uint8).reshape(1, *gray.shape)
+    big = torch.randint(0, 256, (1, *METRIC_SHAPES["4k"]), generator=gen,
+                        device=dev, dtype=torch.uint8)
     cases = {"gray_1080p": g_planes, "luma_1080p": luma.contiguous(),
+             "single_valued": torch.full_like(g_planes, 131),
              **{"x".join(map(str, shp)): smooth(shp)
-                for shp in CLAHE_SMALL_SHAPES}}
-    checks_l, checks_a = {}, {}
+                for shp in CLAHE_SMALL_SHAPES}, "offset": offset_view(
+                 g_planes), "4k": big}
+    # K11 in one call (ec.clahe) on each case in turn: successive calls on
+    # different planes, each finding the scratch its predecessor left zero
+    checks_l, checks_a, checks_c = {}, {}, {}
     for case, x in cases.items():
         ref = e_ops.clahe_luts_plain(x)
+        out = e_ops.clahe_apply_plain(x, ref)
         checks_l[case] = equal("clahe_luts", case, ec.clahe_luts(x), ref)
         checks_a[case] = equal("clahe_apply", case, ec.clahe_apply(x, ref),
-                               e_ops.clahe_apply_plain(x, ref))
+                               out)
+        checks_c[case] = equal("clahe", case, ec.clahe(x), out)
     rows.update(k14_k17_rows(dev, gray, frames, smooth, equal))
     luts = ec.clahe_luts(g_planes)
     eager_ms = cuda_time(lambda: eager_clahe(g_planes), 5)
-    for name, checks, kern, plain, lut in (
+    plan = ec.clahe_plan(1, *g_planes.shape[-2:], 8,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    for name, checks, kern, plain, lut, stem in (
             ("clahe_luts", checks_l, lambda: ec.clahe_luts(g_planes),
-             lambda: e_ops.clahe_luts_plain(g_planes), True),
+             lambda: e_ops.clahe_luts_plain(g_planes), True, "clahe_lut"),
             ("clahe_apply", checks_a, lambda: ec.clahe_apply(g_planes, luts),
-             lambda: e_ops.clahe_apply_plain(g_planes, luts), False)):
+             lambda: e_ops.clahe_apply_plain(g_planes, luts), False,
+             "clahe_apply")):
         rows[name] = dict(
             shape=list(g_planes.shape), checks=checks,
             max_abs_err=max(c["max_abs_err"] for c in checks.values()),
-            ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
-            eager_ms=eager_ms, library_ms=None,
+            ms=cuda_time(kern, 20), device_ms=device_ms(kern, 20, stem),
+            plain_ms=cuda_time(plain, 5), eager_ms=eager_ms,
+            library_ms=None, plan=plan._asdict(),
             **clahe_bound(g_planes, lut))
+    # both stages through the one host call, and through clahe_u8
+    rows["clahe_luts"].update(
+        clahe_checks=checks_c,
+        clahe_ms=cuda_time(lambda: ec.clahe(g_planes), 20),
+        clahe_device_ms=device_ms(lambda: ec.clahe(g_planes), 20, "clahe_"),
+        clahe_u8_ms=cuda_time(lambda: e_ops.clahe_u8(gray), 20),
+        clahe_scratch_ms=clahe_scratch_times(g_planes))
     return rows
 
 
@@ -3494,7 +3531,8 @@ def k14_k17_rows(dev, gray, frames, smooth, equal) -> dict:
                             ("unsharp_color", frames, True, (1.15, -0.15))):
         cases = {"1080p": x, "4k": big if cl else big[..., 0].contiguous(),
                  **{k: smooth((*shp, 3) if cl else shp)
-                    for k, shp in METRIC_SHAPES.items() if k != "4k"},
+                    for k, shp in {**METRIC_SHAPES,
+                                   **UNSHARP_SHAPES}.items() if k != "4k"},
                  "offset": offset_view(x)}
         checks = {case: equal(name, case, ec.unsharp(xi, *aw, 1.0, cl),
                               e_ops.unsharp_plain(xi, *aw, 1.0, cl))
@@ -3503,6 +3541,7 @@ def k14_k17_rows(dev, gray, frames, smooth, equal) -> dict:
         planes = (torch.movedim(x.reshape(-1, h, w, 3), -1, -3) if cl
                   else x.reshape(-1, 1, h, w)).to(torch.float32)
         plain_ms = cuda_time(lambda: e_ops.unsharp_plain(x, *aw, 1.0, cl), 5)
+        _, clocks = clocked_ms(lambda: ec.unsharp(x, *aw, 1.0, cl), 20)
         rows[name] = dict(
             shape=list(x.shape), checks=checks,
             max_abs_err=max(c["max_abs_err"] for c in checks.values()),
@@ -3511,6 +3550,9 @@ def k14_k17_rows(dev, gray, frames, smooth, equal) -> dict:
                                 "unsharp_kernel"),
             plain_ms=plain_ms, eager_ms=plain_ms,
             library_ms=cuda_time(conv_yardstick(planes, 1.0, 7), 20),
+            issue_bound_ms=insn_bound_ms(UNSHARP_OPS * x.numel(),
+                                         clocks["sm_mhz"]),
+            issue_clocks=clocks,
             **bound(x.numel(), UNSHARP_OPS, 2 * x.numel()))
     planes_c = color_cuda.bgr_to_ycrcb_planes(frames)
     for name, x, inverse in (("bgr_to_ycrcb_planes", frames, False),
@@ -3658,16 +3700,21 @@ def enhance_times(dev) -> dict:
     """The enhancement stages' and chains' ms (CUDA events, a warm-up and 3
     calls) on a seeded 1080p watermark, gray and color, through this
     tree's package (the stages: NLM, CLAHE, unsharp, the color NLM's YCrCb
-    pair), with K10's, K11's, K14's and K17's launches in one chain each,
-    and K10 and K9 alone (:func:`kernel_times`): run in an older tree that
-    has them and this one in turns."""
+    pair), the chains' SHA-256, the launches of every wrapper the tree
+    counts in one chain each, and K10, K11, K14 and K9 alone
+    (:func:`kernel_times`): run in an older tree that has K14-K17 and
+    this one in turns."""
     import torch
-    from dctsvd_tpu_torch.ops import color
+    from dctsvd_tpu_torch.ops import color, color_cuda, enhance_cuda
+    from dctsvd_tpu_torch.ops import metrics_cuda
 
     frames = torch.as_tensor(smooth_frame(20261019), device=dev)
     stages = enhance_stages(color.bgr_to_gray(frames), frames)
     ms = {name: cuda_time(fn, 3) for name, fn in stages.items()}
-    wrappers = slice_wrappers()
+    # the tree's own counted wrappers, whichever it has
+    wrappers = {n: f for m in (enhance_cuda, metrics_cuda, color_cuda)
+                for n, f in vars(m).items()
+                if callable(f) and hasattr(f, "launches")}
     launches = {}
     for chain in ("chain_gray", "chain_color"):
         torch.cuda.synchronize()
@@ -3679,7 +3726,39 @@ def enhance_times(dev) -> dict:
     return dict(tree=REPO, ms=ms, launches=launches,
                 outputs={name: list(stages[name]().shape)
                          for name in ("chain_gray", "chain_color")},
+                digests={name: hashlib.sha256(
+                    stages[name]().cpu().numpy().tobytes()).hexdigest()
+                    for name in ("chain_gray", "chain_color")},
                 kernels=kernel_times(dev, frames))
+
+
+def clahe_scratch_times(gray) -> dict:
+    """K11 in one call (``enhance_cuda.clahe``) on the gray 1080p plane
+    [1, H, W] with its scratch kept a stream (the wrapper's: the finishing
+    CTAs leave it zero) and with a fresh ``torch.zeros`` a call, in turns
+    (kept, fresh, fresh, kept; CUDA events, 20 calls a reading), each
+    torch.equal to the twins."""
+    import torch
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda as ec
+    kept = ec._clahe_scratch
+
+    def fresh(device, p, tiles):
+        n = p * tiles * tiles
+        return (torch.zeros((n * 257,), dtype=torch.int32, device=device),
+                torch.empty((n * 256,), dtype=torch.uint8, device=device))
+
+    ref = e_ops.clahe_apply_plain(gray, e_ops.clahe_luts_plain(gray))
+    ms = {"kept": [], "fresh": []}
+    try:
+        for form in ("kept", "fresh", "fresh", "kept"):
+            ec._clahe_scratch = kept if form == "kept" else fresh
+            require(torch.equal(ec.clahe(gray), ref),
+                    f"K11 with its {form} scratch: not bit-equal")
+            ms[form].append(cuda_time(lambda: ec.clahe(gray), 20))
+    finally:
+        ec._clahe_scratch = kept
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -4094,6 +4173,7 @@ def kernel_times(dev, frames) -> dict:
                               for _ in range(2)], **nlm_bound(planes))
         rows[name].update(nlm_weight_issue(
             planes, lambda: ec.nlm_planes(planes, h2)))
+    rows.update(k11_k14_times(dev, gray, frames))
     alpha = blocked._alpha(ALPHA, dev)
     hb, wb = H // 8, W // 8
     bands = hb // 4 * 4 * (wb // 4 * 4)
@@ -4120,8 +4200,83 @@ def kernel_times(dev, frames) -> dict:
     if kernels.BUILD_INFO.get("ptxas"):
         out["ptxas"] = {n: v for n, v in kernels.ptxas_report(
             kernels.BUILD_INFO["ptxas"]).items()
-            if "nlm_" in n or "band_" in n}
+            if any(k in n for k in ("nlm_", "band_", "clahe_", "unsharp_"))}
     out["nlm_weight_sass"] = list(weight_sass())
+    out["k11_k14_sass"] = k11_k14_sass()
+    return out
+
+
+def k11_k14_times(dev, gray, frames) -> dict:
+    """K11's two kernels and K14 alone at the main path's shapes, through
+    this tree's wrappers (so in an older tree, its kernels): the LUTs and
+    the interpolation on the gray 1080p plane ``gray`` [1, H, W], K14 on
+    it (the gray chain's weights) and on the BGR frame ``frames`` (the
+    color chain's); each torch.equal to its twin run on the card first,
+    then two readings of 20 calls through the wrapper (CUDA events, which
+    the host's launches can pace) and the kernel's device time alone
+    (torch.profiler), beside its bound; K14 also beside its issue bound
+    (UNSHARP_OPS f32 instructions a pixel and channel at one a lane a
+    clock, at the SM clock read while it runs); and the gray chain's CLAHE
+    and unsharp stages through ``clahe_u8`` and ``unsharp_u8`` (two
+    readings of 20 calls; in this tree ``clahe_u8`` is both K11 kernels
+    from one host call)."""
+    import torch
+    from dctsvd_tpu_torch.ops import enhance as e_ops
+    from dctsvd_tpu_torch.ops import enhance_cuda as ec
+
+    luts = ec.clahe_luts(gray)
+    require(torch.equal(luts, e_ops.clahe_luts_plain(gray))
+            and torch.equal(ec.clahe_apply(gray, luts),
+                            e_ops.clahe_apply_plain(gray, luts)),
+            "K11: not bit-equal to its twins")
+    frame = frames.reshape(H, W, 3)
+    calls = {
+        "clahe_luts": (lambda: ec.clahe_luts(gray), "clahe_lut",
+                       clahe_bound(gray, True)),
+        "clahe_apply": (lambda: ec.clahe_apply(gray, luts), "clahe_apply",
+                        clahe_bound(gray, False)),
+    }
+    k14 = {"unsharp_gray": (gray[0], False, (1.25, -0.25)),
+           "unsharp_color": (frame, True, (1.15, -0.15))}
+    for name, (x, cl, aw) in k14.items():
+        require(torch.equal(ec.unsharp(x, *aw, 1.0, cl),
+                            e_ops.unsharp_plain(x, *aw, 1.0, cl)),
+                f"K14 {name}: not bit-equal to its twin")
+        calls[name] = (lambda x=x, cl=cl, aw=aw: ec.unsharp(x, *aw, 1.0, cl),
+                       "unsharp_kernel",
+                       bound(x.numel(), UNSHARP_OPS, 2 * x.numel()))
+    rows = {}
+    for name, (fn, stem, bnd) in calls.items():
+        rows[name] = dict(equals_twin=True,
+                          ms=[cuda_time(fn, 20), cuda_time(fn, 20)],
+                          device_ms=device_ms(fn, 20, stem), **bnd)
+        if name in k14:
+            _, clocks = clocked_ms(fn, 20)
+            rows[name].update(issue_bound_ms=insn_bound_ms(
+                UNSHARP_OPS * k14[name][0].numel(), clocks["sm_mhz"]),
+                issue_clocks=clocks)
+    # the gray chain's CLAHE and unsharp stages through their public
+    # functions (the host's part included)
+    for name, fn in (("clahe_gray", lambda: e_ops.clahe_u8(gray[0])),
+                     ("unsharp_gray_u8",
+                      lambda: e_ops.unsharp_u8(gray[0], 1.25, -0.25))):
+        rows[name] = dict(ms=[cuda_time(fn, 20), cuda_time(fn, 20)])
+    return rows
+
+
+def k11_k14_sass() -> dict:
+    """K11's and K14's ptxas report and SASS mix by class
+    (:func:`kernel_sass`), and K14's SASS a pixel and channel: its block
+    loop's body (the largest loop) over the 16 pixels a thread takes in a
+    block (None for a tree whose K14 has no such loop)."""
+    out = kernel_sass(("clahe_", "unsharp_kernel"))
+    per_pixel = {}
+    for name, mix in out["sass"].items():
+        if "unsharp_kernel" in name and mix["loops"]:
+            body = max(mix["loops"], key=lambda c: sum(c.values()))
+            per_pixel[name] = {k: v / 16 for k, v in body.items()}
+            per_pixel[name]["total"] = sum(body.values()) / 16
+    out["unsharp_sass_per_pixel"] = per_pixel
     return out
 
 

@@ -14,10 +14,12 @@
 // FMA). blur_taps is that sum at one output, with __fmul_rn and __fadd_rn
 // so that nothing contracts whatever the build flags. The taps are the
 // twin's own f32 values (_gauss1d cast to f32 on the host), passed by
-// value; the reflect-101 indices are the twin's reflect_index tables, made
-// on the host as int32 (rows [H + 2R], columns [W + 2R]): a tile reads its
-// halo row p and column q through them, clamped into the table where a tile
-// runs past the plane (those outputs are never written or counted).
+// value. The reflect-101 indices: K15 reads its halo row p and column q
+// through the twin's reflect_index tables, made on the host as int32 (rows
+// [H + 2R], columns [W + 2R]), by blur_src, clamped into the table where a
+// tile runs past the plane (those outputs are never written or counted);
+// K14 computes them in the kernel (enhance.cu's reflect) and reads no
+// table.
 
 #pragma once
 

@@ -134,10 +134,12 @@ def unsharp_u8(img_u8: torch.Tensor, amount: float, blur_weight: float,
 # clahe_apply_kernel); clahe_u8 calls the wrappers (ops/enhance_cuda.py)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
 def clahe_params(h: int, w: int, tiles: int, clip_limit: float) -> tuple:
     """(th, tw, limit, scale) of CLAHE on an H × W plane: the tile size,
     the clip limit in counts and 255 / tile area as the f32 the LUTs
-    multiply by (a Python float holding that f32)."""
+    multiply by (a Python float holding that f32). Cached by its
+    arguments."""
     th, tw = -(-h // tiles), -(-w // tiles)
     area = th * tw
     limit = max(float(np.floor(np.float32(clip_limit * area / 256.0))), 1.0)
@@ -216,17 +218,27 @@ def clahe_apply_plain(planes: torch.Tensor, luts: torch.Tensor,
     return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 
+def clahe_plain(planes: torch.Tensor, tiles: int = 8,
+                clip_limit: float = 2.0) -> torch.Tensor:
+    """Plain twin of K11's two stages in one call
+    (``enhance_cuda.clahe``): ``clahe_luts_plain`` then
+    ``clahe_apply_plain`` on u8 planes [P, H, W]."""
+    return clahe_apply_plain(planes, clahe_luts_plain(planes, tiles,
+                                                      clip_limit), tiles)
+
+
 def clahe_u8(img_u8: torch.Tensor, tiles: int = 8,
              clip_limit: float = 2.0) -> torch.Tensor:
     """Contrast-limited adaptive histogram equalization of u8 gray planes
     [..., H, W], following cv2.createCLAHE(clipLimit=2.0,
-    tileGridSize=(8,8)): ``enhance_cuda.clahe_luts`` then
-    ``enhance_cuda.clahe_apply`` (K11) on the planes."""
+    tileGridSize=(8,8)): ``enhance_cuda.clahe`` (K11's two stages in one
+    host call) on the planes."""
     from dctsvd_tpu_torch.ops import enhance_cuda
+    if img_u8.ndim == 2:           # a plane: the chains' case, no reshape
+        return enhance_cuda.clahe(img_u8[None], tiles, clip_limit)[0]
     lead, (h, w) = img_u8.shape[:-2], img_u8.shape[-2:]
     planes = img_u8.reshape(-1, h, w)
-    luts = enhance_cuda.clahe_luts(planes, tiles, clip_limit)
-    return enhance_cuda.clahe_apply(planes, luts, tiles).reshape(*lead, h, w)
+    return enhance_cuda.clahe(planes, tiles, clip_limit).reshape(*lead, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ XLA graphs.
     frame, h² 9 each).
   - K11 ``clahe_luts`` (``clahe_lut_kernel``): u8 planes [P, H, W] -> the
     tiles' u8 LUTs [P, tiles², 256]; ``clahe_apply``
-    (``clahe_apply_kernel``): the planes and their LUTs -> u8 planes.
+    (``clahe_apply_kernel``): the planes and their LUTs -> u8 planes;
+    ``clahe``: both in one host call (``dctsvd_clahe``), the form
+    ``ops/enhance.py::clahe_u8`` takes. ``clahe_plan`` gives the LUT
+    stage's row strips.
   - K14 ``unsharp`` (``unsharp_kernel<C>``): u8 planes [..., H, W], or
     BGR frames [..., H, W, 3] each channel blurred as its own plane, ->
     u8: round(amount·e + weight·blur_σ(e)) saturated, the blur
@@ -36,21 +39,24 @@ launches its kernel or raises. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from dctsvd_tpu_torch.ops.dct import host_constant
 from dctsvd_tpu_torch.ops.enhance import (_gauss1d, clahe_apply_plain,
                                           clahe_luts_plain, clahe_params,
-                                          nlm_planes_plain,
-                                          nlm_weights_plain, reflect_table,
-                                          unsharp_plain)
+                                          clahe_plain, nlm_planes_plain,
+                                          nlm_weights_plain, unsharp_plain)
 from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
 from dctsvd_tpu_torch.utils import kernels
 
-__all__ = ["nlm_planes", "clahe_luts", "clahe_apply", "nlm_weights",
-           "unsharp", "nlm_planes_plain", "clahe_luts_plain",
-           "clahe_apply_plain", "nlm_weights_plain", "unsharp_plain",
+__all__ = ["nlm_planes", "clahe_luts", "clahe_apply", "clahe", "clahe_plan",
+           "nlm_weights", "unsharp", "nlm_planes_plain", "clahe_luts_plain",
+           "clahe_apply_plain", "clahe_plain", "nlm_weights_plain",
+           "unsharp_plain",
            "TEMPLATE", "SEARCH", "MAX_WINDOW_SUM", "UNSHARP_SIGMA"]
 
 TEMPLATE, SEARCH = 7, 21   # the kernel's template and search window
@@ -64,7 +70,65 @@ NLM_RUN = 16
 NLM_ROW_RUN = 32
 MAX_GRID = 65535           # rows a CLAHE launch takes (grid y)
 UNSHARP_SIGMA = 1.0        # K14's blur: σ 1, 7 taps
-UNSHARP_TILE = 32          # K14's output tile (kUnsharpTile)
+UNSHARP_ROWS = 32          # K14's row band (kUnsharpRows)
+#: K11's LUT stage launches at least this many CTAs a plane batch an SM
+#: (row strips of each tile), and its interpolation a CTA of
+#: ``CLAHE_APPLY_ROWS`` rows stages the at most ``CLAHE_STAGE_ROWS`` LUT
+#: rows those rows touch (kApplyRows, kStageRows).
+CLAHE_CTAS_PER_SM = 2
+CLAHE_APPLY_ROWS = 2
+CLAHE_STAGE_ROWS = 3
+
+
+class ClahePlan(NamedTuple):
+    """K11's launch shape on P planes of H × W (``clahe_plan``)."""
+    strips: int        # row strips a tile in the LUT stage
+    strip_rows: int    # tile rows a strip
+
+
+@functools.lru_cache(maxsize=64)
+def clahe_plan(p: int, h: int, w: int, tiles: int, sms: int) -> ClahePlan:
+    """K11's LUT stage's launch shape for ``p`` planes of ``h`` × ``w``
+    on a card of ``sms`` SMs: each of the tiles² tiles (th × tw pixels)
+    split into row strips, a CTA a strip, so that a launch has at least
+    ``CLAHE_CTAS_PER_SM`` CTAs an SM (a tile has at most th strips; a
+    1080p plane on the H100's 132 SMs: 5 strips of 27 rows, 320 CTAs)."""
+    th = -(-h // tiles)
+    want = -(-CLAHE_CTAS_PER_SM * sms // (tiles * tiles * max(p, 1)))
+    # the fewest strips from want on (th at most) with none left empty by
+    # the kernel's ceil(th / strips) rows a strip
+    strips = max(1, min(th, want))
+    while (strips - 1) * -(-th // strips) >= th:
+        strips += 1
+    return ClahePlan(strips, -(-th // strips))
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# K11's scratch a (device, stream): int32 histograms [P, tiles², 256] then
+# tickets [P, tiles²], zeroed once when made (each launch's finishing CTAs
+# leave what they used zero again, so no call clears them), and the LUTs
+# u8 [P, tiles², 256] that the one-call form passes between its stages,
+# in a buffer of their own (never inside a larger batch's histograms).
+# One a stream, since two streams' launches could overlap.
+_CLAHE_SCRATCH: dict = {}
+
+
+def _clahe_scratch(device: torch.device, p: int, tiles: int) -> tuple:
+    """(counts, LUTs) of K11's scratch for ``p`` planes on the current
+    stream of ``device``: int32 [≥ p tiles² 257] zero, u8 [≥ p tiles²
+    256]."""
+    n = p * tiles * tiles
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _CLAHE_SCRATCH.get(key)
+    if buf is None or buf[1].numel() < n * 256:
+        buf = (torch.zeros((n * 257,), dtype=torch.int32, device=device),
+               torch.empty((n * 256,), dtype=torch.uint8, device=device))
+        _CLAHE_SCRATCH[key] = buf
+    return buf
 
 
 def _check_planes(name: str, planes: torch.Tensor) -> tuple:
@@ -117,8 +181,10 @@ def clahe_luts(planes: torch.Tensor, tiles: int = 8,
                        device=x.device)
     if x.numel():
         limit = clahe_params(h, w, tiles, clip_limit)[2]
-        kernels.launch("dctsvd_clahe_luts", x.device, x, luts, p, h, w,
-                       tiles, int(limit))
+        plan = clahe_plan(p, h, w, tiles, _sms(x.device.index))
+        kernels.launch("dctsvd_clahe_luts", x.device, x, luts,
+                       _clahe_scratch(x.device, p, tiles)[0], p, h, w, tiles,
+                       int(limit), plan.strips)
         clahe_luts.launches += 1
     return luts
 
@@ -145,6 +211,35 @@ def clahe_apply(planes: torch.Tensor, luts: torch.Tensor,
         kernels.launch("dctsvd_clahe_apply", x.device, x, luts, out, p, h, w,
                        tiles)
         clahe_apply.launches += 1
+    return out
+
+
+def clahe(planes: torch.Tensor, tiles: int = 8,
+          clip_limit: float = 2.0) -> torch.Tensor:
+    """CLAHE of u8 planes [P, H, W] -> u8 [P, H, W]: on a CUDA tensor
+    both K11 kernels, the LUTs then the interpolation, launched on the
+    current stream by one host call (``dctsvd_clahe``), each counted once
+    in ``clahe_luts.launches`` and ``clahe_apply.launches`` (and the call
+    in ``clahe.launches``); on a CPU tensor the twin ``clahe_plain``."""
+    p, h, w = _check_planes("clahe", planes)
+    if not 1 <= tiles <= 255:
+        raise ValueError(f"clahe: tiles must be in 1..255, got {tiles}")
+    if _device_ok("clahe", planes):
+        return clahe_plain(planes, tiles, clip_limit)
+    if h > MAX_GRID:
+        raise ValueError(f"clahe: {h} rows, the kernel takes at most "
+                         f"{MAX_GRID}")
+    x = planes.contiguous()
+    out = torch.empty_like(x)
+    if out.numel():
+        limit = clahe_params(h, w, tiles, clip_limit)[2]
+        plan = clahe_plan(p, h, w, tiles, _sms(x.device.index))
+        counts, luts = _clahe_scratch(x.device, p, tiles)
+        kernels.launch("dctsvd_clahe", x.device, x, luts, out, counts, p, h,
+                       w, tiles, int(limit), plan.strips)
+        clahe_luts.launches += 1
+        clahe_apply.launches += 1
+        clahe.launches += 1
     return out
 
 
@@ -188,16 +283,13 @@ def unsharp(img_u8: torch.Tensor, amount: float, blur_weight: float,
                          f"{UNSHARP_SIGMA}, got {sigma}")
     ksize = int(round(sigma * 6 + 1)) | 1
     h, w = img_u8.shape[-3:-1] if channels_last else img_u8.shape[-2:]
-    if -(-h // UNSHARP_TILE) > MAX_GRID:
+    if -(-h // UNSHARP_ROWS) > MAX_GRID:
         raise ValueError(f"unsharp: {h} rows, the kernel takes at most "
-                         f"{MAX_GRID * UNSHARP_TILE}")
+                         f"{MAX_GRID * UNSHARP_ROWS}")
     x = img_u8.contiguous()
     out = torch.empty_like(x)
     if out.numel():
-        r = ksize // 2
         kernels.launch("dctsvd_unsharp", x.device, x, out,
-                       reflect_table(h, r, x.device),
-                       reflect_table(w, r, x.device),
                        host_constant(_gauss1d, ksize, sigma, device="cpu"),
                        float(np.float32(amount)),
                        float(np.float32(blur_weight)),
@@ -209,6 +301,7 @@ def unsharp(img_u8: torch.Tensor, amount: float, blur_weight: float,
 nlm_planes.launches = 0
 clahe_luts.launches = 0
 clahe_apply.launches = 0
+clahe.launches = 0
 nlm_weights.launches = 0
 unsharp.launches = 0
 

@@ -91,9 +91,10 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_nlm": [_P, _P, _P, _I, _I, _I, _P],
     "dctsvd_nlm_weights": [_P, _P, _I, _P],
-    "dctsvd_clahe_luts": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "dctsvd_clahe_luts": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "dctsvd_unsharp": [_P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _P],
+    "dctsvd_clahe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dctsvd_unsharp": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _P],
     "dctsvd_ssim": [_P, _P, _I, _P, _P, _P, _F, _F, _P, _P, _I, _I, _I, _P],
     "dctsvd_sq_diff": [_P, _P, _LL, _I, _P, _I, _P],
     "dctsvd_ycrcb": [_P, _P, _I, _I, _I, _I, _I, _P],

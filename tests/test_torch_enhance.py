@@ -34,6 +34,7 @@ from dctsvd_tpu_torch.utils.kernels import KernelError
 torch.set_num_threads(2)
 
 SEED = 20261021
+H100_SMS = 132          # the card clahe_plan is checked for
 
 
 def _plane(shape, seed=SEED, sigma=2.0):
@@ -66,6 +67,142 @@ def test_clahe_matches_jax(shape):
     img = _plane(shape)
     d = _diff(te.clahe_u8(torch.as_tensor(img)), je.clahe_u8(jnp.asarray(img)))
     assert d.max() <= 1
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(3, 40, 52)], ids=str)
+def test_clahe_wrapper_runs_the_twins_on_the_cpu(shape):
+    """enhance_cuda.clahe (K11's two stages in one host call) on a CPU
+    tensor is clahe_luts_plain then clahe_apply_plain, counts no launch,
+    and is within 1 of the JAX package's clahe_u8."""
+    img = _plane(shape)
+    x = torch.as_tensor(img).reshape(-1, *shape[-2:])
+    wrappers = (tec.clahe, tec.clahe_luts, tec.clahe_apply)
+    counts = [f.launches for f in wrappers]
+    got = tec.clahe(x)
+    assert torch.equal(got, te.clahe_apply_plain(x, te.clahe_luts_plain(x)))
+    assert torch.equal(got, te.clahe_plain(x))
+    assert [f.launches for f in wrappers] == counts
+    assert _diff(got.reshape(shape), je.clahe_u8(jnp.asarray(img))).max() <= 1
+
+
+def test_clahe_u8_makes_one_wrapper_call(monkeypatch):
+    """clahe_u8 hands all its planes (leading dims flattened) to
+    enhance_cuda.clahe once, and neither stage's own wrapper."""
+    calls = []
+
+    def one(planes, tiles, clip_limit):
+        calls.append((tuple(planes.shape), tiles, clip_limit))
+        return planes.clone()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("clahe_u8 called a stage's own wrapper")
+
+    monkeypatch.setattr(tec, "clahe", one)
+    monkeypatch.setattr(tec, "clahe_luts", refuse)
+    monkeypatch.setattr(tec, "clahe_apply", refuse)
+    x = torch.as_tensor(np.stack([_plane((40, 52), seed=SEED + 30 + i)
+                                  for i in range(6)])).reshape(2, 3, 40, 52)
+    assert torch.equal(te.clahe_u8(x), x)
+    assert calls == [((6, 40, 52), 8, 2.0)]
+
+
+def _launch_recorder(monkeypatch):
+    """Where the kernel would run (``_device_ok`` false), the launches
+    ``kernels.launch`` is asked for, in order, instead of launching."""
+    launched = []
+    monkeypatch.setattr(tec, "_device_ok", lambda *a: False)
+    monkeypatch.setattr(tec.kernels, "launch",
+                        lambda name, dev, *args: launched.append((name,
+                                                                  args)))
+    return launched
+
+
+def test_clahe_is_one_launch_call_counted_once_a_kernel(monkeypatch):
+    """On the card path clahe makes one host call, ``dctsvd_clahe``, with
+    the plan's strips and the scratch, and moves each K11 counter (and its
+    own) by one."""
+    launched = _launch_recorder(monkeypatch)
+    monkeypatch.setattr(tec, "_sms", lambda index: H100_SMS)
+    scratch = (torch.zeros(64 * 257, dtype=torch.int32),
+               torch.empty(64 * 256, dtype=torch.uint8))
+    monkeypatch.setattr(tec, "_clahe_scratch", lambda dev, p, t: scratch)
+    x = torch.as_tensor(_plane((1080, 1920), seed=SEED + 31))[None]
+    wrappers = (tec.clahe, tec.clahe_luts, tec.clahe_apply)
+    for f in wrappers:          # the counts stand again after the test
+        monkeypatch.setattr(f, "launches", 0)
+    tec.clahe(x)
+    assert [f.launches for f in wrappers] == [1, 1, 1]
+    assert len(launched) == 1
+    name, args = launched[0]
+    assert name == "dctsvd_clahe"
+    assert args[0] is x and args[1] is scratch[1] and args[3] is scratch[0]
+    assert args[2].shape == x.shape
+    assert args[4:] == (1, 1080, 1920, 8, 253, 5)
+
+
+def test_unsharp_wrapper_passes_no_reflect_table(monkeypatch):
+    """K14 reflects its halo itself: the wrapper passes the frame, the
+    output, σ 1's 7 taps in host memory and the scalars, no index
+    table."""
+    launched = _launch_recorder(monkeypatch)
+    for x, cl, c in ((torch.as_tensor(_plane((2, 37, 51), seed=SEED + 32)),
+                      False, 1),
+                     (torch.as_tensor(_plane((37, 51, 3), seed=SEED + 33)),
+                      True, 3)):
+        launched.clear()
+        tec.unsharp(x, 1.25, -0.25, 1.0, cl)
+        (name, args), = launched
+        assert name == "dctsvd_unsharp"
+        taps = args[2]
+        assert taps.device.type == "cpu" and taps.dtype == torch.float32
+        assert taps.shape == (7,)
+        assert args[3:] == (1.25, -0.25, x.numel() // (37 * 51 * c), 37,
+                            51, c)
+        assert not any(isinstance(a, torch.Tensor)
+                       and a.dtype == torch.int32 for a in args)
+
+
+# K11's launch shapes (clahe_plan): (P, H, W, tiles)
+CLAHE_PLANS = [(1, 1080, 1920, 8), (1, 1081, 1920, 8), (1, 2160, 3840, 8),
+               (3, 1080, 1920, 8), (128, 1080, 1920, 8), (1, 37, 51, 8),
+               (3, 40, 52, 8), (1, 1, 1, 8), (1, 20, 30, 1),
+               (2, 50, 70, 3), (1, 120, 150, 100)]
+
+
+@pytest.mark.parametrize("p,h,w,tiles", CLAHE_PLANS, ids=str)
+def test_clahe_plan_covers_each_tile_once(p, h, w, tiles):
+    """The LUT stage's strips cover a tile's th rows once, none empty
+    (strip_rows as the kernel derives it from strips), and fill the card
+    (2 CTAs an SM of the H100's 132) where a tile has the rows for it."""
+    plan = tec.clahe_plan(p, h, w, tiles, H100_SMS)
+    th = -(-h // tiles)
+    assert 1 <= plan.strips <= th
+    assert plan.strip_rows == -(-th // plan.strips)
+    assert (plan.strips - 1) * plan.strip_rows < th
+    assert th <= plan.strips * plan.strip_rows
+    ctas = tiles * tiles * plan.strips * p
+    assert ctas >= min(tec.CLAHE_CTAS_PER_SM * H100_SMS,
+                       tiles * tiles * th * p)
+    if (p, h, w, tiles) == (1, 1080, 1920, 8):
+        assert tuple(plan) == (5, 27) and ctas == 320
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 8, 17, 64, 255])
+def test_clahe_apply_band_stays_inside_its_staged_rows(tiles):
+    """Every band of the interpolation's rows touches at most the
+    ``CLAHE_STAGE_ROWS`` LUT rows it stages, and at most tiles (the kernel
+    traps otherwise): the tile rows of each row as clahe_apply_plain
+    computes them (one f32 division)."""
+    for h in [*range(1, 200), 1080, 1081, 2160]:
+        th = -(-h // tiles)
+        ty = torch.div(torch.arange(h, dtype=torch.float32),
+                       torch.tensor(float(th))) - 0.5
+        y0 = torch.floor(ty).clamp(0, tiles - 1).to(torch.int64)
+        y1 = (y0 + 1).clamp(0, tiles - 1)
+        need = min(tiles, tec.CLAHE_STAGE_ROWS)
+        for b in range(0, h, tec.CLAHE_APPLY_ROWS):
+            last = min(b + tec.CLAHE_APPLY_ROWS, h) - 1
+            assert int(y1[last] - y0[b]) + 1 <= need, (h, b)
 
 
 @pytest.mark.parametrize("sigma", [1.0, 1.5])

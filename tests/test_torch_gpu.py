@@ -21,9 +21,12 @@ statistic) against its twin run on the card on 1 to 128 1080p frames, at
 small and tiny block grids, at grid 4 and 2, with a shared sc, on a clean
 host, at every k and over the scale damp's range, and the detect paths
 through it, K10 (NLM) and both K11 kernels (CLAHE's LUTs and
-interpolation) against their twins run on the card at 1080p and on
-planes smaller than NLM's window, K10's exp against torch's at every
-window sum, the 1080p extracts launching each once, K14 (unsharp), K15
+interpolation, alone and in one call) against their twins run on the
+card at 1080p, 4K, at their strips' and runs' edges, on a single-valued
+plane, off alignment, on successive calls and on planes smaller than
+NLM's window, K10's exp against torch's at every window sum, the 1080p
+extracts launching each once, K14 (unsharp, also across its column
+walks), K15
 (SSIM), K16 (PSNR's sums) and K17 (the color NLM's YCrCb pair) against
 their twins run on the card from 1×1 to 2160×3840 and on a view off its
 16-byte alignment, the embeds launching K15 and K16 and the chains K14
@@ -2410,6 +2413,68 @@ def test_k11_matches_twin(dev, shape):
             enhance_cuda.clahe_apply.launches - n0[1]) == (2, 2)
 
 
+# K11 at its edges: every count in one bin (the largest excess), tiles of
+# rows past the plane (th 136: not a multiple of the 28-row strip), a tile
+# width not a multiple of the 16-byte run (tw 242), a view off its 16-byte
+# alignment, a 4K plane; tile grids whose staged LUT rows fill the default
+# 48 KB of shared memory (64 tiles: 3 rows of 16 KB) and pass it by the
+# interpolation's opt-in (65 tiles; 255, the most the kernels take:
+# 195,840 bytes)
+K11_EDGES = ["single_valued", "1081x1920", "1080x1936", "offset", "4k",
+             "tiles64", "tiles65", "tiles255"]
+
+
+@pytest.mark.parametrize("case", K11_EDGES)
+def test_k11_edges_match_twin(dev, case):
+    """Both K11 kernels, alone and in one call (enhance_cuda.clahe), equal
+    their twins run on the card (torch.equal) at their edges."""
+    dims = {"1081x1920": (1, 1081, 1920), "1080x1936": (1, 1080, 1936),
+            "4k": (1, 2160, 3840)}.get(case, (1, 1080, 1920))
+    tiles = int(case[5:]) if case.startswith("tiles") else 8
+    x = _enh_planes(dev, dims, SEED + 86)
+    if case == "single_valued":
+        x = torch.full_like(x, 131)
+    elif case == "offset":
+        x = _offset(x)
+    ref = e_ops.clahe_luts_plain(x, tiles)
+    out = e_ops.clahe_apply_plain(x, ref, tiles)
+    assert torch.equal(enhance_cuda.clahe_luts(x, tiles), ref)
+    assert torch.equal(enhance_cuda.clahe_apply(x, ref, tiles), out)
+    assert torch.equal(enhance_cuda.clahe(x, tiles), out)
+
+
+def test_k11_successive_calls_leave_the_scratch_clean(dev):
+    """K11's LUT stage leaves its scratch (histograms, tickets) zero for
+    the next call: successive calls on different planes, and on batches
+    of other sizes, each equal the twins."""
+    planes = [_enh_planes(dev, (1, 1080, 1920), SEED + 87 + i)
+              for i in range(2)]
+    planes += [_enh_planes(dev, (3, 40, 52), SEED + 89),
+               torch.full((1, 1080, 1920), 7, dtype=torch.uint8,
+                          device=dev), planes[0]]
+    for x in planes:
+        assert torch.equal(enhance_cuda.clahe(x), e_ops.clahe_plain(x))
+        assert torch.equal(enhance_cuda.clahe_luts(x),
+                           e_ops.clahe_luts_plain(x))
+
+
+def test_clahe_u8_launches_each_k11_kernel_once_in_one_call(dev):
+    """clahe_u8 on a 1080p plane makes one host call (enhance_cuda.clahe),
+    which launches each K11 kernel once; the LUT stage's grid has at
+    least two CTAs an SM of the card."""
+    x = _enh_planes(dev, (1080, 1920), SEED + 90)
+    wrappers = (enhance_cuda.clahe, enhance_cuda.clahe_luts,
+                enhance_cuda.clahe_apply)
+    n0 = [w.launches for w in wrappers]
+    got = e_ops.clahe_u8(x)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [1, 1, 1]
+    assert torch.equal(got, e_ops.clahe_plain(x[None])[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = enhance_cuda.clahe_plan(1, 1080, 1920, 8, sms)
+    assert 64 * plan.strips >= 2 * sms
+
+
 def test_enhance_wrappers_never_run_the_twins_on_the_card(dev, monkeypatch):
     """CUDA tensors launch K10 and K11 through both chains (the twins are
     not reached); mixed devices and a template or search window the
@@ -2507,6 +2572,31 @@ def test_k14_matches_twin(dev, shape, layout):
         got = _launched(enhance_cuda.unsharp, lambda: enhance_cuda.unsharp(
             x, amount, weight, 1.0, cl))
         assert torch.equal(got, e_ops.unsharp_plain(x, amount, weight, 1.0,
+                                                    cl))
+
+
+# K14 across its column blocks and walks (64 columns a block, 2 blocks a
+# walk) at widths that are not a multiple of either, and a band of rows
+# past the plane
+K14_WALKS = {"37x1000": (37, 1000), "70x333": (70, 333), "33x130": (33, 130),
+             "1080x1000": (1080, 1000)}
+
+
+@pytest.mark.parametrize("layout", ["planes", "frames"])
+@pytest.mark.parametrize("shape", list(K14_WALKS))
+def test_k14_walks_match_twin(dev, shape, layout):
+    """K14 equals its twin run on the card (torch.equal) where its CTAs
+    walk several column blocks and carry their columns, planes and BGR
+    frames channels-last, and off its 16-byte alignment."""
+    h, w = K14_WALKS[shape]
+    dims = {"planes": (2, h, w), "frames": (h, w, 3)}[layout]
+    x = _enh_planes(dev, dims, SEED + 91) if layout == "planes" else \
+        _bgr(dims, dev, SEED + 91)
+    cl = layout != "planes"
+    for xi in (x, _offset(x)):
+        got = _launched(enhance_cuda.unsharp, lambda: enhance_cuda.unsharp(
+            xi, 1.15, -0.15, 1.0, cl))
+        assert torch.equal(got, e_ops.unsharp_plain(xi, 1.15, -0.15, 1.0,
                                                     cl))
 
 
