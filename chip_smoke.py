@@ -18,7 +18,11 @@
     python3 chip_smoke.py --tail-times      # only the extract steps' times
                                             # at 1080p, batch 32 (and 1, 4,
                                             # 128), in both tail forms, and
-                                            # K5f, K5 and K8 alone
+                                            # K5f, K5 and K8 alone; K18 and
+                                            # the front at 32 and 128
+                                            # frames, and the request
+                                            # extract, each beside its
+                                            # eager form
     python3 chip_smoke.py --recon-forms     # only the extract tail's
                                             # k-term product, in each form
     python3 chip_smoke.py --color-bounds    # only K6's and K7's times
@@ -43,8 +47,9 @@
                                             # an older tree, that tree's)
 
 Run from the root of a checkout on a machine with one CUDA GPU (built for
-an H100, ``sm_90a``). It builds the twenty-four hand-written kernels (K1,
-K2, K3, K4, K2r, K1g, K5f, K5, K8, the gray scheme's color conversions K6
+an H100, ``sm_90a``). It builds the twenty-six hand-written kernels (K1,
+K2, K3, K4, K2r, K1g, the extract tail's presence statistic K18, K5f,
+K5, K8 and its crop K8u, the gray scheme's color conversions K6
 and K7, the detect statistic K9, the enhancement chain's NLM K10, CLAHE
 K11 and unsharp K14, detect resync's roll stack K12 and counter-rotation
 K13, the embed metrics' SSIM K15 and PSNR sums K16, the color NLM's
@@ -57,7 +62,9 @@ path gives it (all seven bit for bit), with the time of one PyTorch
 library call that computes the same function where there is one (and K5,
 in color frames and in gray planes, on the stego and on it with three
 quadrants zeroed, whose flagged blocks it repaints, beside the eager tail it can
-replace; and K8, the default tail's normaliser, in each of its two
+replace; K18, the presence statistic, on the stego and the zeroed
+stego at 32 and 128 frames, beside the eager statistic whose decision it
+must equal; and K8, the default tail's normaliser, in each of its two
 instances (resident and two-pass, each forced by its plan) against its
 twin, the eager form, in color frames and gray planes on the stego,
 without sw, with three quadrants zeroed, with every block flagged,
@@ -70,7 +77,16 @@ a batch of 32 1080p frames (with the set-up time of prepare and the
 detect rate), the recompute extract tail (color and gray
 ``extract_*_prepared(recompute=True)``, K5) on the same batch, and the
 default one's K8 launches with no eager normaliser call (color, gray,
-serve+verify); K9, the detect statistic, bit-equal to its twin on the
+serve+verify); the request extract (``request_extract``:
+``extract_array``, what api.extract, the CLI, the GUI and the payloads
+run) on a 1080p color and gray stego and its 1079x1917 crop, each read
+back from its PNG and meta, and on the zeroed stego and the clean cover,
+each launching K1, K18, K5f and K8 (K8u on the crop) once, calling no
+eager normaliser or statistic, byte-equal with every twin in its
+kernel's place and to the eager form it replaced, K18's decision the
+eager statistic's; the prepared extract of the batch of 32 cut to
+1079x1917 likewise, and K8u against its twin there; K9, the detect
+statistic, bit-equal to its twin on the
 1080p spectra of the batch of 32 and of 128 frames, gray and color
 (frame and band scores, grid 2, a shared sc, the clean covers, a clean
 host scoring exactly 0, a frame alone and in a shard), within 1e-5 of the
@@ -159,9 +175,12 @@ Before the last line it prints the card's name and power limit and the
 ``kernels`` table (launches on the main path, kernel, twin and library
 times, and each kernel's bound: the least time the card could take, from
 the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
-K2r, K1g, K5f, K5, K8, K6 and K7 are held to their twins run on the card
-bit for bit; K8's launches are counted on the slice, the serve steps,
-the tail phase's default extracts, ``parallel/`` and the bench, by
+K2r, K1g, K18, K5f, K5, K8, K8u, K6 and K7 are held to their twins run
+on the card bit for bit; K18's launches are counted on the slice, the
+serve steps, the tail phase, the request extracts, video, ``parallel/``
+and the bench, K8u's on the request extracts; K8's launches are counted
+on the slice, the serve steps, the tail phase's default extracts, the
+request extracts, ``parallel/`` and the bench, by
 instance (the resident one on every path, the two-pass one on the
 bench's 4k and 512gray configs); K9's on
 the slice, the serve steps, ``detect_1080p``, the resync searches,
@@ -527,6 +546,13 @@ def phase_kernels(dev, frames_u8, wm_u8, blk, intra):
     emit({"phase": "kernel_vs_plain", "kernel": "K1g spectrum_blocks_gram",
           **results["spectrum_blocks_gram"]})
 
+    # K18 on the 1080p batch of 32 (and 128): the presence statistic every
+    # extract with sw takes, color and gray spectra
+    for name, gray in (("presence", False), ("presence_gray", True)):
+        results[name] = presence_row(dev, frames_u8, wm_u8, blk, intra, gray)
+        emit({"phase": "kernel_vs_plain", "kernel": f"K18 {name}",
+              **results[name]})
+
     # K5f on the 1080p batch of 32: the extract tail's front stage (both
     # tail forms), color and gray spectra
     for name, gray in (("tail_front", False), ("tail_front_gray", True)):
@@ -796,9 +822,9 @@ def phase_slice(dev, covers, wm_u8, blk, intra):
                                       tail_cuda, wm_cuda)
 
     wrappers = [svd_cuda.jacobi_svd8, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks, detect_cuda.band_scores,
-                *K8_INSTANCES]
+                wm_cuda.spectrum_blocks, tail_cuda.presence,
+                tail_cuda.tail_front, tail_cuda.normalize_blocks,
+                detect_cuda.band_scores, *K8_INSTANCES]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -897,9 +923,9 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     clean = blocked.detect_color(covers, sc, pw.sw, ALPHA)
 
     wrappers = [wm_cuda.roundtrip_frames_blocks, wm_cuda.embed_blocks,
-                wm_cuda.spectrum_blocks, tail_cuda.tail_front,
-                tail_cuda.normalize_blocks, detect_cuda.band_scores,
-                *K8_INSTANCES]
+                wm_cuda.spectrum_blocks, tail_cuda.presence,
+                tail_cuda.tail_front, tail_cuda.normalize_blocks,
+                detect_cuda.band_scores, *K8_INSTANCES]
     torch.cuda.synchronize()
     for fn in wrappers:
         fn.launches = 0
@@ -913,7 +939,7 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
     seconds = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
     require(launches["roundtrip_frames_blocks"] >= 1
-            and launches["tail_front"] >= 2
+            and launches["tail_front"] >= 2 and launches["presence"] >= 2
             and launches["normalize_blocks"] >= 2
             and launches["band_scores"] == 2,
             f"K3, K5f, K8 or K9 not launched by the serve steps: {launches}")
@@ -968,8 +994,8 @@ def phase_serve(dev, covers, wm_u8, blk, intra):
         card=smi_line())
     emit(out)
     return {name: launches[name] for name in (
-        "roundtrip_frames_blocks", "tail_front", "normalize_blocks",
-        "band_scores", "normalize_blocks_resident",
+        "roundtrip_frames_blocks", "presence", "tail_front",
+        "normalize_blocks", "band_scores", "normalize_blocks_resident",
         "normalize_blocks_two_pass")}
 
 
@@ -1074,27 +1100,171 @@ def front_ops(k: int) -> int:
     return 12 * k + 1
 
 
-def eager_front(s_cw, sc, pw):
-    """The estimator and the slot gather as the eager tail ran them before
-    K5f, written out from the parts every tree of the port has: the raw
-    estimate, _shrink_sw_hat, the flag column, _permute_slots."""
+def eager_engaged(raw, sw):
+    """The presence statistic as the port ran it in eager ops before K18
+    (models/blocked.py::_engaged before K18): metrics.nc over the 16..31
+    block groups of column 0, torch.sort, the knee 0.20 + 1.8/sqrt(gsz).
+    The reference K18's decision is held to; never called inside a counted
+    extract."""
+    import torch
+    from dctsvd_tpu_torch.ops import metrics
+    ref = sw.expand(raw.shape)
+    n = raw.shape[-2]
+    gsz = max(1, n // 16)
+    ng = n // gsz
+    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
+    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
+    m = -(-ng // 4)
+    rho0 = torch.sort(metrics.nc(a0, b0), dim=-1).values[..., ng - m]
+    knee = 0.20 + 1.8 / torch.sqrt(torch.full((), float(gsz),
+                                              device=raw.device))
+    return rho0 >= knee
+
+
+def eager_statistic(s_cw, sc, sw):
+    """The front's presence decision as the port took it before K18: column
+    0 of the raw estimate written into a tensor shaped as the spectrum,
+    then :func:`eager_engaged`."""
     import torch
     from dctsvd_tpu_torch.models import blocked
+    alpha = blocked._alpha(ALPHA, s_cw.device)
+    s_cw, sc = (t.contiguous() for t in torch.broadcast_tensors(s_cw, sc))
+    raw = torch.empty_like(s_cw)
+    torch.div(s_cw[..., :1] - sc[..., :1], torch.clamp(alpha, min=1e-8),
+              out=raw[..., :1])
+    return eager_engaged(raw, sw)
+
+
+def front_eager_statistic(s_cw, sc, pw):
+    """models/blocked._tail_front as the port ran it before K18: the eager
+    statistic (:func:`eager_statistic`), then K5f."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    alpha = blocked._alpha(ALPHA, s_cw.device)
+    s_cw, sc = (t.contiguous() for t in torch.broadcast_tensors(s_cw, sc))
+    return tail_cuda.tail_front(s_cw, sc, pw.inv_blk, alpha, K, pw.sw,
+                                blocked._sw_scale(pw.sw),
+                                eager_statistic(s_cw, sc, pw.sw))
+
+
+def eager_front(s_cw, sc, pw):
+    """The estimator and the slot gather as the eager tail ran them before
+    K5f and K18, written out from the parts every tree of the port has
+    since K5f: the raw estimate, the eager presence statistic
+    (:func:`eager_engaged`), the shrinkage step, the flag column,
+    _permute_slots."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
     raw = blocked._raw_estimate(s_cw, sc, ALPHA)
-    est, bad = blocked._shrink_sw_hat(raw, pw.sw, K)
+    est, bad = tail_cuda.shrink_estimate(raw, pw.sw, blocked._sw_scale(pw.sw),
+                                         eager_engaged(raw, pw.sw), K)
     combo = torch.cat([est[..., :K], bad.to(torch.float32)[..., None]],
                       dim=-1)
     return blocked._permute_slots(combo, pw.inv_blk)
+
+
+# f32 operations of K18 a block: column 0 of the raw estimate (a
+# difference and a division), pass 1's two sums, pass 2's two differences,
+# three products and three sums
+PRESENCE_OPS = 12
+
+
+def presence_bound(s_cw, sw) -> dict:
+    """K18's bound on a batch: the rows of s_cw and sc it reads column 0 of
+    (a 32-byte sector a row), sw's rows once (the frames share them), the
+    decisions and rho0 written once."""
+    planes, n = s_cw[..., 0, 0].numel(), s_cw.shape[-2]
+    chans = sw.shape[0] if sw.ndim == 3 else 1
+    moved = 2 * planes * n * 32 + chans * n * 32 + planes * 5
+    return bound(planes * n, PRESENCE_OPS, moved)
+
+
+def presence_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
+    """K18 against its plain twin run on the card (torch.equal: rho0 and
+    the decision) on the main path's 1080p spectra of the batch of 32
+    (tail_spectra: the stego and the three-quadrants-zeroed stego) and of
+    128 frames, in its load form (s_cw, sc, alpha) and on the raw
+    estimate; its decision equal to the eager statistic's on every frame
+    (:func:`eager_engaged`, the reference). ms: K18 at 32 frames;
+    plain_ms: its twin; eager_ms: the statistic as the front took it
+    before (:func:`eager_statistic`); ms_128, eager_ms_128 at 128;
+    device_ms, device_ms_128: its two kernels' device time (profiler)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+
+    pw, sc, spectra = tail_spectra(dev, covers, wm_u8, blk, intra, gray)
+    alpha = blocked._alpha(ALPHA, dev)
+    name = "gray" if gray else "color"
+    checks = {}
+
+    def held(case, s_cw, sc_):
+        n0 = tail_cuda.presence.launches
+        got = tail_cuda.presence(s_cw, pw.sw, sc_, alpha)
+        torch.cuda.synchronize()
+        require(tail_cuda.presence.launches == n0 + 1,
+                f"K18 {name} {case}: not launched")
+        ref = tail_cuda.presence_plain(s_cw, pw.sw, sc_, alpha)
+        d = float((got[1] - ref[1]).abs().max())
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                f"K18 {name} {case} vs twin: |d rho0| {d}")
+        raw = blocked._raw_estimate(s_cw, sc_, ALPHA)
+        on_raw = blocked._engaged(raw, pw.sw)
+        require(torch.equal(on_raw, got[0]),
+                f"K18 {name} {case}: _engaged on the raw estimate differs")
+        eager = eager_engaged(raw, pw.sw)
+        require(torch.equal(got[0], eager), f"K18 {name} {case}: decision "
+                f"differs from the eager statistic's on "
+                f"{int((got[0] != eager).sum())} planes")
+        return dict(max_abs_err=d, equals_twin=True, equals_eager=True,
+                    engaged_share=float(got[0].float().mean()),
+                    rho0_min=float(got[1].min()),
+                    rho0_max=float(got[1].max()))
+
+    for case, s_cw in zip(("stego", "three_quadrants_zeroed"), spectra):
+        checks[case] = held(case, s_cw, sc)
+    s128 = spectra[0].repeat(4, *[1] * (spectra[0].ndim - 1))
+    sc128 = sc.repeat(4, *[1] * (sc.ndim - 1))
+    checks["stego_128"] = held("stego 128", s128, sc128)
+    require(checks["stego"]["engaged_share"] == 1.0,
+            f"K18 {name}: the stego is not engaged {checks}")
+    s_cw = spectra[0]
+    out = dict(
+        layout=name, shape=list(s_cw.shape), groups=list(
+            tail_cuda.presence_groups(s_cw.shape[-2])),
+        knee=tail_cuda.presence_knee(tail_cuda.presence_groups(
+            s_cw.shape[-2])[0]),
+        checks=checks, max_abs_err=max(c["max_abs_err"]
+                                       for c in checks.values()),
+        equals_twin=True,
+        ms=cuda_time(lambda: tail_cuda.presence(s_cw, pw.sw, sc, alpha), 20),
+        plain_ms=cuda_time(lambda: tail_cuda.presence_plain(
+            s_cw, pw.sw, sc, alpha), 3),
+        eager_ms=cuda_time(lambda: eager_statistic(s_cw, sc, pw.sw), 10),
+        device_ms=device_ms(lambda: tail_cuda.presence(s_cw, pw.sw, sc,
+                                                       alpha), 10,
+                            "presence_"),
+        ms_128=cuda_time(lambda: tail_cuda.presence(s128, pw.sw, sc128,
+                                                    alpha), 20),
+        device_ms_128=device_ms(lambda: tail_cuda.presence(
+            s128, pw.sw, sc128, alpha), 10, "presence_"),
+        eager_ms_128=cuda_time(lambda: eager_statistic(s128, sc128, pw.sw),
+                               5),
+        library_ms=None, **presence_bound(s_cw, pw.sw))
+    out["bound_ms_128"] = presence_bound(s128, pw.sw)["bound_ms"]
+    return out
 
 
 def tail_front_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
     """K5f against its plain twin run on the card (torch.equal) at the
     1080p batch of 32 in one layout, on the stego and on the zeroed stego
     (tail_spectra), given the presence decision of the eager estimator;
-    and models/blocked._tail_front (the presence statistic in plain ops,
-    then K5f) equal to the eager front (:func:`eager_front`) on the same
-    input. ms: K5f alone; plain_ms: its twin; front_ms: _tail_front;
-    eager_ms: the eager front. bound_ms counts the spectra, sw and
+    and models/blocked._tail_front (K18, then K5f) equal to the eager
+    front (:func:`eager_front`) on the same input. ms: K5f alone;
+    plain_ms: its twin; front_ms: _tail_front; eager_ms: the eager front.
+    bound_ms counts the spectra, sw and
     inv_blk read once and the k + 1 output columns written once
     (``written_bytes``: the rows of 8 floats K5f writes)."""
     import torch
@@ -1107,8 +1277,8 @@ def tail_front_row(dev, covers, wm_u8, blk, intra, gray: bool) -> dict:
     name = "gray" if gray else "color"
     checks, calls = {}, {}
     for case, s_cw in zip(("stego", "three_quadrants_zeroed"), spectra):
-        engage = blocked._engaged(blocked._raw_estimate(s_cw, sc, ALPHA),
-                                  pw.sw)
+        engage = eager_engaged(blocked._raw_estimate(s_cw, sc, ALPHA),
+                               pw.sw)
         args = (s_cw, sc, pw.inv_blk, alpha, K, pw.sw, scale, engage)
         y = tail_cuda.tail_front(*args)
         py = tail_cuda.tail_front_plain(*args)
@@ -1445,14 +1615,17 @@ def counted_calls(targets):
 
 def eager_normaliser_calls():
     """:func:`counted_calls` of the eager normaliser's functions (the twin
-    of K8, the block-level normaliser and its window, the unaligned
-    form)."""
+    of K8 and K8u, the block-level normaliser and its window, the unaligned
+    form) and of the eager presence statistic's (the twin of K18,
+    metrics.nc)."""
     from dctsvd_tpu_torch.models import blocked
-    from dctsvd_tpu_torch.ops import tail_cuda
+    from dctsvd_tpu_torch.ops import metrics, tail_cuda
     return counted_calls(((tail_cuda, "normalize_blocks_plain"),
                           (tail_cuda, "minmax_blocks"),
                           (tail_cuda, "block_window"),
-                          (blocked, "_masked_normalize")))
+                          (blocked, "_masked_normalize"),
+                          (tail_cuda, "presence_plain"),
+                          (metrics, "nc")))
 
 
 def eager_band_calls():
@@ -1502,25 +1675,29 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
         torch.cuda.synchronize()
         tail_cuda.recon_normalize.launches = 0
         tail_cuda.tail_front.launches = 0
+        tail_cuda.presence.launches = 0
         t0 = time.perf_counter()
         out = fn(stego, sc_, recompute=True)
         torch.cuda.synchronize()
         return out, (tail_cuda.recon_normalize.launches,
-                     tail_cuda.tail_front.launches), \
+                     tail_cuda.tail_front.launches,
+                     tail_cuda.presence.launches), \
             time.perf_counter() - t0
 
     # K5's color frames, then its gray planes, each counted alone
-    rec, (launches, front), seconds = run(color_x, st, sc)
-    recg, (launches_g, front_g), seconds_g = run(gray_x, stg, scg)
-    require(min(launches, launches_g, front, front_g) >= 1,
+    rec, (launches, front, k18), seconds = run(color_x, st, sc)
+    recg, (launches_g, front_g, k18_g), seconds_g = run(gray_x, stg, scg)
+    require(min(launches, launches_g, front, front_g, k18, k18_g) >= 1,
             f"K5 launched {launches} times by the color and {launches_g} "
-            f"by the gray recompute extract, K5f {front} and {front_g}")
+            f"by the gray recompute extract, K5f {front} and {front_g}, "
+            f"K18 {k18} and {k18_g}")
     require(rec.shape == covers.shape and rec.dtype == torch.uint8
             and recg.shape == covers.shape[:-1], "recompute extract shapes")
     row = dict(phase="tail_recompute_1080p", batch=BATCH,
                launches={"recon_normalize": launches,
                          "recon_normalize_gray": launches_g,
-                         "tail_front": front, "tail_front_gray": front_g},
+                         "tail_front": front, "tail_front_gray": front_g,
+                         "presence": k18, "presence_gray": k18_g},
                first_run_s={"color": seconds, "gray": seconds_g})
     for name, got, eager, wm in (
             ("color", rec, color_x(st, sc), wm_u8),
@@ -1568,7 +1745,7 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
             k8_inst[name] = {c.__name__: c.launches for c in K8_INSTANCES}
     require(min(k8.values()) >= 1 and not any(eager_calls.values()),
             f"the default aligned extract: K8 launches {k8}, eager "
-            f"normaliser calls {eager_calls}")
+            f"normaliser or statistic calls {eager_calls}")
     row["default_form"] = dict(normalize_blocks_launches=k8,
                                instance_launches=k8_inst,
                                eager_normaliser_calls=eager_calls)
@@ -1602,6 +1779,391 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
     row["default_bytes_equal_with_twin_front"] = sorted(with_kernel)
     emit(dict(row, card=smi_line()))
     return row["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The request extract (extract_array: api.extract, the CLI, the GUI, the
+# payloads) and the unaligned prepared extract: K1, K18, K5f, K8 or K8u
+# ---------------------------------------------------------------------------
+
+REQUEST_SIZES = {"1080p": (H, W), "1079x1917": (1079, 1917)}
+REQUEST_SEED = 20261027
+
+
+class K8Crop(K8Instance):
+    """K8u's launches (tail_cuda.INSTANCE_LAUNCHES["crop"]: the two-pass
+    instance's calls with a crop), as a wrapper's ``.launches``."""
+
+    def __init__(self):
+        super().__init__("crop")
+
+
+K8U = K8Crop()
+
+
+def request_wrappers() -> dict:
+    """The kernels a request extract runs: K1, K6 (gray), K18, K5f, K8 and
+    its instances, K8u."""
+    from dctsvd_tpu_torch.ops import color_cuda, tail_cuda, wm_cuda
+    return {"spectrum_blocks": wm_cuda.spectrum_blocks,
+            "luma_f32": color_cuda.luma_f32,
+            "presence": tail_cuda.presence,
+            "tail_front": tail_cuda.tail_front,
+            "normalize_blocks": tail_cuda.normalize_blocks,
+            **{c.__name__: c for c in (*K8_INSTANCES, K8U)}}
+
+
+@contextlib.contextmanager
+def extract_twins():
+    """Every kernel of the extract in its twin's place: K1, K18, K5f, K8
+    (and K8u) in the modules the extract finds them in, and K6 and K7
+    (:func:`color_twins`)."""
+    from dctsvd_tpu_torch.ops import tail_cuda, wm_cuda
+    saved = [(wm_cuda, "spectrum_blocks"), (tail_cuda, "presence"),
+             (tail_cuda, "tail_front"), (tail_cuda, "normalize_blocks")]
+    kernels_ = [getattr(m, n) for m, n in saved]
+    try:
+        for m, n in saved:
+            setattr(m, n, getattr(m, f"{n}_plain"))
+        with color_twins():
+            yield
+    finally:
+        for (m, n), fn in zip(saved, kernels_):
+            setattr(m, n, fn)
+
+
+def eager_request(stego, sc, uw, vwt, inv_blk, inv_intra, sw, gray: bool):
+    """The request extract as the port ran it before K18 and K8u
+    (models/blocked.py::extract_gray / extract_color before them), written
+    out: K1's spectrum, the raw estimate, the eager statistic and the
+    shrinkage step, the masked slot gather, the two products, the IDCT to
+    the plane, _masked_normalize, the clip and the cast."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, dct, tail_cuda
+    h, w = stego.shape[-3], stego.shape[-2]
+    hp, wp = h + (-h) % 8, w + (-w) % 8
+    s_cw = (blocked._plane_spectrum(color.luma_f32(stego), SWEEPS) if gray
+            else blocked._frames_spectrum(stego, SWEEPS))
+    raw = blocked._raw_estimate(s_cw, sc, ALPHA)
+    est, bad = tail_cuda.shrink_estimate(raw, sw, blocked._sw_scale(sw),
+                                         eager_engaged(raw, sw), K)
+    est = torch.where(torch.arange(8, device=raw.device) < K, est, 0.0)
+    sw_nat = est.index_select(-2, inv_blk)
+    wm_blocks = torch.einsum("...nij,...nj,...njk->...nik", uw, sw_nat, vwt)
+    wy = dct.idct2_blocks_to_plane(wm_blocks, hp, wp,
+                                   row_perm=inv_intra)[..., :h, :w]
+    wy = blocked._masked_normalize(wy, bad.index_select(-1, inv_blk), hp,
+                                   wp, h, w, True).clamp(0, 255)
+    return (wy if gray else torch.movedim(wy, -3, -1)).to(torch.uint8)
+
+
+def eager_unaligned_tail(blocks, x, h, w):
+    """The unaligned default tail's normaliser as the port ran it before
+    K8u: the unblockify and crop, _masked_normalize, the clip, the cast
+    and the channel move (color frames)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import dct
+    hp, wp = h + (-h) % 8, w + (-w) % 8
+    b = blocks.reshape(*blocks.shape[:-1], 8, 8)
+    wy = dct.unblockify(b, hp, wp)[..., :h, :w]
+    wy = blocked._masked_normalize(wy, x[..., K] > 0.5, hp, wp, h, w, True)
+    return torch.movedim(wy.clamp(0, 255).to(torch.uint8), -3, -1)
+
+
+def counted_extract(fn):
+    """(fn(), launches of :func:`request_wrappers`, eager calls): the
+    counters set to 0 just before, read just after."""
+    import torch
+    wr = request_wrappers()
+    with eager_normaliser_calls() as eager_calls:
+        torch.cuda.synchronize()
+        for w_ in wr.values():
+            w_.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = {name: w_.launches for name, w_ in wr.items()}
+    return out, n, dict(eager_calls)
+
+
+def expect_extract(what: str, n: dict, calls: dict, crop: bool,
+                   gray: bool) -> None:
+    """The launches of one extract: K1, K18, K5f once, K8 once (K8u where
+    the size is not a multiple of 8, else no K8u), K6 once for gray; no
+    eager normaliser or statistic call."""
+    want = dict(spectrum_blocks=1, presence=1, tail_front=1,
+                normalize_blocks=1, normalize_blocks_crop=int(crop))
+    if gray:
+        want["luma_f32"] = 1
+    got = {k: n[k] for k in want}
+    require(got == want, f"{what}: launches {got}, expected {want}")
+    require(not any(calls.values()), f"{what}: eager calls {calls}")
+
+
+def phase_request_extract(dev, covers, wm_u8):
+    """The request extract (models/blocked.py::extract_array, what
+    api.extract, the CLI, the GUI and the payloads run) on a 1080p color
+    and gray stego embedded by embed_paths from the first cover, and on
+    its 1079x1917 crop, each read back from its PNG and meta: the stego,
+    the stego with three quadrants zeroed (flagged blocks) and the clean
+    cover (mark-free). Each call, counted alone, launches K1, K18, K5f and
+    K8 (K8u on the crop) once and calls neither _masked_normalize nor
+    K18's twin nor metrics.nc; its bytes equal the same call with every
+    twin in its kernel's place (:func:`extract_twins`) and the eager form
+    it replaced (:func:`eager_request`); K18's decision equals the eager
+    statistic's (:func:`eager_engaged`, outside the counted calls). Then
+    the prepared extract (extract_color_prepared) of the batch of 32 cut
+    to 1079x1917 likewise (K8u on the main path's product), both tail
+    forms, a frame the same alone, in a shard and in the batch. Returns
+    (launches by layout, K8u's kernel row)."""
+    import numpy as np
+    import torch
+    from dctsvd_tpu_torch.io import image_io, meta as metaio
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, dct, metrics, tail_cuda
+    from dctsvd_tpu_torch.utils import crypto
+
+    cover_np = covers[0].cpu().numpy()
+    wm_np = wm_u8.cpu().numpy()
+    rows, totals = {}, {"color": {}, "gray": {}}
+    nonces = iter(np.random.default_rng(REQUEST_SEED).bytes(
+        crypto.NONCE_BYTES) for _ in range(4))
+
+    def add(layout, n):
+        for k, v in n.items():
+            totals[layout][k] = totals[layout].get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
+        for size, (h, w) in REQUEST_SIZES.items():
+            crop = bool(h % 8 or w % 8)
+            for layout in ("color", "gray"):
+                gray = layout == "gray"
+                nonce = next(nonces)
+                key = crypto.derive_key(PASSWORD, nonce)
+                sp, mp, _, _ = blocked.embed_paths(
+                    cover_np[:h, :w], wm_np[:h, :w],
+                    os.path.join(td, f"s_{size}_{layout}.png"),
+                    os.path.join(td, f"m_{size}_{layout}"), alpha=ALPHA,
+                    color=not gray, key=key, nonce=nonce, kfrac=0.6,
+                    device=dev)
+                meta = metaio.load_meta(mp)
+                stego = image_io.read_bgr(sp)
+                zeroed = stego.copy()
+                zeroed[h // 2:] = 0
+                zeroed[:, w // 2:] = 0
+                blk, intra = blocked._indices(key, h, w, dev)
+                inv_blk, inv_intra = torch.argsort(blk), torch.argsort(intra)
+                sc, uw, vwt, sw = (torch.as_tensor(meta.arrays[a],
+                                                   device=dev)
+                                   for a in ("Sc", "Uw", "Vwt", "Sw"))
+                ref_wm = wm_u8[:h, :w].contiguous()
+                if gray:
+                    ref_wm = color.bgr_to_gray(ref_wm)
+                for case, img in (("stego", stego), ("zeroed", zeroed),
+                                  ("clean", cover_np[:h, :w])):
+                    what = f"request {size} {layout} {case}"
+                    got, n, calls = counted_extract(
+                        lambda: blocked.extract_array(img, meta, key,
+                                                      device=dev))
+                    expect_extract(what, n, calls, crop, gray)
+                    add(layout, n)
+                    with extract_twins():
+                        twin = blocked.extract_array(img, meta, key,
+                                                     device=dev)
+                    require(np.array_equal(got, twin),
+                            f"{what}: differs with the twins "
+                            f"({int((got != twin).sum())} bytes)")
+                    img_t = torch.as_tensor(np.ascontiguousarray(img),
+                                            device=dev)
+                    eager = eager_request(img_t, sc, uw, vwt, inv_blk,
+                                          inv_intra, sw, gray).cpu().numpy()
+                    require(np.array_equal(got, eager),
+                            f"{what}: differs from the eager form "
+                            f"({int((got != eager).sum())} bytes)")
+                    s_cw = (blocked._plane_spectrum(color.luma_f32(img_t),
+                                                    SWEEPS) if gray
+                            else blocked._frames_spectrum(img_t, SWEEPS))
+                    engage, rho0 = tail_cuda.presence(
+                        s_cw, sw, sc, blocked._alpha(ALPHA, dev))
+                    e_eager = eager_engaged(
+                        blocked._raw_estimate(s_cw, sc, ALPHA), sw)
+                    require(torch.equal(engage, e_eager),
+                            f"{what}: K18's decision {engage.tolist()} vs "
+                            f"the eager statistic's {e_eager.tolist()}")
+                    nc = float(metrics.nc(
+                        torch.as_tensor(got, device=dev).reshape(1, -1)
+                        .float(), ref_wm.reshape(-1).float())[0])
+                    rows[f"{size}_{layout}_{case}"] = dict(
+                        shape=list(got.shape), launches={
+                            k: v for k, v in n.items() if v},
+                        engaged=engage.reshape(-1).tolist(),
+                        rho0=rho0.reshape(-1).tolist(), nc=nc,
+                        equals_twins=True, equals_eager=True,
+                        sha256=hashlib.sha256(got.tobytes()).hexdigest())
+                    if case == "stego":
+                        require(bool(engage.all()) and nc > 0.4,
+                                f"{what}: engaged {engage.tolist()}, NC {nc}")
+                    elif case == "clean":
+                        require(not bool(engage.any()),
+                                f"{what}: a mark-free cover engaged")
+        # the block-layout IDCT against the plane form on the card
+        pw = blocked.prepare_wm_color(wm_u8, *(torch.as_tensor(
+            a, device=dev) for a in crypto.block_permutation_indices(
+                crypto.derive_key(PASSWORD, bytes(8)),
+                blocked.n_blocks_of(H, W))))
+        coefs = torch.einsum("...nij,...nj,...njk->...nik", pw.uw,
+                             pw.sw, pw.vwt)
+        plane = dct.idct2_blocks_to_plane(coefs, H, W,
+                                          row_perm=pw.inv_intra)
+        pix = dct.idct2_pixel_blocks(coefs, H, W, row_perm=pw.inv_intra)
+        require(torch.equal(dct.unblockify(pix.reshape(*pix.shape[:-1], 8,
+                                                       8), H, W), plane),
+                "the block-layout IDCT differs from the plane form")
+    prepared, k8u_row, n_prep = prepared_unaligned(dev, covers, wm_u8)
+    add("color", n_prep)
+    emit({"phase": "request_extract", "extracts": rows,
+          "block_layout_idct_equals_plane": True,
+          "prepared_1079x1917": prepared, "launches": totals,
+          "card": smi_line()})
+    return totals, k8u_row
+
+
+def prepared_unaligned(dev, covers, wm_u8):
+    """extract_color_prepared on the batch of 32 cut to 1079x1917 (the
+    default tail: K1, K18, K5f, the product, K8u), counted alone: its
+    launches, no eager call, its bytes with every twin in its kernel's
+    place and with recompute=True (the same materialising form at an
+    unaligned size), a frame alone, in a shard of 4 and in the batch, and
+    K18's decision equal to the eager statistic's on every frame of the
+    stego and of the three-quadrants-zeroed stego. Returns (its row, K8u's
+    kernel row on the extract's product, the launches)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import metrics, tail_cuda
+    from dctsvd_tpu_torch.utils import crypto
+    h, w = REQUEST_SIZES["1079x1917"]
+    key = crypto.derive_key(PASSWORD, bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(
+                      key, blocked.n_blocks_of(h, w)))
+    pw = blocked.prepare_wm_color(wm_u8[:h, :w], blk, intra)
+    st, sc = blocked.embed_color_prepared(covers[:, :h, :w], pw.sw, ALPHA,
+                                          with_metrics=False)[:2]
+    zeroed = st.clone()
+    zeroed[:, h // 2:] = 0
+    zeroed[:, :, w // 2:] = 0
+
+    def extract(stego, sc_=sc, **kw):
+        return blocked.extract_color_prepared(stego, sc_, pw.ebasis,
+                                              pw.inv_blk, ALPHA, sw=pw.sw,
+                                              **kw)
+
+    out, total = {}, {}
+    for case, stego in (("stego", st), ("zeroed", zeroed)):
+        what = f"prepared 1079x1917 {case}"
+        got, n, calls = counted_extract(lambda: extract(stego))
+        expect_extract(what, n, calls, True, False)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        with extract_twins():
+            require(torch.equal(extract(stego), got),
+                    f"{what}: differs with the twins")
+        require(torch.equal(extract(stego, recompute=True), got),
+                f"{what}: recompute=True differs")
+        for a, b in ((0, 1), (BATCH - 1, BATCH), (4, 8)):
+            require(torch.equal(extract(stego[a:b], sc[a:b]), got[a:b]),
+                    f"{what}: frames {a}:{b} differ alone or in a shard")
+        s_cw = blocked._frames_spectrum(stego, SWEEPS)
+        engage, _ = tail_cuda.presence(s_cw, pw.sw, sc,
+                                       blocked._alpha(ALPHA, dev))
+        e_eager = eager_engaged(blocked._raw_estimate(s_cw, sc, ALPHA),
+                                pw.sw)
+        require(torch.equal(engage, e_eager),
+                f"{what}: K18's decision differs from the eager "
+                f"statistic's on {int((engage != e_eager).sum())} planes")
+        nc = metrics.nc(got.reshape(BATCH, -1).float(),
+                        wm_u8[:h, :w].reshape(-1).float())
+        out[case] = dict(launches={k: v for k, v in n.items() if v},
+                         engaged_share=float(engage.float().mean()),
+                         nc_min=float(nc.min()), equals_twins=True,
+                         equals_recompute=True, batch_invariant=True)
+    require(out["stego"]["engaged_share"] == 1.0
+            and out["stego"]["nc_min"] > 0.4,
+            f"prepared 1079x1917: {out['stego']}")
+    return out, k8u_row(dev, pw, sc, st, zeroed, h, w), total
+
+
+def k8u_row(dev, pw, sc, st, zeroed, h, w) -> dict:
+    """K8u against its plain twin run on the card (torch.equal) on the
+    unaligned prepared extract's product (models/blocked._recon of K5f's
+    estimates of the batch of 32 at 1079x1917 color; the stego and the
+    three-quadrants-zeroed stego, whose flagged blocks it repaints),
+    without normalize and with f32 output too, beside the eager form it
+    replaced (:func:`eager_unaligned_tail`, byte-equal). ms: K8u; plain_ms:
+    its twin; eager_ms: the eager form; device_ms: the window and paint
+    kernels' device time (profiler); bound_ms counts the product's
+    padded frames, the flags (4 bytes a block) and the cropped output
+    once, two_pass_bound_ms the product and flags read in each pass."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import tail_cuda
+    eb = pw.ebasis[..., :K, :, :]
+    eb64 = eb.reshape(*eb.shape[:-2], 64)
+    checks = {}
+    for case, stego in (("stego", st), ("three_quadrants_zeroed", zeroed)):
+        x = blocked._tail_front(blocked._frames_spectrum(stego, SWEEPS), sc,
+                                pw.inv_blk, ALPHA, K, pw.sw)
+        blocks = blocked._recon(x[..., :K], eb64)
+        for kw_name, kw in (("u8", {}), ("no_normalize",
+                                         {"normalize": False}),
+                            ("f32", {"out_u8": False})):
+            n0 = K8U.launches
+            y = tail_cuda.normalize_blocks(blocks, x, K, h, w,
+                                           to_frames=True, **kw)
+            torch.cuda.synchronize()
+            require(K8U.launches == n0 + 1, f"K8u {case} {kw_name}: not "
+                    "launched")
+            py = tail_cuda.normalize_blocks_plain(blocks, x, K, h, w,
+                                                  to_frames=True, **kw)
+            d = float((y.float() - py.float()).abs().max())
+            require(torch.equal(y, py), f"K8u {case} {kw_name} vs twin: "
+                    f"|d| max {d}")
+            row = dict(max_abs_err=d, equals_twin=True,
+                       flagged_share=float((x[..., K] > 0.5).float().mean()))
+            if not kw:
+                require(torch.equal(y, eager_unaligned_tail(blocks, x, h,
+                                                            w)),
+                        f"K8u {case}: differs from the eager form")
+                row["equals_eager"] = True
+            checks[f"{case}_{kw_name}"] = row
+        if case == "stego":
+            args = (blocks, x)
+    require(0 < checks["three_quadrants_zeroed_u8"]["flagged_share"] < 1,
+            f"K8u: the zeroed quadrants flagged no block or all {checks}")
+    blocks, x = args
+    y = tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=True)
+    recon_bytes = x[..., 0].numel() * 64 * 4
+    flag_bytes = x[..., 0].numel() * 4
+    out = dict(
+        instance="two_pass_crop", layout="frames",
+        shape=list(x.shape[:-1]) + [64], out_shape=list(y.shape),
+        checks=checks, max_abs_err=max(c["max_abs_err"]
+                                       for c in checks.values()),
+        equals_twin=True,
+        ms=cuda_time(lambda: tail_cuda.normalize_blocks(
+            blocks, x, K, h, w, to_frames=True), 20),
+        plain_ms=cuda_time(lambda: tail_cuda.normalize_blocks_plain(
+            blocks, x, K, h, w, to_frames=True), 3),
+        eager_ms=cuda_time(lambda: eager_unaligned_tail(blocks, x, h, w),
+                           10),
+        device_ms=device_ms(lambda: tail_cuda.normalize_blocks(
+            blocks, x, K, h, w, to_frames=True), 10, "norm_"),
+        library_ms=None,
+        two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y),
+        **bound(y.numel(), 4, recon_bytes + flag_bytes + nbytes(y)))
+    out["two_pass_bound_ms"] = out["two_pass_bytes"] / PEAK_BYTES * 1e3
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5068,6 +5630,7 @@ def video_wrappers():
     return {"spectrum_blocks": wm_cuda.spectrum_blocks,
             "embed_blocks": wm_cuda.embed_blocks,
             "jacobi_svd8": svd_cuda.jacobi_svd8,
+            "presence": tail_cuda.presence,
             "tail_front": tail_cuda.tail_front,
             "normalize_blocks": tail_cuda.normalize_blocks}
 
@@ -5273,11 +5836,12 @@ def phase_video(dev, td: str, clip: str, wm_png: str):
             nc = nc_np(cv2.imread(wm_out, cv2.IMREAD_GRAYSCALE), ref)
             if scheme == "blocked":
                 want_e = {"jacobi_svd8": 1, "embed_blocks": dispatches,
-                          "spectrum_blocks": 0, "tail_front": 0,
-                          "normalize_blocks": 0}
+                          "spectrum_blocks": 0, "presence": 0,
+                          "tail_front": 0, "normalize_blocks": 0}
                 # video consumes the raw estimates: no normaliser
                 want_x = {"jacobi_svd8": 0, "embed_blocks": 0,
                           "spectrum_blocks": dispatches,
+                          "presence": dispatches,
                           "tail_front": dispatches,
                           "normalize_blocks": 0}
             else:
@@ -5599,6 +6163,7 @@ def recorded_vs_twin(calls: dict) -> list:
                  wm_cuda.roundtrip_frames_blocks_plain,
              "jacobi_svd8": svd_cuda.jacobi_svd8_plain,
              "cols_view": probe_cuda.cols_view_plain,
+             "presence": tail_cuda.presence_plain,
              "tail_front": tail_cuda.tail_front_plain,
              "normalize_blocks": tail_cuda.normalize_blocks_plain,
              "band_scores": detect_cuda.band_scores_plain,
@@ -5657,8 +6222,17 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     embed+extract step, color and gray extract alone, serve+verify, the
     extracts on 1 and 4 frames, and the tail's estimator and gather alone
     (``front_*``: models/blocked._tail_front where the tree has it, K5f
-    since it does; ``front_*_eager``: :func:`eager_front`, the parts every
-    tree has). Where extract_color_prepared takes
+    since it does, K18 before it where the tree has K18; ``front_*_eager``:
+    :func:`eager_front`, the parts every tree has;
+    ``front_*_eager_statistic``: K5f after the eager statistic, the
+    front before K18), also at 128 frames;
+    the presence statistic alone (``presence_*``: K18 where the tree has
+    it; ``presence_*_eager``: :func:`eager_statistic`), also at 128
+    frames; the request extract on one 1080p and one 1079x1917 frame
+    (``request_*``: the tree's extract_color / extract_gray, K1, K18, K5f,
+    K8 or K8u where the tree has them; ``request_*_eager``:
+    :func:`eager_request`).
+    Where extract_color_prepared takes
     ``recompute``, each extract row has a ``_recompute`` twin (K5), color
     extract at batch 128 (the bench's headline batch) runs in both forms,
     K5's output there held to its twin first, and the kernels run alone on
@@ -5673,6 +6247,7 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import color, tail_cuda
+    from dctsvd_tpu_torch.utils import crypto
     pwc = blocked.prepare_wm_color(wm_u8, blk, intra)
     pwg = blocked.prepare_wm_gray(color.bgr_to_gray(wm_u8), blk, intra)
     st, sc, _, _ = blocked.embed_color_prepared(covers, pwc.sw, ALPHA,
@@ -5724,6 +6299,52 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
             s_cwg, scg, pwg.inv_blk, ALPHA, k, pwg.sw)
     steps["front_color_eager"] = lambda: eager_front(s_cw, sc, pwc)
     steps["front_gray_eager"] = lambda: eager_front(s_cwg, scg, pwg)
+    if hasattr(tail_cuda, "tail_front"):
+        steps["front_color_eager_statistic"] = (
+            lambda: front_eager_statistic(s_cw, sc, pwc))
+        steps["front_gray_eager_statistic"] = (
+            lambda: front_eager_statistic(s_cwg, scg, pwg))
+    # the presence statistic alone: K18 where the tree has it, and as the
+    # front took it before (eager_statistic)
+    if hasattr(tail_cuda, "presence"):
+        a = blocked._alpha(ALPHA, s_cw.device)
+        steps["presence_color"] = lambda a=a: tail_cuda.presence(
+            s_cw, pwc.sw, sc, a)
+        steps["presence_gray"] = lambda a=a: tail_cuda.presence(
+            s_cwg, pwg.sw, scg, a)
+    steps["presence_color_eager"] = lambda: eager_statistic(s_cw, sc, pwc.sw)
+    steps["presence_gray_eager"] = lambda: eager_statistic(s_cwg, scg,
+                                                           pwg.sw)
+    # the request extract (extract_color / extract_gray, what extract_array
+    # runs) on one frame, 1080p and 1079x1917, through the tree's entry
+    # points and eager (eager_request)
+    h, w = 1079, 1917
+    blk_u, intra_u = (torch.as_tensor(a_, device=st.device) for a_ in
+                      crypto.block_permutation_indices(
+                          crypto.derive_key(PASSWORD, bytes(8)),
+                          blocked.n_blocks_of(h, w)))
+    wm_c = wm_u8[:h, :w].contiguous()
+    pwc_u = blocked.prepare_wm_color(wm_c, blk_u, intra_u)
+    pwg_u = blocked.prepare_wm_gray(color.bgr_to_gray(wm_c), blk_u, intra_u)
+    one = covers[:1, :h, :w].contiguous()
+    req = {"1080p": (st[:1], sc[:1], pwc, stg[:1], scg[:1], pwg),
+           "1079x1917": (*blocked.embed_color_prepared(
+               one, pwc_u.sw, ALPHA, with_metrics=False)[:2], pwc_u,
+               *blocked.embed_gray_prepared(
+                   one, pwg_u.sw, ALPHA, with_metrics=False)[:2], pwg_u)}
+    for size, (stc, scc, pc, stgg, scgg, pg) in req.items():
+        for lay, x_, c_, p_ in (("color", stc, scc, pc),
+                                ("gray", stgg, scgg, pg)):
+            fn = blocked.extract_gray if lay == "gray" else \
+                blocked.extract_color
+            steps[f"request_{lay}_{size}"] = (
+                lambda fn=fn, x_=x_, c_=c_, p_=p_: fn(
+                    x_, c_, p_.uw, p_.vwt, p_.inv_blk, p_.inv_intra, ALPHA,
+                    sw=p_.sw, sweeps=SWEEPS))
+            steps[f"request_{lay}_{size}_eager"] = (
+                lambda x_=x_, c_=c_, p_=p_, g=lay == "gray": eager_request(
+                    x_, c_, p_.uw, p_.vwt, p_.inv_blk, p_.inv_intra, p_.sw,
+                    g))
     # the kernels alone on the front's output: K5 (and its paint pass
     # alone, without normalize) where the tree has it, and K5f
     if "_recompute" in forms:
@@ -5768,6 +6389,22 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
            for name, fn in steps.items()}
     # the bench's batch of 128: the 32 frames four times
     st128, sc128 = st.repeat(4, 1, 1, 1), sc.repeat(4, 1, 1, 1)
+    # the front and the presence statistic at 128 frames, eager beside
+    s128 = blocked._frames_spectrum(st128, SWEEPS)
+    at128 = {"front_color_eager_128": lambda: eager_front(s128, sc128, pwc),
+             "presence_color_eager_128": lambda: eager_statistic(
+                 s128, sc128, pwc.sw)}
+    if hasattr(blocked, "_tail_front"):
+        at128["front_color_128"] = lambda: blocked._tail_front(
+            s128, sc128, pwc.inv_blk, ALPHA, k, pwc.sw)
+        at128["front_color_eager_statistic_128"] = (
+            lambda: front_eager_statistic(s128, sc128, pwc))
+    if hasattr(tail_cuda, "presence"):
+        at128["presence_color_128"] = lambda: tail_cuda.presence(
+            s128, pwc.sw, sc128, blocked._alpha(ALPHA, s128.device))
+    out.update({name: [cuda_time(fn, 5) for _ in range(2)]
+                for name, fn in at128.items()})
+    del s128
     if "_recompute" in forms:
         # hold K5's output at the bench's batch to the twin, and the entry
         # point's to K5 on its inputs, before timing
@@ -6539,6 +7176,9 @@ def main(argv) -> int:
     # K5f's launches on each path (one counter for both layouts; the gray
     # row's are the gray recompute extract's)
     front_paths = {"slice": launches.pop("tail_front")}
+    # K18's likewise (the gray row's: the gray recompute extract's and the
+    # gray request extracts')
+    k18_paths = {"slice": launches.pop("presence")}
     # K8's likewise, in all and by instance (the gray rows': the gray
     # default extract's)
     k8_all = {"slice": launches.pop("normalize_blocks")}
@@ -6549,6 +7189,7 @@ def main(argv) -> int:
     k9_paths = {"slice": launches.pop("band_scores")}
     serve = phase_serve(dev, covers, wm_u8, blk, intra)
     front_paths["serve"] = serve.pop("tail_front")
+    k18_paths["serve"] = serve.pop("presence")
     k8_all["serve"] = serve.pop("normalize_blocks")
     k8_paths["serve"] = serve.pop("normalize_blocks_resident")
     k8_two["serve"] = serve.pop("normalize_blocks_two_pass")
@@ -6558,6 +7199,8 @@ def main(argv) -> int:
     tail = phase_tail_recompute(dev, covers, wm_u8, blk, intra)
     front_paths["tail_recompute"] = tail.pop("tail_front")
     front_gray = {"tail_recompute": tail.pop("tail_front_gray")}
+    k18_paths["tail_recompute"] = tail.pop("presence")
+    k18_gray = {"tail_recompute": tail.pop("presence_gray")}
     k8_all["tail_default"] = tail.pop("normalize_blocks")
     k8_paths["tail_default"] = tail.pop("normalize_blocks_resident")
     k8_two["tail_default"] = tail.pop("normalize_blocks_two_pass")
@@ -6567,6 +7210,20 @@ def main(argv) -> int:
             "the gray default extract at 1080p: K8's launches not all the "
             "resident instance's")
     launches.update(tail)
+    # the request extract (extract_array) and the unaligned prepared
+    # extract: K1, K18, K5f, K8 and K8u
+    request, results["normalize_blocks_crop"] = phase_request_extract(
+        dev, covers, wm_u8)
+    k18_paths["request_extract"] = request["color"]["presence"]
+    k18_gray["request_extract"] = request["gray"]["presence"]
+    front_paths["request_extract"] = sum(r["tail_front"]
+                                         for r in request.values())
+    for by_path, key in ((k8_all, "normalize_blocks"),
+                         (k8_paths, "normalize_blocks_resident"),
+                         (k8_two, "normalize_blocks_two_pass")):
+        by_path["request_extract"] = sum(r[key] for r in request.values())
+    k8u_paths = {"request_extract": sum(r["normalize_blocks_crop"]
+                                        for r in request.values())}
     detect_results, k9_paths["detect_1080p"], k9_color = phase_detect(
         dev, covers, wm_u8, blk, intra)
     results.update(detect_results)
@@ -6650,6 +7307,12 @@ def main(argv) -> int:
         "normalize_blocks_two_pass": (
             "dctsvd_tpu_torch/csrc/extract_tail.cu",
             "dctsvd_tpu/models/blocked.py:869"),
+        "normalize_blocks_crop": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
+                                  "dctsvd_tpu/models/blocked.py:818"),
+        "presence": ("dctsvd_tpu_torch/csrc/presence.cu",
+                     "dctsvd_tpu/models/blocked.py:767"),
+        "presence_gray": ("dctsvd_tpu_torch/csrc/presence.cu",
+                          "dctsvd_tpu/models/blocked.py:767"),
         "copy_f32": ("dctsvd_tpu_torch/csrc/probes.cu",
                      "tools/profile_transpose.py:45"),
         "cols_view": ("dctsvd_tpu_torch/csrc/probes.cu",
@@ -6726,6 +7389,18 @@ def main(argv) -> int:
                        + plane_launches["tail_front"],
                        bench=bench_launches["tail_front"])
     paths["tail_front"], paths["tail_front_gray"] = front_paths, front_gray
+    # K18: every extract with sw (K5f's paths, and the request extracts)
+    k18_paths.update(video=video_launches["presence"],
+                     parallel=par_launches["presence"]
+                     + plane_launches["presence"],
+                     bench=bench_launches["presence"])
+    paths["presence"], paths["presence_gray"] = k18_paths, k18_gray
+    # K8u: the unaligned request extracts and prepared extract
+    paths["normalize_blocks_crop"] = k8u_paths
+    for name in ("presence", "presence_gray", "normalize_blocks_crop"):
+        idle = [p for p, n in paths[name].items() if n == 0]
+        require(not idle, f"{name} was not launched on the paths {idle}")
+        launches[name] = sum(paths[name].values())
     # K8: the default tail on the slice, the serve steps, the tail phase's
     # default extracts, parallel/ and the bench (video's blocked extract
     # averages the raw estimates and normalises nothing), by instance: the
@@ -6856,6 +7531,7 @@ def main(argv) -> int:
                     "two_pass_ms_128", "two_pass_bound_ms_128",
                     "eager_ms", "front_ms", "issue_bound_ms", "ms_128",
                     "plain_ms_128", "two_pass_bound_ms", "eager_ms_128",
+                    "device_ms_128",
                     "bound_ms_128", "detect_ms_32", "detect_ms_128",
                     "detect_ms_eager_32", "detect_ms_eager_128", "ms_4k",
                     "plain_ms_4k", "library_ms_4k", "bound_ms_4k",

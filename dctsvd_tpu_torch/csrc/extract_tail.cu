@@ -182,6 +182,28 @@
 // from there), pass 2 as evict-first; the flags come as one 4-byte load a
 // lane and frame; a tiny kernel turns the window into (lo, scale, fill).
 //
+// K8u, the two-pass instance with a crop (norm_window_kernel and
+// norm_paint_kernel with kCrop). Replaces the XLA fusion of dctsvd_tpu/
+// models/blocked.py::_masked_normalize (:818) with the clip and cast
+// (:1053-1054) and the unblockify and crop before it (:1050-1051), reached
+// through _extract_tail_prepared at sizes that are not multiples of 8, and
+// through _extract_planes (:622; the request extract: api.extract, the
+// CLI, the GUI, payloads) at every size; no pl.pallas_call. Plain twin:
+// the same normalize_blocks_plain, given the crop. The blocks cover the
+// padded ceil(h / 8) x ceil(w / 8) grid, the output is h x w: in the
+// window pass a lane's pixels at row >= h or column >= w leave the window
+// (its row's first min(8, w - 8 bx) pixels, none below the crop), and the
+// paint pass stores only the pixels inside the crop, one element at a
+// time at the output's row pitch w (a row of an unaligned crop starts on
+// no 8-byte boundary). Min and max are exact in any order, so the window
+// over the pixels inside the crop is the cropped plane's, and the bytes
+// are the twin's. What bounds it: as the two-pass instance, the
+// reconstruction read in each pass and the output written once (at 32
+// color 1079 x 1917 frames 0.542 ms at 3.35 TB/s; it takes 1.06 ms on an
+// H100 at 700 W, chip_smoke.py's normalize_blocks_crop row); its stores,
+// an element a lane, are not merged into whole words. The resident
+// instance takes no crop (the wrapper sends every cropped call here).
+//
 // chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and
 // the resident plan's shared memory; --tail-times times both instances
 // and the resident one without normalize.
@@ -543,6 +565,31 @@ __device__ __forceinline__ float4 row_window(const float (&y)[kB],
   return make_float4(lo, hi, bad ? inf : lo, bad ? -inf : hi);
 }
 
+// K8u's: the window of the row's first `cols` pixels (0: the row lies
+// below the crop, the empty window), min and max from (+inf, -inf), exact
+// in any order.
+__device__ __forceinline__ float4 row_window_crop(const float (&y)[kB],
+                                                  bool bad, int cols) {
+  const float inf = __int_as_float(0x7f800000);
+  float lo = inf, hi = -inf;
+#pragma unroll
+  for (int i = 0; i < kB; ++i) {
+    if (i < cols) {
+      lo = min_nan(lo, y[i]);
+      hi = max_nan(hi, y[i]);
+    }
+  }
+  return make_float4(lo, hi, bad ? inf : lo, bad ? -inf : hi);
+}
+
+// K8u: the pixels of the lane's row inside an h x w crop (0 when the row
+// is below it; the lane's block starts inside it).
+template <int kC>
+__device__ __forceinline__ int crop_cols(const TailLane<kC>& t, int h,
+                                         int w) {
+  return t.by * kB + t.r < h ? min(kB, w - t.bx * kB) : 0;
+}
+
 // K5's pass 1. Shared memory: the fold's part, then the stage.
 constexpr int kPartPieces = kTailChunk * kTailWarps * 32;
 
@@ -645,17 +692,19 @@ struct RecRows {
   }
 };
 
-// K8's pass 1: K5's with each row loaded from the reconstruction.
-template <int kC>
+// K8's pass 1: K5's with each row loaded from the reconstruction. kCrop
+// (K8u): only the pixels inside the h x w crop enter the window.
+template <int kC, bool kCrop>
 __global__ void __launch_bounds__(kTailThreads, 2)
     norm_window_kernel(RecSrc s, uint32_t* __restrict__ slots, int frames,
                        int chans, int hb, int wb, int groups, int splits,
-                       int fper) {
+                       int fper, int h, int w) {
   __shared__ float4 part[kTailChunk][kTailWarps][32];
   const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const RecRows src(s, t, chans, hb * wb);
   const int flagged = s.x != nullptr;
   const float inf = __int_as_float(0x7f800000);
+  const int cols = kCrop && t.active ? crop_cols(t, h, w) : kB;
   for (int f0 = t.fbeg; f0 < t.fend; f0 += kTailChunk) {
     const int nf = min(kTailChunk, t.fend - f0);
     float y[kTailChunk][kB];
@@ -665,9 +714,10 @@ __global__ void __launch_bounds__(kTailThreads, 2)
 #pragma unroll
     for (int fi = 0; fi < kTailChunk; ++fi)
       if (fi < nf)
-        part[fi][t.r][t.lane] = t.active
-                                    ? row_window(y[fi], bad[fi])
-                                    : make_float4(inf, -inf, inf, -inf);
+        part[fi][t.r][t.lane] =
+            !t.active ? make_float4(inf, -inf, inf, -inf)
+            : kCrop   ? row_window_crop(y[fi], bad[fi], cols)
+                      : row_window(y[fi], bad[fi]);
     __syncthreads();
     fold_window<kC>(part, t, f0, nf, chans, flagged, slots);
   }
@@ -838,18 +888,47 @@ __global__ void __launch_bounds__(kTailThreads)
   }
 }
 
-// K8's pass 2: K5's with each row loaded from the reconstruction.
+// K8u's store: the lane's pixels of its row inside the h x w crop, one
+// element at a time, into a frame of the output (planes [chans, h, w], or
+// channels-last [h, w, kC] with kC > 1).
 template <int kC, typename Out>
+__device__ __forceinline__ void store_row_crop(Out* frame,
+                                               const float (&v)[kB],
+                                               const TailLane<kC>& t, int h,
+                                               int w, int cols) {
+  if (!t.active || cols == 0) return;
+  const int y = t.by * kB + t.r;
+  const int base = kC == 1 ? (t.c * h + y) * w + t.bx * kB
+                           : (y * w + t.bx * kB) * kC + t.ci;
+#pragma unroll
+  for (int i = 0; i < kB; ++i) {
+    if (i < cols) {
+      if constexpr (std::is_same<Out, uint8_t>::value)
+        frame[base + i * kC] = static_cast<uint8_t>(sat_u8(v[i]));
+      else
+        frame[base + i * kC] = v[i];
+    }
+  }
+}
+
+// K8's pass 2: K5's with each row loaded from the reconstruction. kCrop
+// (K8u): only the pixels inside the h x w crop are stored, into frames of
+// h x w pixels.
+template <int kC, typename Out, bool kCrop>
 __global__ void __launch_bounds__(kTailThreads)
     norm_paint_kernel(RecSrc s, const float4* __restrict__ prm,
                       Out* __restrict__ out, int frames, int chans, int hb,
-                      int wb, int groups, int splits, int fper) {
+                      int wb, int groups, int splits, int fper, int h,
+                      int w) {
   __shared__ __align__(16) Out stage[kTailWarps][stage_elems<kC>()];
   const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const int n_blk = hb * wb;
   const RecRows src(s, t, chans, n_blk);
-  const int64_t frame_out = static_cast<int64_t>(n_blk) * kB * kB * chans;
-  Out* o = out + t.fbeg * frame_out + out_seg(t, n_blk, wb);
+  const int64_t frame_out =
+      kCrop ? static_cast<int64_t>(h) * w * chans
+            : static_cast<int64_t>(n_blk) * kB * kB * chans;
+  const int cols = kCrop && t.active ? crop_cols(t, h, w) : kB;
+  Out* o = out + t.fbeg * frame_out + (kCrop ? 0 : out_seg(t, n_blk, wb));
   const float4* pp = prm ? prm + static_cast<int64_t>(t.fbeg) * chans + t.c
                          : nullptr;
   const int live = min(TailLane<kC>::kG, wb - t.g * TailLane<kC>::kG) * kC;
@@ -869,7 +948,10 @@ __global__ void __launch_bounds__(kTailThreads)
         for (int i = 0; i < kB; ++i)
           v[i] = __fmul_rn(__fsub_rn(bad[fi] ? pr.z : y[fi][i], pr.x), pr.y);
       }
-      store_row<kC>(o, v, stage[t.r], t, live);
+      if constexpr (kCrop)
+        store_row_crop<kC>(o, v, t, h, w, cols);
+      else
+        store_row<kC>(o, v, stage[t.r], t, live);
       o += frame_out;
     }
   }
@@ -1237,6 +1319,8 @@ struct TailArgs {
   bool out_u8;
   uint32_t* win;
   int frames, chans, hb, wb, groups, flagged, normalize;
+  int h, w;            // the output's pixels: the blocks' hb x wb, or less
+  bool crop;           // (K8u) where h or w is not a multiple of 8
   unsigned tiles;
   cudaStream_t st;
 };
@@ -1337,24 +1421,27 @@ cudaError_t launch_rebuild(const TailArgs& a, const float* x, const float* eb,
   return launch_tail(a, per_sm, window, paint);
 }
 
-// K8: the two passes reading each row from the reconstruction.
-template <int kC>
+// K8: the two passes reading each row from the reconstruction; kCrop:
+// K8u's instance, for an output cropped to h x w.
+template <int kC, bool kCrop>
 cudaError_t launch_rec(const TailArgs& a, const RecSrc& s) {
-  static const int per_sm = ctas_per_sm(norm_paint_kernel<kC, uint8_t>);
+  static const int per_sm =
+      ctas_per_sm(norm_paint_kernel<kC, uint8_t, kCrop>);
   auto window = [&](unsigned grid, int splits, int fper, uint32_t* slots) {
-    norm_window_kernel<kC><<<grid, kTailThreads, 0, a.st>>>(
-        s, slots, a.frames, a.chans, a.hb, a.wb, a.groups, splits, fper);
+    norm_window_kernel<kC, kCrop><<<grid, kTailThreads, 0, a.st>>>(
+        s, slots, a.frames, a.chans, a.hb, a.wb, a.groups, splits, fper,
+        a.h, a.w);
     return cudaGetLastError();
   };
   auto paint = [&](unsigned grid, int splits, int fper, const float4* prm) {
     if (a.out_u8)
-      norm_paint_kernel<kC, uint8_t><<<grid, kTailThreads, 0, a.st>>>(
+      norm_paint_kernel<kC, uint8_t, kCrop><<<grid, kTailThreads, 0, a.st>>>(
           s, prm, static_cast<uint8_t*>(a.out), a.frames, a.chans, a.hb,
-          a.wb, a.groups, splits, fper);
+          a.wb, a.groups, splits, fper, a.h, a.w);
     else
-      norm_paint_kernel<kC, float><<<grid, kTailThreads, 0, a.st>>>(
+      norm_paint_kernel<kC, float, kCrop><<<grid, kTailThreads, 0, a.st>>>(
           s, prm, static_cast<float*>(a.out), a.frames, a.chans, a.hb, a.wb,
-          a.groups, splits, fper);
+          a.groups, splits, fper, a.h, a.w);
     return cudaGetLastError();
   };
   return launch_tail(a, per_sm, window, paint);
@@ -1438,18 +1525,23 @@ cudaError_t launch_resident(const TailArgs& a, const RecSrc& s, int kc,
 
 // The checks and the grid both entry points share: fills a's geometry and
 // returns cudaErrorInvalidValue for a shape or scratch outside the
-// kernels' bounds, else cudaSuccess (kc: channels on a frame's lanes).
+// kernels' bounds, else cudaSuccess (kc: channels on a frame's lanes;
+// crop_ok: h and w may be cut short of the blocks, K8u's crop).
 inline cudaError_t tail_geometry(TailArgs& a, void* out, int out_is_u8,
                                  void* win, int frames, int chans, int kc,
-                                 int h, int w, int normalize, void* stream) {
-  if (h % kB || w % kB || h <= 0 || w <= 0 || frames < 0 || chans < 1 ||
-      (kc != 1 && kc != 3) ||
-      static_cast<int64_t>(h) * w * chans >= (int64_t{1} << 31) ||
+                                 int h, int w, int normalize, void* stream,
+                                 bool crop_ok) {
+  const bool crop = h % kB != 0 || w % kB != 0;
+  if ((crop && !crop_ok) || h <= 0 || w <= 0 || frames < 0 || chans < 1 ||
+      (kc != 1 && kc != 3) || h > (1 << 30) || w > (1 << 30) ||
+      static_cast<int64_t>((h + kB - 1) / kB * kB) * ((w + kB - 1) / kB * kB) *
+              chans >=
+          (int64_t{1} << 31) ||
       reinterpret_cast<uintptr_t>(win) % 16 ||
       static_cast<int64_t>(frames) * chans * 4 * kWinStride >=
           (int64_t{1} << 31))
     return cudaErrorInvalidValue;
-  const int hb = h / kB, wb = w / kB;
+  const int hb = (h + kB - 1) / kB, wb = (w + kB - 1) / kB;
   const int kg = 32 / kc;
   const int groups = (wb + kg - 1) / kg;
   const int64_t tiles = static_cast<int64_t>(chans / kc) * hb * groups;
@@ -1463,6 +1555,9 @@ inline cudaError_t tail_geometry(TailArgs& a, void* out, int out_is_u8,
   a.wb = wb;
   a.groups = groups;
   a.normalize = normalize != 0;
+  a.h = h;
+  a.w = w;
+  a.crop = crop;
   a.tiles = static_cast<unsigned>(tiles);
   a.st = static_cast<cudaStream_t>(stream);
   return cudaSuccess;
@@ -1541,7 +1636,7 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
       reinterpret_cast<uintptr_t>(eb) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
       tail_geometry(a, out, out_is_u8, win, frames, chans, kc, h, w,
-                    normalize, stream) != cudaSuccess)
+                    normalize, stream, false) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0) return static_cast<int>(cudaSuccess);
   a.flagged = kx == k + 1;
@@ -1561,7 +1656,10 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
 // fstride, 16-byte aligned (bstride and fstride multiples of 4); x: null
 // (no flags) or f32 rows, the erasure flag of block (f, c, n) at
 // x[((f * chans + c) * N + n) * xrow + xflag] (flagged when > 0.5); out,
-// win and the rest as dctsvd_extract_tail's. ctas 0: launches the two-pass
+// win and the rest as dctsvd_extract_tail's, but for h and w: the blocks
+// are ceil(h / 8) x ceil(w / 8), and where h or w is not a multiple of 8
+// the output is cropped to h x w (K8u: the two-pass instance, with ctas 0).
+// ctas 0: launches the two-pass
 // instance (the init, window and params kernels with normalize, then the
 // paint kernel); ctas > 0: the resident instance (the init kernel with
 // normalize, then ctas co-resident CTAs cooperatively, a ring of `ring`
@@ -1584,7 +1682,8 @@ extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
       (x && (reinterpret_cast<uintptr_t>(x) % 4 || xflag < 0 ||
              xrow <= xflag)) ||
       tail_geometry(a, out, out_is_u8, win, frames, chans, kc, h, w,
-                    normalize, stream) != cudaSuccess)
+                    normalize, stream, true) != cudaSuccess ||
+      (a.crop && ctas > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0) return static_cast<int>(cudaSuccess);
   const RecSrc src{static_cast<const float*>(rec),
@@ -1594,8 +1693,11 @@ extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
   if (ctas > 0)
     return static_cast<int>(
         launch_resident(a, src, kc, ctas, ring, chunk));
-  return static_cast<int>(kc == 1 ? launch_rec<1>(a, src)
-                                  : launch_rec<3>(a, src));
+  if (a.crop)
+    return static_cast<int>(kc == 1 ? launch_rec<1, true>(a, src)
+                                    : launch_rec<3, true>(a, src));
+  return static_cast<int>(kc == 1 ? launch_rec<1, false>(a, src)
+                                  : launch_rec<3, false>(a, src));
 }
 
 // out: int[3], the device's SMs, the shared memory a CTA may opt into

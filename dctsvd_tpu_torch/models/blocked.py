@@ -419,37 +419,10 @@ def _engaged(raw: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
     """The presence decision [...] of each plane of the raw estimate
     [..., N, 8] (column 0 is all it reads): the ⌈ng/4⌉-th largest Pearson
     over 16 contiguous block groups of (Sw[:, 0], raw[:, 0]), engaged above
-    0.20 + 1.8/√gsz."""
-    ref = sw.expand(raw.shape)
-    n = raw.shape[-2]
-    gsz = max(1, n // 16)
-    ng = n // gsz
-    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
-    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
-    m = -(-ng // 4)                   # quarter of the groups, >= 1
-    rho0 = torch.sort(metrics.nc(a0, b0), dim=-1).values[..., ng - m]
-    knee = 0.20 + 1.8 / torch.sqrt(_scalar(gsz, raw.device))
-    return rho0 >= knee
-
-
-def _shrink_sw_hat(raw: torch.Tensor, sw: Optional[torch.Tensor],
-                   k: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Per-block shrinkage of the raw recovered estimate toward the stored
-    Sw when the mark is PRESENT, the clamp + erasure estimator when it is
-    not (dctsvd_tpu/models/blocked.py::_shrink_sw_hat has the measurements
-    behind each step). Returns (estimate, erasure flags [..., N] or None).
-
-    - per-component Cauchy confidence w = 1/(1 + (dev/scale)²), scale the
-      global mean of Sw[:, 0] (:func:`_sw_scale`); negative measurements
-      go fully to the prior;
-    - presence (:func:`_engaged`) from column 0 of the estimate;
-    - present: ref + w·(raw − ref), floored at 0; absent: raw clamped to
-      [−0.5·ref, 1.5·ref] with blocks deviating > 2·scale flagged
-      (ops/tail_cuda.py::shrink_estimate, K5f's arithmetic)."""
-    if sw is None:
-        return raw, None
-    return tail_cuda.shrink_estimate(raw, sw, _sw_scale(sw),
-                                     _engaged(raw, sw), k)
+    0.20 + 1.8/√gsz. K18 (ops/tail_cuda.py::presence) on the card, its
+    twin on the CPU, given sc = 0 and α = 1: (raw - 0) / 1 is raw exactly."""
+    return tail_cuda.presence(raw, sw, torch.zeros(1, device=raw.device),
+                              torch.ones(1, device=raw.device))[0]
 
 
 def _masked_normalize(wy: torch.Tensor, bad_nat: Optional[torch.Tensor],
@@ -457,7 +430,10 @@ def _masked_normalize(wy: torch.Tensor, bad_nat: Optional[torch.Tensor],
                       normalize: bool) -> torch.Tensor:
     """Min–max normalization to [0, 255] with erasure handling: pixels of
     flagged blocks leave the window and are repainted at its midpoint.
-    ``bad_nat`` is the natural-block-order erasure mask [..., N] or None."""
+    ``bad_nat`` is the natural-block-order erasure mask [..., N] or None.
+    The JAX package's, in eager ops: no extract runs it (K8u, ops/
+    tail_cuda.py::normalize_blocks given the crop, does, on the card and
+    through its twin on the CPU); the tests hold K8u's twin to it."""
     dims = (-2, -1)
     if bad_nat is None:
         if not normalize:
@@ -501,25 +477,40 @@ def _extract_planes(s_cw: torch.Tensor, sc: torch.Tensor,
                     uw_nat: torch.Tensor, vwt_nat: torch.Tensor,
                     inv_blk: torch.Tensor, inv_intra: torch.Tensor, alpha,
                     kfrac: float, normalize: bool, h: int, w: int,
-                    sw: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Extract tail from the stego spectrum ``s_cw`` [..., N, 8] (the JAX
-    package's _extract_planes computes it inside; here the caller does, so
-    the color path can read the channels-last frames directly). Returns
-    the normalized f32 watermark planes [..., H, W]."""
+                    sw: Optional[torch.Tensor] = None,
+                    to_frames: bool = False) -> torch.Tensor:
+    """Extract tail from the stego spectrum ``s_cw`` [..., (C,) N, 8] (the
+    JAX package's _extract_planes computes it inside; here the caller does,
+    so the color path can read the channels-last frames directly): the
+    front (K18, then K5f: :func:`_tail_front`), the SVD product and the
+    IDCT (library einsums, as the JAX package leaves them to XLA), then
+    K8 (aligned) or K8u (unaligned: the crop). Returns u8 planes
+    [..., (C,) H, W], or channels-last frames [..., H, W, C] with
+    ``to_frames``."""
     hp, wp = h + (-h) % BLOCK, w + (-w) % BLOCK
     k = k_of_block(kfrac)
-    mask = torch.arange(BLOCK, device=s_cw.device) < k
-    raw = _raw_estimate(s_cw, sc, alpha)
-    sw_hat, bad = _shrink_sw_hat(raw, sw, k)
-    sw_hat = torch.where(mask, sw_hat, 0.0)
-    sw_nat = sw_hat.index_select(-2, inv_blk)
-    wm_blocks = torch.einsum("...nij,...nj,...njk->...nik", uw_nat, sw_nat,
-                             vwt_nat)
-    # inverse DCT with the shared intra-block unshuffle folded in
-    wy = dct.idct2_blocks_to_plane(wm_blocks, hp, wp,
-                                   row_perm=inv_intra)[..., :h, :w]
-    bad_nat = None if bad is None else bad.index_select(-1, inv_blk)
-    return _masked_normalize(wy, bad_nat, hp, wp, h, w, normalize)
+    x = _tail_front(s_cw, sc, inv_blk, alpha, k, sw)
+    # the k estimates zero-padded to 8 columns: the product's shape (and
+    # so its bytes) of the masked [..., N, 8] estimate
+    sw_nat = torch.nn.functional.pad(x[..., :k], (0, BLOCK - k))
+    frame = sw_nat.shape[sw_nat.ndim - (uw_nat.ndim - 1):]   # ((C,) N, 8)
+
+    def pixels(est):
+        wm_blocks = torch.einsum("...nij,...nj,...njk->...nik", uw_nat, est,
+                                 vwt_nat)
+        # inverse DCT with the shared intra-block unshuffle folded in, to
+        # natural-order pixel blocks
+        return dct.idct2_pixel_blocks(wm_blocks, hp, wp, row_perm=inv_intra)
+
+    # the two products a frame at a time: a batched product's algorithm on
+    # the card depends on its shape (small frames' did), and a frame must
+    # extract to the same bytes alone or in a batch
+    est = sw_nat.reshape(-1, *frame)
+    blocks = torch.stack([pixels(e) for e in est])
+    blocks = blocks.reshape(*sw_nat.shape[:-1], BLOCK * BLOCK)
+    return tail_cuda.normalize_blocks(blocks, x, k, h, w,
+                                      normalize=normalize,
+                                      to_frames=to_frames)
 
 
 #: Frames in one product of the extract tail's k-term reconstruction: at
@@ -562,21 +553,16 @@ def _tail_front(s_cw: torch.Tensor, sc: torch.Tensor, inv_blk: torch.Tensor,
     """The extract tail's estimator and slot gather: the natural-order
     estimates [..., N, k], or [..., N, k + 1] with the erasure flag (1.0)
     as column k when ``sw`` is given (one gather for both). The presence
-    decision reduces here; the rest is K5f (ops/tail_cuda.py::tail_front)
-    on the card, its twin on the CPU."""
+    decision is K18 (ops/tail_cuda.py::presence, which forms column 0 of
+    the raw estimate in its load), the rest K5f (ops/tail_cuda.py::
+    tail_front), on the card; their twins on the CPU."""
     alpha = _alpha(alpha, s_cw.device)
     s_cw, sc = (t.contiguous() for t in torch.broadcast_tensors(s_cw, sc))
     if sw is None:
         return tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, k)
-    # column 0 of the raw estimate, written into a tensor shaped as the
-    # whole estimate: the group Pearsons then reduce a view with the
-    # strides the eager estimator gives them (a reduction's order on the
-    # card depends on its input's strides)
-    raw = torch.empty_like(s_cw)
-    torch.div(s_cw[..., :1] - sc[..., :1], torch.clamp(alpha, min=1e-8),
-              out=raw[..., :1])
+    engage, _ = tail_cuda.presence(s_cw, sw, sc, alpha)
     return tail_cuda.tail_front(s_cw, sc, inv_blk, alpha, k, sw,
-                                _sw_scale(sw), _engaged(raw, sw))
+                                _sw_scale(sw), engage)
 
 
 def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
@@ -597,7 +583,7 @@ def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
     two passes (ops/tail_cuda.py: recon_normalize), which sums the k terms
     in one fixed order where the batched product need not. The two agree
     within a couple of u8 quanta. An unaligned size takes the
-    materializing form either way, normalized in eager ops."""
+    materializing form either way, normalized by K8u (K8 with the crop)."""
     k = k_of_block(kfrac)
     hp, wp = h + (-h) % BLOCK, w + (-w) % BLOCK
     x = _tail_front(s_cw, sc, inv_blk, alpha, k, sw)
@@ -606,20 +592,12 @@ def _extract_tail_prepared(s_cw: torch.Tensor, sc: torch.Tensor,
     if recompute and (hp, wp) == (h, w):
         return tail_cuda.recon_normalize(x, eb64, h, w, normalize=normalize,
                                          out_u8=out_u8, to_frames=to_frames)
-    blocks = _recon(x[..., :k], eb64)
-    if (hp, wp) == (h, w):
-        # block-aligned: normalize on the [..., N, 64] block tensor, cast
-        # and unblockify (K8 on the card, the eager form on the CPU)
-        return tail_cuda.normalize_blocks(blocks, x, k, h, w,
-                                          normalize=normalize, out_u8=out_u8,
-                                          to_frames=to_frames)
-    bad_nat = x[..., k] > 0.5 if x.shape[-1] > k else None
-    blocks = blocks.reshape(*blocks.shape[:-1], BLOCK, BLOCK)
-    wy = dct.unblockify(blocks, hp, wp)[..., :h, :w]
-    wy = _masked_normalize(wy, bad_nat, hp, wp, h, w, normalize)
-    if out_u8:
-        wy = wy.clamp(0, 255).to(torch.uint8)
-    return torch.movedim(wy, -3, -1) if to_frames else wy
+    # normalize on the [..., N, 64] block tensor, cast and unblockify (K8
+    # on the card, the eager form on the CPU); an unaligned size crops to
+    # h x w in the same call (K8u)
+    return tail_cuda.normalize_blocks(_recon(x[..., :k], eb64), x, k, h, w,
+                                      normalize=normalize, out_u8=out_u8,
+                                      to_frames=to_frames)
 
 
 def _extract_planes_prepared(planes: torch.Tensor, sc: torch.Tensor,
@@ -675,11 +653,12 @@ def extract_gray(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                  kfrac: float = K_FRAC_DEFAULT, normalize: bool = True,
                  sw: Optional[torch.Tensor] = None,
                  sweeps=None) -> torch.Tensor:
+    """Gray extract of the request path (extract_array): K1 (K6's luma),
+    K18, K5f, the product and the IDCT, K8 or K8u: u8 planes [..., H, W]."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
     s_cw = _plane_spectrum(color.luma_f32(stego_bgr_u8), sweeps)
-    wy = _extract_planes(s_cw, sc, uw, vwt, inv_blk, inv_intra, alpha,
-                         kfrac, normalize, h, w, sw=sw)
-    return wy.clamp(0, 255).to(torch.uint8)
+    return _extract_planes(s_cw, sc, uw, vwt, inv_blk, inv_intra, alpha,
+                           kfrac, normalize, h, w, sw=sw)
 
 
 def extract_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
@@ -688,11 +667,13 @@ def extract_color(stego_bgr_u8: torch.Tensor, sc: torch.Tensor,
                   kfrac: float = K_FRAC_DEFAULT, normalize: bool = True,
                   sw: Optional[torch.Tensor] = None,
                   sweeps=None) -> torch.Tensor:
+    """Color extract of the request path: K1 on the channels-last frames,
+    then :func:`extract_gray`'s tail, K8 or K8u writing u8 frames
+    [..., H, W, 3]."""
     h, w = stego_bgr_u8.shape[-3], stego_bgr_u8.shape[-2]
     s_cw = _frames_spectrum(stego_bgr_u8, sweeps)
-    wm = _extract_planes(s_cw, sc, uw, vwt, inv_blk, inv_intra, alpha,
-                         kfrac, normalize, h, w, sw=sw)
-    return torch.movedim(wm.clamp(0, 255), -3, -1).to(torch.uint8)
+    return _extract_planes(s_cw, sc, uw, vwt, inv_blk, inv_intra, alpha,
+                           kfrac, normalize, h, w, sw=sw, to_frames=True)
 
 
 # ---------------------------------------------------------------------------

@@ -142,6 +142,22 @@ def idct2_blocks_to_plane(blocks: torch.Tensor, h: int, w: int, b: int = 8,
     return out.reshape(*lead, h, w)
 
 
+def idct2_pixel_blocks(blocks: torch.Tensor, h: int, w: int, b: int = 8,
+                       row_perm: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """[..., N, b, b] coefficient blocks -> their [..., N, b·b] pixel blocks
+    in natural block order (row-major pixels), the product of
+    :func:`idct2_blocks_to_plane` with its output left in block order: the
+    same contraction ("...hwac,ijac->...hwij"), whose values are the
+    plane's pixel for pixel."""
+    t = idct_pixel_tensor(b, row_perm, device=blocks.device,
+                          dtype=blocks.dtype)
+    lead = blocks.shape[:-3]
+    v = blocks.reshape(*lead, h // b, w // b, b, b)
+    out = torch.einsum("...hwac,ijac->...hwij", v, t)
+    return out.reshape(*lead, (h // b) * (w // b), b * b)
+
+
 def dct2(x: torch.Tensor) -> torch.Tensor:
     """Whole-plane 2-D DCT-II of the trailing two axes (any leading batch):
     D_H · X · D_Wᵀ, two f32 products (equivalent to cv2.dct per plane)."""

@@ -44,6 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from dctsvd_tpu_torch.ops.cta_tree import THREADS, tree
 from dctsvd_tpu_torch.ops.tail_cuda import _f32
 from dctsvd_tpu_torch.ops.wm_cuda import _device_ok
 from dctsvd_tpu_torch.utils import kernels
@@ -53,8 +54,6 @@ __all__ = ["band_scores", "band_scores_plain", "band_grid", "band_plan",
            "median_last"]
 
 K_MAX = BLOCK     # K9 is compiled for k = 1..8
-THREADS = 256     # a band's threads (csrc/detect.cu kBandThreads)
-WARP = 32
 #: Rows of THREADS blocks a thread keeps in registers (csrc/detect.cu
 #: kBandRows): a band of at most THREADS · RESIDENT_ROWS blocks is read once.
 RESIDENT_ROWS = 8
@@ -143,19 +142,6 @@ def _walk(x: torch.Tensor, hb: int, wb: int, grid: int) -> torch.Tensor:
     return x.reshape(*lead, g * g, rows, THREADS, k)
 
 
-def _tree(x: torch.Tensor) -> torch.Tensor:
-    """[..., THREADS] -> [...]: the kernel's fixed tree, each warp's lanes
-    halved at offsets 16, 8, 4, 2, 1, then the warp sums at 4, 2, 1."""
-    x = x.reshape(*x.shape[:-1], THREADS // WARP, WARP)
-    for width in (WARP, THREADS // WARP):
-        o = width // 2
-        while o:
-            x = x[..., :o] + x[..., o:2 * o]
-            o //= 2
-        x = x[..., 0]
-    return x
-
-
 def band_scores_plain(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,
                       alpha: torch.Tensor, k: int, hb: int, wb: int,
                       grid: int = 4, reduce: bool = True) -> torch.Tensor:
@@ -183,7 +169,7 @@ def band_scores_plain(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,
             v[2], v[3] = v[2] + ai * ai, v[3] + bi * bi
             if i == 0:
                 v[4], v[5] = v[4] + ai, v[5] + bi
-    v = [_tree(t) for t in v]
+    v = [tree(t) for t in v]
     n_all, n0 = _f32(m * k, dev), _f32(m, dev)
     ma, mb = (torch.div(t, n_all)[..., None] for t in v[:2])
     ma0, mb0 = (torch.div(t, n0)[..., None] for t in v[4:])
@@ -203,7 +189,7 @@ def band_scores_plain(s_cw: torch.Tensor, sc: torch.Tensor, sw: torch.Tensor,
                 u[3] = u[3] + da0 * da0
                 u[4] = u[4] + db0 * db0
                 u[5] = u[5] + da0 * db0
-    u = [_tree(t) for t in u]
+    u = [tree(t) for t in u]
 
     eps = _f32(1e-8, dev)
     one = _f32(1.0, dev)

@@ -1,6 +1,18 @@
-"""The blocked extract tail's kernels and their plain twins: K5f, the
-front stage that both tail forms read, K8, the default form's normaliser,
+"""The blocked extract tail's kernels and their plain twins: K18, the
+presence statistic (``csrc/presence.cu``), K5f, the front stage that both
+tail forms read, K8 (with K8u, its crop), the default form's normaliser,
 and K5, the recompute form's two passes (``csrc/extract_tail.cu``).
+
+K18 ``presence`` replaces the reduction inside the XLA fusion of
+``dctsvd_tpu/models/blocked.py::_shrink_sw_hat`` (:767-792; no
+``pl.pallas_call``): per plane, the Pearson of column 0 of the raw
+estimate against ``sw``'s over 16..31 contiguous block groups (each
+group's sums in K9's fixed order: thread t of 256 adds blocks t, t + 256,
+..., then a fixed tree; the means first, the centred sums in a second
+pass), the ⌈ng/4⌉-th largest of them (NaN last, as torch.sort), and the
+decision ``rho0 >= 0.20 + 1.8/√gsz`` (:func:`presence_knee`, the JAX
+package's f32 value). Its twin walks the same order, so K18 is bit-equal
+to it on the card and a frame's decision is the same alone or in a batch.
 
 K5f ``tail_front`` replaces the front of the XLA fusion of
 ``dctsvd_tpu/models/blocked.py::_extract_tail_prepared`` (:1003-1016; no
@@ -13,8 +25,8 @@ in column k when ``sw`` is given:
     step with the caller's ``engage`` [..., (C,)] and ``scale`` [(C,)],
     then the slot -> natural gather through ``inv_blk``.
 
-The presence statistic and the scale (reductions, whose order on the card
-depends on their shapes) stay in models/blocked.py. On the card the rows
+The presence decision (K18) and the scale (an eager mean over the shared
+sw, models/blocked.py::_sw_scale) come from the caller. On the card the rows
 are round_up(k + 1, 4) floats (the returned tensor is a view of their
 first columns), the layout K5 reads with 16-byte loads.
 
@@ -58,8 +70,16 @@ from the shape and the card's SMs and shared memory:
 The scale is one IEEE division, ``255 / max(hi - lo, 1e-12)``, as the JAX
 package's ``255.0 / x``: torch's ``255.0 / t`` is ``t.reciprocal() * 255``,
 which rounds twice, so the twin writes ``torch.div`` and the kernel
-``__fdiv_rn``. H and W are multiples of 8; an unaligned frame keeps the
-materialising tail (models/blocked.py).
+``__fdiv_rn``.
+
+K8u is K8's two-pass instance given a crop: where H or W is not a multiple
+of 8 (the tail's unaligned sizes, and the request extract,
+models/blocked.py::_extract_planes, at every size), the blocks cover the
+padded plane, the window takes only the pixels inside the H x W crop and
+the paint stores only those, into H x W frames. It replaces the XLA fusion
+of ``dctsvd_tpu/models/blocked.py::_masked_normalize`` (:818) with the
+clip, cast, unblockify and crop around it; its twin is K8's, given the
+crop, byte-equal to ``_masked_normalize`` then the clip and cast.
 
 Each wrapper runs its twin only for CPU tensors; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in ``.launches``.
@@ -68,16 +88,20 @@ launches its kernel or raises. Each counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from dctsvd_tpu_torch.ops import dct, wm_cuda
+from dctsvd_tpu_torch.ops import cta_tree, dct, wm_cuda
 from dctsvd_tpu_torch.utils import kernels
 from dctsvd_tpu_torch.utils.config import BLOCK
 
-__all__ = ["tail_front", "tail_front_plain", "shrink_estimate",
+__all__ = ["presence", "presence_plain", "presence_groups",
+           "presence_knee", "tail_front", "tail_front_plain",
+           "shrink_estimate", "crop_pixels",
            "recon_normalize", "recon_normalize_plain", "block_window",
            "scale_255", "minmax_blocks", "normalize_blocks_recompute",
            "normalize_blocks", "normalize_blocks_plain", "NormPlan",
@@ -102,7 +126,8 @@ def est_row(k: int) -> int:
 
 def shrink_estimate(raw: torch.Tensor, sw: torch.Tensor, scale: torch.Tensor,
                     engage: torch.Tensor, k: int):
-    """The elementwise part of models/blocked.py::_shrink_sw_hat, given the
+    """The elementwise part of dctsvd_tpu/models/blocked.py::_shrink_sw_hat
+    (which has the measurements behind each step), given the
     presence decision ``engage`` [..., (C,)] and the scale [(C,) 1, 1]:
     per-component Cauchy confidence w = 1/(1 + (dev/scale)²) (0 for a
     negative measurement); present: ref + w·(raw − ref), floored at 0;
@@ -223,6 +248,149 @@ tail_front.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K18: the presence statistic
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def presence_groups(n: int) -> tuple:
+    """(gsz, ng, rank) of a plane of ``n`` blocks: groups of gsz =
+    max(1, n // 16) contiguous blocks, ng = n // gsz of them (16..31, or n
+    where n < 16), and the rank ng - ⌈ng/4⌉ of the statistic, the
+    ⌈ng/4⌉-th largest group Pearson."""
+    gsz = max(1, n // 16)
+    ng = n // gsz
+    return gsz, ng, ng - -(-ng // 4)
+
+
+@functools.lru_cache(maxsize=None)
+def presence_knee(gsz: int) -> float:
+    """The decision's threshold 0.20 + 1.8/√gsz in f32, as the JAX package
+    computes it (one IEEE division): an f32 value, which K18 and its twin
+    compare with."""
+    g = np.float32(gsz)
+    return float(np.float32(0.2) + np.float32(1.8) / np.sqrt(g))
+
+
+def _presence_layout(s_cw, sw, sc, alpha):
+    """Check K18's inputs; (lead dims of the planes, channels)."""
+    for name, t in (("s_cw", s_cw), ("sw", sw), ("sc", sc),
+                    ("alpha", alpha)):
+        if t is None:
+            raise ValueError(f"presence needs {name}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"presence takes float32 {name}, got {t.dtype}")
+    if sw.ndim not in (2, 3):
+        raise ValueError(f"sw must be [(C,) N, R], got {tuple(sw.shape)}")
+    chans = sw.shape[0] if sw.ndim == 3 else 1
+    n = sw.shape[-2]
+    if (n < 1 or s_cw.ndim < sw.ndim
+            or s_cw.shape[s_cw.ndim - sw.ndim:-1] != sw.shape[:-1]):
+        raise ValueError(f"s_cw must be [..., "
+                         f"{', '.join(map(str, sw.shape[:-1]))}, R], got "
+                         f"{tuple(s_cw.shape)}")
+    try:
+        shape = (s_cw.shape if sc.shape == s_cw.shape
+                 else torch.broadcast_shapes(sc.shape, s_cw.shape))
+    except RuntimeError:
+        shape = None
+    if shape != s_cw.shape:
+        raise ValueError(f"sc {tuple(sc.shape)} does not broadcast to "
+                         f"s_cw {tuple(s_cw.shape)}")
+    return tuple(s_cw.shape[:-2]), chans
+
+
+def presence_plain(s_cw: torch.Tensor, sw: torch.Tensor,
+                   sc: torch.Tensor, alpha: torch.Tensor) -> tuple:
+    """Plain twin of K18, one PyTorch op a step in the kernel's order (the
+    sums of each group walked as K9's twin walks a band: thread t adds
+    blocks t, t + 256, ..., then the fixed tree; the means first, the
+    centred sums in a second pass)."""
+    _presence_layout(s_cw, sw, sc, alpha)
+    dev = s_cw.device
+    threads, tree = cta_tree.THREADS, cta_tree.tree
+    b = torch.div(s_cw[..., :1] - sc[..., :1],
+                  torch.clamp(alpha, min=1e-8))[..., 0]
+    a = sw[..., 0].expand(b.shape)
+    gsz, ng, rank = presence_groups(b.shape[-1])
+    rows = -(-gsz // threads)
+    lead = b.shape[:-1]
+
+    def walk(x):
+        x = x[..., :ng * gsz].reshape(*lead, ng, gsz)
+        x = torch.nn.functional.pad(x, (0, rows * threads - gsz))
+        return x.reshape(*lead, ng, rows, threads)
+
+    a, b = walk(a), walk(b)
+    valid = (torch.arange(rows * threads, device=dev)
+             < gsz).reshape(rows, threads)
+    zero = _f32(0.0, dev)
+    sa = sb = zero
+    for r in range(rows):
+        sa, sb = sa + a[..., r, :], sb + b[..., r, :]
+    cnt = _f32(gsz, dev)
+    ma = torch.div(tree(sa), cnt)[..., None]
+    mb = torch.div(tree(sb), cnt)[..., None]
+    uaa = ubb = uab = zero
+    for r in range(rows):
+        ok = valid[r]
+        da = torch.where(ok, a[..., r, :] - ma, zero)
+        db = torch.where(ok, b[..., r, :] - mb, zero)
+        uaa, ubb, uab = uaa + da * da, ubb + db * db, uab + da * db
+    uaa, ubb, uab = tree(uaa), tree(ubb), tree(uab)
+    rho = torch.div(uab, torch.sqrt(uaa) * torch.sqrt(ubb)
+                    + _f32(1e-8, dev))
+    rho0 = torch.sort(rho, dim=-1).values[..., rank]
+    return rho0 >= presence_knee(gsz), rho0
+
+
+def presence(s_cw: torch.Tensor, sw: torch.Tensor, sc: torch.Tensor,
+             alpha: torch.Tensor) -> tuple:
+    """The presence decision of each plane (see csrc/presence.cu): K18 on
+    CUDA tensors, its plain twin on CPU tensors. ``s_cw`` f32 [..., (C,) N,
+    R], column 0 read: the stego spectrum, with ``sc`` (broadcastable to
+    it) and ``alpha`` (one value, or one a plane); ``sw`` [(C,) N, R'] in
+    slot order. Returns (engage bool [..., (C,)], rho0 f32 [..., (C,)]):
+    the ⌈ng/4⌉-th largest group Pearson and whether it reaches the knee."""
+    lead, chans = _presence_layout(s_cw, sw, sc, alpha)
+    if wm_cuda._device_ok("presence", s_cw, sw, sc, alpha):
+        return presence_plain(s_cw, sw, sc, alpha)
+    n = s_cw.shape[-2]
+    frames = 1
+    for d in lead[:len(lead) - (sw.ndim == 3)]:
+        frames *= d
+    planes = frames * chans
+    s = s_cw.reshape(frames, chans, n, s_cw.shape[-1])
+    q = torch.broadcast_to(sc, s_cw.shape).reshape(s.shape)
+    if alpha.numel() == 1:
+        a, step = alpha.reshape(1), 0
+    else:
+        try:
+            a = torch.broadcast_to(alpha, (*lead, 1, 1))
+        except RuntimeError as err:
+            raise ValueError(f"presence takes one alpha or one a plane, "
+                             f"got {tuple(alpha.shape)}") from err
+        a, step = a.reshape(-1).contiguous(), 1
+    w = sw.reshape(chans, n, sw.shape[-1])
+    gsz, ng, _ = presence_groups(n)
+    # rho0 [planes], then the groups' Pearsons [planes, ng] (scratch)
+    buf = torch.empty(planes * (ng + 1), dtype=torch.float32,
+                      device=s_cw.device)
+    rho0 = buf[:planes]
+    engage = torch.empty((planes,), dtype=torch.bool, device=s_cw.device)
+    if planes:
+        kernels.launch("dctsvd_presence", s_cw.device, s, s.stride(0),
+                       s.stride(1), s.stride(2), q, q.stride(0), q.stride(1),
+                       q.stride(2), a, step, w, w.stride(0), w.stride(1),
+                       buf[planes:], rho0, engage, planes, chans, n,
+                       presence_knee(gsz))
+        presence.launches += 1
+    return engage.reshape(lead), rho0.reshape(lead)
+
+
+presence.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K5: the recompute form's two passes
 # ---------------------------------------------------------------------------
 
@@ -264,17 +432,23 @@ def _f32(value: float, device) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
-def block_window(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor]):
+def block_window(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor],
+                 inside: Optional[torch.Tensor] = None):
     """The normalisation window (lo, hi), each [..., 1, 1], of each plane of
     [..., N, 64] blocks: min/max over the pixels of unflagged blocks, or
     over all when ``bad_nat`` is None or flags every block: the window of
-    :func:`minmax_blocks`, K8's twin."""
-    if bad_nat is None:
-        return (blocks.amin(dim=(-2, -1), keepdim=True),
-                blocks.amax(dim=(-2, -1), keepdim=True))
+    :func:`minmax_blocks`, K8's twin. ``inside`` [N, 64] (bool): only its
+    pixels enter the window (a crop's; None: all)."""
     inf = _f32(float("inf"), blocks.device)
-    bmin = blocks.amin(dim=-1)                           # [..., N]
-    bmax = blocks.amax(dim=-1)
+    lo_in = hi_in = blocks
+    if inside is not None:
+        lo_in = torch.where(inside, blocks, inf)
+        hi_in = torch.where(inside, blocks, -inf)
+    if bad_nat is None:
+        return (lo_in.amin(dim=(-2, -1), keepdim=True),
+                hi_in.amax(dim=(-2, -1), keepdim=True))
+    bmin = lo_in.amin(dim=-1)                            # [..., N]
+    bmax = hi_in.amax(dim=-1)
     lo = torch.where(bad_nat, inf, bmin).amin(dim=-1, keepdim=True)
     hi = torch.where(bad_nat, -inf, bmax).amax(dim=-1, keepdim=True)
     # every block flagged (mark-free input) -> the plain window; the
@@ -293,16 +467,19 @@ def scale_255(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def minmax_blocks(blocks: torch.Tensor, bad_nat: Optional[torch.Tensor],
-                  normalize: bool) -> torch.Tensor:
+                  normalize: bool,
+                  inside: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX package's ``_normalize_blocks`` in torch: the min–max
     normalisation of block-aligned planes [..., N, 64] to [0, 255] (f32),
     flagged blocks (``bad_nat`` [..., N]) out of the window and repainted
-    at its midpoint (0 without ``normalize``)."""
+    at its midpoint (0 without ``normalize``). With ``inside`` (a crop's
+    pixels, :func:`crop_pixels`) the window is the crop's: its
+    ``_masked_normalize`` on the cropped plane, pixel for pixel inside."""
     if not normalize:
         if bad_nat is None:
             return blocks
         return torch.where(bad_nat[..., None], 0.0, blocks)
-    lo, hi = block_window(blocks, bad_nat)
+    lo, hi = block_window(blocks, bad_nat, inside)
     if bad_nat is not None:
         blocks = torch.where(bad_nat[..., None], (lo + hi) * 0.5, blocks)
     return (blocks - lo) * scale_255(lo, hi)
@@ -436,16 +613,28 @@ recon_normalize.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def crop_pixels(h: int, w: int, device) -> Optional[torch.Tensor]:
+    """[N, 64] bool: which pixels of the ceil(h/8) x ceil(w/8) blocks (row-
+    major pixels of row-major blocks) lie inside the h x w crop; None
+    where h and w are multiples of 8."""
+    if not (h % BLOCK or w % BLOCK):
+        return None
+    hb, wb = -(-h // BLOCK), -(-w // BLOCK)
+    rows = torch.arange(hb * BLOCK, device=device) < h
+    cols = torch.arange(wb * BLOCK, device=device) < w
+    plane = (rows[:, None] & cols[None, :]).to(torch.uint8)
+    return dct.blockify(plane).reshape(hb * wb, _PIXELS).bool()
+
+
 def _blocks_layout(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                    w: int, to_frames: bool):
     """Check the shapes; whether ``x`` holds the flag column."""
     if blocks.dtype != torch.float32 or x.dtype != torch.float32:
         raise ValueError(f"normalize_blocks takes float32 blocks and "
                          f"estimates, got {blocks.dtype} and {x.dtype}")
-    if h % BLOCK or w % BLOCK or h <= 0 or w <= 0:
-        raise ValueError(f"normalize_blocks needs block-aligned H and W "
-                         f"(multiples of {BLOCK}), got {h}x{w}")
-    n = (h // BLOCK) * (w // BLOCK)
+    if h <= 0 or w <= 0:
+        raise ValueError(f"normalize_blocks needs H and W >= 1, got {h}x{w}")
+    n = (-(-h // BLOCK)) * (-(-w // BLOCK))
     if blocks.ndim < 2 or tuple(blocks.shape[-2:]) != (n, _PIXELS):
         raise ValueError(f"blocks must be [..., {n}, {_PIXELS}] for {h}x{w}, "
                          f"got {tuple(blocks.shape)}")
@@ -463,17 +652,21 @@ def normalize_blocks_plain(blocks: torch.Tensor, x: torch.Tensor, k: int,
                            h: int, w: int, normalize: bool = True,
                            out_u8: bool = True,
                            to_frames: bool = False) -> torch.Tensor:
-    """Plain twin of K8: the eager form (models/blocked.py::
-    _normalize_blocks, the clip and cast, the unblockify)."""
+    """Plain twin of K8 and K8u: the eager form (models/blocked.py::
+    _normalize_blocks, the clip and cast, the unblockify; where h or w is
+    not a multiple of 8, the window over the pixels inside the h x w crop,
+    then the crop: _masked_normalize's bytes)."""
     flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
     bad_nat = x[..., k] > 0.5 if flagged else None
-    out = minmax_blocks(blocks, bad_nat, normalize)
+    out = minmax_blocks(blocks, bad_nat, normalize,
+                        crop_pixels(h, w, blocks.device))
     if out_u8:
         out = out.clamp(0, 255).to(torch.uint8)
     out = out.reshape(*out.shape[:-1], BLOCK, BLOCK)
+    hp, wp = -(-h // BLOCK) * BLOCK, -(-w // BLOCK) * BLOCK
     if to_frames:
-        return dct.unblockify_to_frames(out, h, w)
-    return dct.unblockify(out, h, w)
+        return dct.unblockify_to_frames(out, hp, wp)[..., :h, :w, :]
+    return dct.unblockify(out, hp, wp)[..., :h, :w]
 
 
 def _frame_stride(t: torch.Tensor, nlead: int) -> Optional[int]:
@@ -499,6 +692,10 @@ def _blocks_strides(blocks: torch.Tensor, to_frames: bool) -> tuple:
     lie so); raises for any other layout."""
     st, shape = blocks.stride(), blocks.shape
     bstride = st[-2]
+    if shape[-2] == 1 and blocks.ndim > 2:
+        # one block a plane (a frame of 8 x 8 pixels or less): its stride
+        # is the next dimension's
+        bstride = st[-3]
     nlead, step = blocks.ndim - 2, shape[-2] * bstride
     while nlead > 0 and (shape[nlead - 1] == 1 or st[nlead - 1] == step):
         step *= shape[nlead - 1]
@@ -628,8 +825,15 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
     (``out_u8``) or f32 frames [..., H, W, C] (``to_frames``) or planes
     [..., (C,) H, W]. ``plan`` forces an instance (default: norm_plan's
     for the device); each launch counts in ``.launches`` and in
-    ``INSTANCE_LAUNCHES``."""
+    ``INSTANCE_LAUNCHES``. Where h or w is not a multiple of 8 the blocks
+    cover the padded plane and the output is its h x w crop (K8u: the
+    two-pass instance, whose window leaves the pixels outside it; a
+    resident ``plan`` raises)."""
     flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
+    crop = bool(h % BLOCK or w % BLOCK)
+    if crop and plan is not None and plan.instance != "two_pass":
+        raise ValueError(f"a crop ({h}x{w}) takes K8's two-pass instance, "
+                         f"not {plan}")
     if wm_cuda._device_ok("normalize_blocks", blocks, x):
         return normalize_blocks_plain(blocks, x, k, h, w, normalize, out_u8,
                                       to_frames)
@@ -659,7 +863,9 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                        4 + 4 * WIN_STRIDE), dtype=torch.int32,
                       device=blocks.device)
     if frames and out.numel():
-        if plan is None:
+        if plan is None and crop:
+            plan = NormPlan("two_pass")
+        elif plan is None:
             sms, smem, coop = device_limits(blocks.device)
             plan = norm_plan(frames, chans, (h // BLOCK) * (w // BLOCK),
                              normalize, sms, smem if coop else 0)
@@ -670,9 +876,11 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                        plan.chunk)
         normalize_blocks.launches += 1
         INSTANCE_LAUNCHES[plan.instance] += 1
+        INSTANCE_LAUNCHES["crop"] += crop
     return out
 
 
 normalize_blocks.launches = 0
-#: K8's launches by instance (normalize_blocks counts both)
-INSTANCE_LAUNCHES = {"resident": 0, "two_pass": 0}
+#: K8's launches by instance (normalize_blocks counts both), and K8u's
+#: ("crop": the two-pass launches with a crop, counted in "two_pass" too)
+INSTANCE_LAUNCHES = {"resident": 0, "two_pass": 0, "crop": 0}

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels: K1 and the C entry points
 of K2 and K3 (``wm_kernels.cu``), the K2 and K3 instances of each k
 (``wm_paint_k12.cu`` .. ``wm_paint_k78.cu``, over ``wm_paint.cuh``), K2r,
-K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's front stage
-K5f, its default form's normaliser K8 and its recompute form K5
+K1g (``wm_variants.cu``), K4 (``svd8.cu``), the extract tail's presence
+statistic K18 (``presence.cu``), its front stage K5f, its default form's
+normaliser K8 (with its crop K8u) and its recompute form K5
 (``extract_tail.cu``), the gray scheme's
 color conversions K6 and K7 and the color NLM's YCrCb pair K17
 (``color.cu``), the detect statistic K9 (``detect.cu``), the enhancement
@@ -85,6 +86,8 @@ _SIGNATURES = {
     "dctsvd_normalize_blocks": [_P, _LL, _LL, _P, _LL, _I, _P, _I, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dctsvd_device_limits": [_P],
+    "dctsvd_presence": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _I, _P, _LL,
+                        _LL, _P, _P, _P, _LL, _I, _I, _F, _P],
     "dctsvd_luma": [_P, _P, _I, _I, _I, _I, _I, _P],
     "dctsvd_replace_luma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "dctsvd_band_scores": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _P,

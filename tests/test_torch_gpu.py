@@ -9,7 +9,13 @@ card in every layout and at k = 1, 4, 8, K5f (the extract tail's front
 stage) against its twin run on the card at 1080p on 1 to 128 frames and
 at every k, the default tail's bytes with either front, K8 (the default
 tail's normaliser) against its twin run on the card in every layout, on
-1 to 128 1080p frames and through the default extract, K6 and K7 (the
+1 to 128 1080p frames and through the default extract, K18 (the
+presence statistic) against its twin run on the card at 1080p on 1 to
+128 frames, at tiny, unaligned and 4K block grids, with its decision the
+eager statistic's, K8u (K8 with a crop) against its twin at six
+unaligned sizes in every layout, the request extract (extract_color /
+extract_gray) byte-equal with every twin forced and alone or in a
+batch, K6 and K7 (the
 gray scheme's color conversions) against their twins run on the card on
 every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
 with the gray paths' bytes the same with either, K12 and K13 (detect
@@ -1833,6 +1839,272 @@ def test_default_extract_takes_k8_at_1080p(dev, path, case, monkeypatch):
                         tail_cuda.normalize_blocks_plain)
     for n, got in kernel.items():
         assert torch.equal(got, extract(0, n)), n
+
+
+# ---------------------------------------------------------------------------
+# K18 (the presence statistic) and K8u (K8 with a crop), and the request
+# extract (extract_gray / extract_color, extract_array's) through K1, K18,
+# K5f and K8 / K8u.
+# ---------------------------------------------------------------------------
+
+def _eager_engaged(raw, sw):
+    """The presence statistic as the port ran it in eager ops before K18:
+    metrics.nc over the groups, torch.sort, the knee."""
+    ref = sw.expand(raw.shape)
+    n = raw.shape[-2]
+    gsz = max(1, n // 16)
+    ng = n // gsz
+    a0 = ref[..., :ng * gsz, 0].reshape(*ref.shape[:-2], ng, gsz)
+    b0 = raw[..., :ng * gsz, 0].reshape(*raw.shape[:-2], ng, gsz)
+    rho0 = torch.sort(metrics.nc(a0, b0), dim=-1).values[..., ng - -(-ng // 4)]
+    knee = 0.20 + 1.8 / torch.sqrt(torch.full((), float(gsz),
+                                              device=raw.device))
+    return rho0 >= knee
+
+
+def _k18_counted(fn):
+    n0 = tail_cuda.presence.launches
+    got = fn()
+    torch.cuda.synchronize()
+    assert tail_cuda.presence.launches == n0 + 1
+    return got
+
+
+def _k18_equal(s_cw, sw, sc=None, alpha=None):
+    """K18 against its twin run on the card: rho0 (NaN equal) and the
+    decision; returns K18's (engage, rho0). Without sc and alpha, s_cw is
+    the raw estimate, handed in as models/blocked._engaged hands it (sc =
+    0, alpha = 1)."""
+    if sc is None:
+        sc = torch.zeros(1, device=s_cw.device)
+        alpha = torch.ones(1, device=s_cw.device)
+    got = _k18_counted(lambda: tail_cuda.presence(s_cw, sw, sc, alpha))
+    ref = tail_cuda.presence_plain(s_cw, sw, sc, alpha)
+    assert torch.equal(got[0], ref[0])
+    assert _equal_nan(got[1], ref[1]), float(
+        (got[1] - ref[1]).abs().nan_to_num(0).max())
+    return got
+
+
+@pytest.mark.parametrize("case", ["stego", "zeroed", "black", "nan"])
+@pytest.mark.parametrize("path", list(FRONT_SHAPES))
+def test_k18_at_1080p_matches_twin(dev, path, case):
+    """K18 equals its twin run on the card (rho0 and decision) on the
+    1080p stego spectra (and 1083x1917's) of 1, 4, 32 and 128 frames, on
+    the spectra and on the raw estimate (sc = 0, alpha = 1); a frame's
+    decision is the same alone, in a shard and in the batch, and equal to
+    the eager statistic's."""
+    st = _front_state(dev, path)
+    pw, sc, s_cw = st["pw"], st["sc"], st["s_cw"][case]
+    alpha = torch.tensor(ALPHA, device=dev)
+    whole = _k18_equal(s_cw, pw.sw, sc, alpha)
+    raw = tb._raw_estimate(s_cw, sc, ALPHA)
+    assert torch.equal(_k18_equal(raw, pw.sw)[0], whole[0])
+    assert torch.equal(whole[0], _eager_engaged(raw, pw.sw))
+    for n in (1, 4, 32):
+        got = _k18_equal(s_cw[:n], pw.sw, sc[:n], alpha)
+        assert torch.equal(got[0], whole[0][:n])
+        assert _equal_nan(got[1], whole[1][:n])
+    for i in (5, 127):
+        got = _k18_equal(s_cw[i], pw.sw, sc[i], alpha)
+        assert _equal_nan(got[1], whole[1][i])
+    want = {"stego": True, "nan": True, "black": False}.get(case)
+    if want is not None:
+        assert bool((whole[0] == want).all())
+
+
+@pytest.mark.parametrize("shape", [(65, 83), (129, 243), (2160, 3840),
+                                   (7, 9), (8, 16)],
+                         ids=["65x83", "129x243", "4k", "7x9", "8x16"])
+@pytest.mark.parametrize("layout", ["color", "gray", "shared_sw",
+                                    "alpha_per_frame", "shared_sc"])
+def test_k18_matches_twin(dev, layout, shape):
+    """K18 equals its twin run on the card on seeded estimates: present,
+    absent and NaN planes side by side, at sizes whose groups are tiny
+    (1 block: 7x9, 8x16), unaligned, and past the resident group (4K:
+    8,100 blocks a group); sw shared by the channels, one alpha a frame,
+    sc shared by the frames."""
+    h, w = shape
+    n = (-(-h // 8)) * (-(-w // 8))
+    rng = np.random.default_rng(SEED + 60 + n)
+    f = 2 if n > 100000 else 4
+    cd = (3,) if layout != "gray" else ()
+    sw = rng.uniform(1, 30, ((3,) if layout not in ("gray", "shared_sw")
+                             else ()) + (n, 8)).astype(np.float32)
+    raw = np.broadcast_to(sw, (f, *cd, n, 8)) + rng.normal(0, 2, (f, *cd, n,
+                                                                   8))
+    raw[1] = rng.normal(0, 40, raw[1].shape)               # absent
+    sc = rng.uniform(0, 200, (f, *cd, n, 8)).astype(np.float32)
+    if layout == "shared_sc":
+        sc = sc[:1]
+    s_cw = (sc + raw * ALPHA).astype(np.float32)
+    s_cw[-1, ..., n // 2, 0] = np.nan
+    alpha = (torch.tensor([0.1, 0.15, 0.05, 0.12][:f], device=dev).reshape(
+        f, *[1] * (len(cd) + 2)) if layout == "alpha_per_frame"
+        else torch.tensor(ALPHA, device=dev))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in (("s_cw", s_cw), ("sc", sc), ("sw", sw))}
+    if layout == "alpha_per_frame":
+        t["s_cw"] = (t["sc"] + torch.from_numpy(raw.astype(np.float32)).to(
+            dev) * alpha).contiguous()
+    engage, _ = _k18_equal(t["s_cw"], t["sw"], t["sc"], alpha)
+    raw_t = (t["s_cw"] - t["sc"]) / torch.clamp(alpha, min=1e-8)
+    _k18_equal(raw_t, t["sw"])
+    if n >= 16 * 30:
+        assert bool(engage[0].all()) and not bool(engage[1].any())
+
+
+def test_k18_never_runs_the_twin_on_the_card(dev, monkeypatch):
+    """A CUDA tensor launches K18 (the twin is not reached); _tail_front
+    and _engaged launch it once each."""
+    st = _front_state(dev, "color")
+    pw, sc, s_cw = st["pw"], st["sc"][:2], st["s_cw"]["stego"][:2]
+    ref = tail_cuda.presence(s_cw, pw.sw, sc, torch.tensor(ALPHA,
+                                                           device=dev))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the twin ran for a CUDA tensor")
+
+    monkeypatch.setattr(tail_cuda, "presence_plain", refuse)
+    monkeypatch.setattr(metrics, "nc", refuse)
+    got = _k18_counted(lambda: tb._engaged(tb._raw_estimate(s_cw, sc, ALPHA),
+                                           pw.sw))
+    assert torch.equal(got, ref[0])
+    _k18_counted(lambda: tb._tail_front(s_cw, sc, pw.inv_blk, ALPHA, 4,
+                                        pw.sw))
+
+
+K8U_SIZES = [(65, 83), (129, 243), (1083, 1917), (1080, 1917), (1079, 1920),
+             (3, 5)]
+
+
+@pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("normalize", [True, False],
+                         ids=["normalize", "raw"])
+@pytest.mark.parametrize("flags", ["none", "some", "all"])
+@pytest.mark.parametrize("layout", ["frames", "planes", "color_planes"])
+@pytest.mark.parametrize("hw", K8U_SIZES,
+                         ids=[f"{h}x{w}" for h, w in K8U_SIZES])
+def test_k8u_matches_twin(dev, hw, layout, flags, normalize, out_u8):
+    """K8u (K8's two-pass instance with a crop) equals its twin run on the
+    card (torch.equal) at unaligned sizes, off the 8-pixel grid in either
+    dimension or both, in every layout, on the product's strided view."""
+    h, w = hw
+    n = (-(-h // 8)) * (-(-w // 8))
+    rng = np.random.default_rng(SEED + 70 + h + w)
+    frames = 2 if h < 1000 else 3
+    cd = (3,) if layout != "planes" else ()
+    x = rng.standard_normal((frames, *cd, n, 5)).astype(np.float32)
+    share = {"none": 0.0, "some": 0.2, "all": 1.0}[flags]
+    x[..., 4] = (rng.random(x.shape[:-1]) < share).astype(np.float32)
+    eb64 = torch.from_numpy(rng.standard_normal((*cd, n, 4, 64)).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(x).to(dev)
+    if flags == "none":
+        x = x[..., :4].contiguous()
+    blocks = tb._recon(x[..., :4], eb64)
+    kw = dict(normalize=normalize, out_u8=out_u8,
+              to_frames=layout == "frames")
+    got = _k8_counted("two_pass", lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, **kw))
+    ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w, **kw)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert (got.shape[-3:-1] if layout == "frames"
+            else got.shape[-2:]) == (h, w)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError, match="two-pass"):
+        tail_cuda.normalize_blocks(blocks, x, 4, h, w, plan=_k8_plan(
+            dev, "resident", frames, 1 if layout == "planes" else 3, n),
+            **kw)
+
+
+def _request_state(dev, h, w):
+    """A 1080p-derived request: 4 seeded noise covers cut to h x w, their
+    color and gray stego (the prepared watermarks' factors), and the
+    extract's inputs."""
+    rng = np.random.default_rng(SEED + 80)
+    covers = torch.from_numpy(rng.integers(0, 256, (4, h, w, 3),
+                                           np.uint8)).to(dev)
+    wm = torch.from_numpy(rng.integers(0, 256, (h, w, 3), np.uint8)).to(dev)
+    key = crypto.derive_key("gpu-request", bytes(8))
+    blk, intra = (torch.as_tensor(a, device=dev) for a in
+                  crypto.block_permutation_indices(key,
+                                                   tb.n_blocks_of(h, w)))
+    out = {}
+    for path in ("color", "gray"):
+        if path == "color":
+            pw = tb.prepare_wm_color(wm, blk, intra, extract_basis=False)
+            st, sc = tb.embed_color_prepared(covers, pw.sw, ALPHA,
+                                             with_metrics=False)[:2]
+        else:
+            pw = tb.prepare_wm_gray(wm[..., 0], blk, intra,
+                                    extract_basis=False)
+            st, sc = tb.embed_gray_prepared(covers, pw.sw, ALPHA,
+                                            with_metrics=False)[:2]
+        zeroed = st.clone()
+        zeroed[:, h // 2:] = 0
+        zeroed[:, :, w // 2:] = 0
+        out[path] = (pw, sc, {"stego": st, "zeroed": zeroed})
+    return out
+
+
+def _request_extract(path, pw, sc, stego, sw=True):
+    fn = tb.extract_color if path == "color" else tb.extract_gray
+    return fn(stego, sc, pw.uw, pw.vwt, pw.inv_blk, pw.inv_intra, ALPHA,
+              sw=pw.sw if sw else None)
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (1079, 1917), (65, 83)],
+                         ids=["1080p", "1079x1917", "65x83"])
+def test_request_extract_equals_the_twins(dev, hw, monkeypatch):
+    """The request extract (extract_color / extract_gray, what
+    extract_array runs) launches K1, K18, K5f and K8 (K8u where unaligned)
+    once each, calls neither _masked_normalize nor metrics.nc, and gives
+    the bytes it gives with every twin in its kernel's place (K6's too);
+    a frame's bytes are the same alone and in the batch; the stego, the
+    zeroed stego and without sw."""
+    h, w = hw
+    state = _request_state(dev, h, w)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an eager form ran")
+
+    kernel = {}
+    with monkeypatch.context() as m:
+        m.setattr(tb, "_masked_normalize", refuse)
+        m.setattr(metrics, "nc", refuse)
+        for path, (pw, sc, stegos) in state.items():
+            for case, st in stegos.items():
+                for sw in (True, False):
+                    wrappers = [wm_cuda.spectrum_blocks, tail_cuda.presence,
+                                tail_cuda.tail_front,
+                                tail_cuda.normalize_blocks]
+                    n0 = [f.launches for f in wrappers]
+                    i0 = tail_cuda.INSTANCE_LAUNCHES["two_pass"]
+                    got = _request_extract(path, pw, sc, st, sw)
+                    torch.cuda.synchronize()
+                    ran = [f.launches - n for f, n in zip(wrappers, n0)]
+                    assert ran == [1, int(sw), 1, 1], (path, case, ran)
+                    if h % 8 or w % 8:
+                        assert tail_cuda.INSTANCE_LAUNCHES["two_pass"] == \
+                            i0 + 1
+                    assert got.dtype == torch.uint8 and got.shape == (
+                        (4, h, w, 3) if path == "color" else (4, h, w))
+                    kernel[path, case, sw] = got
+                    for i in (0, 3):
+                        assert torch.equal(_request_extract(
+                            path, pw, sc[i:i + 1], st[i:i + 1], sw),
+                            got[i:i + 1])
+    for name in ("presence", "tail_front", "normalize_blocks"):
+        monkeypatch.setattr(tail_cuda, name,
+                            getattr(tail_cuda, f"{name}_plain"))
+    monkeypatch.setattr(wm_cuda, "spectrum_blocks",
+                        wm_cuda.spectrum_blocks_plain)
+    monkeypatch.setattr(color_cuda, "luma_f32", color_cuda.luma_f32_plain)
+    for (path, case, sw), got in kernel.items():
+        pw, sc, stegos = state[path]
+        assert torch.equal(_request_extract(path, pw, sc, stegos[case], sw),
+                           got), (path, case, sw)
 
 
 def test_tail_front_wrapper_never_runs_the_twin_on_the_card(dev,

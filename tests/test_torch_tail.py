@@ -599,8 +599,9 @@ def test_default_matches_jax_default(states, path, case, hw):
 
 
 def test_k8_wrapper_takes_the_twin_for_cpu_tensors(states):
-    """The default extract reaches K8's wrapper, which runs the twin for
-    CPU tensors and counts no launch."""
+    """The default extract reaches K8's wrapper at aligned and (K8u, the
+    crop) unaligned sizes, which runs the twin for CPU tensors and counts
+    no launch."""
     blocks, x = _k8_case("frames")
     before = tail_cuda.normalize_blocks.launches
     got = tail_cuda.normalize_blocks(blocks, x, K, 64, 80, out_u8=False,
@@ -619,7 +620,7 @@ def test_k8_wrapper_takes_the_twin_for_cpu_tensors(states):
         _port("color", states["color", SHAPES[1]], "sw", False)
     finally:
         tail_cuda.normalize_blocks = orig
-    assert calls == [(2, 3, 80, 64)]          # aligned only
+    assert calls == [(2, 3, 80, 64), (2, 3, 99, 64)]   # 64x80, 65x83
     assert tail_cuda.normalize_blocks.launches == before
 
 
@@ -628,11 +629,13 @@ def test_k8_wrapper_takes_the_twin_for_cpu_tensors(states):
                                  "device"])
 def test_k8_wrapper_refuses_bad_input(bad):
     blocks, x = _k8_case("frames")
-    h, w, cl, match = 64, 80, True, "float32"
+    h, w, cl, match, kw = 64, 80, True, "float32", {}
     if bad == "dtype":
         blocks = blocks.to(torch.float64)
     elif bad == "unaligned":
-        h, match = 65, "block-aligned"
+        # a crop (63x80 of the 8x10 blocks) takes the two-pass instance
+        h, match = 63, "two-pass"
+        kw = dict(plan=tail_cuda.NormPlan("resident", 132, 2, 4))
     elif bad == "blocks":
         w, match = 88, "blocks must be"
     elif bad == "columns":
@@ -648,7 +651,7 @@ def test_k8_wrapper_refuses_bad_input(bad):
         x = torch.empty(x.shape, device="meta")
         match = "unsupported device"
     with pytest.raises(ValueError, match=match):
-        tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=cl)
+        tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=cl, **kw)
 
 
 # Inputs that leave the plain path: a NaN in an unflagged block, ±inf
