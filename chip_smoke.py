@@ -22,7 +22,9 @@
                                             # the front at 32 and 128
                                             # frames, and the request
                                             # extract, each beside its
-                                            # eager form
+                                            # eager form; K8u alone in
+                                            # each instance at 1079x1917
+                                            # and 480x854
     python3 chip_smoke.py --recon-forms     # only the extract tail's
                                             # k-term product, in each form
     python3 chip_smoke.py --color-bounds    # only K6's and K7's times
@@ -79,13 +81,15 @@ detect rate), the recompute extract tail (color and gray
 default one's K8 launches with no eager normaliser call (color, gray,
 serve+verify); the request extract (``request_extract``:
 ``extract_array``, what api.extract, the CLI, the GUI and the payloads
-run) on a 1080p color and gray stego and its 1079x1917 crop, each read
-back from its PNG and meta, and on the zeroed stego and the clean cover,
-each launching K1, K18, K5f and K8 (K8u on the crop) once, calling no
-eager normaliser or statistic, byte-equal with every twin in its
-kernel's place and to the eager form it replaced, K18's decision the
-eager statistic's; the prepared extract of the batch of 32 cut to
-1079x1917 likewise, and K8u against its twin there; K9, the detect
+run) on a 1080p color and gray stego and its 1079x1917 and 480x854
+crops, each read back from its PNG and meta, and on the zeroed stego and
+the clean cover, each launching K1, K18, K5f and K8 (K8u on a crop, in
+the instance the plan picks: the resident one at 1079x1917, the two-pass
+one at 480x854) once, calling no eager normaliser or statistic,
+byte-equal with every twin in its kernel's place and to the eager form
+it replaced, K18's decision the eager statistic's; the prepared extract
+of the batch of 32 cut to 1079x1917 likewise, and K8u's two instances,
+each forced, against their twin there; K9, the detect
 statistic, bit-equal to its twin on the
 1080p spectra of the batch of 32 and of 128 frames, gray and color
 (frame and band scores, grid 2, a shared sc, the clean covers, a clean
@@ -178,9 +182,10 @@ the bytes it must move and the f32 operations it does). K1, K2, K3, K4,
 K2r, K1g, K18, K5f, K5, K8, K8u, K6 and K7 are held to their twins run
 on the card bit for bit; K18's launches are counted on the slice, the
 serve steps, the tail phase, the request extracts, video, ``parallel/``
-and the bench, K8u's on the request extracts; K8's launches are counted
+and the bench, K8u's on the request extracts, by instance; K8's launches
+are counted
 on the slice, the serve steps, the tail phase's default extracts, the
-request extracts, ``parallel/`` and the bench, by
+request extracts (the aligned ones), ``parallel/`` and the bench, by
 instance (the resident one on every path, the two-pass one on the
 bench's 4k and 512gray configs); K9's on
 the slice, the serve steps, ``detect_1080p``, the resync searches,
@@ -1417,20 +1422,21 @@ def k8_plans(dev, frames: int, chans: int):
     return {"resident": res, "two_pass": tail_cuda.NormPlan("two_pass")}
 
 
-def k8_ptxas(instance: str, gray: bool) -> dict:
+def k8_ptxas(instance: str, gray: bool, crop: bool = False) -> dict:
     """Registers and spills of K8's kernels in one instance (nvcc's
     -Xptxas -v): the resident kernel of the layout (planes for gray,
     channels-last frames of 3 for color) with u8 out, or the two-pass
-    window and paint kernels."""
+    window and paint kernels; ``crop``: K8u's."""
     from dctsvd_tpu_torch.utils import kernels
     rep = kernels.ptxas_report(kernels.BUILD_INFO["ptxas"])
+    b = "1" if crop else "0"
     if instance == "resident":
-        tag = "ILi1ELb0EhE" if gray else "ILi3ELb1EhE"
+        tag = ("ILi1ELb0EhLb" if gray else "ILi3ELb1EhLb") + b + "EE"
         keys = [n for n in rep if "norm_resident_kernel" + tag in n]
     else:
         c = "1" if gray else "3"
-        keys = [n for n in rep if f"norm_window_kernelILi{c}E" in n
-                or f"norm_paint_kernelILi{c}EhE" in n]
+        keys = [n for n in rep if f"norm_window_kernelILi{c}ELb{b}EE" in n
+                or f"norm_paint_kernelILi{c}EhLb{b}EE" in n]
     return {n: rep[n] for n in keys}
 
 
@@ -1786,31 +1792,39 @@ def phase_tail_recompute(dev, covers, wm_u8, blk, intra) -> dict:
 # payloads) and the unaligned prepared extract: K1, K18, K5f, K8 or K8u
 # ---------------------------------------------------------------------------
 
-REQUEST_SIZES = {"1080p": (H, W), "1079x1917": (1079, 1917)}
+REQUEST_SIZES = {"1080p": (H, W), "1079x1917": (1079, 1917),
+                 "480x854": (480, 854)}
 REQUEST_SEED = 20261027
 
 
-class K8Crop(K8Instance):
-    """K8u's launches (tail_cuda.INSTANCE_LAUNCHES["crop"]: the two-pass
-    instance's calls with a crop), as a wrapper's ``.launches``."""
-
-    def __init__(self):
-        super().__init__("crop")
+#: K8u's launches by instance (tail_cuda.INSTANCE_LAUNCHES["crop_*"]: the
+#: calls with a crop, counted under their instance too), as wrappers'
+#: ``.launches``: normalize_blocks_crop_resident, _crop_two_pass
+K8U_INSTANCES = (K8Instance("crop_resident"), K8Instance("crop_two_pass"))
 
 
-K8U = K8Crop()
+def crop_instance(dev, frames: int, chans: int, h: int, w: int):
+    """The instance K8 takes for a call of ``frames`` h x w frames on this
+    card (tail_cuda.shape_plan), or None where h and w are multiples of 8
+    (no K8u)."""
+    from dctsvd_tpu_torch.ops import tail_cuda
+    if not (h % 8 or w % 8):
+        return None
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    return tail_cuda.shape_plan(frames, chans, h, w, True, sms,
+                                smem if coop else 0).instance
 
 
 def request_wrappers() -> dict:
     """The kernels a request extract runs: K1, K6 (gray), K18, K5f, K8 and
-    its instances, K8u."""
+    its instances, K8u's instances."""
     from dctsvd_tpu_torch.ops import color_cuda, tail_cuda, wm_cuda
     return {"spectrum_blocks": wm_cuda.spectrum_blocks,
             "luma_f32": color_cuda.luma_f32,
             "presence": tail_cuda.presence,
             "tail_front": tail_cuda.tail_front,
             "normalize_blocks": tail_cuda.normalize_blocks,
-            **{c.__name__: c for c in (*K8_INSTANCES, K8U)}}
+            **{c.__name__: c for c in (*K8_INSTANCES, *K8U_INSTANCES)}}
 
 
 @contextlib.contextmanager
@@ -1887,13 +1901,14 @@ def counted_extract(fn):
     return out, n, dict(eager_calls)
 
 
-def expect_extract(what: str, n: dict, calls: dict, crop: bool,
-                   gray: bool) -> None:
-    """The launches of one extract: K1, K18, K5f once, K8 once (K8u where
-    the size is not a multiple of 8, else no K8u), K6 once for gray; no
-    eager normaliser or statistic call."""
+def expect_extract(what: str, n: dict, calls: dict, crop, gray: bool) -> None:
+    """The launches of one extract: K1, K18, K5f once, K8 once (K8u's
+    instance ``crop`` where the size is not a multiple of 8, else None and
+    no K8u), K6 once for gray; no eager normaliser or statistic call."""
     want = dict(spectrum_blocks=1, presence=1, tail_front=1,
-                normalize_blocks=1, normalize_blocks_crop=int(crop))
+                normalize_blocks=1,
+                **{c.__name__: int(c.instance == f"crop_{crop}")
+                   for c in K8U_INSTANCES})
     if gray:
         want["luma_f32"] = 1
     got = {k: n[k] for k in want}
@@ -1905,7 +1920,9 @@ def phase_request_extract(dev, covers, wm_u8):
     """The request extract (models/blocked.py::extract_array, what
     api.extract, the CLI, the GUI and the payloads run) on a 1080p color
     and gray stego embedded by embed_paths from the first cover, and on
-    its 1079x1917 crop, each read back from its PNG and meta: the stego,
+    its 1079x1917 and 480x854 crops (K8u's resident and two-pass
+    instances, as the plan picks them), each read back from its PNG and
+    meta: the stego,
     the stego with three quadrants zeroed (flagged blocks) and the clean
     cover (mark-free). Each call, counted alone, launches K1, K18, K5f and
     K8 (K8u on the crop) once and calls neither _masked_normalize nor
@@ -1928,7 +1945,7 @@ def phase_request_extract(dev, covers, wm_u8):
     wm_np = wm_u8.cpu().numpy()
     rows, totals = {}, {"color": {}, "gray": {}}
     nonces = iter(np.random.default_rng(REQUEST_SEED).bytes(
-        crypto.NONCE_BYTES) for _ in range(4))
+        crypto.NONCE_BYTES) for _ in range(2 * len(REQUEST_SIZES)))
 
     def add(layout, n):
         for k, v in n.items():
@@ -1936,9 +1953,12 @@ def phase_request_extract(dev, covers, wm_u8):
 
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as td:
         for size, (h, w) in REQUEST_SIZES.items():
-            crop = bool(h % 8 or w % 8)
             for layout in ("color", "gray"):
                 gray = layout == "gray"
+                crop = crop_instance(dev, 1, 1 if gray else 3, h, w)
+                require(crop == {"1080p": None, "1079x1917": "resident",
+                                 "480x854": "two_pass"}[size],
+                        f"request {size} {layout}: K8u's plan {crop}")
                 nonce = next(nonces)
                 key = crypto.derive_key(PASSWORD, nonce)
                 sp, mp, _, _ = blocked.embed_paths(
@@ -2020,13 +2040,13 @@ def phase_request_extract(dev, covers, wm_u8):
         require(torch.equal(dct.unblockify(pix.reshape(*pix.shape[:-1], 8,
                                                        8), H, W), plane),
                 "the block-layout IDCT differs from the plane form")
-    prepared, k8u_row, n_prep = prepared_unaligned(dev, covers, wm_u8)
+    prepared, k8u_rows, n_prep = prepared_unaligned(dev, covers, wm_u8)
     add("color", n_prep)
     emit({"phase": "request_extract", "extracts": rows,
           "block_layout_idct_equals_plane": True,
           "prepared_1079x1917": prepared, "launches": totals,
           "card": smi_line()})
-    return totals, k8u_row
+    return totals, k8u_rows
 
 
 def prepared_unaligned(dev, covers, wm_u8):
@@ -2037,7 +2057,7 @@ def prepared_unaligned(dev, covers, wm_u8):
     unaligned size), a frame alone, in a shard of 4 and in the batch, and
     K18's decision equal to the eager statistic's on every frame of the
     stego and of the three-quadrants-zeroed stego. Returns (its row, K8u's
-    kernel row on the extract's product, the launches)."""
+    kernel rows on the extract's product, the launches)."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import metrics, tail_cuda
@@ -2060,10 +2080,12 @@ def prepared_unaligned(dev, covers, wm_u8):
                                               **kw)
 
     out, total = {}, {}
+    crop = crop_instance(dev, BATCH, 3, h, w)
+    require(crop == "resident", f"prepared 1079x1917: K8u's plan {crop}")
     for case, stego in (("stego", st), ("zeroed", zeroed)):
         what = f"prepared 1079x1917 {case}"
         got, n, calls = counted_extract(lambda: extract(stego))
-        expect_extract(what, n, calls, True, False)
+        expect_extract(what, n, calls, crop, False)
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
         with extract_twins():
@@ -2091,79 +2113,97 @@ def prepared_unaligned(dev, covers, wm_u8):
     require(out["stego"]["engaged_share"] == 1.0
             and out["stego"]["nc_min"] > 0.4,
             f"prepared 1079x1917: {out['stego']}")
-    return out, k8u_row(dev, pw, sc, st, zeroed, h, w), total
+    return out, k8u_rows(dev, pw, sc, st, zeroed, h, w), total
 
 
-def k8u_row(dev, pw, sc, st, zeroed, h, w) -> dict:
-    """K8u against its plain twin run on the card (torch.equal) on the
-    unaligned prepared extract's product (models/blocked._recon of K5f's
-    estimates of the batch of 32 at 1079x1917 color; the stego and the
-    three-quadrants-zeroed stego, whose flagged blocks it repaints),
-    without normalize and with f32 output too, beside the eager form it
-    replaced (:func:`eager_unaligned_tail`, byte-equal). ms: K8u; plain_ms:
-    its twin; eager_ms: the eager form; device_ms: the window and paint
-    kernels' device time (profiler); bound_ms counts the product's
-    padded frames, the flags (4 bytes a block) and the cropped output
-    once, two_pass_bound_ms the product and flags read in each pass."""
+def k8u_rows(dev, pw, sc, st, zeroed, h, w) -> dict:
+    """K8u's two instances, each forced by its plan, against their plain
+    twin run on the card (torch.equal) on the unaligned prepared extract's
+    product (models/blocked._recon of K5f's estimates of the batch of 32 at
+    1079x1917 color; the stego and the three-quadrants-zeroed stego, whose
+    flagged blocks they repaint), without normalize and with f32 output
+    too, beside the eager form they replaced (:func:`eager_unaligned_tail`,
+    byte-equal). Returns {"resident": its row, "two_pass": its row}. ms:
+    the instance on the stego; plain_ms: the twin; eager_ms: the eager
+    form; device_ms: its kernels' device time (profiler); ptxas: its u8
+    kernels' registers and spills; bound_ms counts the product's padded
+    frames, the flags (4 bytes a block) and the cropped output once,
+    two_pass_bound_ms the product and flags read in each pass."""
     import torch
     from dctsvd_tpu_torch.models import blocked
     from dctsvd_tpu_torch.ops import tail_cuda
     eb = pw.ebasis[..., :K, :, :]
     eb64 = eb.reshape(*eb.shape[:-2], 64)
-    checks = {}
+    sms, smem, coop = tail_cuda.device_limits(dev)
+    plans = {"resident": tail_cuda.shape_plan(BATCH, 3, h, w, True, sms,
+                                              smem if coop else 0),
+             "two_pass": tail_cuda.NormPlan("two_pass")}
+    require(plans["resident"].instance == "resident",
+            f"K8u at {h}x{w}: the plan {plans['resident']}")
+    counters = {c.instance: c for c in K8U_INSTANCES}
+    checks = {inst: {} for inst in plans}
     for case, stego in (("stego", st), ("three_quadrants_zeroed", zeroed)):
         x = blocked._tail_front(blocked._frames_spectrum(stego, SWEEPS), sc,
                                 pw.inv_blk, ALPHA, K, pw.sw)
         blocks = blocked._recon(x[..., :K], eb64)
+        eager = eager_unaligned_tail(blocks, x, h, w)
         for kw_name, kw in (("u8", {}), ("no_normalize",
                                          {"normalize": False}),
                             ("f32", {"out_u8": False})):
-            n0 = K8U.launches
-            y = tail_cuda.normalize_blocks(blocks, x, K, h, w,
-                                           to_frames=True, **kw)
-            torch.cuda.synchronize()
-            require(K8U.launches == n0 + 1, f"K8u {case} {kw_name}: not "
-                    "launched")
             py = tail_cuda.normalize_blocks_plain(blocks, x, K, h, w,
                                                   to_frames=True, **kw)
-            d = float((y.float() - py.float()).abs().max())
-            require(torch.equal(y, py), f"K8u {case} {kw_name} vs twin: "
-                    f"|d| max {d}")
-            row = dict(max_abs_err=d, equals_twin=True,
-                       flagged_share=float((x[..., K] > 0.5).float().mean()))
-            if not kw:
-                require(torch.equal(y, eager_unaligned_tail(blocks, x, h,
-                                                            w)),
-                        f"K8u {case}: differs from the eager form")
-                row["equals_eager"] = True
-            checks[f"{case}_{kw_name}"] = row
+            for inst, plan in plans.items():
+                counter = counters["crop_" + inst]
+                n0 = counter.launches
+                y = tail_cuda.normalize_blocks(blocks, x, K, h, w,
+                                               to_frames=True, plan=plan,
+                                               **kw)
+                torch.cuda.synchronize()
+                require(counter.launches == n0 + 1,
+                        f"K8u {inst} {case} {kw_name}: not launched")
+                d = float((y.float() - py.float()).abs().max())
+                require(torch.equal(y, py), f"K8u {inst} {case} {kw_name} "
+                        f"vs twin: |d| max {d}")
+                row = dict(max_abs_err=d, equals_twin=True,
+                           flagged_share=float((x[..., K] > 0.5).float()
+                                               .mean()))
+                if not kw:
+                    require(torch.equal(y, eager), f"K8u {inst} {case}: "
+                            "differs from the eager form")
+                    row["equals_eager"] = True
+                checks[inst][f"{case}_{kw_name}"] = row
         if case == "stego":
             args = (blocks, x)
-    require(0 < checks["three_quadrants_zeroed_u8"]["flagged_share"] < 1,
+    require(all(0 < c["three_quadrants_zeroed_u8"]["flagged_share"] < 1
+                for c in checks.values()),
             f"K8u: the zeroed quadrants flagged no block or all {checks}")
     blocks, x = args
-    y = tail_cuda.normalize_blocks(blocks, x, K, h, w, to_frames=True)
+    y = tail_cuda.normalize_blocks_plain(blocks, x, K, h, w, to_frames=True)
     recon_bytes = x[..., 0].numel() * 64 * 4
     flag_bytes = x[..., 0].numel() * 4
-    out = dict(
-        instance="two_pass_crop", layout="frames",
-        shape=list(x.shape[:-1]) + [64], out_shape=list(y.shape),
-        checks=checks, max_abs_err=max(c["max_abs_err"]
-                                       for c in checks.values()),
-        equals_twin=True,
-        ms=cuda_time(lambda: tail_cuda.normalize_blocks(
-            blocks, x, K, h, w, to_frames=True), 20),
-        plain_ms=cuda_time(lambda: tail_cuda.normalize_blocks_plain(
-            blocks, x, K, h, w, to_frames=True), 3),
-        eager_ms=cuda_time(lambda: eager_unaligned_tail(blocks, x, h, w),
-                           10),
-        device_ms=device_ms(lambda: tail_cuda.normalize_blocks(
-            blocks, x, K, h, w, to_frames=True), 10, "norm_"),
-        library_ms=None,
-        two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y),
-        **bound(y.numel(), 4, recon_bytes + flag_bytes + nbytes(y)))
-    out["two_pass_bound_ms"] = out["two_pass_bytes"] / PEAK_BYTES * 1e3
-    return out
+    plain_ms = cuda_time(lambda: tail_cuda.normalize_blocks_plain(
+        blocks, x, K, h, w, to_frames=True), 3)
+    eager_ms = cuda_time(lambda: eager_unaligned_tail(blocks, x, h, w), 10)
+    rows = {}
+    for inst, plan in plans.items():
+        def k8u(plan=plan):
+            return tail_cuda.normalize_blocks(blocks, x, K, h, w,
+                                              to_frames=True, plan=plan)
+        rows[inst] = dict(
+            instance=f"{inst}_crop", plan=str(plan), smem_bytes=plan.smem,
+            ptxas=k8_ptxas(inst, False, crop=True), layout="frames",
+            shape=list(x.shape[:-1]) + [64], out_shape=list(y.shape),
+            checks=checks[inst], max_abs_err=max(
+                c["max_abs_err"] for c in checks[inst].values()),
+            equals_twin=True, ms=cuda_time(k8u, 20), plain_ms=plain_ms,
+            eager_ms=eager_ms, device_ms=device_ms(k8u, 10, "norm_"),
+            library_ms=None,
+            two_pass_bytes=2 * (recon_bytes + flag_bytes) + nbytes(y),
+            **bound(y.numel(), 4, recon_bytes + flag_bytes + nbytes(y)))
+        rows[inst]["two_pass_bound_ms"] = (rows[inst]["two_pass_bytes"]
+                                           / PEAK_BYTES * 1e3)
+    rows["resident"]["two_pass_ms"] = rows["two_pass"]["ms"]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -6387,6 +6427,8 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
                                                    **kw))
     out = {name: [cuda_time(fn, 10) for _ in range(2)]
            for name, fn in steps.items()}
+    if hasattr(tail_cuda, "normalize_blocks"):
+        out.update(k8u_times(covers, wm_u8))
     # the bench's batch of 128: the 32 frames four times
     st128, sc128 = st.repeat(4, 1, 1, 1), sc.repeat(4, 1, 1, 1)
     # the front and the presence statistic at 128 frames, eager beside
@@ -6427,6 +6469,82 @@ def tail_times(covers, wm_u8, blk, intra) -> dict:
     if hasattr(tail_cuda, "normalize_blocks"):
         out.update(k8_at_128(st128, sc128, stg.repeat(4, 1, 1, 1),
                              scg.repeat(4, 1, 1), pwc, pwg, k))
+    return out
+
+
+def k8u_times(covers, wm_u8) -> dict:
+    """K8u (K8 with a crop) alone on the product of the 32 frames cut to
+    1079x1917 (color frames and gray planes) and to 480x854 (color), each
+    held to its twin first, then two readings of 10 CUDA-event calls and
+    its kernels' device time (``*_device``, profiler, 10 calls): the plan
+    the tree picks (``k8u_*``: the resident instance where the tree's crop
+    takes it, else the two-pass one), at 1079x1917 the two-pass instance
+    forced (``k8u_*_two_pass``) and the resident one forced where the tree
+    has shape_plan (``k8u_*_resident``, and without normalize, no fold or
+    grid barrier: ``k8u_*_resident_no_normalize``, beside K8's
+    ``k8_*_resident_no_normalize``); and the 32-frame prepared extract
+    at 1079x1917 (``extract_color_1079x1917``: K1, K18, K5f, the product,
+    K8u)."""
+    import torch
+    from dctsvd_tpu_torch.models import blocked
+    from dctsvd_tpu_torch.ops import color, tail_cuda
+    from dctsvd_tpu_torch.utils import crypto
+    out = {}
+    k = blocked.k_of_block(0.6)
+    for (h, w), layouts in (((1079, 1917), ("color", "gray")),
+                            ((480, 854), ("color",))):
+        blk, intra = (torch.as_tensor(a, device=covers.device) for a in
+                      crypto.block_permutation_indices(
+                          crypto.derive_key(PASSWORD, bytes(8)),
+                          blocked.n_blocks_of(h, w)))
+        cut = covers[:, :h, :w].contiguous()
+        wm = wm_u8[:h, :w].contiguous()
+        for lay in layouts:
+            gray = lay == "gray"
+            if gray:
+                pw = blocked.prepare_wm_gray(color.bgr_to_gray(wm), blk,
+                                             intra)
+                st, sc = blocked.embed_gray_prepared(
+                    cut, pw.sw, ALPHA, with_metrics=False)[:2]
+                s_cw = blocked._plane_spectrum(color.luma_f32(st), SWEEPS)
+            else:
+                pw = blocked.prepare_wm_color(wm, blk, intra)
+                st, sc = blocked.embed_color_prepared(
+                    cut, pw.sw, ALPHA, with_metrics=False)[:2]
+                s_cw = blocked._frames_spectrum(st, SWEEPS)
+            x = blocked._tail_front(s_cw, sc, pw.inv_blk, ALPHA, k, pw.sw)
+            eb = pw.ebasis[..., :k, :, :]
+            blocks = blocked._recon(x[..., :k], eb.reshape(*eb.shape[:-2],
+                                                           64))
+            name = f"k8u_{lay}" + ("" if h == 1079 else f"_{h}x{w}")
+            plans = {"": {}}
+            if h == 1079:
+                plans["_two_pass"] = {"plan": tail_cuda.NormPlan("two_pass")}
+                if hasattr(tail_cuda, "shape_plan"):
+                    sms, smem, _ = tail_cuda.device_limits(covers.device)
+                    res = tail_cuda.shape_plan(x.shape[0], 1 if gray else 3,
+                                               h, w, True, sms, smem)
+                    plans["_resident"] = {"plan": res}
+                    plans["_resident_no_normalize"] = {"plan": res,
+                                                       "normalize": False}
+            for suffix, kw in plans.items():
+                def call(kw=kw):
+                    return tail_cuda.normalize_blocks(
+                        blocks, x, k, h, w, to_frames=not gray, **kw)
+                ref = tail_cuda.normalize_blocks_plain(
+                    blocks, x, k, h, w, to_frames=not gray,
+                    normalize=kw.get("normalize", True))
+                require(torch.equal(call(), ref),
+                        f"{name}{suffix} vs twin")
+                out[name + suffix] = [cuda_time(call, 10) for _ in range(2)]
+                out[name + suffix + "_device"] = device_ms(call, 10, "norm_")
+            if lay == "color" and h == 1079:
+                def extract():
+                    return blocked.extract_color_prepared(
+                        st, sc, pw.ebasis, pw.inv_blk, ALPHA, sw=pw.sw)
+                out["extract_color_1079x1917"] = [cuda_time(extract, 10)
+                                                  for _ in range(2)]
+            del x, blocks, ref
     return out
 
 
@@ -7212,18 +7330,24 @@ def main(argv) -> int:
     launches.update(tail)
     # the request extract (extract_array) and the unaligned prepared
     # extract: K1, K18, K5f, K8 and K8u
-    request, results["normalize_blocks_crop"] = phase_request_extract(
-        dev, covers, wm_u8)
+    request, k8u_rows_ = phase_request_extract(dev, covers, wm_u8)
+    results["normalize_blocks_crop"] = k8u_rows_["resident"]
+    results["normalize_blocks_crop_two_pass"] = k8u_rows_["two_pass"]
     k18_paths["request_extract"] = request["color"]["presence"]
     k18_gray["request_extract"] = request["gray"]["presence"]
     front_paths["request_extract"] = sum(r["tail_front"]
                                          for r in request.values())
-    for by_path, key in ((k8_all, "normalize_blocks"),
-                         (k8_paths, "normalize_blocks_resident"),
-                         (k8_two, "normalize_blocks_two_pass")):
-        by_path["request_extract"] = sum(r[key] for r in request.values())
-    k8u_paths = {"request_extract": sum(r["normalize_blocks_crop"]
-                                        for r in request.values())}
+
+    def summed(key):
+        return sum(r.get(key, 0) for r in request.values())
+    # K8u's launches by instance; K8's rows keep the aligned calls'
+    k8u_res = summed("normalize_blocks_crop_resident")
+    k8u_two = summed("normalize_blocks_crop_two_pass")
+    k8_all["request_extract"] = summed("normalize_blocks") - k8u_res - k8u_two
+    k8_paths["request_extract"] = summed("normalize_blocks_resident") - k8u_res
+    k8_two["request_extract"] = summed("normalize_blocks_two_pass") - k8u_two
+    k8u_paths = {"request_extract": k8u_res}
+    k8u_two_paths = {"request_extract": k8u_two}
     detect_results, k9_paths["detect_1080p"], k9_color = phase_detect(
         dev, covers, wm_u8, blk, intra)
     results.update(detect_results)
@@ -7309,6 +7433,9 @@ def main(argv) -> int:
             "dctsvd_tpu/models/blocked.py:869"),
         "normalize_blocks_crop": ("dctsvd_tpu_torch/csrc/extract_tail.cu",
                                   "dctsvd_tpu/models/blocked.py:818"),
+        "normalize_blocks_crop_two_pass": (
+            "dctsvd_tpu_torch/csrc/extract_tail.cu",
+            "dctsvd_tpu/models/blocked.py:818"),
         "presence": ("dctsvd_tpu_torch/csrc/presence.cu",
                      "dctsvd_tpu/models/blocked.py:767"),
         "presence_gray": ("dctsvd_tpu_torch/csrc/presence.cu",
@@ -7395,9 +7522,13 @@ def main(argv) -> int:
                      + plane_launches["presence"],
                      bench=bench_launches["presence"])
     paths["presence"], paths["presence_gray"] = k18_paths, k18_gray
-    # K8u: the unaligned request extracts and prepared extract
+    # K8u by instance: the resident one on the 1079x1917 request extracts
+    # and prepared extract, the two-pass one on the 480x854 request
+    # extracts
     paths["normalize_blocks_crop"] = k8u_paths
-    for name in ("presence", "presence_gray", "normalize_blocks_crop"):
+    paths["normalize_blocks_crop_two_pass"] = k8u_two_paths
+    for name in ("presence", "presence_gray", "normalize_blocks_crop",
+                 "normalize_blocks_crop_two_pass"):
         idle = [p for p, n in paths[name].items() if n == 0]
         require(not idle, f"{name} was not launched on the paths {idle}")
         launches[name] = sum(paths[name].values())

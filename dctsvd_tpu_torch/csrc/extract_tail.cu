@@ -182,27 +182,48 @@
 // from there), pass 2 as evict-first; the flags come as one 4-byte load a
 // lane and frame; a tiny kernel turns the window into (lo, scale, fill).
 //
-// K8u, the two-pass instance with a crop (norm_window_kernel and
-// norm_paint_kernel with kCrop). Replaces the XLA fusion of dctsvd_tpu/
-// models/blocked.py::_masked_normalize (:818) with the clip and cast
-// (:1053-1054) and the unblockify and crop before it (:1050-1051), reached
-// through _extract_tail_prepared at sizes that are not multiples of 8, and
-// through _extract_planes (:622; the request extract: api.extract, the
-// CLI, the GUI, payloads) at every size; no pl.pallas_call. Plain twin:
-// the same normalize_blocks_plain, given the crop. The blocks cover the
-// padded ceil(h / 8) x ceil(w / 8) grid, the output is h x w: in the
-// window pass a lane's pixels at row >= h or column >= w leave the window
-// (its row's first min(8, w - 8 bx) pixels, none below the crop), and the
-// paint pass stores only the pixels inside the crop, one element at a
-// time at the output's row pitch w (a row of an unaligned crop starts on
-// no 8-byte boundary). Min and max are exact in any order, so the window
-// over the pixels inside the crop is the cropped plane's, and the bytes
-// are the twin's. What bounds it: as the two-pass instance, the
-// reconstruction read in each pass and the output written once (at 32
-// color 1079 x 1917 frames 0.542 ms at 3.35 TB/s; it takes 1.06 ms on an
-// H100 at 700 W, chip_smoke.py's normalize_blocks_crop row); its stores,
-// an element a lane, are not merged into whole words. The resident
-// instance takes no crop (the wrapper sends every cropped call here).
+// K8u, K8 with a crop (either instance's kernels with kCrop). Replaces the
+// XLA fusion of dctsvd_tpu/models/blocked.py::_masked_normalize (:818)
+// with the clip and cast (:1053-1054) and the unblockify and crop before
+// it (:1050-1051), reached through _extract_tail_prepared at sizes that
+// are not multiples of 8, and through _extract_planes (:622; the request
+// extract: api.extract, the CLI, the GUI, payloads) at every size; no
+// pl.pallas_call. Plain twin: the same normalize_blocks_plain, given the
+// crop. The blocks cover the padded ceil(h / 8) x ceil(w / 8) grid, the
+// output is h x w: a pixel at row >= h or column >= w enters no window
+// (row_window_crop: a row's first min(8, w - 8 bx) pixels, none below the
+// crop) and is not stored. Min and max are exact in any order, so the
+// window over the pixels inside the crop is the cropped plane's, and the
+// bytes are the twin's.
+//   Which instance: tail_cuda.shape_plan gives a crop the plan of its
+// padded grid, so the resident instance wherever a frame's share fits as
+// at 1080p (1079 x 1917 color and gray, 1366 x 768 color), the two-pass
+// one elsewhere (854 x 480 and 1366 x 768 gray, whose shares fit four
+// times; 4K; calls without normalize). What bounds each: as without the
+// crop, bytes (the product read once, or once a pass).
+//   What the crop adds is its stores: a row of an unaligned crop starts
+// on no word boundary of the output, and the instances' whole-word stores
+// (store_row, store_pixel_row3) need one. So each warp stages the pixel
+// rows its lanes paint and stores each contiguous run of them as 16-byte
+// words, 4-byte words to and from the first and last 16-byte boundaries,
+// and a byte at a time only the partial word at either end, the only
+// bytes of a word another warp or CTA writes too (store_run). In the
+// resident paint a warp takes its 32 items together: their runs (768
+// bytes for color u8 frames, 256 a plane) break only where the items
+// cross a pixel row of the chunk or a block row, so each lane works out
+// its run from its item's indices, with no warp vote (the division by
+// the block row a multiply-high, FastDiv), and the stage is written in
+// whole words. In the two-pass paint a warp's row of 10 or 32 blocks is
+// one run, which all 32 lanes store. f32 rows fill whole 4-byte words,
+// so each lane stores its own as 4- and 16-byte words (store_unit), with
+// no stage. The resident ring gives the warps' stages 4,096 bytes a plane
+// (res_smem), which leaves 1080p's ring and chunk as they were. The
+// resident crop's paint takes longer than the aligned paint (the most on
+// gray planes), with this stage or with a realignment by shuffles and no
+// stage alike; what holds it is not told apart (PERF.md §7). In the
+// two-pass paint, which holds 8 frames' rows in registers at two CTAs an
+// SM, the realignment costs more than the element-a-lane stores it
+// replaced, whose bytes the L2 merges (PERF.md §6, K8u rows).
 //
 // chip_smoke.py prints each instance's registers (`nvcc -Xptxas -v`) and
 // the resident plan's shared memory; --tail-times times both instances
@@ -888,46 +909,177 @@ __global__ void __launch_bounds__(kTailThreads)
   }
 }
 
-// K8u's store: the lane's pixels of its row inside the h x w crop, one
-// element at a time, into a frame of the output (planes [chans, h, w], or
-// channels-last [h, w, kC] with kC > 1).
-template <int kC, typename Out>
-__device__ __forceinline__ void store_row_crop(Out* frame,
-                                               const float (&v)[kB],
-                                               const TailLane<kC>& t, int h,
-                                               int w, int cols) {
-  if (!t.active || cols == 0) return;
-  const int y = t.by * kB + t.r;
-  const int base = kC == 1 ? (t.c * h + y) * w + t.bx * kB
-                           : (y * w + t.bx * kB) * kC + t.ci;
+// ---------------------------------------------------------------------------
+// K8u's stores, both instances': a row of a crop starts on no word boundary
+// of the output, so each is realigned to the output's words.
+// ---------------------------------------------------------------------------
+
+// Bytes q .. q + 3 of a stage (aligned words st), shifted out of two words.
+__device__ __forceinline__ uint32_t stage_word(const uint32_t* st,
+                                               uint32_t q) {
+  const uint32_t sh = 8 * (q & 3u), i = q >> 2;
+  return __funnelshift_r(st[i], sh ? st[i + 1] : 0u, sh);
+}
+
+// Bytes q .. q + 15 of a stage, out of five words (four where aligned).
+__device__ __forceinline__ uint4 stage_word16(const uint32_t* st,
+                                              uint32_t q) {
+  const uint32_t sh = 8 * (q & 3u), i = q >> 2;
+  const uint32_t w0 = st[i], w1 = st[i + 1], w2 = st[i + 2], w3 = st[i + 3];
+  const uint32_t w4 = sh ? st[i + 4] : 0u;
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+// One run of u8 output bytes [x0, x5) from a stage (output byte x is
+// stage byte x + from; x counts from base, which is 16-byte aligned),
+// stored by lanes k = 0 .. m - 1 (this one is k): 16-byte words, then
+// 4-byte words to and from the first and last 16-byte boundaries, then,
+// a byte at a time, the partial word at either end, the only bytes of a
+// word that another warp or CTA writes too. No warp collective.
+__device__ __forceinline__ void store_run(uint8_t* base, const uint8_t* st,
+                                          uint32_t x0, uint32_t x5,
+                                          uint32_t from, int k, int m) {
+  const uint32_t x1 = min((x0 + 3u) & ~3u, x5), e4 = x5 & ~3u;
+  const uint32_t x2 = max(x1, min((x0 + 15u) & ~15u, e4));
+  const uint32_t x3 = max(x2, x5 & ~15u), x4 = max(x3, e4);
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(st);
+  for (uint32_t x = x2 + 16u * k; x < x3; x += 16u * m)
+    __stcs(reinterpret_cast<uint4*>(base + x), stage_word16(s32, x + from));
+  const int n4 = (x2 - x1) >> 2, words = n4 + ((x4 - x3) >> 2);
+  for (int q = k; q < words; q += m) {
+    const uint32_t x = q < n4 ? x1 + 4 * q : x3 + 4 * (q - n4);
+    __stcs(reinterpret_cast<unsigned*>(base + x), stage_word(s32, x + from));
+  }
+  if (k == m - 1)
+    for (uint32_t x = x0; x < x1; ++x) base[x] = st[x + from];
+  if (k == 0)
+    for (uint32_t x = x4; x < x5; ++x) base[x] = st[x + from];
+}
+
+// A run of u8 units to the output as whole aligned words: the run is
+// out[x0 .. x0 + len), its first unit staged at st + a kUnit and the rest
+// after it; this lane is its k-th of m.
+template <int kUnit>
+__device__ __forceinline__ void store_units(uint8_t* out, const uint8_t* st,
+                                            int x0, int len, int a, int k,
+                                            int m) {
+  const uint32_t mis = static_cast<uint32_t>(
+      reinterpret_cast<uintptr_t>(out + x0) & 15u);
+  store_run(out + x0 - mis, st, mis, mis + len, a * kUnit - mis, k, m);
+}
+
+// The f32 form, a lane at a time: its unit of kUnit floats u, the first n
+// at p, as 4-byte words up to p's first 16-byte boundary, then 16-byte and
+// 4-byte words; each word is the lane's own (f32 elements fill whole
+// words), so no stage. kHead: the floats before that boundary.
+template <int kUnit, int kHead>
+__device__ __forceinline__ void store_unit_from(float* p,
+                                                const float (&u)[kUnit]) {
+  constexpr int kVec = (kUnit - kHead) / 4;
 #pragma unroll
-  for (int i = 0; i < kB; ++i) {
-    if (i < cols) {
-      if constexpr (std::is_same<Out, uint8_t>::value)
-        frame[base + i * kC] = static_cast<uint8_t>(sat_u8(v[i]));
-      else
-        frame[base + i * kC] = v[i];
+  for (int e = 0; e < kHead; ++e) __stcs(p + e, u[e]);
+#pragma unroll
+  for (int q = 0; q < kVec; ++q) {
+    const int e = kHead + 4 * q;
+    __stcs(reinterpret_cast<float4*>(p + e),
+           make_float4(u[e], u[e + 1], u[e + 2], u[e + 3]));
+  }
+#pragma unroll
+  for (int e = kHead + 4 * kVec; e < kUnit; ++e) __stcs(p + e, u[e]);
+}
+
+template <int kUnit>
+__device__ __forceinline__ void store_unit(float* p, const float (&u)[kUnit],
+                                           int n) {
+  if (n == kUnit) {
+    switch ((reinterpret_cast<uintptr_t>(p) >> 2) & 3) {
+      case 0: return store_unit_from<kUnit, 0>(p, u);
+      case 1: return store_unit_from<kUnit, 3>(p, u);
+      case 2: return store_unit_from<kUnit, 2>(p, u);
+      default: return store_unit_from<kUnit, 1>(p, u);
     }
   }
+#pragma unroll
+  for (int e = 0; e < kUnit; ++e)
+    if (e < n) __stcs(p + e, u[e]);
+}
+
+// K8u's two-pass store: the warp's blocks of its pixel row staged (block
+// g kG + l at st + l kC 8, kC channels interleaved), then stored as one
+// run (u8: all 32 lanes, store_run) of `len` elements at frame + x0
+// (len 0: the row is below the crop), or (f32) each lane its unit's
+// words: (uo, un), its offset in a frame and its elements inside the crop.
+template <int kC, typename Out>
+__device__ __forceinline__ void store_row_crop(Out* frame,
+                                               const float (&v)[kB], Out* st,
+                                               const TailLane<kC>& t, int x0,
+                                               int len, int uo, int un) {
+  constexpr int kUnit = kC * kB;
+  if (t.active) {
+    if constexpr (std::is_same<Out, uint8_t>::value && kC == 1) {
+      *reinterpret_cast<uint2*>(st + t.lane * kB) = make_uint2(
+          pack4(sat_u8(v[0]), sat_u8(v[1]), sat_u8(v[2]), sat_u8(v[3])),
+          pack4(sat_u8(v[4]), sat_u8(v[5]), sat_u8(v[6]), sat_u8(v[7])));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kB; ++i) {
+        if constexpr (std::is_same<Out, uint8_t>::value)
+          st[t.bxl * kUnit + i * kC + t.ci] =
+              static_cast<uint8_t>(sat_u8(v[i]));
+        else
+          st[t.bxl * kUnit + i * kC + t.ci] = v[i];
+      }
+    }
+  }
+  __syncwarp();
+  if constexpr (std::is_same<Out, uint8_t>::value) {
+    if (len) {
+      const uint32_t mis = static_cast<uint32_t>(
+          reinterpret_cast<uintptr_t>(frame + x0) & 15u);
+      store_run(frame + x0 - mis, st, mis, mis + len, -mis, t.lane, 32);
+    }
+  } else if (un) {
+    float u[kUnit];
+#pragma unroll
+    for (int e = 0; e < kUnit; ++e) u[e] = st[t.lane * kUnit + e];
+    store_unit<kUnit>(frame + uo, u, un);
+  }
+  __syncwarp();
 }
 
 // K8's pass 2: K5's with each row loaded from the reconstruction. kCrop
 // (K8u): only the pixels inside the h x w crop are stored, into frames of
-// h x w pixels.
+// h x w pixels, each warp's row realigned to the output's words.
 template <int kC, typename Out, bool kCrop>
 __global__ void __launch_bounds__(kTailThreads)
     norm_paint_kernel(RecSrc s, const float4* __restrict__ prm,
                       Out* __restrict__ out, int frames, int chans, int hb,
                       int wb, int groups, int splits, int fper, int h,
                       int w) {
-  __shared__ __align__(16) Out stage[kTailWarps][stage_elems<kC>()];
+  __shared__ __align__(16) Out stage[kTailWarps][
+      kCrop ? TailLane<kC>::kG * kC * kB : stage_elems<kC>()];
   const TailLane<kC> t(hb, wb, groups, splits, fper, frames);
   const int n_blk = hb * wb;
   const RecRows src(s, t, chans, n_blk);
   const int64_t frame_out =
       kCrop ? static_cast<int64_t>(h) * w * chans
             : static_cast<int64_t>(n_blk) * kB * kB * chans;
-  const int cols = kCrop && t.active ? crop_cols(t, h, w) : kB;
+  // crop: the warp's run (its pixel row's blocks g kG ..: their offset in
+  // a frame and elements inside the crop), and lane l's unit in it (block
+  // g kG + l)
+  int x0 = 0, len = 0, uo = 0, un = 0;
+  if constexpr (kCrop) {
+    const int y = t.by * kB + t.r, bx0 = t.g * TailLane<kC>::kG;
+    if (y < h) {
+      x0 = kC == 1 ? (t.c * h + y) * w + bx0 * kB : (y * w + bx0 * kB) * kC;
+      len = min(TailLane<kC>::kG * kB, w - bx0 * kB) * kC;
+      un = t.lane < TailLane<kC>::kG
+               ? max(0, min(len - t.lane * kC * kB, kC * kB))
+               : 0;
+      uo = x0 + t.lane * kC * kB;
+    }
+  }
   Out* o = out + t.fbeg * frame_out + (kCrop ? 0 : out_seg(t, n_blk, wb));
   const float4* pp = prm ? prm + static_cast<int64_t>(t.fbeg) * chans + t.c
                          : nullptr;
@@ -949,7 +1101,7 @@ __global__ void __launch_bounds__(kTailThreads)
           v[i] = __fmul_rn(__fsub_rn(bad[fi] ? pr.z : y[fi][i], pr.x), pr.y);
       }
       if constexpr (kCrop)
-        store_row_crop<kC>(o, v, t, h, w, cols);
+        store_row_crop<kC>(o, v, stage[t.r], t, x0, len, uo, un);
       else
         store_row<kC>(o, v, stage[t.r], t, live);
       o += frame_out;
@@ -979,13 +1131,19 @@ __host__ __device__ constexpr int64_t res_slot_bytes(int chans, int chunk) {
   return int64_t{4} * chans * chunk * (kResRow + 1);
 }
 
+// Bytes of a warp's stage for K8u's u8 rows: a pixel row of 32 blocks of
+// each of a frame's planes.
+constexpr int kResStage = 32 * kB;
+
 // The instance's dynamic shared memory: a frame's planes' (lo, scale,
-// fill) and their warps' windows, then the ring (tail_cuda.resident_smem
-// computes the same).
+// fill) and their warps' windows, then the ring, then the warps' stages
+// (which only a crop's paint uses; tail_cuda.resident_smem computes the
+// same).
 __host__ __device__ constexpr int64_t res_smem(int chans, int chunk,
                                                int slots) {
   return int64_t{16} * chans * (kResWarps + 1) +
-         slots * res_slot_bytes(chans, chunk);
+         slots * res_slot_bytes(chans, chunk) +
+         int64_t{kResWarps} * kResStage * chans;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -1012,6 +1170,21 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
                : "memory");
 }
 
+// n / d for 0 <= n < 2^31 by a multiply-high with m = ceil(2^32 / d) and
+// one correction: the quotient it gives is exact or one too large (n m
+// overshoots n 2^32 / d by less than n < 2^32). K8u's items divide by the
+// block row and the chunk this way, not by a division each.
+struct FastDiv {
+  uint32_t d, m;
+  __device__ explicit FastDiv(int d_)
+      : d(d_), m(d_ > 1 ? 0xffffffffu / d_ + 1 : 0u) {}
+  __device__ __forceinline__ int operator()(int n) const {
+    if (d == 1) return n;
+    const uint32_t q = __umulhi(static_cast<uint32_t>(n), m);
+    return static_cast<int>(q - (q * d > static_cast<uint32_t>(n)));
+  }
+};
+
 __device__ __forceinline__ float4 window_merge(float4 v, float4 u) {
   return make_float4(min_nan(v.x, u.x), max_nan(v.y, u.y), min_nan(v.z, u.z),
                      max_nan(v.w, u.w));
@@ -1023,6 +1196,7 @@ struct ResArgs {
   uint32_t* slots;     // the window slots (with normalize)
   unsigned* bar;       // frame f's grid barrier: bar[f] (with normalize)
   int frames, n_blk, wb, ring, chunk, normalize;
+  int h, w;            // the output's pixels (kCrop: a crop of the blocks)
 };
 
 // Paints the 8 pixels at y with a plane's (lo, scale, fill): the twin's
@@ -1099,8 +1273,10 @@ __device__ __forceinline__ void store_pixel_row3(Out* o,
 // latency hides behind a fold; where it holds one (a color 1080p frame),
 // frame f + 1 is prefetched into L2 (TMA bulk prefetches) once frame f
 // has landed, so device memory streams through the fold, the barrier and
-// the paint.
-template <int kC, bool kFrames3, typename Out>
+// the paint. kCrop (K8u): the blocks pad an h x w crop; a pixel outside
+// it enters no window and is not stored, and each pixel row a warp paints
+// is realigned to the output's words (store_units, store_unit).
+template <int kC, bool kFrames3, typename Out, bool kCrop>
 __global__ void __launch_bounds__(kResThreads, 1)
     norm_resident_kernel(ResArgs a) {
   extern __shared__ __align__(16) unsigned char res_smem_[];
@@ -1122,6 +1298,7 @@ __global__ void __launch_bounds__(kResThreads, 1)
   const float inf = __int_as_float(0x7f800000);
   const int w = a.wb * kB;
   const int64_t plane_px = int64_t{a.n_blk} * kB * kB;
+  const FastDiv wb_div(a.wb);              // (kCrop) a block's row
 
   // chunk s: its slot's rows and flags (plane c, block i of the chunk),
   // its blocks
@@ -1194,13 +1371,37 @@ __global__ void __launch_bounds__(kResThreads, 1)
       if (j == J - 1 && S < 2 * J) prefetch(f + 1);
       if (c >= kC) continue;
       float4 v = make_float4(inf, -inf, inf, -inf);
-      for (int it = (warp % wpp) * 32 + lane; it < nb * kB; it += wpp * 32) {
-        const int rr = it / nb, i = it - rr * nb;
-        const float4* y4 =
-            reinterpret_cast<const float4*>(row(s, c, i) + rr * kB);
-        const float4 p0 = y4[0], p1 = y4[1];
-        const float y[kB] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-        v = window_merge(v, row_window(y, flagged && *flag(s, c, i) > 0.5f));
+      if constexpr (kCrop) {
+        const FastDiv per_row(nb);
+        for (int it = (warp % wpp) * 32 + lane; it < nb * kB;
+             it += wpp * 32) {
+          const int rr = per_row(it), i = it - rr * nb;
+          const int n = b0 + j * CB + i, by = wb_div(n), bx = n - by * a.wb;
+          const float4* y4 =
+              reinterpret_cast<const float4*>(row(s, c, i) + rr * kB);
+          const float4 p0 = y4[0], p1 = y4[1];
+          const float y[kB] = {p0.x, p0.y, p0.z, p0.w,
+                               p1.x, p1.y, p1.z, p1.w};
+          const bool bad = flagged && *flag(s, c, i) > 0.5f;
+          const int cols =
+              by * kB + rr < a.h ? min(kB, a.w - bx * kB) : 0;
+          // a row wholly inside the crop (all but the crop's edge) takes
+          // the aligned fold
+          v = window_merge(v, cols == kB ? row_window(y, bad)
+                                         : row_window_crop(y, bad, cols));
+        }
+      } else {
+        for (int it = (warp % wpp) * 32 + lane; it < nb * kB;
+             it += wpp * 32) {
+          const int rr = it / nb, i = it - rr * nb;
+          const float4* y4 =
+              reinterpret_cast<const float4*>(row(s, c, i) + rr * kB);
+          const float4 p0 = y4[0], p1 = y4[1];
+          const float y[kB] = {p0.x, p0.y, p0.z, p0.w,
+                               p1.x, p1.y, p1.z, p1.w};
+          v = window_merge(v,
+                           row_window(y, flagged && *flag(s, c, i) > 0.5f));
+        }
       }
 #pragma unroll
       for (int o = 16; o >= 1; o >>= 1)
@@ -1249,33 +1450,135 @@ __global__ void __launch_bounds__(kResThreads, 1)
     __syncthreads();
   };
 
-  auto paint = [&](int f) {
+  // K8u's paint of chunk s (frame f, its chunk j of nb blocks): the items
+  // as the aligned paint takes them, a warp's 32 at a time, so that the
+  // warp stores each pixel row's run whole (u8 through its stage)
+  auto paint_crop = [&](int f, int s, int j, int nb) {
+    constexpr int kU = kFrames3 ? 3 : 1;       // channels a unit interleaves
     Out* out = static_cast<Out*>(a.out);
-    for (int j = 0; j < J; ++j) {
-      const int s = f * J + j, nb = blocks_of(j);
-      if (!a.normalize) landed(s);
-      for (int it = tid; it < nb * kB; it += kResThreads) {
-        const int rr = it / nb, i = it - rr * nb;
-        const int n = b0 + j * CB + i, by = n / a.wb,
-                  bx = n - by * a.wb;
-        const int px = (by * kB + rr) * w + bx * kB;
-        float v[kC][kB];
+    const int64_t plane = int64_t{a.h} * a.w;
+    uint8_t* st = ring + S * slot_bytes + warp * (kC * kResStage);
+    const FastDiv per_row(nb);
+    for (int it0 = warp * 32; it0 < nb * kB; it0 += kResThreads) {
+      const int it = it0 + lane;
+      // the lane's unit, cnt elements at o in a frame, is the k-th of the
+      // m units of a run at x0 in a frame, len elements: lanes whose items
+      // are neighbouring blocks of one block row and pixel row (only a
+      // block row's last block is cut short), first unit lane - k's
+      int o = 0, cnt = 0, x0 = 0, len = 0, k = 0, m = 0;
+      float v[kC][kB];
+      if (it < nb * kB) {
+        const int rr = per_row(it), i = it - rr * nb;
+        const int n = b0 + j * CB + i, by = wb_div(n), bx = n - by * a.wb;
+        const int y = by * kB + rr;
+        if (y < a.h) {
+          cnt = min(kB, a.w - bx * kB) * kU;
+          o = (y * a.w + bx * kB) * kU;
+          k = min(lane, min(i, bx));
+          const int ahead = min(31 - lane, min(nb - 1 - i, a.wb - 1 - bx));
+          m = k + ahead + 1;
+          x0 = o - k * kB * kU;
+          len = (m - 1) * kB * kU + min(kB, a.w - (bx + ahead) * kB) * kU;
 #pragma unroll
-        for (int c = 0; c < kC; ++c)
-          paint_row(row(s, c, i) + rr * kB,
-                    flagged && *flag(s, c, i) > 0.5f,
-                    a.normalize ? prm[c]
-                                : make_float4(0.0f, 1.0f, 0.0f, 0.0f),
-                    v[c]);
+          for (int c = 0; c < kC; ++c)
+            paint_row(row(s, c, i) + rr * kB,
+                      flagged && *flag(s, c, i) > 0.5f,
+                      a.normalize ? prm[c]
+                                  : make_float4(0.0f, 1.0f, 0.0f, 0.0f),
+                      v[c]);
+        }
+      }
+      if constexpr (std::is_same<Out, uint8_t>::value) {
+        if (cnt) {                             // whole words into the stage
+          if constexpr (kFrames3) {
+            uint32_t wd[6];
+#pragma unroll
+            for (int q = 0; q < 6; ++q) {
+              uint32_t e[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                e[k] = sat_u8(v[(4 * q + k) % 3][(4 * q + k) / 3]);
+              wd[q] = pack4(e[0], e[1], e[2], e[3]);
+            }
+            uint2* q2 = reinterpret_cast<uint2*>(st + lane * 3 * kB);
+            q2[0] = make_uint2(wd[0], wd[1]);
+            q2[1] = make_uint2(wd[2], wd[3]);
+            q2[2] = make_uint2(wd[4], wd[5]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < kC; ++c)
+              *reinterpret_cast<uint2*>(st + c * kResStage + lane * kB) =
+                  make_uint2(pack4(sat_u8(v[c][0]), sat_u8(v[c][1]),
+                                   sat_u8(v[c][2]), sat_u8(v[c][3])),
+                             pack4(sat_u8(v[c][4]), sat_u8(v[c][5]),
+                                   sat_u8(v[c][6]), sat_u8(v[c][7])));
+          }
+        }
+        __syncwarp();
+        if (cnt) {
+          if constexpr (kFrames3) {
+            store_units<3 * kB>(out + f * plane * 3, st, x0, len, lane - k,
+                                k, m);
+          } else {
+#pragma unroll
+            for (int c = 0; c < kC; ++c)
+              store_units<kB>(out + (int64_t{f} * kC + c) * plane,
+                              st + c * kResStage, x0, len, lane - k, k, m);
+          }
+        }
+        __syncwarp();                          // the stage is free
+      } else if (cnt) {
         if constexpr (kFrames3) {
-          store_pixel_row3(out + (int64_t{f} * plane_px + px) * 3, v);
+          float u[3 * kB];
+#pragma unroll
+          for (int e = 0; e < 3 * kB; ++e) u[e] = v[e % 3][e / 3];
+          store_unit<3 * kB>(out + f * plane * 3 + o, u, cnt);
         } else {
 #pragma unroll
           for (int c = 0; c < kC; ++c)
-            store_plane_row(out + (int64_t{f} * kC + c) * plane_px + px,
-                            v[c]);
+            store_unit<kB>(out + (int64_t{f} * kC + c) * plane + o, v[c],
+                           cnt);
         }
       }
+    }
+  };
+
+  // the paint of chunk s (frame f, its chunk j of nb blocks): a thread an
+  // item at a time
+  auto paint_aligned = [&](int f, int s, int j, int nb) {
+    Out* out = static_cast<Out*>(a.out);
+    for (int it = tid; it < nb * kB; it += kResThreads) {
+      const int rr = it / nb, i = it - rr * nb;
+      const int n = b0 + j * CB + i, by = n / a.wb,
+                bx = n - by * a.wb;
+      const int px = (by * kB + rr) * w + bx * kB;
+      float v[kC][kB];
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        paint_row(row(s, c, i) + rr * kB,
+                  flagged && *flag(s, c, i) > 0.5f,
+                  a.normalize ? prm[c]
+                              : make_float4(0.0f, 1.0f, 0.0f, 0.0f),
+                  v[c]);
+      if constexpr (kFrames3) {
+        store_pixel_row3(out + (int64_t{f} * plane_px + px) * 3, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          store_plane_row(out + (int64_t{f} * kC + c) * plane_px + px,
+                          v[c]);
+      }
+    }
+  };
+
+  auto paint = [&](int f) {
+    for (int j = 0; j < J; ++j) {
+      const int s = f * J + j, nb = blocks_of(j);
+      if (!a.normalize) landed(s);
+      if constexpr (kCrop)
+        paint_crop(f, s, j, nb);
+      else
+        paint_aligned(f, s, j, nb);
       __syncthreads();               // slot s is free
       issue(s + S);
     }
@@ -1455,10 +1758,10 @@ int device_attr(cudaDeviceAttr attr) {
   return v;
 }
 
-template <int kC, bool kFrames3, typename Out>
+template <int kC, bool kFrames3, typename Out, bool kCrop>
 cudaError_t launch_resident_as(const ResArgs& ra, int ctas, int smem,
                                cudaStream_t st) {
-  auto kern = norm_resident_kernel<kC, kFrames3, Out>;
+  auto kern = norm_resident_kernel<kC, kFrames3, Out, kCrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1469,17 +1772,30 @@ cudaError_t launch_resident_as(const ResArgs& ra, int ctas, int smem,
                                      smem, st);
 }
 
-template <int kC, bool kFrames3>
+template <int kC, bool kFrames3, bool kCrop>
 cudaError_t launch_resident_out(const ResArgs& ra, bool out_u8, int ctas,
                                 int smem, cudaStream_t st) {
-  return out_u8 ? launch_resident_as<kC, kFrames3, uint8_t>(ra, ctas, smem,
-                                                            st)
-                : launch_resident_as<kC, kFrames3, float>(ra, ctas, smem, st);
+  return out_u8 ? launch_resident_as<kC, kFrames3, uint8_t, kCrop>(
+                      ra, ctas, smem, st)
+                : launch_resident_as<kC, kFrames3, float, kCrop>(ra, ctas,
+                                                                 smem, st);
 }
 
-// K8's resident instance: the init kernel (with normalize), then the
-// cooperative launch of `ctas` CTAs, a ring of `ring` slots of `chunk`
-// blocks. cudaErrorInvalidValue for a plan
+// The instance of a's layout (kc: channels on a frame's lanes).
+template <bool kCrop>
+cudaError_t launch_resident_of(const TailArgs& a, const ResArgs& ra, int kc,
+                               int ctas, int smem) {
+  return a.chans == 1 ? launch_resident_out<1, false, kCrop>(
+                            ra, a.out_u8, ctas, smem, a.st)
+         : kc == 3    ? launch_resident_out<3, true, kCrop>(
+                            ra, a.out_u8, ctas, smem, a.st)
+                      : launch_resident_out<3, false, kCrop>(
+                            ra, a.out_u8, ctas, smem, a.st);
+}
+
+// K8's resident instance (K8u's where a.crop): the init kernel (with
+// normalize), then the cooperative launch of `ctas` CTAs, a ring of `ring`
+// slots of `chunk` blocks. cudaErrorInvalidValue for a plan
 // outside the instance's bounds (planes a frame other than 1 or 3, a
 // chunk not a multiple of 4, fewer slots than a frame's chunks, shared
 // memory above the device's limit a CTA); the
@@ -1498,8 +1814,8 @@ cudaError_t launch_resident(const TailArgs& a, const RecSrc& s, int kc,
       smem > device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin) ||
       !device_attr(cudaDevAttrCooperativeLaunch))
     return cudaErrorInvalidValue;
-  ResArgs ra{s,    a.out, nullptr, nullptr, a.frames,
-             n_blk, a.wb, ring,    chunk,   a.normalize};
+  ResArgs ra{s,    a.out, nullptr, nullptr,     a.frames, n_blk,
+             a.wb, ring,  chunk,   a.normalize, a.h,      a.w};
   if (a.normalize) {
     // win: the frames' barriers where the two-pass instance keeps the
     // planes' params, then the planes' window slots
@@ -1513,12 +1829,8 @@ cudaError_t launch_resident(const TailArgs& a, const RecSrc& s, int kc,
   }
   const int bytes = static_cast<int>(smem);
   const cudaError_t err =
-      a.chans == 1 ? launch_resident_out<1, false>(ra, a.out_u8, ctas, bytes,
-                                                   a.st)
-      : kc == 3    ? launch_resident_out<3, true>(ra, a.out_u8, ctas, bytes,
-                                                  a.st)
-                   : launch_resident_out<3, false>(ra, a.out_u8, ctas, bytes,
-                                                   a.st);
+      a.crop ? launch_resident_of<true>(a, ra, kc, ctas, bytes)
+             : launch_resident_of<false>(a, ra, kc, ctas, bytes);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
 }
@@ -1658,7 +1970,7 @@ extern "C" int dctsvd_extract_tail(const void* x, int kx, const void* eb,
 // x[((f * chans + c) * N + n) * xrow + xflag] (flagged when > 0.5); out,
 // win and the rest as dctsvd_extract_tail's, but for h and w: the blocks
 // are ceil(h / 8) x ceil(w / 8), and where h or w is not a multiple of 8
-// the output is cropped to h x w (K8u: the two-pass instance, with ctas 0).
+// the output is cropped to h x w (K8u: either instance's kCrop kernels).
 // ctas 0: launches the two-pass
 // instance (the init, window and params kernels with normalize, then the
 // paint kernel); ctas > 0: the resident instance (the init kernel with
@@ -1682,8 +1994,7 @@ extern "C" int dctsvd_normalize_blocks(const void* rec, long long bstride,
       (x && (reinterpret_cast<uintptr_t>(x) % 4 || xflag < 0 ||
              xrow <= xflag)) ||
       tail_geometry(a, out, out_is_u8, win, frames, chans, kc, h, w,
-                    normalize, stream, true) != cudaSuccess ||
-      (a.crop && ctas > 0))
+                    normalize, stream, true) != cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0) return static_cast<int>(cudaSuccess);
   const RecSrc src{static_cast<const float*>(rec),

@@ -72,14 +72,24 @@ package's ``255.0 / x``: torch's ``255.0 / t`` is ``t.reciprocal() * 255``,
 which rounds twice, so the twin writes ``torch.div`` and the kernel
 ``__fdiv_rn``.
 
-K8u is K8's two-pass instance given a crop: where H or W is not a multiple
-of 8 (the tail's unaligned sizes, and the request extract,
-models/blocked.py::_extract_planes, at every size), the blocks cover the
-padded plane, the window takes only the pixels inside the H x W crop and
-the paint stores only those, into H x W frames. It replaces the XLA fusion
-of ``dctsvd_tpu/models/blocked.py::_masked_normalize`` (:818) with the
-clip, cast, unblockify and crop around it; its twin is K8's, given the
-crop, byte-equal to ``_masked_normalize`` then the clip and cast.
+K8u is K8 given a crop: where H or W is not a multiple of 8 (the tail's
+unaligned sizes, and the request extract, models/blocked.py::
+_extract_planes, at every size), the blocks cover the padded ceil(H/8) x
+ceil(W/8) grid, the window takes only the pixels inside the H x W crop
+and the paint stores only those, into H x W frames. It replaces the XLA
+fusion of ``dctsvd_tpu/models/blocked.py::_masked_normalize`` (:818) with
+the clip, cast, unblockify and crop around it; its twin is K8's, given the
+crop, byte-equal to ``_masked_normalize`` then the clip and cast. Either
+instance takes a crop, and :func:`shape_plan` picks one as for the padded
+grid: the resident one wherever a frame's share fits as at 1080p (1079 x
+1917 color or gray, 1366 x 768 color), the two-pass one elsewhere (854 x
+480, 1366 x 768 gray, 4K). Both are bound as without the crop (bytes: the
+product read once or twice). What the crop adds is its stores: a cropped
+row starts on no word boundary of the output, so each warp's row of
+blocks is realigned to the output's words, u8 through a stage in shared
+memory (the resident ring gives up 4 KB a plane for it), and stored as
+16-byte words, 4-byte words at the ends, and the bytes of a partial word
+at either end one at a time; f32 rows are each lane's own words.
 
 Each wrapper runs its twin only for CPU tensors; for CUDA tensors it
 launches its kernel or raises. Each counts its launches in ``.launches``.
@@ -105,7 +115,7 @@ __all__ = ["presence", "presence_plain", "presence_groups",
            "recon_normalize", "recon_normalize_plain", "block_window",
            "scale_255", "minmax_blocks", "normalize_blocks_recompute",
            "normalize_blocks", "normalize_blocks_plain", "NormPlan",
-           "norm_plan", "block_shares", "resident_slot_bytes",
+           "norm_plan", "shape_plan", "block_shares", "resident_slot_bytes",
            "resident_smem", "device_limits"]
 
 K_MAX = BLOCK            # K5f and K5 are compiled for k = 1..8
@@ -748,9 +758,11 @@ def resident_slot_bytes(chans: int, chunk: int) -> int:
 def resident_smem(chans: int, chunk: int, ring: int) -> int:
     """Bytes of shared memory a resident CTA takes (extract_tail.cu::
     res_smem): a frame's planes' params and warp windows, then ``ring``
-    slots."""
+    slots, then each warp's stage for a crop's u8 rows (a pixel row of 32
+    blocks a plane)."""
     return (16 * chans * (RES_THREADS // 32 + 1)
-            + ring * resident_slot_bytes(chans, chunk))
+            + ring * resident_slot_bytes(chans, chunk)
+            + RES_THREADS * BLOCK * chans)
 
 
 def norm_plan(frames: int, chans: int, n_blk: int, normalize: bool,
@@ -796,6 +808,15 @@ def norm_plan(frames: int, chans: int, n_blk: int, normalize: bool,
                     resident_smem(chans, chunk, ring))
 
 
+def shape_plan(frames: int, chans: int, h: int, w: int, normalize: bool,
+               sms: int, smem_limit: int) -> NormPlan:
+    """K8's instance for ``frames`` frames of ``chans`` h x w planes: the
+    :func:`norm_plan` of their ceil(h/8) x ceil(w/8) blocks, a crop's
+    padded grid as an aligned plane's."""
+    return norm_plan(frames, chans, -(-h // BLOCK) * -(-w // BLOCK),
+                     normalize, sms, smem_limit)
+
+
 _LIMITS: dict = {}
 
 
@@ -823,17 +844,13 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
     tensors. ``blocks`` [..., (C,) N, 64] f32, ``x`` [..., (C,) N, k or
     k + 1] f32 (column k, when there, the erasure flag); returns u8
     (``out_u8``) or f32 frames [..., H, W, C] (``to_frames``) or planes
-    [..., (C,) H, W]. ``plan`` forces an instance (default: norm_plan's
+    [..., (C,) H, W]. ``plan`` forces an instance (default: shape_plan's
     for the device); each launch counts in ``.launches`` and in
     ``INSTANCE_LAUNCHES``. Where h or w is not a multiple of 8 the blocks
-    cover the padded plane and the output is its h x w crop (K8u: the
-    two-pass instance, whose window leaves the pixels outside it; a
-    resident ``plan`` raises)."""
+    cover the padded plane and the output is its h x w crop (K8u: either
+    instance, whose window leaves the pixels outside it)."""
     flagged = _blocks_layout(blocks, x, k, h, w, to_frames)
     crop = bool(h % BLOCK or w % BLOCK)
-    if crop and plan is not None and plan.instance != "two_pass":
-        raise ValueError(f"a crop ({h}x{w}) takes K8's two-pass instance, "
-                         f"not {plan}")
     if wm_cuda._device_ok("normalize_blocks", blocks, x):
         return normalize_blocks_plain(blocks, x, k, h, w, normalize, out_u8,
                                       to_frames)
@@ -855,6 +872,11 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
     chans = 1
     for d in blocks.shape[nlead:-2]:
         chans *= d
+    if not to_frames and nlead == 0 and chans not in FRAME_CHANNELS:
+        # planes that all lie N blocks apart (one-block planes of several
+        # frames): each a frame of one plane, which the resident instance
+        # takes
+        frames, chans, fstride = chans, 1, blocks.shape[-2] * bstride
     shape = ((*lead, h, w, c) if to_frames
              else (*blocks.shape[:-2], h, w))
     out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
@@ -863,12 +885,10 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                        4 + 4 * WIN_STRIDE), dtype=torch.int32,
                       device=blocks.device)
     if frames and out.numel():
-        if plan is None and crop:
-            plan = NormPlan("two_pass")
-        elif plan is None:
+        if plan is None:
             sms, smem, coop = device_limits(blocks.device)
-            plan = norm_plan(frames, chans, (h // BLOCK) * (w // BLOCK),
-                             normalize, sms, smem if coop else 0)
+            plan = shape_plan(frames, chans, h, w, normalize, sms,
+                              smem if coop else 0)
         kernels.launch("dctsvd_normalize_blocks", blocks.device, blocks,
                        bstride, fstride, x if flagged else None, xrow, k,
                        out, int(out_u8), win, frames, chans, int(to_frames),
@@ -876,11 +896,14 @@ def normalize_blocks(blocks: torch.Tensor, x: torch.Tensor, k: int, h: int,
                        plan.chunk)
         normalize_blocks.launches += 1
         INSTANCE_LAUNCHES[plan.instance] += 1
-        INSTANCE_LAUNCHES["crop"] += crop
+        if crop:
+            INSTANCE_LAUNCHES["crop_" + plan.instance] += 1
     return out
 
 
 normalize_blocks.launches = 0
-#: K8's launches by instance (normalize_blocks counts both), and K8u's
-#: ("crop": the two-pass launches with a crop, counted in "two_pass" too)
-INSTANCE_LAUNCHES = {"resident": 0, "two_pass": 0, "crop": 0}
+#: K8's launches by instance (normalize_blocks counts both), and K8u's by
+#: instance ("crop_resident", "crop_two_pass": the launches with a crop,
+#: counted under their instance too)
+INSTANCE_LAUNCHES = {"resident": 0, "two_pass": 0, "crop_resident": 0,
+                     "crop_two_pass": 0}

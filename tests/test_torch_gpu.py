@@ -12,12 +12,13 @@ tail's normaliser) against its twin run on the card in every layout, on
 1 to 128 1080p frames and through the default extract, K18 (the
 presence statistic) against its twin run on the card at 1080p on 1 to
 128 frames, at tiny, unaligned and 4K block grids, with its decision the
-eager statistic's, K8u (K8 with a crop) against its twin at six
-unaligned sizes in every layout, the request extract (extract_color /
-extract_gray) byte-equal with every twin forced and alone or in a
-batch, K6 and K7 (the
-gray scheme's color conversions) against their twins run on the card on
-every BGR triple, at 1080p, 8K, on the scalar path and over 2^31 bytes,
+eager statistic's, K8u (K8 with a crop) in each instance against its
+twin at six unaligned sizes in every layout, on 1 and 128 frames at
+1079x1917, and refusing a resident plan beyond the card, the request
+extract (extract_color / extract_gray) byte-equal with every twin forced
+and alone or in a batch, K6 and K7 (the gray scheme's color
+conversions) against their twins run on the card on every BGR triple,
+at 1080p, 8K, on the scalar path and over 2^31 bytes,
 with the gray paths' bytes the same with either, K12 and K13 (detect
 resync's roll stack and counter-rotation, one angle and a scan's 20 in one
 launch) against their twins run on the card from 1×1 to 2160×3840 frames,
@@ -1606,14 +1607,19 @@ def _k8_plan(dev, instance, frames, chans, n_blk):
     return tail_cuda.NormPlan("resident", ctas, ring, chunk, need)
 
 
-def _k8_counted(instance, fn):
-    """fn()'s result, holding that it launched K8 once, as ``instance``."""
+def _k8_counted(instance, fn, crop=False):
+    """fn()'s result, holding that it launched K8 once, as ``instance``,
+    and (``crop``) as K8u's instance of that name (else not as K8u)."""
     n0 = tail_cuda.normalize_blocks.launches
-    i0 = tail_cuda.INSTANCE_LAUNCHES[instance]
+    before = dict(tail_cuda.INSTANCE_LAUNCHES)
     got = fn()
     torch.cuda.synchronize()
     assert tail_cuda.normalize_blocks.launches == n0 + 1
-    assert tail_cuda.INSTANCE_LAUNCHES[instance] == i0 + 1
+    want = dict(before)
+    want[instance] += 1
+    if crop:
+        want["crop_" + instance] += 1
+    assert tail_cuda.INSTANCE_LAUNCHES == want
     return got
 
 
@@ -1978,6 +1984,24 @@ K8U_SIZES = [(65, 83), (129, 243), (1083, 1917), (1080, 1917), (1079, 1920),
              (3, 5)]
 
 
+def _k8u_inputs(dev, h, w, layout, flags, frames, seed):
+    """K8u's inputs at h x w: seeded estimates whose column 4 flags a
+    share of the blocks (none: no flag column), a basis, and the product
+    as models/blocked._recon makes it on the card (a strided view)."""
+    n = (-(-h // 8)) * (-(-w // 8))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cd = (3,) if layout != "planes" else ()
+    x = torch.randn((frames, *cd, n, 5), generator=gen, device=dev)
+    share = {"none": 0.0, "some": 0.2, "all": 1.0}[flags]
+    x[..., 4] = (torch.rand(x.shape[:-1], generator=gen, device=dev)
+                 < share).float()
+    eb64 = torch.randn((*cd, n, 4, 64), generator=gen, device=dev)
+    if flags == "none":
+        x = x[..., :4].contiguous()
+    return tb._recon(x[..., :4], eb64), x, n
+
+
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
 @pytest.mark.parametrize("out_u8", [True, False], ids=["u8", "f32"])
 @pytest.mark.parametrize("normalize", [True, False],
                          ids=["normalize", "raw"])
@@ -1985,37 +2009,79 @@ K8U_SIZES = [(65, 83), (129, 243), (1083, 1917), (1080, 1917), (1079, 1920),
 @pytest.mark.parametrize("layout", ["frames", "planes", "color_planes"])
 @pytest.mark.parametrize("hw", K8U_SIZES,
                          ids=[f"{h}x{w}" for h, w in K8U_SIZES])
-def test_k8u_matches_twin(dev, hw, layout, flags, normalize, out_u8):
-    """K8u (K8's two-pass instance with a crop) equals its twin run on the
-    card (torch.equal) at unaligned sizes, off the 8-pixel grid in either
-    dimension or both, in every layout, on the product's strided view."""
+def test_k8u_matches_twin(dev, hw, layout, flags, normalize, out_u8,
+                          instance):
+    """K8u (K8 with a crop) equals its twin run on the card (torch.equal)
+    at unaligned sizes, off the 8-pixel grid in either dimension or both,
+    in every layout, on the product's strided view; each instance, its
+    plan forced."""
     h, w = hw
-    n = (-(-h // 8)) * (-(-w // 8))
-    rng = np.random.default_rng(SEED + 70 + h + w)
     frames = 2 if h < 1000 else 3
-    cd = (3,) if layout != "planes" else ()
-    x = rng.standard_normal((frames, *cd, n, 5)).astype(np.float32)
-    share = {"none": 0.0, "some": 0.2, "all": 1.0}[flags]
-    x[..., 4] = (rng.random(x.shape[:-1]) < share).astype(np.float32)
-    eb64 = torch.from_numpy(rng.standard_normal((*cd, n, 4, 64)).astype(
-        np.float32)).to(dev)
-    x = torch.from_numpy(x).to(dev)
-    if flags == "none":
-        x = x[..., :4].contiguous()
-    blocks = tb._recon(x[..., :4], eb64)
+    blocks, x, n = _k8u_inputs(dev, h, w, layout, flags, frames,
+                               SEED + 70 + h + w)
     kw = dict(normalize=normalize, out_u8=out_u8,
               to_frames=layout == "frames")
-    got = _k8_counted("two_pass", lambda: tail_cuda.normalize_blocks(
-        blocks, x, 4, h, w, **kw))
+    plan = _k8_plan(dev, instance, frames, 1 if layout == "planes" else 3, n)
+    got = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, plan=plan, **kw), crop=True)
     ref = tail_cuda.normalize_blocks_plain(blocks, x, 4, h, w, **kw)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert (got.shape[-3:-1] if layout == "frames"
             else got.shape[-2:]) == (h, w)
     torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
-    with pytest.raises(ValueError, match="two-pass"):
-        tail_cuda.normalize_blocks(blocks, x, 4, h, w, plan=_k8_plan(
-            dev, "resident", frames, 1 if layout == "planes" else 3, n),
-            **kw)
+
+
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
+@pytest.mark.parametrize("frames", [1, 128])
+@pytest.mark.parametrize("layout", ["frames", "planes"])
+def test_k8u_at_1079x1917(dev, layout, frames, instance):
+    """K8u on 1 and 128 frames at 1079x1917 (color frames, gray planes)
+    equals its twin run on the card, each instance (the default plan is
+    the resident one, as at 1080p)."""
+    h, w = 1079, 1917
+    chans = 3 if layout == "frames" else 1
+    blocks, x, n = _k8u_inputs(dev, h, w, layout, "some", frames,
+                               SEED + 71 + frames)
+    sms, smem, _ = tail_cuda.device_limits(dev)
+    assert tail_cuda.shape_plan(frames, chans, h, w, True, sms,
+                                smem).instance == "resident"
+    plan = _k8_plan(dev, instance, frames, chans, n)
+    cl = layout == "frames"
+    got = _k8_counted(instance, lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, to_frames=cl, plan=plan), crop=True)
+    assert torch.equal(got, tail_cuda.normalize_blocks_plain(
+        blocks, x, 4, h, w, to_frames=cl))
+    if instance == "resident":
+        assert torch.equal(got, _k8_counted(
+            instance, lambda: tail_cuda.normalize_blocks(
+                blocks, x, 4, h, w, to_frames=cl), crop=True))
+
+
+def test_k8u_resident_plan_beyond_the_card_raises(dev):
+    """A crop's resident plan whose CTAs cannot all be resident raises
+    KernelError (no two-pass fallback) and counts no launch; the crop's
+    default plan then runs."""
+    h, w = 129, 243                            # 527 blocks a plane
+    blocks, x, n = _k8u_inputs(dev, h, w, "frames", "some", 2, SEED + 72)
+    sms, smem, _ = tail_cuda.device_limits(dev)
+    chunk = 4
+    while tail_cuda.resident_smem(3, chunk + 4, 1) <= smem:
+        chunk += 4
+    before = dict(tail_cuda.INSTANCE_LAUNCHES)
+    n0 = tail_cuda.normalize_blocks.launches
+    assert n >= 2 * sms
+    for plan in (tail_cuda.NormPlan("resident", 2 * sms, 1, chunk),
+                 tail_cuda.NormPlan("resident", sms, 1, chunk + 4)):
+        with pytest.raises(kernels.KernelError):
+            tail_cuda.normalize_blocks(blocks, x, 4, h, w, to_frames=True,
+                                       plan=plan)
+        torch.cuda.synchronize()
+    assert tail_cuda.normalize_blocks.launches == n0
+    assert tail_cuda.INSTANCE_LAUNCHES == before
+    got = _k8_counted("two_pass", lambda: tail_cuda.normalize_blocks(
+        blocks, x, 4, h, w, to_frames=True), crop=True)
+    assert torch.equal(got, tail_cuda.normalize_blocks_plain(
+        blocks, x, 4, h, w, to_frames=True))
 
 
 def _request_state(dev, h, w):
@@ -2069,25 +2135,30 @@ def test_request_extract_equals_the_twins(dev, hw, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("an eager form ran")
 
+    sms, smem, _ = tail_cuda.device_limits(dev)
     kernel = {}
     with monkeypatch.context() as m:
         m.setattr(tb, "_masked_normalize", refuse)
         m.setattr(metrics, "nc", refuse)
         for path, (pw, sc, stegos) in state.items():
+            # K8's instance: as the plan picks it (K8u's where unaligned)
+            inst = tail_cuda.shape_plan(4, 3 if path == "color" else 1, h,
+                                        w, True, sms, smem).instance
             for case, st in stegos.items():
                 for sw in (True, False):
                     wrappers = [wm_cuda.spectrum_blocks, tail_cuda.presence,
                                 tail_cuda.tail_front,
                                 tail_cuda.normalize_blocks]
                     n0 = [f.launches for f in wrappers]
-                    i0 = tail_cuda.INSTANCE_LAUNCHES["two_pass"]
+                    i0 = dict(tail_cuda.INSTANCE_LAUNCHES)
                     got = _request_extract(path, pw, sc, st, sw)
                     torch.cuda.synchronize()
                     ran = [f.launches - n for f, n in zip(wrappers, n0)]
                     assert ran == [1, int(sw), 1, 1], (path, case, ran)
+                    i0[inst] += 1
                     if h % 8 or w % 8:
-                        assert tail_cuda.INSTANCE_LAUNCHES["two_pass"] == \
-                            i0 + 1
+                        i0["crop_" + inst] += 1
+                    assert tail_cuda.INSTANCE_LAUNCHES == i0, (path, inst)
                     assert got.dtype == torch.uint8 and got.shape == (
                         (4, h, w, 3) if path == "color" else (4, h, w))
                     kernel[path, case, sw] = got

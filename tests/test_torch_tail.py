@@ -624,18 +624,33 @@ def test_k8_wrapper_takes_the_twin_for_cpu_tensors(states):
     assert tail_cuda.normalize_blocks.launches == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "unaligned", "blocks", "columns",
-                                 "lead", "frames_without_channels",
-                                 "device"])
+@pytest.mark.parametrize("instance", ["resident", "two_pass"])
+def test_k8u_wrapper_takes_either_plan(instance):
+    """A crop (63x80 and 64x77 of the 8x10 blocks) with either instance's
+    plan forced gives the twin's bytes through the wrapper on CPU tensors
+    (the plan is the card's), and launches nothing."""
+    blocks, x = _k8_case("frames")
+    plan = (tail_cuda.NormPlan("resident", 132, 2, 4) if instance ==
+            "resident" else tail_cuda.NormPlan("two_pass"))
+    before = dict(tail_cuda.INSTANCE_LAUNCHES)
+    for h, w in ((63, 80), (64, 77)):
+        for out_u8 in (True, False):
+            got = tail_cuda.normalize_blocks(blocks, x, K, h, w, out_u8=out_u8,
+                                             to_frames=True, plan=plan)
+            ref = tail_cuda.normalize_blocks_plain(blocks, x, K, h, w,
+                                                   out_u8=out_u8,
+                                                   to_frames=True)
+            assert got.shape == (2, h, w, 3) and torch.equal(got, ref)
+    assert tail_cuda.INSTANCE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "blocks", "columns", "lead",
+                                 "frames_without_channels", "device"])
 def test_k8_wrapper_refuses_bad_input(bad):
     blocks, x = _k8_case("frames")
     h, w, cl, match, kw = 64, 80, True, "float32", {}
     if bad == "dtype":
         blocks = blocks.to(torch.float64)
-    elif bad == "unaligned":
-        # a crop (63x80 of the 8x10 blocks) takes the two-pass instance
-        h, match = 63, "two-pass"
-        kw = dict(plan=tail_cuda.NormPlan("resident", 132, 2, 4))
     elif bad == "blocks":
         w, match = 88, "blocks must be"
     elif bad == "columns":
@@ -711,7 +726,11 @@ def test_k8_twin_equals_jax_on_special_planes(layout, case, frames):
 # K8's plan (tail_cuda.norm_plan): which instance a batch takes, with the
 # SM count and shared memory of an H100 (132 SMs, 232,448 bytes a CTA)
 # unless a case says otherwise. 1080p is 32,400 blocks a plane, 4K
-# 129,600, an 8K band of 1080 rows 129,600, 512x512 4,096.
+# 129,600, an 8K band of 1080 rows 129,600, 512x512 4,096. An (h, w) in
+# place of the blocks is a crop's plan through tail_cuda.shape_plan (K8u),
+# whose padded grid is as many blocks as an aligned plane's: 1079x1917
+# 32,400 (1080p's plan), 768x1366 16,416, 480x854 6,420, 2159x3839
+# 129,600.
 H100 = (132, 232448)
 _AT_LIMIT = tail_cuda.resident_smem(3, 200, 1)
 _FOUR_GRAY = tail_cuda.resident_smem(1, 200, 4)
@@ -740,13 +759,29 @@ K8_PLANS = {
     "no_cooperative_launch": (32, 3, 32400, (132, 0), "two_pass", None),
     "2_planes": (32, 2, 32400, H100, "two_pass", None),
     "tiny_frame": (2, 3, 40, H100, "two_pass", None),
+    "1079x1917_color_32": (32, 3, (1079, 1917), H100, "resident", (2, 124)),
+    "1079x1917_gray_32": (32, 1, (1079, 1917), H100, "resident", (3, 248)),
+    "1366x768_color": (32, 3, (768, 1366), H100, "resident", (2, 128)),
+    "1366x768_gray": (32, 1, (768, 1366), H100, "two_pass", None),
+    "854x480_color": (32, 3, (480, 854), H100, "two_pass", None),
+    "2159x3839_color": (2, 3, (2159, 3839), H100, "two_pass", None),
 }
 
 
 @pytest.mark.parametrize("case", list(K8_PLANS))
 def test_k8_plan_by_shape(case):
     frames, chans, n_blk, (sms, smem), instance, want = K8_PLANS[case]
-    plan = tail_cuda.norm_plan(frames, chans, n_blk, True, sms, smem)
+    if isinstance(n_blk, tuple):
+        h, w = n_blk
+        assert h % 8 or w % 8
+        plan = tail_cuda.shape_plan(frames, chans, h, w, True, sms, smem)
+        assert tail_cuda.shape_plan(frames, chans, h, w, False, sms,
+                                    smem).instance == "two_pass"
+        n_blk = -(-h // 8) * -(-w // 8)
+        assert plan == tail_cuda.norm_plan(frames, chans, n_blk, True, sms,
+                                           smem)
+    else:
+        plan = tail_cuda.norm_plan(frames, chans, n_blk, True, sms, smem)
     assert plan.instance == instance, plan
     assert tail_cuda.norm_plan(frames, chans, n_blk, False, sms,
                                smem).instance == "two_pass"
